@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of the decomposition engine ``repro``, for NVIDIA Hopper.
+
+The JAX package ``repro`` is the reference; this package imports nothing of
+it and nothing of JAX.  Layout mirrors ``repro``:
+
+* :mod:`repro_torch.core` — the decompositions (dilated, transposed) and the
+  :func:`~repro_torch.core.decompose.conv2d` dispatcher;
+* :mod:`repro_torch.kernels` — the hand-written CUDA kernels (``csrc/``),
+  their wrappers and plain PyTorch versions, and the nvcc build;
+* :mod:`repro_torch.models` — ENet.
+
+Entry points run on CUDA unless the caller asks for ``device="cpu"``.
+"""

@@ -1,0 +1,63 @@
+"""Decomposed dilated convolution on the dense CUDA kernel (paper §II-B).
+
+The port of ``repro.kernels.dilated_conv``: layout code around kernel 1
+(:mod:`repro_torch.kernels.conv2d`), with no kernel of its own.  At stride 1
+the ``d**2`` phase blocks are stacked on the batch axis by a pure layout
+transform, ONE dense SAME conv runs all of them, and the outputs interleave
+back.  The per-channel epilogue ops commute with that relabeling and the
+residual rides the same transform, so BN, PReLU and the residual add all
+run inside the dense kernel.
+
+``stride > 1`` uses the output-class schedule
+(:func:`repro_torch.core.dilated.stride_class_schedule`): the class windows
+batch into one strided VALID dense conv, and the epilogue runs after the
+stitch, as in the reference (its class windows have uneven output extents).
+"""
+
+from __future__ import annotations
+
+from repro_torch.core.dilated import (_batch_to_phase,
+                                      _dilated_strided_decomposed,
+                                      _phase_to_batch)
+from repro_torch.kernels import conv2d as kconv
+from repro_torch.kernels.epilogue import (NO_EPILOGUE, EpilogueSpec,
+                                          apply_reference, pack_args)
+
+
+def dilated_conv2d(x, w, dilation: int, *, stride: int = 1,
+                   epilogue: EpilogueSpec | None = None, scale=None,
+                   shift=None, alpha=None, residual=None):
+    """SAME dilated convolution via phase decomposition + the dense kernel.
+
+    Args:
+      x: (N, H, W, Cin).   w: (k, k, Cin, Cout) compact kernel.
+      dilation: step ``d = D + 1``.
+      stride: output stride ``s`` (output extent ``ceil(H/s)``).
+      epilogue: optional :class:`EpilogueSpec` with matching operands.
+    Returns:
+      (N, ceil(H/s), ceil(W/s), Cout).
+    """
+    d, s = dilation, stride
+    spec = NO_EPILOGUE if epilogue is None else epilogue
+    eps = pack_args(spec, scale=scale, shift=shift, alpha=alpha,
+                    residual=residual)
+    ep_kw = dict(zip(spec.slots, eps))
+    if d == 1:
+        return kconv.conv2d(x, w, stride=s, padding="SAME", epilogue=epilogue,
+                            **ep_kw)
+    if s != 1:
+        def conv_fn(xb, wt, sb):
+            return kconv.conv2d(xb, wt, stride=sb, padding="VALID")
+
+        y = _dilated_strided_decomposed(x, w, d, s, "batched", conv_fn)
+        return apply_reference(spec, y, eps)
+    n, h, w_in, _ = x.shape
+    xb, _, _ = _phase_to_batch(x, d)
+    if "residual" in ep_kw:
+        # the pad-up rows of the residual land in the cropped region
+        ep_kw["residual"] = _phase_to_batch(ep_kw["residual"], d)[0]
+    yb = kconv.conv2d(xb, w, padding="SAME", epilogue=epilogue, **ep_kw)
+    return _batch_to_phase(yb, d, n, h, w_in)
+
+
+__all__ = ["dilated_conv2d"]

@@ -1,0 +1,199 @@
+"""Decomposed transposed convolution: the CUDA kernel and its plain version.
+
+Replaces the TPU kernel ``src/repro/kernels/transposed_conv.py::_tconv_kernel``
+(launched by ``_tconv_raw``, ``pallas_call`` at ``transposed_conv.py:235``).
+A stride-``s`` transposed conv splits into ``s*s`` parity sub-convolutions
+whose live taps come from :func:`parity_schedule` (paper §II-C, Fig. 6).
+The kernel (``csrc/transposed_conv.cu``) gives each block one parity plane,
+walks only that plane's live taps (MACs issued = nonzero MACs), applies the
+fused epilogue in registers (the all-zero planes of ``k < s`` included),
+and stores each output at its interleaved NHWC position, reading the
+residual there too: no plane buffer and no de-interleave pass.
+
+Bound on the H100: device-memory bytes for ENet's thin decoder layers
+(Cin 4..16), fp32 CUDA-core FMAs for wide ones.  The design moves only the
+needed bytes (no zero-inserted input, no plane buffer, fused epilogue);
+over ENet-512 batch 4 it takes 0.417 ms against a 0.032 ms bound, most of
+it in the 19-class head (H100 80GB HBM3, 700 W; PERF.md).
+
+Stride 1 is a plain padded conv and routes to the dense kernel
+(:func:`repro_torch.kernels.conv2d.conv2d`), as the reference leaves it to a
+plain conv.  :func:`transposed_conv2d` takes its plain version,
+:func:`tconv_plain` (per-parity live-tap ``torch.matmul`` sums from the same
+schedule), only for a tensor on the CPU; for a CUDA tensor it launches the
+kernel or raises.  ``transposed_conv2d.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+from repro_torch.kernels import conv2d as kconv
+from repro_torch.kernels.epilogue import (NO_EPILOGUE, EpilogueSpec,
+                                          apply_reference, kernel_operands,
+                                          operand_ptrs, pack_args,
+                                          residual_code)
+
+#: the kernel's fixed schedule arrays (csrc/transposed_conv.cu)
+MAX_STRIDE = 8
+MAX_TAPS = 8
+
+
+def parity_schedule(k: int, s: int, p_lo: int) -> list[list[tuple[int, int]]]:
+    """Per-parity tap schedule for one spatial dim (paper §II-C, Fig. 6).
+
+    Output ``y = s*b + r`` reads kernel tap ``t`` iff
+    ``(t - p_lo + r) % s == 0``, from input index ``b + off`` with
+    ``off = (r + t - p_lo) // s``.  Returns ``[(t, off), ...]`` per parity
+    ``r``; a list is empty when no tap hits that parity (``k < s``).
+    """
+    return [
+        [(t, (r + t - p_lo) // s) for t in range(k) if (t - p_lo + r) % s == 0]
+        for r in range(s)
+    ]
+
+
+def transposed_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 2,
+                      padding: int | None = None, output_padding: int = 1,
+                      epilogue: EpilogueSpec | None = None, scale=None,
+                      shift=None, alpha=None,
+                      residual=None) -> torch.Tensor:
+    """Fused decomposed transposed conv for square ``k`` and any stride.
+
+    Args:
+      x: (N, H, W, Cin) fp32.   w: (k, k, Cin, Cout) fp32.
+      stride: upsampling factor ``s >= 1``.
+      padding: low-side pad ``p_lo`` of the zero-inserted input;
+        ``None`` -> ``(k-1)//2``.
+      output_padding: extra high-side size (``p_hi = p_lo + it``).
+      epilogue: optional :class:`EpilogueSpec` with matching operands.
+    Returns:
+      (N, OH, OW, Cout) with ``OH = (H-1)*s + p_lo + p_hi - k + 2``.
+    """
+    kconv.check_operands(x, w, "transposed_conv2d")
+    k = w.shape[0]
+    if w.shape[1] != k:
+        raise ValueError(f"square kernels only, got {k}x{w.shape[1]}")
+    p_lo = (k - 1) // 2 if padding is None else padding
+    p_hi = p_lo + output_padding
+    spec = NO_EPILOGUE if epilogue is None else epilogue
+    if stride == 1:
+        return kconv.conv2d(x, w, padding=((p_lo, p_hi), (p_lo, p_hi)),
+                            epilogue=epilogue, scale=scale, shift=shift,
+                            alpha=alpha, residual=residual)
+    if stride < 1:
+        raise ValueError(f"transposed_conv2d: stride must be >= 1, "
+                         f"got {stride}")
+    eps = pack_args(spec, scale=scale, shift=shift, alpha=alpha,
+                    residual=residual)
+    if x.device.type == "cpu":
+        return tconv_plain(x, w, stride, p_lo, p_hi, spec, eps)
+    return tconv_cuda(x.contiguous(), w.contiguous(), stride, p_lo, p_hi,
+                      spec, eps)
+
+
+transposed_conv2d.launches = 0
+
+
+def _out_hw(x: torch.Tensor, k: int, s: int, p_lo: int,
+            p_hi: int) -> tuple[int, int]:
+    h, w_in = x.shape[1], x.shape[2]
+    oh = (h - 1) * s + p_lo + p_hi - k + 2
+    ow = (w_in - 1) * s + p_lo + p_hi - k + 2
+    if oh <= 0 or ow <= 0:
+        raise ValueError(f"degenerate output {oh}x{ow} for input {h}x{w_in}")
+    return oh, ow
+
+
+def tconv_plain(x: torch.Tensor, w: torch.Tensor, s: int, p_lo: int,
+                p_hi: int, spec: EpilogueSpec, eps: tuple) -> torch.Tensor:
+    """Plain version: per parity plane, the sum of its live taps as
+    ``torch.matmul`` products, interleaved, then :func:`apply_reference`
+    (which also covers the zero planes of ``k < s``)."""
+    n, h, w_in, cin = x.shape
+    k, _, _, cout = w.shape
+    oh, ow = _out_hw(x, k, s, p_lo, p_hi)
+    sched = parity_schedule(k, s, p_lo)
+    offs = [o for taps in sched for _, o in taps]
+    shift = max(0, -min(offs, default=0))
+    hb, wb = math.ceil(oh / s), math.ceil(ow / s)
+    # pad so that every block index b reads rows b + off + shift in bounds
+    pad_b = max(0, hb + max(offs, default=0) + shift - (h + shift))
+    pad_r = max(0, wb + max(offs, default=0) + shift - (w_in + shift))
+    xp = F.pad(x, (0, 0, shift, pad_r, shift, pad_b))
+    out = x.new_zeros((n, oh, ow, cout))
+    for ry, rtaps in enumerate(sched):
+        nyr = len(range(ry, oh, s))
+        for rx, ctaps in enumerate(sched):
+            nxr = len(range(rx, ow, s))
+            if nyr == 0 or nxr == 0 or not rtaps or not ctaps:
+                continue
+            acc = x.new_zeros((n * nyr * nxr, cout))
+            for ty, oy in rtaps:
+                for tx, ox in ctaps:
+                    rows = xp[:, oy + shift: oy + shift + nyr,
+                              ox + shift: ox + shift + nxr, :]
+                    acc += torch.matmul(rows.reshape(-1, cin), w[ty, tx])
+            out[:, ry::s, rx::s, :] = acc.reshape(n, nyr, nxr, cout)
+    return apply_reference(spec, out, eps)
+
+
+def schedule_array(k: int, s: int, p_lo: int) -> ctypes.Array:
+    """The schedule in the kernel's layout: per parity, a count then
+    ``MAX_TAPS`` (tap, offset) pairs."""
+    if not 2 <= s <= MAX_STRIDE:
+        raise ValueError(f"tconv kernel takes stride 2..{MAX_STRIDE}, got {s}")
+    row = 1 + 2 * MAX_TAPS
+    flat = [0] * (s * row)
+    for r, taps in enumerate(parity_schedule(k, s, p_lo)):
+        if len(taps) > MAX_TAPS:
+            raise ValueError(f"{len(taps)} live taps per parity exceed the "
+                             f"kernel's {MAX_TAPS} (k={k}, s={s})")
+        flat[r * row] = len(taps)
+        for j, (t, off) in enumerate(taps):
+            flat[r * row + 1 + 2 * j] = t
+            flat[r * row + 2 + 2 * j] = off
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def _tconv_fn():
+    lib = build.load("transposed_conv")
+    fn = lib.tconv_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.tconv_error_string.argtypes = [ctypes.c_int]
+        lib.tconv_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def tconv_cuda(x: torch.Tensor, w: torch.Tensor, s: int, p_lo: int,
+               p_hi: int, spec: EpilogueSpec, eps: tuple) -> torch.Tensor:
+    """Launch ``csrc/transposed_conv.cu`` on PyTorch's current stream."""
+    kconv.require_cuda(x, w, "tconv_cuda")
+    n, h, w_in, cin = x.shape
+    k, _, _, cout = w.shape
+    oh, ow = _out_hw(x, k, s, p_lo, p_hi)
+    sched = schedule_array(k, s, p_lo)
+    out = torch.empty((n, oh, ow, cout), device=x.device, dtype=x.dtype)
+    ops = kernel_operands(spec, eps, tuple(out.shape), x.device)
+    lib, fn = _tconv_fn()
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                  *operand_ptrs(ops), n, h, w_in, cin, oh, ow, cout, k, s,
+                  sched, int(spec.bn), int(spec.prelu), residual_code(spec),
+                  torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(code, "transposed_conv2d", lib.tconv_error_string)
+    transposed_conv2d.launches += 1
+    return out
+
+
+__all__ = ["parity_schedule", "transposed_conv2d", "tconv_plain",
+           "tconv_cuda", "schedule_array"]

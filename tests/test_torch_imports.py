@@ -1,0 +1,150 @@
+"""Boundaries of the port: no JAX, no ``repro``, CUDA unless asked for CPU.
+
+``src/repro_torch`` and ``chip_smoke.py`` must import neither ``jax`` nor
+anything of the JAX package ``repro``; the port keeps its own copies.  Its
+entry points run on CUDA unless the caller passes ``device="cpu"``, and
+raise (never fall back to the CPU) when there is no card.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import conv2d as kconv
+from repro_torch.kernels import transposed_conv as ktr
+from repro_torch.kernels.epilogue import NO_EPILOGUE
+from repro_torch.kernels.util import canon_dtype, resolve_device
+from repro_torch.models.enet import ENet
+
+_ROOT = Path(__file__).resolve().parents[1]
+_PORT = _ROOT / "src" / "repro_torch"
+_FILES = sorted(_PORT.rglob("*.py")) + [_ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    mods = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.append(node.module)
+    return mods
+
+
+def _forbidden(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", _FILES,
+                         ids=lambda p: str(p.relative_to(_ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert bad == []
+
+
+def test_ast_check_catches_forbidden_imports():
+    assert _forbidden("jax.numpy") and _forbidden("repro.core.dilated")
+    assert not _forbidden("repro_torch.core") and not _forbidden("jaxtyping_x")
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch, repro_torch.core.decompose, "
+            "repro_torch.models.enet, repro_torch.kernels.build, "
+            "repro_torch.kernels.ref; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
+    env = dict(os.environ, PYTHONPATH=str(_ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = torch.Generator()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENet(4, generator=g)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENet(4, device="cuda", generator=g)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_kernel_launchers_take_only_cuda_tensors():
+    x, w = torch.zeros(1, 4, 4, 2), torch.zeros(3, 3, 2, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kconv.conv2d_cuda(x, w, 1, ((1, 1), (1, 1)), NO_EPILOGUE, ())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ktr.tconv_cuda(x, w, 2, 1, 2, NO_EPILOGUE, ())
+
+
+def test_kernel_wrappers_check_operands():
+    x, w = torch.zeros(1, 4, 4, 2), torch.zeros(3, 3, 2, 2)
+    with pytest.raises(NotImplementedError, match="fp32 only"):
+        kconv.conv2d(x.double(), w.double())
+    with pytest.raises(ValueError, match="channels"):
+        kconv.conv2d(x, torch.zeros(3, 3, 3, 2))
+    with pytest.raises(ValueError, match="NHWC"):
+        ktr.transposed_conv2d(x[0], w)
+    with pytest.raises(ValueError, match="square"):
+        ktr.transposed_conv2d(x, torch.zeros(3, 2, 2, 2))
+    with pytest.raises(NotImplementedError, match="forward only"):
+        kconv.conv2d(x.requires_grad_(), w)
+
+
+def test_canon_dtype_is_fp32_only():
+    assert canon_dtype(None) is None
+    assert canon_dtype("fp32") is torch.float32
+    assert canon_dtype(torch.float32) is torch.float32
+    for d in ("bf16", "fp16", torch.bfloat16):
+        with pytest.raises(NotImplementedError, match="bf16 slice"):
+            canon_dtype(d)
+    with pytest.raises(ValueError, match="unknown compute_dtype"):
+        canon_dtype("int8")
+
+
+def test_tconv_schedule_array_layout():
+    arr = list(ktr.schedule_array(3, 2, 1))
+    row = 1 + 2 * ktr.MAX_TAPS
+    assert arr[0:3] == [1, 1, 0]            # even parity: centre tap, off 0
+    assert arr[row:row + 5] == [2, 0, 0, 2, 1]
+    with pytest.raises(ValueError, match="stride"):
+        ktr.schedule_array(3, 9, 1)
+
+
+def test_build_command_targets_sm90a():
+    cmd = build.nvcc_command("nvcc", Path("a.cu"), Path("a.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert {"-O3", "-shared", "-Xcompiler", "-fPIC"} <= set(cmd)
+    assert set(build.KERNELS) == {p.stem for p in build.CSRC.glob("*.cu")}
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this host has a CUDA toolkit")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_library_path_tracks_sources(monkeypatch, tmp_path):
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path("conv2d")
+    with open(tmp_path / "epilogue.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert build.library_path("conv2d") != before
+    with pytest.raises(ValueError, match="unknown kernel"):
+        build.library_path("matmul")
