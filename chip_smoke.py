@@ -19,12 +19,26 @@ nvcc, then:
 5. times the forward, each kernel per forward, the kernels' plain versions,
    one PyTorch library call per kernel (the yardstick), and the naive
    zero-laden forward;
-6. prints the ``{"kernels": [...]}`` line and, last,
+6. holds the matmul and flash-attention kernels against their plain
+   versions at edge cases (ragged M/N/K, Sq != Sk both ways, Sq = 1, head
+   dims 16 to 256, fp32, bf16 and mixed operand types);
+7. drives the kernel entry points ``repro_torch.kernels.ops`` at the widths
+   of StableLM-2-1.6B (hf:stabilityai/stablelm-2-1_6b; d_model 2048, 32
+   heads of 64, MHA, d_ff 5632) on one 4096-token prefill at batch 1, in
+   fp32 and in bf16: the q/k/v projections, causal attention, the output
+   projection and the gated MLP, with seeded random weights.  It checks
+   that the launch counters show every call went through a kernel and
+   holds each call against its plain version;
+8. times each of those calls: the kernel, its plain version and the library
+   yardstick (``torch.matmul`` in the input dtype, TF32 off;
+   ``F.scaled_dot_product_attention(is_causal=True)``);
+9. prints the ``{"kernels": [...]}`` line (all four kernels) and, last,
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result line, without a CUDA device or outside a
-checkout of the repository.  Everything is fp32 with TF32 off.  The full
-per-call results go to ``chiprun_out/chip_smoke.json``.
+checkout of the repository, or if any phase fails.  Phases 1-5 are fp32
+with TF32 off.  The full per-call results go to
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -41,16 +55,40 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data-sheet peaks (at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12        # CUDA cores, no tensor cores
+PEAK_BF16_FLOPS = 989e12       # tensor cores, dense
 PEAK_BYTES_S = 3.35e12         # HBM3
 
 SEED = 0
 BATCH, HW, CLASSES = 4, 512, 19
-# kernel vs plain: max |kernel - plain| <= TOL * max(1, max |plain|).  Both
-# are fp32 with fp32 accumulation; only the summation order differs.
+# kernel vs plain, fp32 outputs: max |kernel - plain| <= TOL * max(1,
+# max |plain|).  Both are fp32 with fp32 accumulation; only the summation
+# order differs.
 TOL = 1e-4
+# bf16 outputs, at every element: |kernel - plain| <= BF16_STEP * |plain| +
+# TOL * max(1, max |plain|).  Both sides compute in fp32 (sums in another
+# order: the TOL term) and round once to bf16, where two nearly equal values
+# may land one bf16 step apart: at most 2^-7 of the value.
+BF16_STEP = 2.0 ** -7
 # ENet forward, kernels vs torch backend (cuDNN, TF32 off): relative L2
 REL_L2_TOL = 1e-4
-LAUNCHES_PER_FORWARD = {"conv2d": 86, "transposed_conv2d": 3}
+LAUNCHES_PER_FORWARD = {"conv2d": 86, "transposed_conv2d": 3,
+                        "matmul": 0, "flash_attention": 0}
+# StableLM-2-1.6B (src/repro/configs/stablelm_1_6b.py): one layer's kernel
+# calls on a 4096-token prefill at batch 1, its published context length
+LM_D, LM_HEADS, LM_FF, LM_SEQ = 2048, 32, 5632, 4096
+LM_HEAD_DIM = LM_D // LM_HEADS
+LAUNCHES_PER_LM_LAYER = {"conv2d": 0, "transposed_conv2d": 0, "matmul": 7,
+                         "flash_attention": 1}
+SOURCES = {  # kernel -> (CUDA source, the TPU kernel's pallas_call)
+    "conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
+               "src/repro/kernels/conv2d.py:195"),
+    "transposed_conv2d": ("src/repro_torch/kernels/csrc/transposed_conv.cu",
+                          "src/repro/kernels/transposed_conv.py:235"),
+    "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+               "src/repro/kernels/matmul.py:51"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:82"),
+}
 
 
 def log(msg: str) -> None:
@@ -86,12 +124,16 @@ class Smoke:
     def __init__(self, torch):
         from repro_torch.kernels import build
         from repro_torch.kernels import conv2d as kconv
+        from repro_torch.kernels import flash_attention as kfa
+        from repro_torch.kernels import matmul as kmm
         from repro_torch.kernels import transposed_conv as ktr
 
         self.torch = torch
         self.build = build
         self.kconv = kconv
         self.ktr = ktr
+        self.kmm = kmm
+        self.kfa = kfa
         self.dev = torch.device("cuda", 0)
         # name -> (kernel launcher, plain version, counted wrapper)
         self.kernels = {
@@ -99,8 +141,13 @@ class Smoke:
             "transposed_conv2d": (ktr.tconv_cuda, ktr.tconv_plain,
                                   ktr.transposed_conv2d),
         }
-        self.report = {"checks": [], "calls": []}
-        self.worst = {name: 0.0 for name in self.kernels}
+        # every kernel's counted wrapper, by kernel name
+        self.counters = {"conv2d": kconv.conv2d,
+                         "transposed_conv2d": ktr.transposed_conv2d,
+                         "matmul": kmm.matmul,
+                         "flash_attention": kfa.flash_attention}
+        self.report = {"checks": [], "calls": [], "lm_calls": []}
+        self.worst = {name: 0.0 for name in self.counters}
 
     # ---------------------------------------------------------------- utils
     def rand(self, g, *shape):
@@ -108,25 +155,42 @@ class Smoke:
 
     def compare(self, label, name, got, want, quiet=False):
         """Hold a kernel's output against its plain version; raise on a
-        miss.  Returns (max abs err, max rel err, tolerance)."""
+        miss.  Returns (max abs err, max rel err, tolerance).
+
+        fp32 outputs: max |err| <= TOL * max(1, max|plain|).  bf16 outputs:
+        |err| <= BF16_STEP * |plain| + TOL * max(1, max|plain|) at every
+        element; the tolerance reported is that bar at an element of mean
+        size, beside mean|plain|.  "err/bar" is the worst element's error
+        over its bar, at most 1 when the check passes."""
         torch = self.torch
-        if got.shape != want.shape:
-            raise RuntimeError(f"{label}: shape {tuple(got.shape)} != "
-                               f"{tuple(want.shape)}")
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise RuntimeError(f"{label}: {tuple(got.shape)} {got.dtype} != "
+                               f"{tuple(want.shape)} {want.dtype}")
+        fp32 = want.dtype == torch.float32
+        got, want = got.float(), want.float()
         if not bool(torch.isfinite(got).all()):
             raise RuntimeError(f"{label}: non-finite kernel output")
-        err = (got - want).abs().max().item()
-        scale = max(1.0, want.abs().max().item())
-        rel, tol = err / scale, TOL * scale
-        ok = err <= tol
-        self.report["checks"].append({"label": label, "kernel": name,
-                                      "max_abs_err": err, "max_rel_err": rel,
-                                      "tol": tol, "ok": ok})
+        diff, mag = (got - want).abs(), want.abs()
+        err, mean = diff.max().item(), mag.mean().item()
+        scale = max(1.0, mag.max().item())
+        if fp32:
+            tol = TOL * scale
+            worst = err / tol
+        else:
+            tol = BF16_STEP * mean + TOL * scale
+            worst = (diff / (BF16_STEP * mag + TOL * scale)).max().item()
+        rel, ok = err / scale, worst <= 1.0
+        self.report["checks"].append({
+            "label": label, "kernel": name, "max_abs_err": err,
+            "max_rel_err": rel, "tol": tol, "err_over_bar": worst,
+            "mean_abs_plain": mean, "ok": ok})
         self.worst[name] = max(self.worst[name], err)
         if not quiet:
-            log(f"  {label}: max abs {err:.2e} rel {rel:.2e} tol {tol:.2e}")
+            log(f"  {label}: max abs {err:.2e} rel {rel:.2e} err/bar "
+                f"{worst:.3f} tol {tol:.2e} mean|plain| {mean:.2e}")
         if not ok:
-            raise RuntimeError(f"{label}: max abs err {err:.3e} > {tol:.3e}")
+            raise RuntimeError(f"{label}: error {worst:.3f} x its bar (max "
+                               f"abs err {err:.3e}, tol {tol:.3e})")
         return err, rel, tol
 
     @contextlib.contextmanager
@@ -171,6 +235,13 @@ class Smoke:
             times.append(start.elapsed_time(end) / reps)
         return statistics.median(times)
 
+    def reset_counts(self):
+        for wrapper in self.counters.values():
+            wrapper.launches = 0
+
+    def read_counts(self):
+        return {name: w.launches for name, w in self.counters.items()}
+
     def wall_ms(self, fn, reps=10):
         """Median wall time of ``fn()`` ending in a synchronize, in ms."""
         torch = self.torch
@@ -202,6 +273,12 @@ class Smoke:
         y = self.phase_main(model, x)
         kernels_line, times = self.phase_times(model, x, calls)
         self.report.update(times)
+        del model, x, calls
+        torch.cuda.empty_cache()
+
+        self.phase_lm_kernels()
+        lm_calls = self.phase_lm_main()
+        kernels_line["kernels"] += self.phase_lm_times(lm_calls)
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
                   "w") as f:
@@ -332,20 +409,18 @@ class Smoke:
             self.compare(label, "transposed_conv2d",
                          ktr.tconv_cuda(xx, ww, s, p_lo, p_lo + op, sp, eps),
                          ktr.tconv_plain(xx, ww, s, p_lo, p_lo + op, sp, eps))
-        worst = {k: float(f"{v:.3e}") for k, v in self.worst.items()}
+        worst = {k: float(f"{self.worst[k]:.3e}") for k in self.kernels}
         log(f"  all ok; worst max abs err {json.dumps(worst)}")
         return calls
 
     def phase_main(self, model, x):
         torch = self.torch
         log("phase 4: ENet-512 forward, batch 4, backend=kernels")
-        for _, _, wrapper in self.kernels.values():
-            wrapper.launches = 0
+        self.reset_counts()
         with torch.no_grad():
             y = model(x)
         torch.cuda.synchronize()
-        self.launches = {name: wrapper.launches
-                         for name, (_, _, wrapper) in self.kernels.items()}
+        self.launches = self.read_counts()
         log(f"  launches per forward: {self.launches}")
         if self.launches != LAUNCHES_PER_FORWARD:
             raise RuntimeError(f"launch counts {self.launches} != "
@@ -405,13 +480,6 @@ class Smoke:
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                             "flops", "bytes"):
                     per[name][key] += row[key]
-        sources = {
-            "conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
-                       "src/repro/kernels/conv2d.py:195"),
-            "transposed_conv2d": (
-                "src/repro_torch/kernels/csrc/transposed_conv.cu",
-                "src/repro/kernels/transposed_conv.py:235"),
-        }
         entries = []
         for name, p in per.items():
             log(f"  {name}: {p['ms']:.3f} ms/forward over "
@@ -421,8 +489,8 @@ class Smoke:
                 f"{p['library_ms']:.3f} ms")
             flops_bound = p["flops"] / PEAK_FP32_FLOPS
             entries.append({
-                "name": name, "route": "cuda", "source": sources[name][0],
-                "replaces": sources[name][1],
+                "name": name, "route": "cuda", "source": SOURCES[name][0],
+                "replaces": SOURCES[name][1],
                 "launches": self.launches[name],
                 "max_abs_err": self.worst[name], "ms": p["ms"],
                 "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
@@ -467,6 +535,230 @@ class Smoke:
         return {"device_ms": busy, "busy_share": busy / wall_ms,
                 "top": [{"ms": ms, "count": c, "name": k}
                         for ms, c, k in rows[:25]]}
+
+    # ------------------------------------------- matmul and attention
+    def phase_lm_kernels(self):
+        torch = self.torch
+        kmm, kfa = self.kmm, self.kfa
+        log(f"phase 6: matmul and flash attention vs plain on the card (fp32: "
+            f"{TOL} x max(1, max|plain|); bf16, each element: 2^-7 |plain| + "
+            f"{TOL} x max(1, max|plain|))")
+        g = torch.Generator().manual_seed(SEED + 3)
+        f32, bf16 = torch.float32, torch.bfloat16
+
+        def rand(shape, dtype):
+            return torch.randn(shape, generator=g).to(self.dev, dtype)
+
+        mm_cases = [(m, n, k, dt, dt) for m, n, k in
+                    ((1, 128, 7), (100, 60, 36), (16, 16, 16),
+                     (256, 512, 128), (4097, 33, 65)) for dt in (f32, bf16)]
+        mm_cases.append((100, 60, 36, bf16, f32))
+        for m, n, k, da, db in mm_cases:
+            a, b = rand((m, k), da), rand((k, n), db)
+            self.compare(f"matmul ({m}, {k}) {da} @ ({k}, {n}) {db}",
+                         "matmul", kmm.matmul_cuda(a, b),
+                         kmm.matmul_plain(a, b))
+        fa_cases = [  # q shape, kv length, causal, dtype
+            *[(qs, qs[2], c, f32) for qs in ((1, 2, 128, 64), (2, 4, 100, 32),
+                                             (1, 1, 257, 64))
+              for c in (True, False)],
+            ((1, 2, 64, 64), 96, True, f32), ((1, 2, 96, 64), 64, True, f32),
+            ((2, 2, 1, 64), 70, True, f32), ((1, 3, 77, 16), 77, True, f32),
+            ((1, 2, 130, 128), 200, True, f32),
+            ((1, 2, 70, 256), 130, False, f32),
+            ((1, 2, 70, 256), 70, True, f32),
+            ((1, 2, 64, 64), 64, True, bf16),
+            ((1, 4, 300, 64), 300, True, bf16)]
+        for qs, sk, causal, dt in fa_cases:
+            ks = qs[:2] + (sk, qs[3])
+            q, k, v = rand(qs, dt), rand(ks, dt), rand(ks, dt)
+            self.compare(f"attention q{qs} sk={sk} causal={causal} {dt}",
+                         "flash_attention",
+                         kfa.flash_attention_cuda(q, k, v, causal),
+                         kfa.attention_plain(q, k, v, causal=causal))
+        torch.cuda.synchronize()
+        worst = {k: float(f"{self.worst[k]:.3e}")
+                 for k in ("matmul", "flash_attention")}
+        log(f"  all ok; worst max abs err {json.dumps(worst)}")
+
+    def lm_weights(self, dtype):
+        """Seeded random weights of one StableLM-2-1.6B layer (scaled by
+        fan-in^-1/2, so activations stay O(1)) and a prefill's input."""
+        torch = self.torch
+        g = torch.Generator().manual_seed(SEED + 4)
+
+        def rand(fan_in, *shape):
+            return (torch.randn(shape, generator=g) * fan_in ** -0.5).to(
+                self.dev, dtype)
+
+        d, ff = LM_D, LM_FF
+        return {"x": rand(1, LM_SEQ, d),
+                **{n: rand(d, d, d) for n in ("wq", "wk", "wv", "wo")},
+                "w_gate": rand(d, d, ff), "w_up": rand(d, d, ff),
+                "w_down": rand(ff, ff, d)}
+
+    def lm_layer(self, p, record):
+        """One layer's kernel calls through ``repro_torch.kernels.ops``:
+        q/k/v projections, causal MHA over 32 heads of 64, the output
+        projection and the gated (SiLU) MLP.  ``record(label, name, args,
+        out)`` sees each call."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+
+        s, h, dh = LM_SEQ, LM_HEADS, LM_HEAD_DIM
+
+        def mm(label, a, b):
+            out = ops.matmul(a, b)
+            record(label, "matmul", (a, b), out)
+            return out
+
+        def heads(t):  # (S, D) -> (1, H, S, dh)
+            return t.view(1, s, h, dh).transpose(1, 2).contiguous()
+
+        x = p["x"]
+        q, k, v = (heads(mm(f"{n} projection", x, p[w]))
+                   for n, w in (("q", "wq"), ("k", "wk"), ("v", "wv")))
+        a = ops.attention(q, k, v, causal=True)
+        record("causal attention", "flash_attention", (q, k, v), a)
+        mm("o projection", a.transpose(1, 2).reshape(s, LM_D), p["wo"])
+        gate = mm("mlp gate", x, p["w_gate"])
+        up = mm("mlp up", x, p["w_up"])
+        mm("mlp down", torch.nn.functional.silu(gate) * up, p["w_down"])
+
+    def phase_lm_main(self):
+        torch = self.torch
+        log(f"phase 7: kernels.ops at StableLM-2-1.6B width: d {LM_D}, "
+            f"{LM_HEADS} heads x {LM_HEAD_DIM}, d_ff {LM_FF}, batch 1, "
+            f"{LM_SEQ} tokens, one layer, fp32 and bf16")
+        calls = []
+        self.lm_launches = {"matmul": 0, "flash_attention": 0}
+        for dtype in (torch.float32, torch.bfloat16):
+            p = self.lm_weights(dtype)
+            recorded = []
+            self.reset_counts()
+            with torch.no_grad():
+                self.lm_layer(p, lambda *call: recorded.append(call))
+            torch.cuda.synchronize()
+            counts = self.read_counts()
+            log(f"  {dtype}: launches {counts}")
+            if counts != LAUNCHES_PER_LM_LAYER:
+                raise RuntimeError(f"launch counts {counts} != "
+                                   f"{LAUNCHES_PER_LM_LAYER}")
+            for name in self.lm_launches:
+                self.lm_launches[name] += counts[name]
+            for label, name, args, out in recorded:
+                plain = self.lm_call(name, args)[1]
+                self.compare(f"{label} {dtype} "
+                             f"{[tuple(t.shape) for t in args]}",
+                             name, out, plain())
+                calls.append((label, name, dtype, args))
+            del p, recorded
+        return calls
+
+    def phase_lm_times(self, calls):
+        torch = self.torch
+        log("phase 8: times of the StableLM-width calls (device ms, median "
+            "of 3 rounds of 10 launches; plain 3 launches)")
+        groups = {}  # (kernel, dtype, geometry) -> the timed calls
+        with torch.no_grad():
+            for label, name, dtype, args in calls:
+                kern, plain, lib, flops, nbytes, geo = self.lm_call(name,
+                                                                    args)
+                peak = (PEAK_FP32_FLOPS if dtype == torch.float32
+                        else PEAK_BF16_FLOPS)
+                ops_ms = 1e3 * flops / peak
+                bytes_ms = 1e3 * nbytes / PEAK_BYTES_S
+                row = {"kernel": name, "call": label, "dtype": str(dtype),
+                       "geometry": geo, "flops": flops, "bytes": nbytes,
+                       "ms": self.device_ms(kern),
+                       "plain_ms": self.device_ms(plain, reps=3),
+                       "library_ms": self.device_ms(lib),
+                       "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                       "bound_ms": max(ops_ms, bytes_ms),
+                       "bound_by": ("operations" if ops_ms >= bytes_ms
+                                    else "bytes")}
+                self.report["lm_calls"].append(row)
+                groups.setdefault((name, row["dtype"], geo), []).append(row)
+                log(f"  {name} {label} {dtype} {geo}: {row['ms']:.3f} ms, "
+                    f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
+                    f"plain {row['plain_ms']:.3f} ms, library "
+                    f"{row['library_ms']:.3f} ms, "
+                    f"{flops / row['ms'] / 1e9:.1f} TFLOP/s")
+        return self.summarise_lm_calls(groups)
+
+    def lm_call(self, name, args):
+        """(kernel, plain version, library yardstick, flops, bytes,
+        geometry) of one recorded StableLM-width call."""
+        torch = self.torch
+        kmm, kfa = self.kmm, self.kfa
+        if name == "matmul":
+            a, b = args
+            m, k = a.shape
+            n = b.shape[1]
+            return (lambda: kmm.matmul_cuda(a, b),
+                    lambda: kmm.matmul_plain(a, b),
+                    lambda: torch.matmul(a, b),
+                    2 * m * n * k,
+                    (a.numel() + b.numel() + m * n) * a.element_size(),
+                    f"({m}, {k}) @ ({k}, {n})")
+        q, k, v = args
+        bsz, h, sq, dh = q.shape
+        sk = k.shape[2]
+        # unmasked (q, k) pairs of the top-left causal mask
+        pairs = sum(min(i + 1, sk) for i in range(sq))
+        return (lambda: kfa.flash_attention_cuda(q, k, v, True),
+                lambda: kfa.attention_plain(q, k, v, causal=True),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True),
+                4 * bsz * h * dh * pairs,
+                2 * (q.numel() + k.numel()) * q.element_size(),
+                f"q{tuple(q.shape)} k{tuple(k.shape)} causal")
+
+    def summarise_lm_calls(self, groups):
+        """From the timed calls grouped by (kernel, dtype, geometry): the
+        mean per call shape, the sum per layer and dtype, and each kernel's
+        entry of the kernels line (both dtypes' layers).  Logged and kept
+        in the report."""
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms",
+                "bytes_ms")
+        by_shape, by_layer = [], {}
+        per = {name: dict.fromkeys(keys, 0.0) for name in self.lm_launches}
+        for (name, dtype, geo), rows in groups.items():
+            sums = {k: sum(r[k] for r in rows) for k in keys}
+            mean = {k: v / len(rows) for k, v in sums.items()}
+            by_shape.append({"kernel": name, "dtype": dtype, "geometry": geo,
+                             "calls": len(rows), **mean})
+            log(f"  mean of {len(rows)} x {name} {dtype} {geo}: "
+                + ", ".join(f"{k} {mean[k]:.3f}" for k in keys[:4]))
+            layer = by_layer.setdefault(
+                (dtype, name), {"launches": 0, **dict.fromkeys(keys, 0.0)})
+            layer["launches"] += len(rows)
+            for k in keys:
+                layer[k] += sums[k]
+                per[name][k] += sums[k]
+        for (dtype, name), layer in by_layer.items():
+            log(f"  layer {dtype} {name} x{layer['launches']}: "
+                + ", ".join(f"{k} {layer[k]:.3f}" for k in keys[:4]))
+        self.report["lm_summary"] = {
+            "by_shape": by_shape,
+            "by_layer": [{"kernel": n, "dtype": d, **v}
+                         for (d, n), v in by_layer.items()]}
+        entries = []
+        for name, p in per.items():
+            log(f"  {name}: {p['ms']:.3f} ms over "
+                f"{self.lm_launches[name]} launches (fp32 + bf16 layer); "
+                f"bound {p['bound_ms']:.3f} ms; plain {p['plain_ms']:.3f} "
+                f"ms; library {p['library_ms']:.3f} ms")
+            entries.append({
+                "name": name, "route": "cuda", "source": SOURCES[name][0],
+                "replaces": SOURCES[name][1],
+                "launches": self.lm_launches[name],
+                "max_abs_err": self.worst[name], "ms": p["ms"],
+                "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+                "bound_by": ("operations" if p["ops_ms"] >= p["bytes_ms"]
+                             else "bytes"),
+                "library_ms": p["library_ms"]})
+        return entries
 
     # --------------------------------------------------- per-call helpers
     def geometry(self, name, args):

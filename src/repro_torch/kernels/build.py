@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: the kernel sources, one shared library each
-KERNELS = ("conv2d", "transposed_conv")
+KERNELS = ("conv2d", "transposed_conv", "matmul", "flash_attention")
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")

@@ -54,3 +54,31 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+#: element types of the matmul and attention kernels, by their C dtype code
+#: (``csrc/element.cuh``)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(t: torch.Tensor, what: str) -> int:
+    """The kernels' code for ``t``'s dtype; raises on an unsupported one."""
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"{what}: dtype {t.dtype} is not supported; use "
+                        f"float32 or bfloat16")
+    return code
+
+
+def check_device(what: str, *ts: torch.Tensor) -> None:
+    """All tensors on one CPU or CUDA device, and no gradient requested."""
+    dev = ts[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{what}: operands on different devices "
+                         f"{[str(t.device) for t in ts]}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{what}: the port's kernels are forward only (run under "
+            f"torch.no_grad())")

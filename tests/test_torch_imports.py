@@ -17,6 +17,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import conv2d as kconv
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import matmul as kmm
+from repro_torch.kernels import ops
 from repro_torch.kernels import transposed_conv as ktr
 from repro_torch.kernels.epilogue import NO_EPILOGUE
 from repro_torch.kernels.util import canon_dtype, resolve_device
@@ -57,7 +60,8 @@ def test_ast_check_catches_forbidden_imports():
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.core.decompose, "
             "repro_torch.models.enet, repro_torch.kernels.build, "
-            "repro_torch.kernels.ref; "
+            "repro_torch.kernels.ref, repro_torch.kernels.ops, "
+            "repro_torch.kernels.matmul, repro_torch.kernels.flash_attention; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(_ROOT / "src"))
@@ -146,5 +150,76 @@ def test_library_path_tracks_sources(monkeypatch, tmp_path):
     with open(tmp_path / "epilogue.cuh", "a") as f:
         f.write("\n// edited\n")
     assert build.library_path("conv2d") != before
+    before = build.library_path("matmul")
+    with open(tmp_path / "element.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert build.library_path("matmul") != before
     with pytest.raises(ValueError, match="unknown kernel"):
-        build.library_path("matmul")
+        build.library_path("softmax")
+
+
+def test_kernels_lists_all_four():
+    assert build.KERNELS == ("conv2d", "transposed_conv", "matmul",
+                             "flash_attention")
+
+
+@pytest.mark.parametrize("name", ["matmul", "flash_attention"])
+def test_new_kernels_raise_without_nvcc(monkeypatch, tmp_path, name):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this host has a CUDA toolkit")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load(name)
+
+
+def test_new_launchers_take_only_cuda_tensors():
+    a = torch.zeros(4, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kmm.matmul_cuda(a, a)
+    q = torch.zeros(1, 1, 4, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kfa.flash_attention_cuda(q, q, q, True)
+
+
+def test_new_wrappers_never_fall_back(monkeypatch):
+    """A tensor that is not on the CPU never reaches a plain version: with
+    no card, a CUDA request raises, and other devices are refused."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = torch.zeros(4, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.matmul(m, m)
+    q = torch.zeros(1, 1, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.attention(q, q, q)
+    with pytest.raises(ValueError, match="different devices"):
+        kmm.matmul(torch.zeros(4, 4), m)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+
+
+def test_new_wrappers_check_operands():
+    a = torch.zeros(4, 4)
+    with pytest.raises(TypeError, match="not supported"):
+        kmm.matmul(a.double(), a.double())
+    with pytest.raises(TypeError, match="not supported"):
+        kmm.matmul(a.half(), a.half())
+    with pytest.raises(ValueError, match="M, K"):
+        kmm.matmul(torch.zeros(2, 4, 4), a)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        kmm.matmul(a.requires_grad_(), torch.zeros(4, 4))
+    q = torch.zeros(1, 2, 4, 16)
+    with pytest.raises(ValueError, match="head dim"):
+        kfa.flash_attention(torch.zeros(1, 1, 2, 300),
+                            torch.zeros(1, 1, 2, 300),
+                            torch.zeros(1, 1, 2, 300))
+    with pytest.raises(ValueError, match="no keys"):
+        kfa.flash_attention(q, q[:, :, :0], q[:, :, :0])
+    with pytest.raises(ValueError, match="lengths differ"):
+        kfa.flash_attention(q, q, q[:, :, :2])
+    with pytest.raises(TypeError, match="not supported"):
+        kfa.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError, match="not supported"):
+        kfa.flash_attention(q.half(), q.half(), q.half())
