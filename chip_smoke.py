@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
-2. builds the kernels and prints the build time;
+2. builds the kernels and prints the build time and each kernel's
+   registers and spills (ptxas);
 3. holds each kernel against its plain PyTorch version on the card: at every
    conv call of an ENet-512 batch-4 forward (recorded from the forward
    itself) and at edge cases (stride-2 stem, k2 s2, 5x1/1x5, SAME-even,
@@ -20,15 +21,19 @@ nvcc, then:
    one PyTorch library call per kernel (the yardstick), and the naive
    zero-laden forward;
 6. holds the matmul and flash-attention kernels against their plain
-   versions at edge cases (ragged M/N/K, Sq != Sk both ways, Sq = 1, head
-   dims 16 to 256, fp32, bf16 and mixed operand types);
+   versions at edge cases (ragged M/N/K, K not a multiple of the 64-deep
+   K step, Sq != Sk both ways, Sq = 1, lengths 300 and 4097, B*H > 1, head
+   dims 16 to 256, fp32, bf16 and mixed operand types), each through the
+   variant its wrapper picks (bf16 ``wgmma`` on the tensor cores, else
+   ``simt`` on the CUDA cores);
 7. drives the kernel entry points ``repro_torch.kernels.ops`` at the widths
    of StableLM-2-1.6B (hf:stabilityai/stablelm-2-1_6b; d_model 2048, 32
    heads of 64, MHA, d_ff 5632) on one 4096-token prefill at batch 1, in
    fp32 and in bf16: the q/k/v projections, causal attention, the output
    projection and the gated MLP, with seeded random weights.  It checks
-   that the launch counters show every call went through a kernel and
-   holds each call against its plain version;
+   that the launch counters show every call went through a kernel, the
+   bf16 layer's on the ``wgmma`` variants and the fp32 layer's on
+   ``simt``, and holds each call against its plain version;
 8. times each of those calls: the kernel, its plain version and the library
    yardstick (``torch.matmul`` in the input dtype, TF32 off;
    ``F.scaled_dot_product_attention(is_causal=True)``);
@@ -79,6 +84,8 @@ LM_D, LM_HEADS, LM_FF, LM_SEQ = 2048, 32, 5632, 4096
 LM_HEAD_DIM = LM_D // LM_HEADS
 LAUNCHES_PER_LM_LAYER = {"conv2d": 0, "transposed_conv2d": 0, "matmul": 7,
                          "flash_attention": 1}
+# the variant every matmul and attention launch of the layer takes, by dtype
+LM_VARIANT = {"torch.float32": "simt", "torch.bfloat16": "wgmma"}
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel's pallas_call)
     "conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
                "src/repro/kernels/conv2d.py:195"),
@@ -238,9 +245,18 @@ class Smoke:
     def reset_counts(self):
         for wrapper in self.counters.values():
             wrapper.launches = 0
+            by_variant = getattr(wrapper, "launches_by_variant", {})
+            for variant in by_variant:
+                by_variant[variant] = 0
 
     def read_counts(self):
         return {name: w.launches for name, w in self.counters.items()}
+
+    def read_variants(self):
+        """Launches by variant of the kernels that have variants."""
+        return {name: dict(w.launches_by_variant)
+                for name, w in self.counters.items()
+                if hasattr(w, "launches_by_variant")}
 
     def wall_ms(self, fn, reps=10):
         """Median wall time of ``fn()`` ending in a synchronize, in ms."""
@@ -267,6 +283,13 @@ class Smoke:
         t0 = time.perf_counter()
         libs = self.build.build()
         log(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
+        self.report["resources"] = {}
+        for name in libs:
+            for fn, use in self.build.resource_usage(name).items():
+                self.report["resources"][fn] = use
+                log(f"  {fn}: {use.get('registers')} registers, "
+                    f"{use.get('spill_stores')} B spill stores, "
+                    f"{use.get('spill_loads')} B spill loads (ptxas)")
 
         model, x = self.make_model()
         calls = self.phase_kernels(model, x)
@@ -553,10 +576,16 @@ class Smoke:
                     ((1, 128, 7), (100, 60, 36), (16, 16, 16),
                      (256, 512, 128), (4097, 33, 65)) for dt in (f32, bf16)]
         mm_cases.append((100, 60, 36, bf16, f32))
+        # bf16 edges of the wgmma variant: ragged M and N tiles, M = 1,
+        # K = 72 (not a multiple of the 64-deep K step), K = 8
+        mm_cases += [(m, n, k, bf16, bf16) for m, n, k in
+                     ((4097, 2056, 2048), (1, 128, 2048), (300, 200, 64),
+                      (100, 64, 72), (130, 264, 8))]
         for m, n, k, da, db in mm_cases:
             a, b = rand((m, k), da), rand((k, n), db)
-            self.compare(f"matmul ({m}, {k}) {da} @ ({k}, {n}) {db}",
-                         "matmul", kmm.matmul_cuda(a, b),
+            variant = kmm.matmul_variant(a, b)
+            self.compare(f"matmul ({m}, {k}) {da} @ ({k}, {n}) {db} "
+                         f"[{variant}]", "matmul", kmm.matmul_cuda(a, b),
                          kmm.matmul_plain(a, b))
         fa_cases = [  # q shape, kv length, causal, dtype
             *[(qs, qs[2], c, f32) for qs in ((1, 2, 128, 64), (2, 4, 100, 32),
@@ -568,12 +597,23 @@ class Smoke:
             ((1, 2, 70, 256), 130, False, f32),
             ((1, 2, 70, 256), 70, True, f32),
             ((1, 2, 64, 64), 64, True, bf16),
-            ((1, 4, 300, 64), 300, True, bf16)]
+            ((1, 4, 300, 64), 300, True, bf16),
+            # bf16 edges of the wgmma variant (dh 64 and 128, B*H > 1 so a
+            # read across a head boundary would show)
+            *[(qs, sk, c, bf16) for qs, sk in
+              (((2, 3, 300, 64), 300), ((2, 2, 64, 128), 96),
+               ((2, 2, 96, 64), 64), ((2, 2, 1, 64), 70),
+               ((1, 3, 1, 128), 300), ((1, 2, 4097, 64), 4097),
+               ((2, 2, 300, 128), 300), ((1, 2, 4097, 128), 200),
+               ((1, 2, 200, 128), 4097))
+              for c in (True, False)],
+            ((1, 2, 70, 256), 130, True, bf16)]
         for qs, sk, causal, dt in fa_cases:
             ks = qs[:2] + (sk, qs[3])
             q, k, v = rand(qs, dt), rand(ks, dt), rand(ks, dt)
-            self.compare(f"attention q{qs} sk={sk} causal={causal} {dt}",
-                         "flash_attention",
+            variant = kfa.attention_variant(q, k, v)
+            self.compare(f"attention q{qs} sk={sk} causal={causal} {dt} "
+                         f"[{variant}]", "flash_attention",
                          kfa.flash_attention_cuda(q, k, v, causal),
                          kfa.attention_plain(q, k, v, causal=causal))
         torch.cuda.synchronize()
@@ -639,11 +679,18 @@ class Smoke:
             with torch.no_grad():
                 self.lm_layer(p, lambda *call: recorded.append(call))
             torch.cuda.synchronize()
-            counts = self.read_counts()
-            log(f"  {dtype}: launches {counts}")
+            counts, variants = self.read_counts(), self.read_variants()
+            log(f"  {dtype}: launches {counts}, by variant {variants}")
             if counts != LAUNCHES_PER_LM_LAYER:
                 raise RuntimeError(f"launch counts {counts} != "
                                    f"{LAUNCHES_PER_LM_LAYER}")
+            want = {name: {v: (LAUNCHES_PER_LM_LAYER[name]
+                               if v == LM_VARIANT[str(dtype)] else 0)
+                           for v in by_variant}
+                    for name, by_variant in variants.items()}
+            if variants != want:
+                raise RuntimeError(f"{dtype} launches by variant {variants} "
+                                   f"!= {want}")
             for name in self.lm_launches:
                 self.lm_launches[name] += counts[name]
             for label, name, args, out in recorded:
@@ -662,14 +709,15 @@ class Smoke:
         groups = {}  # (kernel, dtype, geometry) -> the timed calls
         with torch.no_grad():
             for label, name, dtype, args in calls:
-                kern, plain, lib, flops, nbytes, geo = self.lm_call(name,
-                                                                    args)
+                kern, plain, lib, flops, nbytes, geo, variant = self.lm_call(
+                    name, args)
                 peak = (PEAK_FP32_FLOPS if dtype == torch.float32
                         else PEAK_BF16_FLOPS)
                 ops_ms = 1e3 * flops / peak
                 bytes_ms = 1e3 * nbytes / PEAK_BYTES_S
                 row = {"kernel": name, "call": label, "dtype": str(dtype),
-                       "geometry": geo, "flops": flops, "bytes": nbytes,
+                       "variant": variant, "geometry": geo, "flops": flops,
+                       "bytes": nbytes,
                        "ms": self.device_ms(kern),
                        "plain_ms": self.device_ms(plain, reps=3),
                        "library_ms": self.device_ms(lib),
@@ -679,7 +727,8 @@ class Smoke:
                                     else "bytes")}
                 self.report["lm_calls"].append(row)
                 groups.setdefault((name, row["dtype"], geo), []).append(row)
-                log(f"  {name} {label} {dtype} {geo}: {row['ms']:.3f} ms, "
+                log(f"  {name} [{variant}] {label} {dtype} {geo}: "
+                    f"{row['ms']:.3f} ms, "
                     f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
                     f"plain {row['plain_ms']:.3f} ms, library "
                     f"{row['library_ms']:.3f} ms, "
@@ -688,7 +737,7 @@ class Smoke:
 
     def lm_call(self, name, args):
         """(kernel, plain version, library yardstick, flops, bytes,
-        geometry) of one recorded StableLM-width call."""
+        geometry, variant) of one recorded StableLM-width call."""
         torch = self.torch
         kmm, kfa = self.kmm, self.kfa
         if name == "matmul":
@@ -700,7 +749,7 @@ class Smoke:
                     lambda: torch.matmul(a, b),
                     2 * m * n * k,
                     (a.numel() + b.numel() + m * n) * a.element_size(),
-                    f"({m}, {k}) @ ({k}, {n})")
+                    f"({m}, {k}) @ ({k}, {n})", kmm.matmul_variant(a, b))
         q, k, v = args
         bsz, h, sq, dh = q.shape
         sk = k.shape[2]
@@ -712,7 +761,8 @@ class Smoke:
                     q, k, v, is_causal=True),
                 4 * bsz * h * dh * pairs,
                 2 * (q.numel() + k.numel()) * q.element_size(),
-                f"q{tuple(q.shape)} k{tuple(k.shape)} causal")
+                f"q{tuple(q.shape)} k{tuple(k.shape)} causal",
+                kfa.attention_variant(q, k, v))
 
     def summarise_lm_calls(self, groups):
         """From the timed calls grouped by (kernel, dtype, geometry): the
@@ -726,10 +776,14 @@ class Smoke:
         for (name, dtype, geo), rows in groups.items():
             sums = {k: sum(r[k] for r in rows) for k in keys}
             mean = {k: v / len(rows) for k, v in sums.items()}
+            variant = rows[0]["variant"]
+            tflops = rows[0]["flops"] / mean["ms"] / 1e9
             by_shape.append({"kernel": name, "dtype": dtype, "geometry": geo,
-                             "calls": len(rows), **mean})
-            log(f"  mean of {len(rows)} x {name} {dtype} {geo}: "
-                + ", ".join(f"{k} {mean[k]:.3f}" for k in keys[:4]))
+                             "variant": variant, "calls": len(rows),
+                             "tflops": tflops, **mean})
+            log(f"  mean of {len(rows)} x {name} [{variant}] {dtype} {geo}: "
+                + ", ".join(f"{k} {mean[k]:.3f}" for k in keys[:4])
+                + f", {tflops:.1f} TFLOP/s")
             layer = by_layer.setdefault(
                 (dtype, name), {"launches": 0, **dict.fromkeys(keys, 0.0)})
             layer["launches"] += len(rows)

@@ -9,7 +9,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 The hash covers the source, every shared header in ``csrc/`` and the flags,
 so an edited kernel is rebuilt and a stale library is never loaded.  The
 build happens at first use; :func:`build` starts one nvcc per source, all
-at once, and waits for them.  A failed or missing compiler raises.
+at once, and waits for them.  A failed or missing compiler raises.  ptxas
+reports each kernel's registers and spills (``-Xptxas -v``); the report is
+kept beside the library as ``<name>-<hash>.log`` and read by
+:func:`resource_usage`.
 
 Every C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()`` as an int;
@@ -21,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -34,6 +38,8 @@ KERNELS = ("conv2d", "transposed_conv", "matmul", "flash_attention")
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
+#: ask ptxas for each kernel's registers, stack and spills
+PTXAS_REPORT = ("-Xptxas", "-v")
 
 _NVCC_TIMEOUT_S = 600
 
@@ -60,14 +66,14 @@ def nvcc_path() -> str:
 
 
 def nvcc_command(nvcc: str, src: Path, out: Path) -> list[str]:
-    return [nvcc, *FLAGS, "-o", str(out), str(src)]
+    return [nvcc, *FLAGS, *PTXAS_REPORT, "-o", str(out), str(src)]
 
 
 def library_path(name: str) -> Path:
     """Where the library of kernel ``name`` is built, keyed by content."""
     if name not in KERNELS:
         raise ValueError(f"unknown kernel {name!r}; known: {KERNELS}")
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h = hashlib.sha256(" ".join(FLAGS + PTXAS_REPORT).encode())
     for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -103,6 +109,7 @@ def build(names=KERNELS) -> dict[str, Path]:
             if proc.returncode != 0:
                 failures.append(f"--- {name} (exit {proc.returncode})\n{log}")
             else:
+                todo[name].with_suffix(".log").write_text(log)
                 os.replace(tmp, todo[name])
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
@@ -113,6 +120,54 @@ def build(names=KERNELS) -> dict[str, Path]:
                 proc.wait()
             tmp.unlink(missing_ok=True)
     return paths
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_TEMPLATE_ARG = re.compile(r"Li(\d+)E|f|\d+__nv_bfloat16")
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name of a ``repro::`` kernel's mangled symbol: the function
+    and its template arguments (``flash_attention_wgmma_kernel<64>``,
+    ``matmul_kernel<float>``); other symbols as they are."""
+    m = re.match(r"_ZN5repro(\d+)", mangled)
+    if m is None:
+        return mangled
+    rest = mangled[m.end():]
+    name, rest = rest[:int(m.group(1))], rest[int(m.group(1)):]
+    if not rest.startswith("I"):
+        return name
+    args, rest = [], rest[1:]
+    while rest and not rest.startswith("E"):
+        t = _TEMPLATE_ARG.match(rest)
+        if t is None:
+            break
+        args.append(t.group(1) or ("float" if t.group(0) == "f" else "bf16"))
+        rest = rest[t.end():]
+    return f"{name}<{', '.join(args)}>"
+
+
+def resource_usage(name: str) -> dict[str, dict[str, int]]:
+    """ptxas's report of the built library of kernel ``name``:
+    ``{kernel: {"registers", "stack", "spill_stores", "spill_loads"}}``
+    (bytes but the register count); empty if the library has no report."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return {}
+    usage, current = {}, None
+    for line in log.read_text().splitlines():
+        if (m := _ENTRY.search(line)) is not None:
+            current = usage.setdefault(kernel_name(m.group(1)), {})
+        elif current is not None and (m := _FRAME.search(line)) is not None:
+            current.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        elif current is not None and (m := _REGS.search(line)) is not None:
+            current["registers"] = int(m.group(1))
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -136,4 +191,4 @@ def check(code: int, what: str, error_string) -> None:
 
 
 __all__ = ["KERNELS", "build", "load", "check", "library_path", "nvcc_path",
-           "nvcc_command"]
+           "nvcc_command", "resource_usage", "kernel_name"]

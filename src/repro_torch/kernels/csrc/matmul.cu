@@ -4,30 +4,49 @@
 // (pallas_call at matmul.py:51), whose grid walks K innermost into an fp32
 // VMEM scratch and casts on the last K step; its wrapper pads A and B in
 // device memory to whole 128^3 tiles and slices the output.  Here blocks
-// run in parallel and in no order, so each block owns one BM x BN output
-// tile and walks all of K itself: per step of BK it stages a BM x BK slice
-// of A and a BK x BN slice of B in shared memory, converting each element to
-// fp32 as it is loaded, and each of the 256 threads accumulates an 8 x 8
-// register tile with fp32 FMAs on the CUDA cores (no TF32, which would break
-// the 1e-4 fp32 bar).  Every load and store is masked against M, N and K,
-// so nothing is padded, and offsets are 64-bit.  A, B and C share one
-// element type (fp32 or bf16); the wrapper upcasts mixed operands to
-// fp32 first, as the reference's dot_general(preferred_element_type=f32)
-// computes them.
+// run in parallel and in no order, so each block owns one output tile and
+// walks all of K itself.  Nothing is padded in device memory.  Two
+// variants; the Python wrapper picks one by dtype, shape and alignment and
+// passes its code (kSimt, kWgmma) to matmul_fwd:
 //
-// Bound on the H100: FMAs.  The fp32 bound is the 67 TFLOP/s of the CUDA
-// cores; for bf16 operands the card could do the same work on its tensor
-// cores at 989 TFLOP/s, which this kernel does not use.  wgmma, TMA loads
-// and bf16 tensor-core tiles are later work (ROADMAP.md); see PERF.md for
-// the measured time beside the bound.
+// * wgmma (bf16 A and B, K and N multiples of 8, 16-byte aligned bases):
+//   the tensor cores.  A block owns a 128 x 256 tile: one producer thread
+//   keeps TMA loads of 128 x 64 A and 64 x 256 B slices in flight through
+//   a ring of 4 stages (48 KB each, a full and an empty mbarrier per
+//   stage), and two consumer warpgroups, 64 rows each, issue
+//   wgmma.m64n256k16 from shared memory into 128 fp32 accumulators a
+//   thread.  A (M, K) is K-major; B (K, N) row-major is MN-major and is
+//   read with wgmma's transposed-B form, in four 64-column TMA boxes (the
+//   128-byte swizzle caps a box row at 64 bf16).  TMA fills reads past M,
+//   N or K with zeros, so ragged shapes need no masking.  The epilogue
+//   rounds the accumulators to bf16 into the drained ring with stmatrix
+//   (128-byte-swizzled 64 x 64 boxes) and writes C with TMA stores, which
+//   clip at M and N; scattered 4-byte stores from the registers took a
+//   quarter of a tile's time.  Bound on the H100: the 989 TFLOP/s of the
+//   bf16 tensor cores at StableLM-2's shapes.
+// * simt (everything else: fp32, K or N not a multiple of 8, unaligned
+//   views): fp32 FMAs on the CUDA cores (no TF32, which would break the
+//   1e-4 fp32 bar).  128 x 128 tiles, K in steps of 16 staged in shared
+//   memory as fp32 (each element converted as it is loaded), an 8 x 8
+//   register tile per thread, every load and store masked against M, N
+//   and K.  Bound: the 67 TFLOP/s of the CUDA cores.
+//
+// A, B and C share one element type; the wrapper upcasts mixed operands to
+// fp32 first, as the reference's dot_general(preferred_element_type=f32)
+// computes them.  PERF.md has the measured times beside the bounds.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "element.cuh"
+#include "sm90.cuh"
 
 namespace repro {
+
+enum MatmulVariant { kSimt = 0, kWgmma = 1 };
+
+// ------------------------------------------------------------------ simt
 
 constexpr int kMmThreads = 256;
 constexpr int kMmBM = 128, kMmBN = 128, kMmBK = 16;
@@ -121,20 +140,175 @@ __global__ void __launch_bounds__(kMmThreads)
   }
 }
 
+
+// ----------------------------------------------------------------- wgmma
+
+constexpr int kTcBM = 128, kTcBN = 256, kTcBK = 64, kTcStages = 4;
+constexpr int kTcThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr uint32_t kTcABytes = kTcBM * kTcBK * 2;   // 128 rows x 128 B
+constexpr uint32_t kTcBBox = kTcBK * 64 * 2;        // 64 K rows x 128 B
+constexpr uint32_t kTcStageBytes = kTcABytes + (kTcBN / 64) * kTcBBox;
+// the ring, 1024 bytes of alignment slack, and 2 mbarriers per stage
+constexpr size_t kTcSmem = kTcStages * kTcStageBytes + 1024 + 16 * kTcStages;
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+    matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                        const __grid_constant__ CUtensorMap tm_b,
+                        const __grid_constant__ CUtensorMap tm_c, int K) {
+  using namespace sm90;
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  const uint32_t ring = (smem_addr(tc_smem) + 1023) & ~1023u;
+  const uint32_t bars = ring + kTcStages * kTcStageBytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kTcStages + s); };
+  const int wg = threadIdx.x / 128;
+  const int nk = (K + kTcBK - 1) / kTcBK;
+  const int m0 = blockIdx.y * kTcBM;
+  const int n0 = blockIdx.x * kTcBN;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full(s), 1);   // the producer's arrive + the TMA bytes
+      mbar_init(empty(s), 2);  // one arrive per consumer warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread issues every load
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kTcStages;
+        if (kt >= kTcStages) mbar_wait(empty(s), (kt / kTcStages - 1) & 1);
+        const uint32_t a_s = ring + s * kTcStageBytes;
+        mbar_arrive_expect_tx(full(s), kTcStageBytes);
+        tma_load_2d(a_s, &tm_a, full(s), kt * kTcBK, m0);
+#pragma unroll
+        for (int j = 0; j < kTcBN / 64; ++j)
+          tma_load_2d(a_s + kTcABytes + j * kTcBBox, &tm_b, full(s),
+                      n0 + 64 * j, kt * kTcBK);
+      }
+    }
+  } else {  // consumers: rows 64 (wg - 1) .. of the tile
+    const int cw = wg - 1;
+    float acc[kTcBN / 2];
+#pragma unroll
+    for (int i = 0; i < kTcBN / 2; ++i) acc[i] = 0.0f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kTcStages;
+      mbar_wait(full(s), (kt / kTcStages) & 1);
+      const uint32_t a_s = ring + s * kTcStageBytes + cw * 64 * 128;
+      const uint32_t b_s = ring + s * kTcStageBytes + kTcABytes;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kTcBK / 16; ++k)
+        wgmma_m64n256k16_ss<1>(acc, wgmma_desc(a_s + 32 * k, 16, 1024),
+                               wgmma_desc(b_s + 2048 * k, kTcBBox, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty(s));
+    }
+    // C: both consumers are done with the ring, so each rounds its 64 x 256
+    // rows to bf16 into its own 32 KB of it, as four 64 x 64 boxes with the
+    // 128-byte swizzle.  Accumulator registers 8 j .. 8 j + 7 hold columns
+    // 16 j .. 16 j + 15 of this thread's two rows, four 8 x 8 matrices;
+    // lane l stores row 8 ((l / 8) % 2) + l % 8 of matrix l / 8.
+    named_barrier_sync(1, 256);
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int mi = lane / 8;
+    const uint32_t c_s = ring + cw * 4 * kTcBBox;
+    const uint32_t row = (16 * (t / 32) + 8 * (mi & 1) + lane % 8) * 128;
+#pragma unroll
+    for (int j = 0; j < kTcBN / 16; ++j) {
+      uint32_t v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const __nv_bfloat162 p =
+            __floats2bfloat162_rn(acc[8 * j + 2 * q], acc[8 * j + 2 * q + 1]);
+        v[q] = *reinterpret_cast<const uint32_t*>(&p);
+      }
+      const uint32_t unit = 2 * (j % 4) + (mi >> 1);
+      stmatrix_x4(c_s + (j / 4) * kTcBBox + row + ((unit ^ (lane % 8)) << 4),
+                  v[0], v[1], v[2], v[3]);
+    }
+    fence_proxy_async();
+    named_barrier_sync(2 + cw, 128);
+    if (t == 0) {
+#pragma unroll
+      for (int j = 0; j < kTcBN / 64; ++j)
+        tma_store_2d(&tm_c, c_s + j * kTcBBox, n0 + 64 * j, m0 + 64 * cw);
+      tma_store_commit_and_wait();
+    }
+  }
+}
+
+int launch_matmul_wgmma(const void* a, const void* b, void* c, long long M,
+                        long long N, long long K, cudaStream_t st) {
+  const long long m_tiles = (M + kTcBM - 1) / kTcBM;
+  const long long n_tiles = (N + kTcBN - 1) / kTcBN;
+  if (K <= 0 || K % 8 != 0 || N % 8 != 0 || M > 0x7fffffffLL ||
+      N > 0x7fffffffLL || K > 0x7fffffffLL || m_tiles > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_a, tm_b, tm_c;
+  {  // A (M, K): dims {K, M}, box 64 x 128
+    const uint64_t dims[2] = {static_cast<uint64_t>(K),
+                              static_cast<uint64_t>(M)};
+    const uint64_t strides[1] = {static_cast<uint64_t>(K) * 2};
+    const uint32_t box[2] = {kTcBK, kTcBM};
+    cudaError_t err = make_tensor_map_bf16(&tm_a, a, 2, dims, strides, box);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  {  // B (K, N): dims {N, K}, box 64 x 64
+    const uint64_t dims[2] = {static_cast<uint64_t>(N),
+                              static_cast<uint64_t>(K)};
+    const uint64_t strides[1] = {static_cast<uint64_t>(N) * 2};
+    const uint32_t box[2] = {64, kTcBK};
+    cudaError_t err = make_tensor_map_bf16(&tm_b, b, 2, dims, strides, box);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  {  // C (M, N): dims {N, M}, box 64 x 64
+    const uint64_t dims[2] = {static_cast<uint64_t>(N),
+                              static_cast<uint64_t>(M)};
+    const uint64_t strides[1] = {static_cast<uint64_t>(N) * 2};
+    const uint32_t box[2] = {64, 64};
+    cudaError_t err = make_tensor_map_bf16(&tm_c, c, 2, dims, strides, box);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      matmul_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kTcSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(n_tiles),
+                  static_cast<unsigned>(m_tiles), 1);
+  matmul_wgmma_kernel<<<grid, kTcThreads, kTcSmem, st>>>(
+      tm_a, tm_b, tm_c, static_cast<int>(K));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace repro
 
 // a: (M, K), b: (K, N), c: (M, N), all of dtype code `dtype`, row-major
-// and contiguous.  M and N must be positive.
+// and contiguous.  M and N must be positive.  `variant` is kSimt or kWgmma;
+// kWgmma takes bf16 only, K and N multiples of 8 and 16-byte aligned
+// bases, and returns cudaErrorInvalidValue otherwise.
 extern "C" int matmul_fwd(const void* a, const void* b, void* c,
                           long long M, long long N, long long K, int dtype,
-                          void* stream) {
+                          int variant, void* stream) {
   using namespace repro;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || K < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == kWgmma) {
+    if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_matmul_wgmma(a, b, c, M, N, K, st);
+  }
+  if (variant != kSimt) return static_cast<int>(cudaErrorInvalidValue);
   const long long n_tiles = (N + kMmBN - 1) / kMmBN;
-  if (M <= 0 || N <= 0 || K < 0 || n_tiles > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((M + kMmBM - 1) / kMmBM),
                   static_cast<unsigned>(n_tiles), 1);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool known = dispatch_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
     matmul_kernel<T><<<grid, kMmThreads, 0, st>>>(

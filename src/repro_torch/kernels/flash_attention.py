@@ -3,31 +3,47 @@
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::
 _flash_kernel`` (launched by ``flash_attention``, ``pallas_call`` at
 ``flash_attention.py:82``).  The kernel (``csrc/flash_attention.cu``) runs
-one block per (batch*head, 64-row q tile) and loops over 64-key kv tiles
-staged in shared memory, with an fp32 online softmax in registers.  It
-keeps the reference kernel's semantics, which differ from
-``ref.attention_ref``:
+one block per (batch*head, q tile) and loops over the kv tiles with an fp32
+online softmax in registers.  It keeps the reference kernel's semantics,
+which differ from ``ref.attention_ref``:
 
 * q, k and v are upcast to fp32 before both products, and the scale
   ``dh ** -0.5`` multiplies the fp32 scores;
 * the causal mask is top-left, ``q_pos >= k_pos`` (``ref.attention_ref``
   masks bottom-right, which differs when Sq != Sk);
 * masked scores take the finite ``NEG_INF = -1e30``, so no row is NaN;
-* the output is ``acc / max(l, 1e-30)`` cast to ``q.dtype``.
+* the softmax denominator is summed from the fp32 probabilities and the
+  output is ``acc / max(l, 1e-30)`` cast to ``q.dtype``.
 
 Any Sq and Sk >= 1 and any head dim up to 256 are taken, with no padded
 copies of q, k or v (the reference's wrapper pads them to whole tiles).
 Under the causal mask the kv tiles wholly above the diagonal are skipped;
-they would add exactly 0.
+they would add exactly 0.  Two variants; :func:`attention_variant` picks
+one from dtypes, head dim and alignment alone:
 
-Bound on the H100: the two products' FMAs (4 x unmasked pairs x dh flops),
-67 TFLOP/s on the CUDA cores for fp32; for bf16 the card could run them on
-its tensor cores at 989 TFLOP/s, which this first version does not use.
+* ``"wgmma"``, for bf16 q, k and v with dh 64 or 128 and 16-byte aligned
+  bases: Hopper's tensor cores.  128 query rows a block (two consumer
+  warpgroups), 128-key K and V tiles by TMA through a 2-stage ring,
+  ``wgmma`` for S = QK^T (exact products, fp32 sums) and for O += PV with
+  P in registers.  The fp32 P is split into two bf16 terms, ``P_hi =
+  bf16(P)`` and ``P_lo = bf16(P - P_hi)``, and both products go into the
+  fp32 O: rounding P once to bf16 misses the bf16 bar on the causal
+  4096-token call (the early rows sum few terms and cancel), which
+  ``tests/test_torch_wgmma.py`` shows on an emulation of the kernel's
+  arithmetic.  Bound on the H100: the softmax's exps and bf16 splits,
+  beside the tensor cores' 989 TFLOP/s.
+* ``"simt"``, for everything else (fp32, mixed types, other head dims):
+  fp32 FMAs on the CUDA cores, 64 x 64 tiles staged in shared memory.
+  Bound: the two products' FMAs at 67 TFLOP/s (4 x unmasked pairs x dh
+  flops); its scalar shared-memory reads hold it well under that.
+
+This is a dispatch by shape, not a fallback: a failed launch raises.
 PERF.md has its times at StableLM-2-1.6B's widths.
 
 :func:`flash_attention` takes its plain version, :func:`attention_plain`,
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  ``flash_attention.launches`` counts kernel launches.
+raises.  ``flash_attention.launches`` counts kernel launches and
+``flash_attention.launches_by_variant`` splits them by variant.
 """
 
 from __future__ import annotations
@@ -82,6 +98,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = {"wgmma": 0, "simt": 0}
+
+#: the kernel variants, by their C code (``csrc/flash_attention.cu``)
+VARIANTS = {"simt": 0, "wgmma": 1}
+#: the head dims the ``"wgmma"`` variant takes
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def attention_variant(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> str:
+    """The variant :func:`flash_attention_cuda` launches: ``"wgmma"`` for
+    bf16 q, k and v with a head dim in ``WGMMA_HEAD_DIMS`` and 16-byte
+    aligned bases, else ``"simt"``.  Reads dtypes, shapes and data pointers
+    only; launches nothing."""
+    ts = (q, k, v)
+    if (all(t.dtype == torch.bfloat16 for t in ts)
+            and q.shape[-1] in WGMMA_HEAD_DIMS
+            and all(t.data_ptr() % 16 == 0 for t in ts)):
+        return "wgmma"
+    return "simt"
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -106,7 +142,7 @@ def _flash_fn():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
                        + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -137,16 +173,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if b * h == 0 or sq == 0:
         return out
+    variant = attention_variant(q, k, v)
     lib, fn = _flash_fn()
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b * h, sq, sk, dh, dh ** -0.5, int(causal),
-                  dtype_code(q, "flash_attention_cuda"),
+                  dtype_code(q, "flash_attention_cuda"), VARIANTS[variant],
                   torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(code, "flash_attention", lib.flash_attention_error_string)
+    build.check(code, f"flash_attention ({variant})",
+                lib.flash_attention_error_string)
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[variant] += 1
     return out
 
 
 __all__ = ["flash_attention", "attention_plain", "flash_attention_cuda",
-           "NEG_INF", "MAX_HEAD_DIM"]
+           "attention_variant", "NEG_INF", "MAX_HEAD_DIM", "VARIANTS",
+           "WGMMA_HEAD_DIMS"]

@@ -2,25 +2,32 @@
 
 Replaces the TPU kernel ``src/repro/kernels/matmul.py::_mm_kernel``
 (launched by ``matmul``, ``pallas_call`` at ``matmul.py:51``).  The kernel
-(``csrc/matmul.cu``) computes (M, K) @ (K, N) with fp32 accumulation on the
-CUDA cores: one block per 128 x 128 output tile, K walked in steps of 16
-through shared memory, an 8 x 8 register tile per thread, every access
-masked against M, N and K (no padded copies, unlike the reference's
-wrapper), output in ``a.dtype``.  Operands may be fp32 or bf16, each
-converted to fp32 as it is loaded.  Mixed operand types are computed in
-fp32 and cast to ``a.dtype``, as the reference's
-``dot_general(preferred_element_type=f32)`` does: the launcher upcasts both
-to fp32 and casts the fp32 result, which gives the same bits as converting
-on load and keeps one kernel instance per type.
+(``csrc/matmul.cu``) computes (M, K) @ (K, N) with fp32 accumulation and
+output in ``a.dtype``, with no padded copies (the reference's wrapper pads
+to whole 128^3 tiles).  It has two variants, and :func:`matmul_variant`
+picks one from the operands' dtype, shape and alignment alone:
 
-Bound on the H100: FMAs, 67 TFLOP/s on the CUDA cores for fp32; for bf16
-the card could run the same work on its tensor cores at 989 TFLOP/s, which
-this first version does not use (``wgmma`` tiles are later work).
-PERF.md has its times at StableLM-2-1.6B's projection and MLP shapes.
+* ``"wgmma"``, for bf16 @ bf16 with K and N multiples of 8 (K > 0) and
+  16-byte aligned bases (what TMA needs): Hopper's tensor cores.  128 x 256
+  output tiles, TMA loads through a 4-stage ring of shared memory, two
+  consumer warpgroups issuing ``wgmma`` with fp32 accumulators in
+  registers, C written back by TMA stores.  Bound on the H100: the 989
+  TFLOP/s of the bf16 tensor cores.
+* ``"simt"``, for everything else (fp32, K = 7, N = 33, unaligned views):
+  fp32 FMAs on the CUDA cores, 128 x 128 tiles, an 8 x 8 register tile per
+  thread, every access masked against M, N and K.  Bound: the 67 TFLOP/s
+  of the CUDA cores (no TF32, which would break the 1e-4 fp32 bar).
+
+This is a dispatch by shape, not a fallback: a failed launch raises.  Mixed
+operand types are computed in fp32 and cast to ``a.dtype``, as the
+reference's ``dot_general(preferred_element_type=f32)`` does: the launcher
+upcasts both to fp32 (so they take ``"simt"``) and casts the fp32 result.
+PERF.md has the times at StableLM-2-1.6B's projection and MLP shapes.
 
 :func:`matmul` takes its plain version, :func:`matmul_plain` (fp32
 ``torch.matmul``), only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises.  ``matmul.launches`` counts kernel launches.
+the kernel or raises.  ``matmul.launches`` counts kernel launches and
+``matmul.launches_by_variant`` splits them by variant.
 """
 
 from __future__ import annotations
@@ -47,6 +54,23 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 matmul.launches = 0
+matmul.launches_by_variant = {"wgmma": 0, "simt": 0}
+
+#: the kernel variants, by their C code (``csrc/matmul.cu``)
+VARIANTS = {"simt": 0, "wgmma": 1}
+
+
+def matmul_variant(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The variant :func:`matmul_cuda` launches for ``a @ b``: ``"wgmma"``
+    for bf16 operands with K and N multiples of 8 (K > 0) and 16-byte
+    aligned bases, else ``"simt"``.  Reads dtypes, shapes and data pointers
+    only; launches nothing."""
+    k, n = b.shape
+    if (a.dtype == b.dtype == torch.bfloat16 and k > 0 and k % 8 == 0
+            and n % 8 == 0 and a.data_ptr() % 16 == 0
+            and b.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "simt"
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -59,7 +83,7 @@ def _matmul_fn():
     fn = lib.matmul_fwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
-                       + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.matmul_error_string.argtypes = [ctypes.c_int]
         lib.matmul_error_string.restype = ctypes.c_char_p
@@ -80,14 +104,17 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), device=a.device, dtype=a.dtype)
     if m == 0 or n == 0:
         return out
+    variant = matmul_variant(a, b)
     lib, fn = _matmul_fn()
     with torch.cuda.device(a.device):
         code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                  dtype_code(a, "matmul_cuda"),
+                  dtype_code(a, "matmul_cuda"), VARIANTS[variant],
                   torch.cuda.current_stream(a.device).cuda_stream)
-    build.check(code, "matmul", lib.matmul_error_string)
+    build.check(code, f"matmul ({variant})", lib.matmul_error_string)
     matmul.launches += 1
+    matmul.launches_by_variant[variant] += 1
     return out
 
 
-__all__ = ["matmul", "matmul_plain", "matmul_cuda"]
+__all__ = ["matmul", "matmul_plain", "matmul_cuda", "matmul_variant",
+           "VARIANTS"]

@@ -12,6 +12,9 @@ the matmul and attention kernels compute in fp32 like their plain versions
 and round once to bf16, where nearly equal sums may land one bf16 step
 apart, so the bar there holds at every element:
 ``|kernel - plain| <= 2**-7 * |plain| + 1e-4 * max(1, max |plain|)``.
+bf16 matmul and attention take the tensor-core (``wgmma``) variants where
+the shapes allow; the edge shapes below reach them (ragged tiles, K not a
+multiple of the 64-deep K step, Sq != Sk, Sq = 1, several heads).
 """
 
 import pytest
@@ -116,7 +119,9 @@ _DTYPES = [torch.float32, torch.bfloat16]
 @pytest.mark.parametrize("dtype", _DTYPES, ids=str)
 @pytest.mark.parametrize("mnk", [(1, 128, 7), (100, 60, 36), (16, 16, 16),
                                  (256, 512, 128), (4097, 33, 65),
-                                 (130, 129, 0)])
+                                 (130, 129, 0), (4097, 2056, 2048),
+                                 (1, 128, 2048), (300, 200, 64),
+                                 (100, 64, 72), (130, 264, 8)])
 def test_matmul_kernel_matches_plain(cuda, mnk, dtype):
     m, n, k = mnk
     g = torch.Generator().manual_seed(m + n + k)
@@ -146,7 +151,11 @@ _ATTN = [  # q shape, kv length, causal
     ((1, 2, 64, 64), 96, True), ((1, 2, 96, 64), 64, True),
     ((2, 2, 1, 64), 70, True), ((1, 3, 77, 16), 77, True),
     ((1, 2, 130, 128), 200, True), ((1, 2, 70, 256), 130, False),
-    ((1, 2, 70, 256), 70, True), ((1, 1, 33, 48), 65, True)]
+    ((1, 2, 70, 256), 70, True), ((1, 1, 33, 48), 65, True),
+    ((2, 3, 300, 64), 300, True), ((2, 3, 300, 64), 300, False),
+    ((2, 2, 64, 128), 96, True), ((2, 2, 96, 128), 64, False),
+    ((2, 2, 1, 128), 300, True), ((1, 2, 4097, 64), 4097, True),
+    ((1, 2, 4097, 128), 200, True), ((1, 2, 200, 128), 4097, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -182,3 +191,45 @@ def test_ops_count_matmul_and_attention_launches(cuda):
     torch.cuda.synchronize()
     assert (kmm.matmul.launches, kfa.flash_attention.launches) == \
         (m0 + 1, f0 + 2)
+
+
+@pytest.mark.parametrize("variant,shapes", [
+    ("wgmma", ((256, 128), (128, 264))), ("simt", ((256, 7), (7, 264)))])
+def test_matmul_counts_launches_by_variant(cuda, variant, shapes):
+    a = torch.randn(shapes[0], device=cuda).bfloat16()
+    b = torch.randn(shapes[1], device=cuda).bfloat16()
+    assert kmm.matmul_variant(a, b) == variant
+    before = dict(kmm.matmul.launches_by_variant)
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    after = kmm.matmul.launches_by_variant
+    assert {v: after[v] - before[v] for v in after} == \
+        {v: int(v == variant) for v in after}
+    _close(got, kmm.matmul_plain(a, b))
+
+
+@pytest.mark.parametrize("variant,dh", [("wgmma", 128), ("simt", 32)])
+def test_attention_counts_launches_by_variant(cuda, variant, dh):
+    q, k, v = (torch.randn(1, 2, 150, dh, device=cuda).bfloat16()
+               for _ in range(3))
+    assert kfa.attention_variant(q, k, v) == variant
+    before = dict(kfa.flash_attention.launches_by_variant)
+    got = ops.attention(q, k, v)
+    torch.cuda.synchronize()
+    after = kfa.flash_attention.launches_by_variant
+    assert {v: after[v] - before[v] for v in after} == \
+        {v: int(v == variant) for v in after}
+    _close(got, kfa.attention_plain(q, k, v))
+
+
+def test_wgmma_variants_refuse_what_tma_cannot_take(cuda):
+    """The C entries check alignment themselves: an unaligned base handed
+    to the wgmma variant is refused at launch, not read wrongly."""
+    a = torch.randn(64 * 64 + 8, device=cuda).bfloat16()[1:4097].view(64, 64)
+    b = torch.randn(64, 64, device=cuda).bfloat16()
+    out = torch.empty(64, 64, device=cuda, dtype=torch.bfloat16)
+    lib, fn = kmm._matmul_fn()
+    code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 64, 64, 64, 1,
+              kmm.VARIANTS["wgmma"], torch.cuda.current_stream().cuda_stream)
+    assert code != 0
+    assert b"invalid argument" in lib.matmul_error_string(code)
