@@ -12,14 +12,19 @@ nvcc, then:
 3. holds each kernel against its plain PyTorch version on the card: at every
    conv call of an ENet-512 batch-4 forward (recorded from the forward
    itself) and at edge cases (stride-2 stem, k2 s2, 5x1/1x5, SAME-even,
-   every epilogue spec, d = 2, 4, 8, 16, transposed k4/k2/k<s);
+   Cin 3 and 4, Cout 4, 8 and 19, a weight slab too large to stay
+   resident, every epilogue spec, d = 2, 4, 8, 16, transposed k3 Cout
+   19/k4/k2/k<s and k16 with its weights streamed per plane);
 4. serves one batch of 4 segmentation requests through ENet (19 classes,
    512x512, seeded random weights) with ``backend="kernels"``, checks the
-   launch counters show every conv went through the two kernels, and holds
-   the logits against the same module's ``backend="torch"`` output;
+   launch counters show every conv went through the two kernels (and the
+   conv2d launches by variant), and holds the logits against the same
+   module's ``backend="torch"`` output;
 5. times the forward, each kernel per forward, the kernels' plain versions,
    one PyTorch library call per kernel (the yardstick), and the naive
-   zero-laden forward;
+   zero-laden forward, and prints a table per conv geometry (calls, ms,
+   bound and what bounds it, x bound, library ms, launch plan) with the
+   geometry furthest from its bound;
 6. holds the matmul and flash-attention kernels against their plain
    versions at edge cases (ragged M/N/K, K not a multiple of the 64-deep
    K step, Sq != Sk both ways, Sq = 1, lengths 300 and 4097, B*H > 1, head
@@ -78,6 +83,10 @@ BF16_STEP = 2.0 ** -7
 REL_L2_TOL = 1e-4
 LAUNCHES_PER_FORWARD = {"conv2d": 86, "transposed_conv2d": 3,
                         "matmul": 0, "flash_attention": 0}
+# the conv2d variants of one forward: the stem (Cin 3) takes the 4-byte
+# copies, every other conv the 16-byte ones; every weight slab is resident
+CONV_VARIANTS_PER_FORWARD = {"vec4-resident": 85, "vec4-streamed": 0,
+                             "scalar-resident": 1, "scalar-streamed": 0}
 # StableLM-2-1.6B (src/repro/configs/stablelm_1_6b.py): one layer's kernel
 # calls on a 4096-token prefill at batch 1, its published context length
 LM_D, LM_HEADS, LM_FF, LM_SEQ = 2048, 32, 5632, 4096
@@ -393,6 +402,16 @@ class Smoke:
              ((0, 1), (0, 1))),
             ("k4 SAME-even s2", (2, 15, 17, 8), (4, 4, 8, 70), 2,
              ((1, 2), (1, 2))),
+            ("Cin4 3x3 (16-byte copies)", (2, 17, 19, 4), (3, 3, 4, 16), 1,
+             ((1, 1), (1, 1))),
+            ("Cout4 1x1", (2, 20, 18, 16), (1, 1, 16, 4), 1,
+             ((0, 0), (0, 0))),
+            ("Cout8 3x3", (2, 17, 19, 16), (3, 3, 16, 8), 1,
+             ((1, 1), (1, 1))),
+            ("Cout19 3x3", (2, 16, 15, 16), (3, 3, 16, 19), 1,
+             ((1, 1), (1, 1))),
+            ("3x3 128->64, streamed slab", (2, 9, 10, 128),
+             (3, 3, 128, 64), 1, ((1, 1), (1, 1))),
         ]
         for label, xs, ws, s, pads in dense:
             xx, ww = self.rand(g, *xs), self.rand(g, *ws)
@@ -418,9 +437,12 @@ class Smoke:
                          apply_reference(spec, dilated_conv2d_reference(
                              xx, ww, d), eps))
         tconv = [  # label, x shape, k, s, p_lo, output_padding, cin, cout
+            ("k3 s2 op1 Cout19", (2, 16, 16), 3, 2, 1, 1, 16, 19),
             ("k4 s2 p_lo2", (2, 13, 11), 4, 2, 2, 0, 16, 24),
             ("k2 s2 p_lo0", (2, 13, 11), 2, 2, 0, 0, 16, 24),
             ("k2 s3 k<s + epilogue", (2, 9, 7), 2, 3, 1, 0, 8, 12),
+            ("k16 s2 Cout32, streamed taps", (2, 11, 9), 16, 2, 7, 1, 16,
+             32),
         ]
         for label, (n, h, w_), k, s, p_lo, op, cin, cout in tconv:
             xx, ww = self.rand(g, n, h, w_, cin), self.rand(g, k, k, cin, cout)
@@ -444,10 +466,15 @@ class Smoke:
             y = model(x)
         torch.cuda.synchronize()
         self.launches = self.read_counts()
-        log(f"  launches per forward: {self.launches}")
+        variants = self.read_variants()["conv2d"]
+        log(f"  launches per forward: {self.launches}; conv2d by variant "
+            f"{variants}")
         if self.launches != LAUNCHES_PER_FORWARD:
             raise RuntimeError(f"launch counts {self.launches} != "
                                f"{LAUNCHES_PER_FORWARD}")
+        if variants != CONV_VARIANTS_PER_FORWARD:
+            raise RuntimeError(f"conv2d launches by variant {variants} != "
+                               f"{CONV_VARIANTS_PER_FORWARD}")
         if tuple(y.shape) != (BATCH, HW, HW, CLASSES):
             raise RuntimeError(f"logits shape {tuple(y.shape)}")
         if not bool(torch.isfinite(y).all()):
@@ -492,6 +519,7 @@ class Smoke:
                 lib = self.library_call(name, args)
                 flops, nbytes = self.work(name, args)
                 row = {"kernel": name, "geometry": self.geometry(name, args),
+                       "variant": self.variant(name, args),
                        "ms": self.device_ms(lambda: kern(*args)),
                        "plain_ms": self.device_ms(lambda: plain(*args),
                                                   reps=3),
@@ -522,7 +550,40 @@ class Smoke:
                              else "bytes"),
                 "library_ms": p["library_ms"]})
             times[f"{name}_per_forward"] = p
+        times["geometries"] = self.geometry_table(self.report["calls"])
         return {"kernels": entries}, times
+
+    def geometry_table(self, rows):
+        """Per-geometry sums of the timed calls, logged as a table: calls,
+        device ms, bound ms and what bounds it, x bound, library ms and the
+        launch plan; then the geometry furthest from its bound."""
+        groups = {}
+        for r in rows:
+            g = groups.setdefault((r["kernel"], r["geometry"]), {
+                "kernel": r["kernel"], "geometry": r["geometry"],
+                "variant": r["variant"], "calls": 0, "ms": 0.0,
+                "bound_ms": 0.0, "library_ms": 0.0, "flops": 0,
+                "bytes": 0})
+            g["calls"] += 1
+            for k in ("ms", "bound_ms", "library_ms", "flops", "bytes"):
+                g[k] += r[k]
+        table = sorted(groups.values(), key=lambda g: -g["ms"])
+        log("  per geometry (sums over a forward's calls; device ms):")
+        log(f"    {'kernel':18s} {'calls':>5s} {'ms':>7s} {'bound':>7s} "
+            f"{'by':5s} {'xbound':>6s} {'library':>7s}  variant  geometry")
+        for g in table:
+            by = ("ops" if g["flops"] / PEAK_FP32_FLOPS
+                  >= g["bytes"] / PEAK_BYTES_S else "bytes")
+            g["bound_by"] = "operations" if by == "ops" else "bytes"
+            g["x_bound"] = g["ms"] / g["bound_ms"]
+            log(f"    {g['kernel']:18s} {g['calls']:5d} {g['ms']:7.4f} "
+                f"{g['bound_ms']:7.4f} {by:5s} {g['x_bound']:6.1f} "
+                f"{g['library_ms']:7.4f}  {g['variant']}  {g['geometry']}")
+        worst = max(table, key=lambda g: g["x_bound"])
+        log(f"  worst x bound: {worst['x_bound']:.1f} ({worst['kernel']} "
+            f"{worst['geometry']}, {worst['ms']:.4f} ms against "
+            f"{worst['bound_ms']:.4f})")
+        return table
 
     def profile_forward(self, model, x, wall_ms):
         """Device time of one kernels-backend forward by kernel name
@@ -825,6 +886,16 @@ class Smoke:
         return (f"x{tuple(x.shape)} w{tuple(w.shape)} s{args[2]} "
                 f"p({args[3]},{args[4]}) ep({int(spec.bn)}{int(spec.prelu)}"
                 f"{spec.residual})")
+
+    def variant(self, name, args):
+        """The launch plan of a recorded call: its variant and tile width."""
+        x, w = args[0], args[1]
+        if name == "conv2d":
+            plan = self.kconv.conv_plan(x.shape[-1], w.shape[-1], w.shape[0],
+                                        w.shape[1], args[2])
+        else:
+            plan = self.ktr.tconv_plan(x.shape[-1], w.shape[-1], w.shape[0])
+        return f"{plan.variant}/n{plan.bn}"
 
     def work(self, name, args):
         """(flops of the nonzero MACs, bytes each operand moves once)."""

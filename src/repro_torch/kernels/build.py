@@ -126,13 +126,45 @@ _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
-_TEMPLATE_ARG = re.compile(r"Li(\d+)E|f|\d+__nv_bfloat16")
+_SCALAR_ARG = re.compile(r"Li(-?\d+)E|Lb([01])E|f|\d+__nv_bfloat16")
+
+
+def _template_args(rest: str) -> tuple[list[str], str]:
+    """Parse a mangled template argument list after its ``I`` up to and
+    including its ``E``: ints, bools, float, bf16 and ``repro::`` class
+    templates (``NS_4TileILi32E...EE``).  Returns (args, what follows)."""
+    args = []
+    while rest and not rest.startswith("E"):
+        nested = re.match(r"NS_(\d+)", rest)
+        if nested is not None:
+            end = nested.end() + int(nested.group(1))
+            name, rest = rest[nested.end():end], rest[end:]
+            if rest.startswith("I"):
+                inner, rest = _template_args(rest[1:])
+                name = f"{name}<{', '.join(inner)}>"
+            if not rest.startswith("E"):
+                break
+            args.append(name)
+            rest = rest[1:]
+            continue
+        t = _SCALAR_ARG.match(rest)
+        if t is None:
+            break
+        if t.group(1) is not None:
+            args.append(t.group(1))
+        elif t.group(2) is not None:
+            args.append("true" if t.group(2) == "1" else "false")
+        else:
+            args.append("float" if t.group(0) == "f" else "bf16")
+        rest = rest[t.end():]
+    return args, rest[1:]
 
 
 def kernel_name(mangled: str) -> str:
     """A readable name of a ``repro::`` kernel's mangled symbol: the function
     and its template arguments (``flash_attention_wgmma_kernel<64>``,
-    ``matmul_kernel<float>``); other symbols as they are."""
+    ``conv2d_kernel<Tile<32, 32, 4>, 4, true>``); other symbols as they
+    are."""
     m = re.match(r"_ZN5repro(\d+)", mangled)
     if m is None:
         return mangled
@@ -140,13 +172,7 @@ def kernel_name(mangled: str) -> str:
     name, rest = rest[:int(m.group(1))], rest[int(m.group(1)):]
     if not rest.startswith("I"):
         return name
-    args, rest = [], rest[1:]
-    while rest and not rest.startswith("E"):
-        t = _TEMPLATE_ARG.match(rest)
-        if t is None:
-            break
-        args.append(t.group(1) or ("float" if t.group(0) == "f" else "bf16"))
-        rest = rest[t.end():]
+    args, _ = _template_args(rest[1:])
     return f"{name}<{', '.join(args)}>"
 
 

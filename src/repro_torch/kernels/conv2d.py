@@ -2,30 +2,40 @@
 
 Replaces the TPU kernel ``src/repro/kernels/conv2d.py::_conv_kernel``
 (launched by ``_conv2d_raw``, ``pallas_call`` at ``conv2d.py:195``).  The
-kernel (``csrc/conv2d.cu``) is one implicit GEMM in fp32 on the CUDA cores:
-M = output pixels, N = Cout, K = kh*kw*Cin, with the weight slab of each
-Cout tile staged in shared memory, inputs read under bounds masks (so
-padding is implicit) and the fused epilogue (``csrc/epilogue.cuh``) applied
-in registers before an NHWC store.  It carries every dense conv of ENet and,
-through :mod:`repro_torch.kernels.dilated_conv`, every dilated conv.
+kernel (``csrc/conv2d.cu`` on ``csrc/igemm.cuh``) is one implicit GEMM in
+fp32 on the CUDA cores: M = output pixels, N = Cout, K = kh*kw*Cin walked
+tap-major, inputs gathered under bounds masks (so padding is implicit) by
+asynchronous copies through a 4-stage ring, the Cout tile's weight slab
+resident in shared memory, and the fused epilogue (``csrc/epilogue.cuh``)
+applied as the tile leaves through shared memory in 16-byte stores.  It
+carries every dense conv of ENet and, through
+:mod:`repro_torch.kernels.dilated_conv`, every dilated conv.
 
-Bound on the H100: device-memory bytes (3.35 TB/s) for the thin 1x1
-projections that dominate ENet, fp32 CUDA-core FMAs (67 TFLOP/s) for the
-wide 3x3 layers.  Against the bytes, the epilogue is fused, so each output
-is written once and BN/PReLU/residual cost no extra pass; against the
-FMAs, each thread reuses its staged operands over a 4 x TN register tile.
-This first version is simple and right: over the ENet-512 batch-4 forward
-it takes 2.38 ms against a 0.447 ms bound (H100 80GB HBM3, 700 W;
-PERF.md).
+Bound on the H100.  ENet's convs are thin (Cin, Cout 3..128): a forward's
+dense convs do 14.5 GFLOP, 0.217 ms at the 67 TFLOP/s of the CUDA cores,
+against 0.447 ms of bytes at 3.35 TB/s.  Layer by layer, the 1x1
+projections (the 128->64 one as much by its FMAs), the k2 s2 downsamples,
+the stem and the decoder's 3x3 4->4 are bound by device-memory bytes; the
+3x3 (dense and dilated), 5x1 and 1x5 layers at Cin 16-32 are bound by
+their FMAs.  So the design keeps loads in flight, stores wide and
+FMAs fed from float4 shared reads, and the epilogue is fused, so each
+output is written once.  No TF32: it would break the 1e-4 fp32 bar (3xTF32
+for the FMA-bound layers is in ROADMAP.md).
 
-:func:`conv2d` takes its plain version, :func:`conv2d_plain` (a tap sum of
-``torch.matmul``), only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises.  ``conv2d.launches`` counts kernel launches.
+:func:`conv_plan` picks a launch's variant from the layer's shape alone: the
+copy width (16 bytes when Cin % 4 == 0, else 4), the Cout tile (4, 8, 16,
+20, 32 or 64 wide) and resident or streamed weights.  :func:`conv2d` takes
+its plain version, :func:`conv2d_plain` (a tap sum of ``torch.matmul``),
+only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
+raises.  ``conv2d.launches`` counts kernel launches and
+``conv2d.launches_by_variant`` splits them by :attr:`ConvPlan.variant`.
+PERF.md has each ENet layer's time beside its bound.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +126,83 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 conv2d.launches = 0
 
 
+#: the kernel's tiles by C id (``csrc/igemm.cuh::dispatch_tile``): Cout
+#: width BN, couts per thread TN, thread rows TY, pixels per thread TM and
+#: K groups KS (split K inside the block); BM = TY * TM pixels a block.
+TILES = ((4, 4, 128, 2, 1), (8, 4, 64, 4, 1), (16, 4, 64, 2, 1),
+         (20, 4, 32, 4, 1), (32, 4, 32, 4, 1), (64, 4, 16, 8, 1),
+         (32, 8, 16, 8, 4))
+#: the tiles of one K group and 4 couts a thread, narrowest first: every
+#: Cout width of the transposed conv, and of conv_plan but 32
+PLAN_TILES = (0, 1, 2, 3, 4, 5)
+#: conv_plan's tile for a Cout tile 32 wide: 8 x 8 register tiles in 4 K
+#: groups, faster than tile 4 on all of ENet's Cout-32 convs (PERF.md §6);
+#: ``csrc/conv2d.cu`` builds no dense kernel of tile 4
+SPLIT_K_TILE = 6
+#: K rows per pipeline stage (``kBK``)
+K_STEP = 16
+#: weight slabs up to this size stay in shared memory (``kResidentBytes``)
+RESIDENT_BYTES = 48 * 1024
+VARIANTS = ("vec4-resident", "vec4-streamed", "scalar-resident",
+            "scalar-streamed")
+conv2d.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+class ConvPlan(NamedTuple):
+    """How ``csrc/conv2d.cu`` runs one conv."""
+
+    vec: int        # floats per async copy of x: 4 (16 bytes) or 1
+    tile: int       # index into TILES
+    resident: bool  # the Cout tile's weight slab stays in shared memory
+
+    @property
+    def bn(self) -> int:
+        """Couts per block."""
+        return TILES[self.tile][0]
+
+    @property
+    def variant(self) -> str:
+        return (f"{'vec4' if self.vec == 4 else 'scalar'}-"
+                f"{'resident' if self.resident else 'streamed'}")
+
+
+def cout_tile(cout: int, widest: int = 64) -> int:
+    """The narrowest tile (index into TILES) at least ``cout`` wide, or the
+    widest allowed one when none is (then Cout takes several tiles)."""
+    fits = [i for i in PLAN_TILES if TILES[i][0] <= widest]
+    for i in fits:
+        if TILES[i][0] >= cout:
+            return i
+    return fits[-1]
+
+
+def conv_plan(cin: int, cout: int, kh: int, kw: int,
+              stride: int) -> ConvPlan:
+    """The variant of ``csrc/conv2d.cu`` for a (kh, kw, cin, cout) conv.
+
+    16-byte copies of the input when ``cin % 4 == 0`` (a group of 4 K rows
+    is then 4 channels of one tap), else 4-byte ones; the narrowest Cout
+    tile that covers ``cout`` (64 wide past 64; a 32-wide one splits K
+    over 4 thread groups, ``SPLIT_K_TILE``); the weight slab resident
+    when its ``ceil(K / 16) * 16`` rows of the tile fit ``RESIDENT_BYTES``.
+    The stride changes the gather's addresses, not the plan.
+    """
+    if min(cin, cout, kh, kw, stride) < 1:
+        raise ValueError(f"conv_plan: bad conv ({kh}, {kw}, {cin}, {cout}) "
+                         f"stride {stride}")
+    tile = cout_tile(cout)
+    if TILES[tile][0] == TILES[SPLIT_K_TILE][0]:
+        tile = SPLIT_K_TILE
+    return ConvPlan(vec=4 if cin % 4 == 0 else 1, tile=tile,
+                    resident=slab_fits(kh * kw * cin, tile))
+
+
+def slab_fits(k: int, tile: int) -> bool:
+    """Whether the weight slab of ``k`` K rows (rounded up to whole
+    stages) and one Cout tile of ``tile`` fits ``RESIDENT_BYTES``."""
+    return -(-k // K_STEP) * K_STEP * TILES[tile][0] * 4 <= RESIDENT_BYTES
+
+
 def conv2d_plain(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
                  spec: EpilogueSpec, eps: tuple) -> torch.Tensor:
     """Plain version: the conv as a sum of kh*kw shifted ``torch.matmul``
@@ -141,7 +228,7 @@ def _conv2d_fn():
     lib = build.load("conv2d")
     fn = lib.conv2d_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 15
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 18
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.conv2d_error_string.argtypes = [ctypes.c_int]
@@ -151,7 +238,9 @@ def _conv2d_fn():
 
 def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
                 spec: EpilogueSpec, eps: tuple) -> torch.Tensor:
-    """Launch ``csrc/conv2d.cu`` on PyTorch's current stream."""
+    """Launch ``csrc/conv2d.cu`` on PyTorch's current stream, with
+    :func:`conv_plan`'s variant.  An input that is not 16-byte aligned
+    takes the 4-byte copies."""
     require_cuda(x, w, "conv2d_cuda")
     n, h, w_in, cin = x.shape
     kh, kw, _, cout = w.shape
@@ -162,17 +251,23 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
         raise ValueError(f"conv2d: empty output {oh}x{ow}")
     out = torch.empty((n, oh, ow, cout), device=x.device, dtype=x.dtype)
     ops = kernel_operands(spec, eps, tuple(out.shape), x.device)
+    plan = conv_plan(cin, cout, kh, kw, stride)
+    if x.data_ptr() % 16:
+        plan = plan._replace(vec=1)
     lib, fn = _conv2d_fn()
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                   *operand_ptrs(ops), n, h, w_in, cin, oh, ow, cout, kh, kw,
                   stride, pt, pl, int(spec.bn), int(spec.prelu),
-                  residual_code(spec),
+                  residual_code(spec), plan.vec, plan.tile,
+                  int(plan.resident),
                   torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(code, "conv2d", lib.conv2d_error_string)
+    build.check(code, f"conv2d ({plan.variant})", lib.conv2d_error_string)
     conv2d.launches += 1
+    conv2d.launches_by_variant[plan.variant] += 1
     return out
 
 
-__all__ = ["conv2d", "conv2d_plain", "conv2d_cuda", "resolve_pads",
+__all__ = ["conv2d", "conv2d_plain", "conv2d_cuda", "conv_plan", "ConvPlan",
+           "cout_tile", "slab_fits", "TILES", "VARIANTS", "resolve_pads",
            "out_extent", "check_operands", "require_cuda"]

@@ -3,17 +3,21 @@
 // Replaces the TPU kernel src/repro/kernels/conv2d.py::_conv_kernel
 // (pallas_call at conv2d.py:195), which sums kh*kw shifted GEMM taps into an
 // fp32 accumulator.  Here the whole conv is one implicit GEMM (igemm.cuh):
-// grid (pixel tile, Cout tile), K = kh*kw*Cin walked in steps of 16, the
-// weight slab of the Cout tile staged in shared memory step by step, and
-// every input read masked against the bounds, so the per-dim (low, high)
-// pads of SAME (asymmetric for even k), VALID and int padding cost nothing
-// and need no padded copy or halo.  The high pads only set the output
-// extent, which the caller passes.  Stride is any positive integer;
-// rectangular kernels (5x1 / 1x5) are native.
+// grid (pixel tile, Cout tile), K = kh*kw*Cin walked tap-major through a
+// 4-stage ring of asynchronous copies, the weight slab of the Cout tile
+// resident in shared memory, every input read masked against the bounds
+// (the copy zero-fills), so the per-dim (low, high) pads of SAME
+// (asymmetric for even k), VALID and int padding cost nothing and need no
+// padded copy or halo.  The high pads only set the output extent, which
+// the caller passes.  Stride is any positive integer; rectangular kernels
+// (5x1 / 1x5) are native.
 //
-// Bound on the H100: fp32 CUDA-core FMAs for the 3x3 layers (Cin 16..128),
-// device-memory bytes for the 1x1 projections; see PERF.md for the measured
-// time beside the bound.
+// Bound on the H100 (igemm.cuh): device-memory bytes for ENet's 1x1
+// projections, k2 s2 downsamples, stem and decoder 3x3 4->4; FMAs for its
+// 3x3 (dense and dilated), 5x1 and 1x5 layers at Cin 16-32.  The plan (kernels/conv2d.py::conv_plan)
+// picks the copy width (16 bytes when Cin % 4 == 0), the Cout tile and
+// resident or streamed weights; PERF.md has each layer's time beside its
+// bound.
 
 #include <cuda_runtime.h>
 
@@ -21,51 +25,46 @@
 
 namespace repro {
 
-struct ConvGeo {
-  int64_t M;  // n * oh * ow
-  int K;      // kh * kw * cin
-  int h, w, cin, cout;
-  int oh, ow, kw, stride, pad_top, pad_left;
-
-  __device__ __forceinline__ Pix a_pixel(int64_t m) const {
-    if (m >= M) return {0, kNoPixel, kNoPixel};
-    const int64_t hw = static_cast<int64_t>(oh) * ow;
-    const int64_t n = m / hw;
-    const int rem = static_cast<int>(m - n * hw);
-    const int oy = rem / ow, ox = rem % ow;
-    return {n * h * w * cin, oy * stride - pad_top, ox * stride - pad_left};
-  }
-
-  __device__ __forceinline__ bool out_offset(int64_t m, int64_t* off) const {
-    *off = m * cout;
-    return m < M;
-  }
-
-  __device__ __forceinline__ Tap tap(int k) const {
-    const int ci = k % cin;
-    const int tp = k / cin;
-    // HWIO flattens (dy, dx, ci) in exactly this order: the row is k
-    return {tp / kw, tp % kw, ci, k};
-  }
-};
-
-template <class T>
-__global__ void __launch_bounds__(kThreads)
+template <class T, int VEC, bool RESIDENT>
+__global__ void __launch_bounds__(T::THREADS)
     conv2d_kernel(ConvGeo g, const float* __restrict__ x,
                   const float* __restrict__ w, float* __restrict__ out,
                   Epilogue ep) {
-  igemm_tile<T>(g, x, w, out, ep);
+  igemm_conv<T, VEC, RESIDENT>(g, x, w, out, ep);
+}
+
+template <class T, int V, bool RESIDENT>
+cudaError_t launch_conv2d(const ConvGeo& g, const float* x, const float* w,
+                          float* out, const Epilogue& ep, cudaStream_t st) {
+  const int bytes = static_cast<int>(
+      ConvSmem::of<T>(g.K, RESIDENT, ep.residual_mode != kResidualNone)
+          .total *
+      sizeof(float));
+  static unsigned smem_set = 0;
+  cudaError_t err = allow_big_smem(
+      reinterpret_cast<const void*>(conv2d_kernel<T, V, RESIDENT>), bytes,
+      &smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(static_cast<unsigned>((g.M + T::BM - 1) / T::BM),
+            static_cast<unsigned>((g.cout + T::BN - 1) / T::BN), 1);
+  conv2d_kernel<T, V, RESIDENT><<<grid, T::THREADS, bytes, st>>>(g, x, w,
+                                                                  out, ep);
+  return cudaGetLastError();
 }
 
 }  // namespace repro
 
+// vec: 4 (16-byte copies of x; needs Cin % 4 == 0 and a 16-byte aligned x)
+// or 1; tile: an id of dispatch_tile but the one-group 32-wide tile; resident: keep the weight slab in
+// shared memory.
+// Returns cudaErrorInvalidValue for a plan the kernel cannot run.
 extern "C" int conv2d_fwd(const float* x, const float* w, float* out,
                           const float* scale, const float* shift,
                           const float* alpha, const float* residual, int n,
                           int h, int w_in, int cin, int oh, int ow, int cout,
                           int kh, int kw, int stride, int pad_top,
                           int pad_left, int bn, int prelu, int residual_mode,
-                          void* stream) {
+                          int vec, int tile, int resident, void* stream) {
   using namespace repro;
   ConvGeo g;
   g.M = static_cast<int64_t>(n) * oh * ow;
@@ -80,16 +79,25 @@ extern "C" int conv2d_fwd(const float* x, const float* w, float* out,
   g.stride = stride;
   g.pad_top = pad_top;
   g.pad_left = pad_left;
+  if (vec == 4 && (cin % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Epilogue ep = {scale, shift, alpha, residual, bn, prelu,
                        residual_mode};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dispatch_tile(cout, [&](auto tile) {
-    using T = decltype(tile);
-    dim3 grid(static_cast<unsigned>((g.M + T::BM - 1) / T::BM),
-              static_cast<unsigned>((cout + T::BN - 1) / T::BN), 1);
-    conv2d_kernel<T><<<grid, kThreads, 0, st>>>(g, x, w, out, ep);
+  cudaError_t err = cudaErrorInvalidValue;
+  dispatch_tile(tile, [&](auto t) {
+    using T = decltype(t);
+    // conv_plan takes the split-K tile for a 32-wide Cout tile, so the
+    // one-group 32-wide tile (the transposed conv's) is not built here
+    if constexpr (!(T::BN == 32 && T::KS == 1)) {
+      dispatch_vec(vec, [&](auto v) {
+        constexpr int V = decltype(v)::value;
+        err = resident ? launch_conv2d<T, V, true>(g, x, w, out, ep, st)
+                       : launch_conv2d<T, V, false>(g, x, w, out, ep, st);
+      });
+    }
   });
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 extern "C" const char* conv2d_error_string(int code) {

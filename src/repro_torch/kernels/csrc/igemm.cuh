@@ -1,158 +1,551 @@
-// Implicit-GEMM tile loop shared by the dense and the transposed conv kernels.
+// Implicit-GEMM building blocks of the dense and the transposed conv
+// kernels, fp32 on the CUDA cores, for sm_90a.
 //
-// A conv is a GEMM with M = output pixels, N = Cout and K = live taps x Cin,
-// whose A operand (the im2col matrix) is never materialised: each K step
-// reads the input at (pixel, tap) with bounds masks, so zero padding costs
-// no memory.  A block owns a BM x BN output tile.  Per K step of BK it
-// stages a BM x BK slice of A and the BK x BN slice of the weight slab in
-// shared memory, then each of the 256 threads accumulates a TM x TN register
-// tile in fp32 on the CUDA cores (no TF32: the port holds fp32 to the
-// reference's 1e-5).  The epilogue runs on the registers and the result is
-// stored straight to NHWC.
+// A conv is a GEMM with M = output pixels, N = Cout and K = taps x Cin whose
+// A operand (the im2col matrix) is never materialised.  ENet's convs are
+// thin (Cin and Cout 3..128): the ENet-512 batch-4 forward's dense convs do
+// 14.5 GFLOP (0.217 ms at the 67 TFLOP/s of the CUDA cores) against 0.447
+// ms for their bytes at 3.35 TB/s.  Layer by layer on the H100, the 1x1
+// projections (the 128->64 one as much by its FMAs), the k2 s2
+// downsamples, the stem, the decoder's 3x3 4->4 and the transposed convs
+// are bound by device-memory bytes; the 3x3 (dense and dilated), 5x1 and
+// 1x5 layers at Cin 16-32 by their FMAs (PERF.md §6).  So the design keeps
+// loads in flight and stores wide, feeds the FMAs from float4 shared reads,
+// and uses no tensor cores: TF32 would break the port's 1e-4 fp32 bar, and
+// 3xTF32 on mma.sync is the lever left for the FMA-bound layers
+// (ROADMAP.md).
 //
-// What differs between the kernels is only the geometry, a small struct the
-// kernel passes in (see conv2d.cu, transposed_conv.cu):
-//   int64_t M; int K, h, w, cin, cout;
-//   Pix  a_pixel(int64_t m)            input origin of output pixel m
-//   bool out_offset(int64_t m, int64_t* off)   NHWC offset of pixel m
-//   Tap  tap(int k)                    (dy, dx, ci, weight row) of GEMM row k
+//   * Tap-major K.  K runs over (tap, Cin) in HWIO order, so a group of 4
+//     consecutive K rows is 4 channels of one tap: the tap is decoded once
+//     per group and per pipeline stage, and the A gather of one pixel at one
+//     tap is a contiguous channel run.
+//   * Async copies.  A is gathered with 16-byte `cp.async` when Cin % 4 ==
+//     0 (4-byte otherwise, as for the stem's Cin 3), through L1 (`.ca`), so
+//     the taps of a 3x3 find their neighbours' lines there; the 16-byte
+//     copies of weights and residual bypass L1 (`.cg`).  A tap outside the
+//     image, a pixel past M or a K row past K copies with src-size 0,
+//     which zero-fills: padding stays free and needs no branch around the
+//     copy.
+//   * Pipeline.  A ring of kStages stages of kBK = 16 K rows, with
+//     commit_group / wait_group, keeps the next three stages' loads in
+//     flight while the FMAs of the current one run.
+//   * Resident weights.  The block's K x BN weight slab is copied into
+//     shared memory once, with the first stage, when it fits kResidentBytes
+//     (every ENet conv: 36 KB at most).  A larger slab streams through the
+//     ring beside A.  A residual operand rides the fourth stage into shared
+//     memory, so the epilogue never waits on it.
+//   * Register tiles.  A thread owns TM pixels (strided by TY, so lanes on
+//     consecutive pixels read distinct bank groups) by TN couts; a 4-deep K
+//     slice is TM + TN float4 shared reads for 4 TM TN FMAs.  Cout tiles of
+//     4, 8, 16, 20, 32 and 64 fit ENet's 4, 13, 16, 19, 32, 64 and 128.
+//     The 32-wide tile takes 8 x 8 register tiles and splits each stage's
+//     K over 4 thread groups, whose partial sums meet in shared memory:
+//     fewer shared reads per FMA, and as many threads as a 4 x 4 tile.
+//   * Epilogue.  The accumulators go to shared memory; the block then walks
+//     its output rows in NHWC order and writes the result with 16-byte
+//     accesses (the fused epilogue of epilogue.cuh in between, with scale,
+//     shift and alpha staged once per block).
 //
-// Bound: fp32 CUDA-core FMAs for the wide layers, device-memory bytes for
-// the thin ones (Cin or Cout of 4..16).  This first version keeps every
-// operand fp32 and issues scalar shared-memory reads; wgmma/TMA pipelines
-// are later work (ROADMAP.md).
+// The TMA's im2col mode was the other way to feed A.  cp.async was chosen:
+// a tensor map would be encoded on the host at every call of a host-bound
+// forward, and a 16-byte channel run per pixel and tap (Cin 4 and 16) is
+// the TMA's smallest box anyway.
 #pragma once
 
 #include <climits>
 #include <cstdint>
 
+#include <cuda_runtime.h>
+
 #include "epilogue.cuh"
 
 namespace repro {
 
-constexpr int kThreads = 256;
-constexpr int kBK = 16;
+constexpr int kBK = 16;      // K rows per pipeline stage
+constexpr int kStages = 4;   // depth of the ring
+constexpr int kAStride = kBK + 4;  // floats per staged pixel: 5 quads, odd
+// weight slabs up to this size stay in shared memory (conv2d.py mirrors it)
+constexpr int kResidentBytes = 48 * 1024;
 // an invalid pixel's input origin: every tap then fails the bounds check
 constexpr int kNoPixel = INT_MIN / 2;
 
-struct Pix {
-  int64_t base;  // offset of the image in the NHWC input
-  int iy0, ix0;  // input row/col that tap offset (0, 0) reads
+// --------------------------------------------------------------- cp.async
+// Copy VEC floats from global `src` to shared `dst`, or zero-fill them when
+// `valid` is false (src-size 0: nothing is read, but `src` must still be a
+// mapped address).  L1: keep the line in L1 too (`.ca`), for the input
+// gather, whose taps read neighbouring pixels again; else L2 only (`.cg`).
+template <int VEC, bool L1 = false>
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (VEC == 4 && L1) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else if constexpr (VEC == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    static_assert(VEC == 1, "4- or 16-byte copies");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ----------------------------------------------------------------- tiles
+// A block computes BM = TY * TM pixels by BN couts.  Its threads form KS
+// groups of TX * TY (TX = BN / TN); a thread owns pixels ty + i * TY
+// (i < TM) and couts TN tx .. TN tx + TN - 1, and its group takes every
+// KS-th 4-deep K slice of each stage (split K inside the block: more
+// threads for a large register tile, whose partial sums meet in shared
+// memory before the store).
+template <int BN_, int TN_, int TY_, int TM_, int KS_>
+struct Tile {
+  static constexpr int BN = BN_, TN = TN_, TY = TY_, TM = TM_, KS = KS_;
+  static constexpr int TX = BN / TN;
+  static constexpr int GROUP = TX * TY;
+  static constexpr int THREADS = GROUP * KS;
+  static constexpr int BM = TY * TM;
+  // row stride (floats) of a staged output tile: whole 16-byte quads, an
+  // odd number of them, so lanes on consecutive rows hit distinct banks
+  static constexpr int CS = (BN / 4) % 2 ? BN : BN + 4;
+  static_assert(BN % TN == 0 && TN % 4 == 0 && THREADS <= 256 &&
+                    (kBK / 4) % KS == 0,
+                "tile shape");
 };
 
-struct Tap {
-  int dy, dx, ci;
-  int64_t wrow;  // row of the (K, Cout) weight matrix
+// Run `f(Tile{})` for tile id `id` (conv2d.py: TILES, in this order);
+// false for an unknown id.
+template <class F>
+inline bool dispatch_tile(int id, F&& f) {
+  switch (id) {
+    case 0: f(Tile<4, 4, 128, 2, 1>{}); return true;
+    case 1: f(Tile<8, 4, 64, 4, 1>{}); return true;
+    case 2: f(Tile<16, 4, 64, 2, 1>{}); return true;
+    case 3: f(Tile<20, 4, 32, 4, 1>{}); return true;
+    case 4: f(Tile<32, 4, 32, 4, 1>{}); return true;
+    case 5: f(Tile<64, 4, 16, 8, 1>{}); return true;
+    case 6: f(Tile<32, 8, 16, 8, 4>{}); return true;
+    default: return false;
+  }
+}
+
+// Call `f(Vec<V>{})` for a copy width V of 1 or 4 floats.
+template <int V>
+struct Vec {
+  static constexpr int value = V;
+};
+template <class F>
+inline bool dispatch_vec(int vec, F&& f) {
+  if (vec == 4) { f(Vec<4>{}); return true; }
+  if (vec == 1) { f(Vec<1>{}); return true; }
+  return false;
+}
+
+// Let `kernel` take up to the card's opt-in shared memory, once a device:
+// `done` (one bit per device) is the caller's static flag for this kernel.
+inline cudaError_t allow_big_smem(const void* kernel, int bytes,
+                                  unsigned* done) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 32 && (*done >> dev) & 1u) return cudaSuccess;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (bytes > optin) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (err == cudaSuccess && dev < 32) *done |= 1u << dev;
+  return err;
+}
+
+// ------------------------------------------------------------ register tile
+__device__ __forceinline__ float lane(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// acc[i][j] += sum_q a[i][q] * b[q][j]: one 4-deep K slice of the tile;
+// b[q][jn] holds couts 4 jn .. 4 jn + 3 of K row q
+template <int TM, int TN>
+__device__ __forceinline__ void fma_slice(float (&acc)[TM][TN],
+                                          const float4 (&a)[TM],
+                                          const float4 (&b)[4][TN / 4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float av = lane(a[i], q);
+#pragma unroll
+      for (int jn = 0; jn < TN / 4; ++jn) {
+        acc[i][4 * jn] = fmaf(av, b[q][jn].x, acc[i][4 * jn]);
+        acc[i][4 * jn + 1] = fmaf(av, b[q][jn].y, acc[i][4 * jn + 1]);
+        acc[i][4 * jn + 2] = fmaf(av, b[q][jn].z, acc[i][4 * jn + 2]);
+        acc[i][4 * jn + 3] = fmaf(av, b[q][jn].w, acc[i][4 * jn + 3]);
+      }
+    }
+}
+
+// ------------------------------------------------------ weight slab copies
+// Copy K rows k0 .. k0 + rows - 1 of the (K, Cout) weight matrix, columns
+// n0 .. n0 + BN - 1, into dst (rows of BN floats); rows past K and columns
+// past Cout are zero-filled.  16-byte copies when Cout % 4 == 0 and the
+// weights are 16-byte aligned, else 4-byte.
+template <class T>
+__device__ __forceinline__ void copy_weights(float* dst, const float* w,
+                                             int k0, int rows, int K,
+                                             int cout, int n0, bool wide) {
+  if (wide) {
+    constexpr int Q = T::BN / 4;
+    for (int e = threadIdx.x; e < rows * Q; e += T::THREADS) {
+      const int r = e / Q, c = (e - r * Q) * 4;
+      const bool v = k0 + r < K && n0 + c < cout;
+      copy_async<4>(dst + r * T::BN + c,
+                    v ? w + static_cast<int64_t>(k0 + r) * cout + n0 + c : w,
+                    v);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * T::BN; e += T::THREADS) {
+      const int r = e / T::BN, c = e - r * T::BN;
+      const bool v = k0 + r < K && n0 + c < cout;
+      copy_async<1>(dst + r * T::BN + c,
+                    v ? w + static_cast<int64_t>(k0 + r) * cout + n0 + c : w,
+                    v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- epilogue
+// scale, shift and alpha of the block's BN couts, staged once (ev: 3 * BN)
+template <class T>
+__device__ __forceinline__ void stage_epilogue(float* ev, const Epilogue& ep,
+                                               int n0, int cout) {
+  for (int c = threadIdx.x; c < T::BN; c += T::THREADS) {
+    const int co = n0 + c;
+    const bool v = co < cout;
+    ev[c] = ep.bn && v ? ep.scale[co] : 1.0f;
+    ev[T::BN + c] = ep.bn && v ? ep.shift[co] : 0.0f;
+    ev[2 * T::BN + c] = ep.prelu && v ? ep.alpha[co] : 0.0f;
+  }
+}
+
+// Write a staged output tile `cs` (pixels of T::CS floats) to NHWC `out`
+// with the fused epilogue.  The tile is `nruns` runs of consecutive output
+// pixels: run r's pixel i is staged at cs[(r * run_stride + i) * CS] and is
+// output pixel pix0 + i, where run(r, &pix0, &npix) gives the run.  The
+// threads walk each run's (pixel, channel) elements 4 at a time.  A quad is
+// one float4 shared read when the block's width nb is a multiple of 4 (it
+// then lies in one pixel), and one float4 residual read and store when its
+// 4 elements are adjacent and 16-byte aligned in `out` (Cout % 4 == 0, or
+// the block covers all of Cout and the run is aligned).  `rs`, when not
+// null, is the residual already staged like `cs`; else the residual is
+// read from global memory.
+template <class T, class Run>
+__device__ __forceinline__ void store_tile(const float* cs, const float* rs,
+                                           const float* ev, int nruns,
+                                           int run_stride, Run run, int n0,
+                                           int cout, float* __restrict__ out,
+                                           const Epilogue& ep) {
+  const int nb = min(T::BN, cout - n0);
+  const bool has_res = ep.residual_mode != kResidualNone;
+  const bool res_ok =
+      rs != nullptr || !has_res ||
+      (reinterpret_cast<uintptr_t>(ep.residual) & 15) == 0;
+  const bool in_pixel = nb % 4 == 0;
+  for (int r = 0; r < nruns; ++r) {
+    int64_t pix0;
+    int npix;
+    run(r, &pix0, &npix);
+    const int len = npix * nb;
+    const int64_t base = pix0 * cout + n0;
+    const bool wide =
+        res_ok && ((cout % 4 == 0) ||
+                   (nb == cout && base % 4 == 0 && len % 4 == 0));
+    const float* stage = cs + r * run_stride * T::CS;
+    const float* rstage = rs ? rs + r * run_stride * T::CS : nullptr;
+    for (int e = threadIdx.x * 4; e < len; e += T::THREADS * 4) {
+      const int n = min(4, len - e);
+      int p = e / nb, c = e - p * nb;
+      float4 y, sc, sh, al, res = make_float4(0.f, 0.f, 0.f, 0.f);
+      int64_t off[4];
+      if (in_pixel) {
+        const int st = p * T::CS + c;
+        y = *reinterpret_cast<const float4*>(stage + st);
+        sc = *reinterpret_cast<const float4*>(ev + c);
+        sh = *reinterpret_cast<const float4*>(ev + T::BN + c);
+        al = *reinterpret_cast<const float4*>(ev + 2 * T::BN + c);
+        if (has_res && rs != nullptr)
+          res = *reinterpret_cast<const float4*>(rstage + st);
+        const int64_t o = base + static_cast<int64_t>(p) * cout + c;
+        off[0] = o, off[1] = o + 1, off[2] = o + 2, off[3] = o + 3;
+      } else {
+        float yv[4], scv[4], shv[4], alv[4], rv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (c == nb) {
+            c = 0;
+            ++p;
+          }
+          const int st = p * T::CS + c;
+          const bool in = j < n;
+          yv[j] = in ? stage[st] : 0.0f;
+          rv[j] = in && has_res && rs != nullptr ? rstage[st] : 0.0f;
+          scv[j] = ev[c];
+          shv[j] = ev[T::BN + c];
+          alv[j] = ev[2 * T::BN + c];
+          off[j] = base + static_cast<int64_t>(p) * cout + c;
+          ++c;
+        }
+        y = make_float4(yv[0], yv[1], yv[2], yv[3]);
+        sc = make_float4(scv[0], scv[1], scv[2], scv[3]);
+        sh = make_float4(shv[0], shv[1], shv[2], shv[3]);
+        al = make_float4(alv[0], alv[1], alv[2], alv[3]);
+        res = make_float4(rv[0], rv[1], rv[2], rv[3]);
+      }
+      if (has_res && rs == nullptr) {
+        if (wide) {
+          res = *reinterpret_cast<const float4*>(ep.residual + off[0]);
+        } else {
+          res.x = ep.residual[off[0]];
+          if (n > 1) res.y = ep.residual[off[1]];
+          if (n > 2) res.z = ep.residual[off[2]];
+          if (n > 3) res.w = ep.residual[off[3]];
+        }
+      }
+      const float4 v = apply_epilogue4(y, sc, sh, al, res, ep);
+      if (wide) {
+        *reinterpret_cast<float4*>(out + off[0]) = v;
+      } else {
+        out[off[0]] = v.x;
+        if (n > 1) out[off[1]] = v.y;
+        if (n > 2) out[off[2]] = v.z;
+        if (n > 3) out[off[3]] = v.w;
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------ dense conv igemm
+// NHWC x HWIO conv geometry (conv2d.cu fills it)
+struct ConvGeo {
+  int64_t M;  // n * oh * ow
+  int K;      // kh * kw * cin
+  int h, w, cin, cout;
+  int oh, ow, kw, stride, pad_top, pad_left;
+
+  // (image, input row and col of tap (0, 0)) of output pixel m
+  __device__ __forceinline__ int4 pixel(int64_t m) const {
+    if (m >= M) return make_int4(0, kNoPixel, kNoPixel, 0);
+    const int64_t hw = static_cast<int64_t>(oh) * ow;
+    const int n = static_cast<int>(m / hw);
+    const int rem = static_cast<int>(m - n * hw);
+    const int oy = rem / ow, ox = rem - (rem / ow) * ow;
+    return make_int4(n, oy * stride - pad_top, ox * stride - pad_left, 0);
+  }
 };
 
-template <int BM_, int BN_, int TM_, int TN_>
-struct TileShape {
-  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_;
-  static constexpr int TX = BN / TN;  // threads along Cout
-  static constexpr int TY = BM / TM;  // threads along pixels
-  static constexpr int A_ROWS = BM * kBK / kThreads;  // A pixels per thread
-  static_assert(TX * TY == kThreads, "a tile uses 256 threads");
-  static_assert(BM % (kThreads / kBK) == 0, "A slice splits evenly");
+// Shared memory of igemm_conv, in floats: the A ring (reused by the staged
+// output tile), the weight slab or its ring, the staged residual (when the
+// epilogue adds one), the pixel table, the epilogue's channel operands.
+struct ConvSmem {
+  int nk, a, b, r, pix, ev, total;
+  template <class T>
+  __host__ __device__ static ConvSmem of(int K, bool resident,
+                                         bool residual) {
+    ConvSmem s;
+    s.nk = (K + kBK - 1) / kBK;
+    const int slots = s.nk < kStages ? s.nk : kStages;
+    const int ring = slots * T::BM * kAStride, stage = T::BM * T::CS;
+    s.a = 0;
+    s.b = ring > stage ? ring : stage;
+    s.r = s.b + (resident ? s.nk : slots) * kBK * T::BN;
+    s.pix = s.r + (residual ? stage : 0);
+    s.ev = s.pix + 4 * T::BM;
+    s.total = s.ev + 3 * T::BN;
+    return s;
+  }
 };
 
-template <class T, class Geo>
-__device__ __forceinline__ void igemm_tile(const Geo& g,
+// Copy the block's residual tile (npix pixels from m0, couts n0 .. n0 +
+// nb - 1) into rs, laid out like the staged output tile.
+template <class T>
+__device__ __forceinline__ void copy_residual(float* rs, const float* res,
+                                              int64_t m0, int npix, int n0,
+                                              int cout) {
+  const int nb = min(T::BN, cout - n0);
+  if (cout % 4 == 0 && (reinterpret_cast<uintptr_t>(res) & 15) == 0) {
+    constexpr int Q = T::BN / 4;
+    for (int e = threadIdx.x; e < T::BM * Q; e += T::THREADS) {
+      const int p = e / Q, c = (e - p * Q) * 4;
+      if (p < npix && c < nb)
+        copy_async<4>(rs + p * T::CS + c, res + (m0 + p) * cout + n0 + c,
+                      true);
+    }
+  } else {
+    for (int e = threadIdx.x; e < T::BM * T::BN; e += T::THREADS) {
+      const int p = e / T::BN, c = e - p * T::BN;
+      if (p < npix && c < nb)
+        copy_async<1>(rs + p * T::CS + c, res + (m0 + p) * cout + n0 + c,
+                      true);
+    }
+  }
+}
+
+template <class T, int VEC, bool RESIDENT>
+__device__ __forceinline__ void igemm_conv(const ConvGeo& g,
                                            const float* __restrict__ x,
                                            const float* __restrict__ w,
                                            float* __restrict__ out,
                                            const Epilogue& ep) {
-  // A is stored k-major (+4 pad keeps rows 16-byte aligned, fewer conflicts)
-  __shared__ float As[kBK][T::BM + 4];
-  __shared__ float Bs[kBK][T::BN];
+  extern __shared__ __align__(16) float smem[];
+  const bool has_res = ep.residual_mode != kResidualNone;
+  const ConvSmem L = ConvSmem::of<T>(g.K, RESIDENT, has_res);
+  float* As = smem + L.a;
+  float* Bs = smem + L.b;
+  float* Rs = smem + L.r;
+  int4* pix = reinterpret_cast<int4*>(smem + L.pix);
+  float* ev = smem + L.ev;
 
   const int t = threadIdx.x;
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * T::BM;
   const int n0 = blockIdx.y * T::BN;
+  const int64_t rest = g.M - m0;
+  const int npix = static_cast<int>(rest < T::BM ? rest : T::BM);
+  const bool wide_w = g.cout % 4 == 0 &&
+                      (reinterpret_cast<uintptr_t>(w) & 15) == 0;
 
-  // each thread loads A column ka for pixels pa_row + i * (256 / BK)
-  const int ka = t % kBK;
-  const int pa_row = t / kBK;
-  Pix pa[T::A_ROWS];
+  for (int p = t; p < T::BM; p += T::THREADS) pix[p] = g.pixel(m0 + p);
+  stage_epilogue<T>(ev, ep, n0, g.cout);
+  __syncthreads();
+
+  // thread t copies K group gc (VEC rows) of pixels pr, pr + RPP, ...
+  constexpr int GC = kBK / VEC;
+  constexpr int RPP = T::THREADS / GC;
+  static_assert(T::THREADS % GC == 0, "copy mapping");
+  const int gc = t % GC, pr = t / GC;
+
+  auto load_a = [&](int kt) {
+    const int k = kt * kBK + gc * VEC;
+    const bool kval = k < g.K;
+    const int tap = k / g.cin;
+    const int ci = k - tap * g.cin;
+    const int dy = tap / g.kw, dx = tap - (tap / g.kw) * g.kw;
+    float* dst = As + (kt % kStages) * T::BM * kAStride + gc * VEC;
+    for (int p = pr; p < T::BM; p += RPP) {
+      const int4 q = pix[p];
+      const int iy = q.y + dy, ix = q.z + dx;
+      const bool v = kval &&
+                     static_cast<unsigned>(iy) < static_cast<unsigned>(g.h) &&
+                     static_cast<unsigned>(ix) < static_cast<unsigned>(g.w);
+      const float* src =
+          v ? x + ((static_cast<int64_t>(q.x) * g.h + iy) * g.w + ix) * g.cin +
+                  ci
+            : x;
+      copy_async<VEC, true>(dst + p * kAStride, src, v);
+    }
+  };
+  auto load_b = [&](int kt) {
+    copy_weights<T>(Bs + (kt % kStages) * kBK * T::BN, w, kt * kBK, kBK,
+                    g.K, g.cout, n0, wide_w);
+  };
+
+  if constexpr (RESIDENT)
+    copy_weights<T>(Bs, w, 0, L.nk * kBK, g.K, g.cout, n0, wide_w);
 #pragma unroll
-  for (int i = 0; i < T::A_ROWS; ++i)
-    pa[i] = g.a_pixel(m0 + pa_row + i * (kThreads / kBK));
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < L.nk) {
+      load_a(s);
+      if constexpr (!RESIDENT) load_b(s);
+    }
+    copy_commit();
+  }
 
-  const int tx = t % T::TX;
-  const int ty = t / T::TX;
+  const int kg = t / T::GROUP, tr = t - kg * T::GROUP;
+  const int tx = tr % T::TX, ty = tr / T::TX;
   float acc[T::TM][T::TN];
 #pragma unroll
   for (int i = 0; i < T::TM; ++i)
 #pragma unroll
     for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < g.K; k0 += kBK) {
-    {  // stage A: masked gather of the implicit im2col slice
-      const int k = k0 + ka;
-      const bool kval = k < g.K;
-      Tap tp = {0, 0, 0, 0};
-      if (kval) tp = g.tap(k);
-#pragma unroll
-      for (int i = 0; i < T::A_ROWS; ++i) {
-        const int iy = pa[i].iy0 + tp.dy;
-        const int ix = pa[i].ix0 + tp.dx;
-        float v = 0.0f;
-        if (kval && iy >= 0 && iy < g.h && ix >= 0 && ix < g.w)
-          v = x[pa[i].base + (static_cast<int64_t>(iy) * g.w + ix) * g.cin +
-                tp.ci];
-        As[ka][pa_row + i * (kThreads / kBK)] = v;
-      }
+  for (int kt = 0; kt < L.nk; ++kt) {
+    copy_wait<kStages - 2>();  // stage kt (and a resident slab) landed
+    __syncthreads();           // ... for all threads; slot kt-1 is free
+    const int nxt = kt + kStages - 1;
+    if (nxt < L.nk) {
+      load_a(nxt);
+      if constexpr (!RESIDENT) load_b(nxt);
     }
-    // stage B: the weight slab rows of this K step for the Cout tile
-    for (int e = t; e < kBK * T::BN; e += kThreads) {
-      const int kb = e / T::BN;
-      const int nn = e % T::BN;
-      const int k = k0 + kb;
-      float v = 0.0f;
-      if (k < g.K && n0 + nn < g.cout)
-        v = w[g.tap(k).wrow * g.cout + n0 + nn];
-      Bs[kb][nn] = v;
+    // the residual tile rides with the fourth stage, far ahead of its use
+    if (kt == 0 && has_res) copy_residual<T>(Rs, ep.residual, m0, npix, n0,
+                                             g.cout);
+    copy_commit();
+    const float* a_s = As + (kt % kStages) * T::BM * kAStride;
+    const float* b_s =
+        Bs + (RESIDENT ? kt : kt % kStages) * kBK * T::BN + tx * T::TN;
+#pragma unroll
+    for (int u = 0; u < kBK / 4 / T::KS; ++u) {
+      const int kk = 4 * (kg + u * T::KS);
+      float4 a[T::TM], b[4][T::TN / 4];
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(
+            a_s + (ty + i * T::TY) * kAStride + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int jn = 0; jn < T::TN / 4; ++jn)
+          b[q][jn] = *reinterpret_cast<const float4*>(
+              b_s + (kk + q) * T::BN + 4 * jn);
+      fma_slice(acc, a, b);
     }
-    __syncthreads();
+  }
+  copy_wait<0>();
+  __syncthreads();  // the ring is read out: stage the tile over it
+
+  // the K groups' partial tiles meet in shared memory, one group at a time
+  float* cs = As;
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[T::TM], b[T::TN];
-#pragma unroll
-      for (int i = 0; i < T::TM; ++i) a[i] = As[kk][ty * T::TM + i];
-#pragma unroll
-      for (int j = 0; j < T::TN; ++j) b[j] = Bs[kk][tx * T::TN + j];
+  for (int gi = 0; gi < T::KS; ++gi) {
+    if (kg == gi) {
 #pragma unroll
       for (int i = 0; i < T::TM; ++i)
 #pragma unroll
-        for (int j = 0; j < T::TN; ++j) acc[i][j] += a[i] * b[j];
+        for (int jn = 0; jn < T::TN / 4; ++jn) {
+          float4* o = reinterpret_cast<float4*>(
+              cs + (ty + i * T::TY) * T::CS + tx * T::TN + 4 * jn);
+          float4 v = make_float4(acc[i][4 * jn], acc[i][4 * jn + 1],
+                                 acc[i][4 * jn + 2], acc[i][4 * jn + 3]);
+          if (gi > 0) {
+            const float4 u = *o;
+            v = make_float4(u.x + v.x, u.y + v.y, u.z + v.z, u.w + v.w);
+          }
+          *o = v;
+        }
     }
     __syncthreads();
   }
-
-#pragma unroll
-  for (int i = 0; i < T::TM; ++i) {
-    int64_t off;
-    if (!g.out_offset(m0 + ty * T::TM + i, &off)) continue;
-#pragma unroll
-    for (int j = 0; j < T::TN; ++j) {
-      const int co = n0 + tx * T::TN + j;
-      if (co < g.cout) out[off + co] = apply_epilogue(acc[i][j], ep, co,
-                                                      off + co);
-    }
-  }
-}
-
-// Run `launch(TileShape)` with the tile whose Cout width fits `cout` best:
-// thin layers waste fewer lanes on a narrow tile with more pixels.
-template <class Launch>
-inline void dispatch_tile(int cout, Launch&& launch) {
-  if (cout <= 8)
-    launch(TileShape<128, 8, 4, 1>{});
-  else if (cout <= 16)
-    launch(TileShape<128, 16, 4, 2>{});
-  else if (cout <= 32)
-    launch(TileShape<64, 32, 4, 2>{});
-  else
-    launch(TileShape<64, 64, 4, 4>{});
+  store_tile<T>(
+      cs, has_res ? Rs : nullptr, ev, 1, 0,
+      [&](int, int64_t* p0, int* np) {
+        *p0 = m0;
+        *np = npix;
+      },
+      n0, g.cout, out, ep);
 }
 
 }  // namespace repro

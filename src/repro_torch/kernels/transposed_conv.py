@@ -4,17 +4,21 @@ Replaces the TPU kernel ``src/repro/kernels/transposed_conv.py::_tconv_kernel``
 (launched by ``_tconv_raw``, ``pallas_call`` at ``transposed_conv.py:235``).
 A stride-``s`` transposed conv splits into ``s*s`` parity sub-convolutions
 whose live taps come from :func:`parity_schedule` (paper §II-C, Fig. 6).
-The kernel (``csrc/transposed_conv.cu``) gives each block one parity plane,
-walks only that plane's live taps (MACs issued = nonzero MACs), applies the
-fused epilogue in registers (the all-zero planes of ``k < s`` included),
-and stores each output at its interleaved NHWC position, reading the
-residual there too: no plane buffer and no de-interleave pass.
+As the TPU kernel does, one block of the kernel (``csrc/transposed_conv.cu``)
+takes one input tile and all ``s*s`` parity planes of it: the tile (with its
+halo) and the weights are staged once in shared memory by asynchronous
+copies (the weights per plane instead when a large ``k`` does not fit, see
+:func:`tconv_plan`), each plane walks only its own live taps (MACs issued =
+nonzero MACs), and the planes' results meet in an interleaved output tile in shared
+memory, which leaves as contiguous NHWC rows through the fused epilogue in
+16-byte stores (the all-zero planes of ``k < s`` get the epilogue too).  No
+stride-``s`` scatter, plane buffer or de-interleave pass.
 
-Bound on the H100: device-memory bytes for ENet's thin decoder layers
-(Cin 4..16), fp32 CUDA-core FMAs for wide ones.  The design moves only the
-needed bytes (no zero-inserted input, no plane buffer, fused epilogue);
-over ENet-512 batch 4 it takes 0.417 ms against a 0.032 ms bound, most of
-it in the 19-class head (H100 80GB HBM3, 700 W; PERF.md).
+Bound on the H100: device-memory bytes for ENet's decoder (Cin 4..16).
+The 19-class head moves 97 MB, mostly its fp32 output, and its 1.4 GFLOP
+alone take nearly three quarters of that time at the CUDA cores' 67
+TFLOP/s, so its Cout tile is 20 wide (:func:`tconv_plan`).  PERF.md has
+the times.
 
 Stride 1 is a plain padded conv and routes to the dense kernel
 (:func:`repro_torch.kernels.conv2d.conv2d`), as the reference leaves it to a
@@ -39,9 +43,11 @@ from repro_torch.kernels.epilogue import (NO_EPILOGUE, EpilogueSpec,
                                           operand_ptrs, pack_args,
                                           residual_code)
 
-#: the kernel's fixed schedule arrays (csrc/transposed_conv.cu)
+#: the kernel's fixed schedule arrays and input channels staged at a time
+#: (csrc/transposed_conv.cu)
 MAX_STRIDE = 8
 MAX_TAPS = 8
+CHUNK = 16
 
 
 def parity_schedule(k: int, s: int, p_lo: int) -> list[list[tuple[int, int]]]:
@@ -98,6 +104,19 @@ def transposed_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 2,
 
 
 transposed_conv2d.launches = 0
+
+
+def tconv_plan(cin: int, cout: int, k: int) -> kconv.ConvPlan:
+    """The variant of ``csrc/transposed_conv.cu`` for a (k, k, cin, cout)
+    kernel: 16-byte copies of the input when ``cin % 4 == 0``, the
+    narrowest Cout tile covering ``cout`` (32 wide past 32, so the staged
+    output tile stays small), and the weights of all ``k*k`` taps of a
+    16-channel chunk resident when they fit ``RESIDENT_BYTES``, else
+    streamed per parity plane."""
+    tile = kconv.cout_tile(cout, widest=32)
+    slab = k * k * CHUNK * kconv.TILES[tile][0] * 4
+    return kconv.ConvPlan(vec=4 if cin % 4 == 0 else 1, tile=tile,
+                          resident=slab <= kconv.RESIDENT_BYTES)
 
 
 def _out_hw(x: torch.Tensor, k: int, s: int, p_lo: int,
@@ -166,7 +185,7 @@ def _tconv_fn():
     fn = lib.tconv_fwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.tconv_error_string.argtypes = [ctypes.c_int]
@@ -176,7 +195,9 @@ def _tconv_fn():
 
 def tconv_cuda(x: torch.Tensor, w: torch.Tensor, s: int, p_lo: int,
                p_hi: int, spec: EpilogueSpec, eps: tuple) -> torch.Tensor:
-    """Launch ``csrc/transposed_conv.cu`` on PyTorch's current stream."""
+    """Launch ``csrc/transposed_conv.cu`` on PyTorch's current stream, with
+    :func:`tconv_plan`'s variant.  An input that is not 16-byte aligned
+    takes the 4-byte copies."""
     kconv.require_cuda(x, w, "tconv_cuda")
     n, h, w_in, cin = x.shape
     k, _, _, cout = w.shape
@@ -184,11 +205,15 @@ def tconv_cuda(x: torch.Tensor, w: torch.Tensor, s: int, p_lo: int,
     sched = schedule_array(k, s, p_lo)
     out = torch.empty((n, oh, ow, cout), device=x.device, dtype=x.dtype)
     ops = kernel_operands(spec, eps, tuple(out.shape), x.device)
+    plan = tconv_plan(cin, cout, k)
+    if x.data_ptr() % 16:
+        plan = plan._replace(vec=1)
     lib, fn = _tconv_fn()
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                   *operand_ptrs(ops), n, h, w_in, cin, oh, ow, cout, k, s,
                   sched, int(spec.bn), int(spec.prelu), residual_code(spec),
+                  plan.vec, plan.tile, int(plan.resident),
                   torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "transposed_conv2d", lib.tconv_error_string)
     transposed_conv2d.launches += 1
@@ -196,4 +221,4 @@ def tconv_cuda(x: torch.Tensor, w: torch.Tensor, s: int, p_lo: int,
 
 
 __all__ = ["parity_schedule", "transposed_conv2d", "tconv_plain",
-           "tconv_cuda", "schedule_array"]
+           "tconv_cuda", "tconv_plan", "schedule_array"]

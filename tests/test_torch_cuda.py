@@ -14,7 +14,13 @@ apart, so the bar there holds at every element:
 ``|kernel - plain| <= 2**-7 * |plain| + 1e-4 * max(1, max |plain|)``.
 bf16 matmul and attention take the tensor-core (``wgmma``) variants where
 the shapes allow; the edge shapes below reach them (ragged tiles, K not a
-multiple of the 64-deep K step, Sq != Sk, Sq = 1, several heads).
+multiple of the 64-deep K step, Sq != Sk, Sq = 1, several heads).  The conv
+cases reach every variant of ``conv_plan``: 4- and 16-byte input copies
+(Cin 3 and 4), each Cout tile the dense kernel builds (Cout 4, 8, 13, 19,
+32 and 70), streamed weights, the phase-batched dilated shapes, and the
+transposed kernel's k3 s2 head with Cout 19, k4 s2 p_lo 2, k2 s3 (k < s)
+and weights streamed per plane at the largest k of stride 2 (k16, Cout 24
+and 32) and at k9 s3, each under every epilogue spec.
 """
 
 import pytest
@@ -32,6 +38,9 @@ pytestmark = pytest.mark.cuda
 _SPECS = [EpilogueSpec(), EpilogueSpec(bn=True, prelu=True),
           EpilogueSpec(bn=True, prelu=True, residual="pre_act"),
           EpilogueSpec(bn=True, residual="post_act")]
+_ALL_SPECS = [EpilogueSpec(bn=b, prelu=p, residual=r)
+              for b in (False, True) for p in (False, True)
+              for r in ("none", "pre_act", "post_act")]
 
 
 @pytest.fixture
@@ -101,6 +110,79 @@ def test_tconv_kernel_matches_plain(cuda, xs, k, cout, s, p_lo, op, spec):
     got = ktr.tconv_cuda(x, w, s, p_lo, p_lo + op, spec, eps)
     torch.cuda.synchronize()
     _close(got, ktr.tconv_plain(x, w, s, p_lo, p_lo + op, spec, eps))
+
+
+_SAME3 = ((1, 1), (1, 1))
+_PLAN_CASES = [  # label, x shape, w shape, stride, pads, variant
+    ("cin3", (2, 17, 19, 3), (3, 3, 3, 16), 1, _SAME3, "scalar-resident"),
+    ("cin4", (2, 17, 19, 4), (3, 3, 4, 16), 1, _SAME3, "vec4-resident"),
+    ("cout4", (2, 20, 18, 16), (1, 1, 16, 4), 1, ((0, 0), (0, 0)),
+     "vec4-resident"),
+    ("cout8", (2, 17, 19, 16), (3, 3, 16, 8), 1, _SAME3, "vec4-resident"),
+    ("cout13 s2", (2, 33, 31, 3), (3, 3, 3, 13), 2, _SAME3,
+     "scalar-resident"),
+    ("cout19", (2, 16, 15, 16), (3, 3, 16, 19), 1, _SAME3, "vec4-resident"),
+    ("cout70", (2, 9, 10, 12), (3, 3, 12, 70), 1, _SAME3, "vec4-resident"),
+    ("streamed", (2, 9, 10, 128), (3, 3, 128, 64), 1, _SAME3,
+     "vec4-streamed"),
+    ("streamed cin3", (1, 20, 21, 3), (15, 15, 3, 20), 1, ((7, 7), (7, 7)),
+     "scalar-streamed"),
+    *[(f"phase batch {xs}", xs, (3, 3, 32, 32), 1, _SAME3, "vec4-resident")
+      for xs in ((16, 8, 8, 32), (64, 4, 4, 32), (256, 2, 2, 32),
+                 (1024, 1, 1, 32))]]
+
+
+@pytest.mark.parametrize("spec", _ALL_SPECS, ids=str)
+@pytest.mark.parametrize("case", _PLAN_CASES, ids=lambda c: c[0])
+def test_conv2d_plan_variants_match_plain(cuda, case, spec):
+    _, xs, ws, stride, pads, variant = case
+    g = torch.Generator().manual_seed(xs[0] + ws[3])
+    x, w = torch.randn(xs, generator=g).to(cuda), \
+        torch.randn(ws, generator=g).to(cuda)
+    oh = kconv.out_extent(xs[1], ws[0], stride, *pads[0])
+    ow = kconv.out_extent(xs[2], ws[1], stride, *pads[1])
+    eps = _ops(spec, (xs[0], oh, ow, ws[3]), g, cuda)
+    assert kconv.conv_plan(xs[3], ws[3], ws[0], ws[1], stride).variant == \
+        variant
+    before = dict(kconv.conv2d.launches_by_variant)
+    got = kconv.conv2d_cuda(x, w, stride, pads, spec, eps)
+    torch.cuda.synchronize()
+    after = kconv.conv2d.launches_by_variant
+    assert {v: after[v] - before[v] for v in after} == \
+        {v: int(v == variant) for v in after}
+    _close(got, kconv.conv2d_plain(x, w, stride, pads, spec, eps))
+
+
+@pytest.mark.parametrize("spec", _ALL_SPECS, ids=str)
+@pytest.mark.parametrize("xs,k,cout,s,p_lo,op", [
+    ((2, 16, 16, 16), 3, 19, 2, 1, 1), ((2, 7, 9, 8), 4, 12, 2, 2, 0),
+    ((2, 7, 9, 8), 2, 12, 3, 1, 0), ((1, 6, 5, 3), 3, 5, 2, 1, 1),
+    ((1, 6, 5, 4), 3, 4, 2, 1, 1), ((1, 5, 6, 20), 3, 40, 2, 1, 1),
+    ((1, 9, 7, 16), 16, 32, 2, 7, 1), ((1, 9, 7, 20), 16, 24, 2, 8, 0),
+    ((1, 6, 5, 8), 9, 19, 3, 4, 2)])
+def test_tconv_plan_variants_match_plain(cuda, xs, k, cout, s, p_lo, op,
+                                         spec):
+    g = torch.Generator().manual_seed(xs[3] + cout)
+    x = torch.randn(xs, generator=g).to(cuda)
+    w = torch.randn((k, k, xs[3], cout), generator=g).to(cuda)
+    oh = (xs[1] - 1) * s + 2 * p_lo + op - k + 2
+    ow = (xs[2] - 1) * s + 2 * p_lo + op - k + 2
+    eps = _ops(spec, (xs[0], oh, ow, cout), g, cuda)
+    got = ktr.tconv_cuda(x, w, s, p_lo, p_lo + op, spec, eps)
+    torch.cuda.synchronize()
+    _close(got, ktr.tconv_plain(x, w, s, p_lo, p_lo + op, spec, eps))
+
+
+def test_unaligned_input_takes_the_scalar_copies(cuda):
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2 * 9 * 10 * 8 + 1, generator=g).to(cuda)[1:].view(
+        2, 9, 10, 8)
+    w = torch.randn((3, 3, 8, 16), generator=g).to(cuda)
+    before = kconv.conv2d.launches_by_variant["scalar-resident"]
+    got = kconv.conv2d_cuda(x, w, 1, _SAME3, EpilogueSpec(), ())
+    torch.cuda.synchronize()
+    assert kconv.conv2d.launches_by_variant["scalar-resident"] == before + 1
+    _close(got, kconv.conv2d_plain(x, w, 1, _SAME3, EpilogueSpec(), ()))
 
 
 def test_wrappers_count_launches(cuda):

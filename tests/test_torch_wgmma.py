@@ -247,6 +247,10 @@ def test_resource_usage_reads_the_ptxas_report(monkeypatch, tmp_path):
      "matmul_kernel<bf16>"),
     ("_ZN5repro28flash_attention_wgmma_kernelILi64EEEv14CUtensorMap_st",
      "flash_attention_wgmma_kernel<64>"),
+    ("_ZN5repro13conv2d_kernelINS_4TileILi32ELi32ELi4EEELi4ELb1EEEvNS_7ConvGe"
+     "oEPKfS5_PfNS_8EpilogueE", "conv2d_kernel<Tile<32, 32, 4>, 4, true>"),
+    ("_ZN5repro12tconv_kernelINS_4TileILi20ELi32ELi4EEELi1EEEvNS_8TconvGeoEPK"
+     "fS5_PfNS_8EpilogueE", "tconv_kernel<Tile<20, 32, 4>, 1>"),
     ("_Z6kernelv", "_Z6kernelv")])
 def test_kernel_name_demangles_the_ports_kernels(mangled, name):
     from repro_torch.kernels import build
