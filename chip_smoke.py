@@ -25,13 +25,40 @@ nvcc, then:
    zero-laden forward, and prints a table per conv geometry (calls, ms,
    bound and what bounds it, x bound, library ms, launch plan) with the
    geometry furthest from its bound;
-6. holds the matmul and flash-attention kernels against their plain
+6. records every kernel call made inside one ENet-512 batch-4 backward of
+   the loss-scaled objective the train step differentiates
+   (``repro_torch.launch.train_recipes`` loss times 2^15, 19 classes) and
+   holds each against its plain version at 1e-4 x max|plain| (the
+   cotangents are small, so the bar has no floor), shows that a zeroed or
+   a 2%-off output would fail that bar, prints the geometries and the
+   variants they took, and checks that the backward ran no library conv and no plain
+   version, and that its only ``torch.matmul`` calls are the weight
+   gradients' tap correlations;
+7. holds backward edge cases against ``backend="torch"`` autograd (cuDNN,
+   TF32 off), per gradient tensor at max |err| <= 1e-4 x max(1, max|ref|):
+   dx through the transposed kernel (k2 s2 p0, k3 s2 SAME, k4 s2 p1),
+   5x1/1x5, a k3 s2 op1 transposed conv with Cout 19, a strided-dilated
+   composition, odd-k dilated convs through their own adjoint, and every
+   epilogue spec's operand gradients (dense and transposed);
+8. trains ENet-512 (19 classes, batch 4, seeded weights with BN/PReLU
+   redrawn as in phase 4) on ``SegDataPipeline`` batches: the launches of
+   a step's forward and backward, its step-0 gradients against the torch
+   backend's per tensor at 1e-4 x max(1, max|ref|) and at 2e-3 x max|ref|,
+   three ``make_train_step``
+   steps on both backends from one state on successive batches (losses
+   agree, are finite and fall or hold), and a NaN-image step that leaves parameters and AdamW state bit-identical
+   and halves the loss scale;
+9. times the train step on both backends (median of 10 warm steps), the
+   device's busy share of a step (``torch.profiler``), every backward
+   kernel call per geometry beside its bound and library call, and the
+   weight gradients' matmuls;
+10. holds the matmul and flash-attention kernels against their plain
    versions at edge cases (ragged M/N/K, K not a multiple of the 64-deep
    K step, Sq != Sk both ways, Sq = 1, lengths 300 and 4097, B*H > 1, head
    dims 16 to 256, fp32, bf16 and mixed operand types), each through the
    variant its wrapper picks (bf16 ``wgmma`` on the tensor cores, else
    ``simt`` on the CUDA cores);
-7. drives the kernel entry points ``repro_torch.kernels.ops`` at the widths
+11. drives the kernel entry points ``repro_torch.kernels.ops`` at the widths
    of StableLM-2-1.6B (hf:stabilityai/stablelm-2-1_6b; d_model 2048, 32
    heads of 64, MHA, d_ff 5632) on one 4096-token prefill at batch 1, in
    fp32 and in bf16: the q/k/v projections, causal attention, the output
@@ -39,14 +66,15 @@ nvcc, then:
    that the launch counters show every call went through a kernel, the
    bf16 layer's on the ``wgmma`` variants and the fp32 layer's on
    ``simt``, and holds each call against its plain version;
-8. times each of those calls: the kernel, its plain version and the library
+12. times each of those calls: the kernel, its plain version and the library
    yardstick (``torch.matmul`` in the input dtype, TF32 off;
    ``F.scaled_dot_product_attention(is_causal=True)``);
-9. prints the ``{"kernels": [...]}`` line (all four kernels) and, last,
+13. prints the ``{"kernels": [...]}`` line (all four kernels on their
+   paths, and the two conv kernels again on the ENet backward) and, last,
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result line, without a CUDA device or outside a
-checkout of the repository, or if any phase fails.  Phases 1-5 are fp32
+checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
 with TF32 off.  The full per-call results go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -55,6 +83,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -87,6 +116,27 @@ LAUNCHES_PER_FORWARD = {"conv2d": 86, "transposed_conv2d": 3,
 # copies, every other conv the 16-byte ones; every weight slab is resident
 CONV_VARIANTS_PER_FORWARD = {"vec4-resident": 85, "vec4-streamed": 0,
                              "scalar-resident": 1, "scalar-streamed": 0}
+# one ENet training step's launches: the forward's, then the backward's
+# (the 79 fused convs and 2 fused upsamplers recomputed without their
+# epilogue, 86 dense dx: 75 square stride-1, 8 rectangular and the 3
+# transposed convs' dx, and the dx of the 2 k2 s2 downsample reduces on the
+# transposed kernel; the stem needs no dx)
+LAUNCHES_PER_STEP = {
+    "forward": {"conv2d": 86, "transposed_conv2d": 3, "matmul": 0,
+                "flash_attention": 0},
+    "backward": {"conv2d": 165, "transposed_conv2d": 4, "matmul": 0,
+                 "flash_attention": 0}}
+TRAIN_STEPS = 3
+# kernels vs torch backend losses of the same steps: relative difference
+TRAIN_LOSS_RTOL = 1e-4
+# step-0 gradients, kernels vs torch backend, per tensor: max |err| <=
+# TOL * max(1, max |ref|) and <= GRAD_RTOL * max |ref|; the second bar
+# scales with the gradients, which are far below 1.  Above TOL because the
+# two backends round in another order through every layer, and a PReLU
+# slope's gradient is a sum over the whole activation that cancels to
+# ~1e-4 of its terms (PERF.md §6 has the readings it was set from: at most
+# 8.4e-4); still 10x under a 2% error
+GRAD_RTOL = 2e-3
 # StableLM-2-1.6B (src/repro/configs/stablelm_1_6b.py): one layer's kernel
 # calls on a 4096-token prefill at batch 1, its published context length
 LM_D, LM_HEADS, LM_FF, LM_SEQ = 2048, 32, 5632, 4096
@@ -169,38 +219,48 @@ class Smoke:
     def rand(self, g, *shape):
         return self.torch.randn(shape, generator=g).to(self.dev)
 
-    def compare(self, label, name, got, want, quiet=False):
-        """Hold a kernel's output against its plain version; raise on a
-        miss.  Returns (max abs err, max rel err, tolerance).
+    def bar(self, got, want, floor=1.0, rtol=TOL):
+        """(max abs err, mean|plain|, max|plain|, tolerance, err/bar) of
+        ``got`` against ``want``.
 
-        fp32 outputs: max |err| <= TOL * max(1, max|plain|).  bf16 outputs:
-        |err| <= BF16_STEP * |plain| + TOL * max(1, max|plain|) at every
+        fp32: max |err| <= rtol * max(floor, max|plain|).  bf16: |err| <=
+        BF16_STEP * |plain| + rtol * max(floor, max|plain|) at every
         element; the tolerance reported is that bar at an element of mean
-        size, beside mean|plain|.  "err/bar" is the worst element's error
-        over its bar, at most 1 when the check passes."""
+        size.  err/bar is the worst element's error over its bar, at most 1
+        when the check passes."""
+        torch = self.torch
+        fp32 = want.dtype == torch.float32
+        got, want = got.float(), want.float()
+        diff, mag = (got - want).abs(), want.abs()
+        err, mean, top = (diff.max().item(), mag.mean().item(),
+                          mag.max().item())
+        scale = max(floor, top)
+        if fp32:
+            tol = rtol * scale
+            worst = err / tol if tol else (0.0 if err == 0 else math.inf)
+        else:
+            tol = BF16_STEP * mean + rtol * scale
+            worst = (diff / (BF16_STEP * mag + rtol * scale)).max().item()
+        return err, mean, top, tol, worst
+
+    def compare(self, label, name, got, want, quiet=False, floor=1.0,
+                rtol=TOL):
+        """Hold a kernel's output against its plain version at
+        :meth:`bar`; raise on a miss.  Returns (max abs err, max rel err,
+        tolerance)."""
         torch = self.torch
         if got.shape != want.shape or got.dtype != want.dtype:
             raise RuntimeError(f"{label}: {tuple(got.shape)} {got.dtype} != "
                                f"{tuple(want.shape)} {want.dtype}")
-        fp32 = want.dtype == torch.float32
-        got, want = got.float(), want.float()
         if not bool(torch.isfinite(got).all()):
             raise RuntimeError(f"{label}: non-finite kernel output")
-        diff, mag = (got - want).abs(), want.abs()
-        err, mean = diff.max().item(), mag.mean().item()
-        scale = max(1.0, mag.max().item())
-        if fp32:
-            tol = TOL * scale
-            worst = err / tol
-        else:
-            tol = BF16_STEP * mean + TOL * scale
-            worst = (diff / (BF16_STEP * mag + TOL * scale)).max().item()
-        rel, ok = err / scale, worst <= 1.0
+        err, mean, top, tol, worst = self.bar(got, want, floor, rtol)
+        rel, ok = err / max(floor, top, 1e-30), worst <= 1.0
         self.report["checks"].append({
             "label": label, "kernel": name, "max_abs_err": err,
             "max_rel_err": rel, "tol": tol, "err_over_bar": worst,
-            "mean_abs_plain": mean, "ok": ok})
-        self.worst[name] = max(self.worst[name], err)
+            "mean_abs_plain": mean, "max_abs_plain": top, "ok": ok})
+        self.worst[name] = max(self.worst.get(name, 0.0), err)
         if not quiet:
             log(f"  {label}: max abs {err:.2e} rel {rel:.2e} err/bar "
                 f"{worst:.3f} tol {tol:.2e} mean|plain| {mean:.2e}")
@@ -208,6 +268,12 @@ class Smoke:
             raise RuntimeError(f"{label}: error {worst:.3f} x its bar (max "
                                f"abs err {err:.3e}, tol {tol:.3e})")
         return err, rel, tol
+
+    def sensitivity(self, got, want, floor, rtol):
+        """err/bar that ``got`` zeroed and ``got`` off by 2% would reach:
+        both must exceed 1 for the check to catch a wrong output."""
+        return (self.bar(self.torch.zeros_like(got), want, floor, rtol)[4],
+                self.bar(got * 1.02, want, floor, rtol)[4])
 
     @contextlib.contextmanager
     def recording(self, calls):
@@ -305,7 +371,17 @@ class Smoke:
         y = self.phase_main(model, x)
         kernels_line, times = self.phase_times(model, x, calls)
         self.report.update(times)
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
         del model, x, calls
+        torch.cuda.empty_cache()
+
+        batch = self.seg_batch(0)
+        bwd_calls, taps = self.phase_backward_kernels(params, batch)
+        self.phase_backward_edges()
+        steps = self.phase_train(params, batch)
+        kernels_line["kernels"] += self.phase_train_times(steps, batch,
+                                                          bwd_calls, taps)
+        del params, batch, bwd_calls, taps, steps
         torch.cuda.empty_cache()
 
         self.phase_lm_kernels()
@@ -508,13 +584,39 @@ class Smoke:
                     f"{BATCH / ms * 1e3:.1f} images/s")
         times["naive_over_kernels"] = (times["forward_naive_ms"]
                                        / times["forward_kernels_ms"])
-        times["profile"] = self.profile_forward(model, x,
-                                                times["forward_kernels_ms"])
+
+        def forward():
+            with torch.no_grad():
+                model(x)
+
+        times["profile"] = self.profile_device(forward, "forward",
+                                               times["forward_kernels_ms"])
+        rows, per = self.time_calls(calls)
+        self.report["calls"] = rows
+        entries = []
+        for name, p in per.items():
+            log(f"  {name}: {p['ms']:.3f} ms/forward over "
+                f"{self.launches[name]} launches; bound {p['bound_ms']:.3f} "
+                f"ms ({p['flops'] / 1e9:.2f} GFLOP, {p['bytes'] / 1e6:.1f} MB)"
+                f"; plain {p['plain_ms']:.3f} ms; library "
+                f"{p['library_ms']:.3f} ms")
+            entries.append(self.kernel_entry(name, name, self.launches[name],
+                                             p))
+            times[f"{name}_per_forward"] = p
+        times["geometries"] = self.geometry_table(rows, "a forward")
+        return {"kernels": entries}, times
+
+    def time_calls(self, calls):
+        """Per recorded kernel call: device ms of the kernel, its plain
+        version and its library call, beside its work and bound.  Returns
+        the rows and their sums per kernel."""
+        torch = self.torch
         per = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                       "library_ms": 0.0, "bytes": 0, "flops": 0}
                for name in self.kernels}
+        rows = []
         with torch.no_grad():
-            for i, (name, args) in enumerate(calls):
+            for name, args in calls:
                 kern, plain, _ = self.kernels[name]
                 lib = self.library_call(name, args)
                 flops, nbytes = self.work(name, args)
@@ -527,36 +629,31 @@ class Smoke:
                        "flops": flops, "bytes": nbytes,
                        "bound_ms": 1e3 * max(flops / PEAK_FP32_FLOPS,
                                              nbytes / PEAK_BYTES_S)}
-                self.report["calls"].append(row)
+                rows.append(row)
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                             "flops", "bytes"):
                     per[name][key] += row[key]
-        entries = []
-        for name, p in per.items():
-            log(f"  {name}: {p['ms']:.3f} ms/forward over "
-                f"{self.launches[name]} launches; bound {p['bound_ms']:.3f} "
-                f"ms ({p['flops'] / 1e9:.2f} GFLOP, {p['bytes'] / 1e6:.1f} MB)"
-                f"; plain {p['plain_ms']:.3f} ms; library "
-                f"{p['library_ms']:.3f} ms")
-            flops_bound = p["flops"] / PEAK_FP32_FLOPS
-            entries.append({
-                "name": name, "route": "cuda", "source": SOURCES[name][0],
-                "replaces": SOURCES[name][1],
-                "launches": self.launches[name],
-                "max_abs_err": self.worst[name], "ms": p["ms"],
-                "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
-                "bound_by": ("operations"
-                             if flops_bound >= p["bytes"] / PEAK_BYTES_S
-                             else "bytes"),
-                "library_ms": p["library_ms"]})
-            times[f"{name}_per_forward"] = p
-        times["geometries"] = self.geometry_table(self.report["calls"])
-        return {"kernels": entries}, times
+        return rows, per
 
-    def geometry_table(self, rows):
-        """Per-geometry sums of the timed calls, logged as a table: calls,
-        device ms, bound ms and what bounds it, x bound, library ms and the
-        launch plan; then the geometry furthest from its bound."""
+    def kernel_entry(self, name, label, launches, p):
+        """One entry of the ``{"kernels": [...]}`` line from per-kernel
+        sums ``p`` (``time_calls``)."""
+        flops_bound = p["flops"] / PEAK_FP32_FLOPS
+        return {
+            "name": label, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "launches": launches,
+            "max_abs_err": self.worst[label], "ms": p["ms"],
+            "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+            "bound_by": ("operations"
+                         if flops_bound >= p["bytes"] / PEAK_BYTES_S
+                         else "bytes"),
+            "library_ms": p["library_ms"]}
+
+    def geometry_table(self, rows, per):
+        """Per-geometry sums of the timed calls (of ``per``, e.g. "a
+        forward"), logged as a table: calls, device ms, bound ms and what
+        bounds it, x bound, library ms and the launch plan; then the
+        geometry furthest from its bound."""
         groups = {}
         for r in rows:
             g = groups.setdefault((r["kernel"], r["geometry"]), {
@@ -568,7 +665,7 @@ class Smoke:
             for k in ("ms", "bound_ms", "library_ms", "flops", "bytes"):
                 g[k] += r[k]
         table = sorted(groups.values(), key=lambda g: -g["ms"])
-        log("  per geometry (sums over a forward's calls; device ms):")
+        log(f"  per geometry (sums over {per}'s calls; device ms):")
         log(f"    {'kernel':18s} {'calls':>5s} {'ms':>7s} {'bound':>7s} "
             f"{'by':5s} {'xbound':>6s} {'library':>7s}  variant  geometry")
         for g in table:
@@ -585,46 +682,413 @@ class Smoke:
             f"{worst['bound_ms']:.4f})")
         return table
 
-    def profile_forward(self, model, x, wall_ms):
-        """Device time of one kernels-backend forward by kernel name
-        (``torch.profiler``), and the device's busy share of the forward's
-        wall time measured without the profiler."""
+    def profile_device(self, fn, what, wall_ms):
+        """Device time of one ``fn()`` (a ``what``) by kernel name and by
+        the op that launched it (``torch.profiler``), and the device's busy
+        share of its wall time measured without the profiler.  Busy time
+        sums the device's own events (kernels, copies) only: an op's
+        device time is its kernels' time again, so adding both counts it
+        twice."""
         torch = self.torch
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        with torch.no_grad():
-            model(x)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                model(x)
-                torch.cuda.synchronize()
-        rows = []
+        kernels, ops = [], []
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = getattr(e, "self_cuda_time_total", 0)
             if us > 0:
-                rows.append((us / 1e3, e.count, e.key))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        if not rows:
+                (kernels if e.device_type == DeviceType.CUDA else ops).append(
+                    (us / 1e3, e.count, e.key))
+        kernels.sort(reverse=True)
+        ops.sort(reverse=True)
+        busy = sum(r[0] for r in kernels)
+        if not kernels:
             log("  profiler: no device time recorded (busy share not "
                 "measured)")
             return {"device_ms": None}
         log(f"  profiler: device busy {busy:.3f} ms of a {wall_ms:.3f} ms "
-            f"forward ({100 * busy / wall_ms:.1f}%); top device time:")
-        for ms, count, key in rows[:10]:
-            log(f"    {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+            f"{what} ({100 * busy / wall_ms:.1f}%); top kernels:")
+        for ms, count, key in kernels[:10]:
+            log(f"    {ms:8.3f} ms  x{count:<5d} {key[:90]}")
+        log("  device time by the op that launched it:")
+        for ms, count, key in ops[:10]:
+            log(f"    {ms:8.3f} ms  x{count:<5d} {key[:90]}")
         return {"device_ms": busy, "busy_share": busy / wall_ms,
                 "top": [{"ms": ms, "count": c, "name": k}
-                        for ms, c, k in rows[:25]]}
+                        for ms, c, k in kernels[:25]],
+                "top_ops": [{"ms": ms, "count": c, "name": k}
+                            for ms, c, k in ops[:25]]}
+
+    # ------------------------------------------------ ENet-512 training
+    def seg_batch(self, step):
+        """``SegDataPipeline`` batch ``step`` (batch 4, 512x512, 19
+        classes) on the card."""
+        from repro_torch.data import SegDataPipeline
+        from repro_torch.launch.train_recipes import batch_to
+
+        pipe = SegDataPipeline(BATCH, hw=HW, classes=CLASSES, seed=SEED)
+        return batch_to(pipe.batch_at(step), self.dev)
+
+    @contextlib.contextmanager
+    def watching(self, counts, taps):
+        """Count the library convs, plain versions and ``torch.matmul``
+        calls made inside the block, and record every weight-gradient
+        tap correlation's arguments."""
+        torch = self.torch
+        from repro_torch.core import adjoints
+
+        F = torch.nn.functional
+        targets = [(F, "conv2d"), (F, "conv_transpose2d"),
+                   (self.kconv, "conv2d_plain"), (self.ktr, "tconv_plain"),
+                   (torch, "matmul"), (adjoints, "tap_correlation")]
+        orig = [getattr(mod, attr) for mod, attr in targets]
+
+        def wrap(attr, fn):
+            def wrapper(*args, **kw):
+                counts[attr] = counts.get(attr, 0) + 1
+                if attr == "tap_correlation":
+                    taps.append((args, kw))
+                return fn(*args, **kw)
+            return wrapper
+
+        for (mod, attr), fn in zip(targets, orig):
+            setattr(mod, attr, wrap(attr, fn))
+        try:
+            yield
+        finally:
+            for (mod, attr), fn in zip(targets, orig):
+                setattr(mod, attr, fn)
+
+    def phase_backward_kernels(self, params, batch):
+        torch = self.torch
+        from repro_torch.launch import train_recipes as ttr
+        from repro_torch.optim import DynamicLossScale
+
+        log("phase 6: ENet-512 backward of the loss-scaled objective, batch "
+            f"4: kernel calls vs plain (tol {TOL} x max|plain| per call)")
+        scaler = DynamicLossScale()
+        scale = scaler.init(self.dev)
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        loss = scaler.scale(scale, ttr.loss_fn("enet")(leaves, batch))
+        calls, taps, counts = [], [], {}
+        with self.recording(calls), self.watching(counts, taps):
+            torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        matmuls = sum(a[2] * a[3] for a, _ in taps)
+        log(f"  {len(calls)} kernel calls; {len(taps)} weight gradients as "
+            f"{matmuls} tap matmuls; other calls {counts}")
+        want = {"conv2d": 0, "conv_transpose2d": 0, "conv2d_plain": 0,
+                "tconv_plain": 0, "matmul": matmuls,
+                "tap_correlation": len(taps)}
+        if {k: counts.get(k, 0) for k in want} != want:
+            raise RuntimeError(f"backward calls {counts} != {want}: a conv "
+                               f"left the kernels or a matmul is not a tap")
+        seen, caught = {}, []
+        for i, (name, args) in enumerate(calls):
+            kern, plain, _ = self.kernels[name]
+            got, ref = kern(*args), plain(*args)
+            key = (name, self.geometry(name, args), self.variant(name, args))
+            # the cotangents are small (mean |dx| down to ~1e-3 at the
+            # 2^15 loss scale), so the bar scales with each call's values:
+            # no max(1, .) floor
+            seen.setdefault(key, []).append(self.compare(
+                f"enet backward call {i}", f"{name} (ENet backward)",
+                got, ref, quiet=True, floor=0.0))
+            caught.append((*self.sensitivity(got, ref, 0.0, TOL),
+                           self.bar(torch.zeros_like(got), ref)[4]))
+        for (name, geo, variant), errs in seen.items():
+            log(f"  {name} [{variant}] {geo} x{len(errs)}: max abs "
+                f"{max(e[0] for e in errs):.2e} tol "
+                f"{min(e[2] for e in errs):.2e}")
+        zero, off, old = (min(c[i] for c in caught) for i in range(3))
+        loose = sum(c[2] <= 1.0 for c in caught)
+        log(f"  {len(calls)} backward calls, {len(seen)} distinct geometries "
+            f"and variants: ok; a zeroed output would reach >= {zero:.3g} x "
+            f"the bar and one 2% off >= {off:.3g} x; under a bar of {TOL} x "
+            f"max(1, max|plain|) {loose} of the {len(calls)} zeroed outputs "
+            f"would pass (min {old:.3g} x)")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError("the backward check would pass a zeroed or a "
+                               "2%-off kernel output")
+        self.report["backward_check"] = {
+            "loss_scale": scale.scale.item(), "rtol": TOL, "floor": 0.0,
+            "calls": len(calls), "min_zeroed_over_bar": zero,
+            "min_off_2pct_over_bar": off,
+            "min_zeroed_over_floored_bar": old,
+            "zeroed_passing_floored_bar": loose}
+        return calls, taps
+
+    def grad_cases(self):
+        """(label, conv kwargs, x shape, w shape, epilogue spec, the kernel
+        the backward must launch) of phase 7."""
+        from repro_torch.kernels.epilogue import EpilogueSpec
+
+        specs = [EpilogueSpec(bn=b, prelu=p, residual=r)
+                 for b in (False, True) for p in (False, True)
+                 for r in ("none", "pre_act", "post_act")]
+        tconv = dict(stride=2, transposed=True, output_padding=1)
+        return [
+            ("dx on kernel 2: k2 s2 p0", dict(stride=2, padding=0),
+             (2, 32, 30, 16), (2, 2, 16, 32), None, "transposed_conv2d"),
+            ("dx on kernel 2: k3 s2 SAME", dict(stride=2), (2, 33, 31, 16),
+             (3, 3, 16, 24), None, "transposed_conv2d"),
+            ("dx on kernel 2: k4 s2 p1", dict(stride=2, padding=1),
+             (2, 32, 30, 8), (4, 4, 8, 20), None, "transposed_conv2d"),
+            ("dx of 5x1", {}, (2, 21, 19, 32), (5, 1, 32, 32), None,
+             "conv2d"),
+            ("dx of 1x5", {}, (2, 21, 19, 32), (1, 5, 32, 32), None,
+             "conv2d"),
+            ("tconv dx k3 s2 op1 Cout19", tconv, (2, 16, 16, 16),
+             (3, 3, 16, 19), None, "conv2d"),
+            ("strided dilated d2 s2", dict(dilation=2, stride=2),
+             (2, 24, 22, 16), (3, 3, 16, 16), None, "conv2d"),
+            ("dilated d2, own adjoint", dict(dilation=2), (2, 25, 23, 16),
+             (3, 3, 16, 16), None, "conv2d"),
+            ("dilated d4, own adjoint", dict(dilation=4), (2, 45, 38, 32),
+             (3, 3, 32, 32), None, "conv2d"),
+            *[(f"dense epilogue {sp}", {}, (2, 19, 23, 24), (3, 3, 24, 40),
+               sp, "conv2d") for sp in specs],
+            *[(f"transposed epilogue {sp}", tconv, (2, 9, 11, 16),
+               (3, 3, 16, 20), sp, "conv2d") for sp in specs],
+        ]
+
+    def phase_backward_edges(self):
+        torch = self.torch
+        from repro_torch.core.decompose import conv2d
+
+        log("phase 7: backward edge cases, kernels vs backend=torch autograd "
+            f"(cuDNN, TF32 off); per tensor max |err| <= {TOL} x max(1, "
+            "max|ref|)")
+        g = torch.Generator().manual_seed(SEED + 2)
+        for label, kw, xs, ws, spec, must in self.grad_cases():
+            # He-scaled weights keep y O(1): at |y| ~ 50, sin'(y) would
+            # turn the forward's fp32 rounding into cotangent errors near
+            # the bar whatever the backward does
+            x = self.rand(g, *xs)
+            w = self.rand(g, *ws) * (ws[0] * ws[1] * ws[2]) ** -0.5
+            with torch.no_grad():
+                cout = conv2d(x, w, backend="torch", **kw).shape
+            ops = {}
+            if spec is not None and spec.bn:
+                ops["scale"] = self.rand(g, cout[-1])
+                ops["shift"] = self.rand(g, cout[-1])
+            if spec is not None and spec.prelu:
+                ops["alpha"] = 0.3 * self.rand(g, 1 if spec.bn else cout[-1])
+            if spec is not None and spec.residual != "none":
+                ops["residual"] = self.rand(g, *cout)
+            grads = {}
+            for backend in ("kernels", "torch"):
+                prims = [t.detach().requires_grad_()
+                         for t in (x, w, *ops.values())]
+                y = conv2d(prims[0], prims[1], backend=backend,
+                           epilogue=spec, **dict(zip(ops, prims[2:])), **kw)
+                if backend == "kernels" and "own adjoint" in label and \
+                        type(y.grad_fn).__name__ != "_DilatedFnBackward":
+                    raise RuntimeError(f"{label}: took {y.grad_fn}")
+                self.reset_counts()
+                grads[backend] = torch.autograd.grad(torch.sin(y).sum(),
+                                                     prims)
+                torch.cuda.synchronize()
+                if backend == "kernels" and not self.read_counts()[must]:
+                    raise RuntimeError(f"{label}: the backward launched no "
+                                       f"{must}")
+            for part, got, want in zip(["x", "w", *ops], grads["kernels"],
+                                       grads["torch"]):
+                self.compare(f"{label} d{part}", "gradients vs torch", got,
+                             want, quiet=True)
+            log(f"  {label}: {len(grads['torch'])} gradients ok")
+
+    def phase_train(self, params, batch):
+        torch = self.torch
+        from repro_torch.launch import train_recipes as ttr
+
+        log("phase 8: ENet-512 training, batch 4, 19 classes, "
+            f"SegDataPipeline batches 0-{TRAIN_STEPS - 1}")
+        if not (torch.get_float32_matmul_precision() == "highest"
+                and not torch.backends.cuda.matmul.allow_tf32
+                and not torch.backends.cudnn.allow_tf32):
+            raise RuntimeError("TF32 is on: fp32 matmuls or convs would "
+                               "round their inputs")
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        self.reset_counts()
+        loss = ttr.loss_fn("enet")(leaves, batch)
+        torch.cuda.synchronize()
+        launches = {"forward": self.read_counts()}
+        self.reset_counts()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        launches["backward"] = self.read_counts()
+        variants = self.read_variants()["conv2d"]
+        log(f"  launches per step: {launches}; backward conv2d by variant "
+            f"{variants}")
+        if launches != LAUNCHES_PER_STEP:
+            raise RuntimeError(f"launches {launches} != {LAUNCHES_PER_STEP}")
+        value_t, grads_t = ttr.loss_and_grads(
+            ttr.loss_fn("enet", backend="torch"), params, batch)
+        rel = abs(loss.item() - value_t.item()) / abs(value_t.item())
+        log(f"  step-0 loss {loss.item():.6f}, torch backend "
+            f"{value_t.item():.6f} (rel {rel:.2e})")
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise RuntimeError(f"step-0 loss differs by {rel:.3e}")
+        # err / max|ref| per tensor, the readings GRAD_RTOL was set from
+        ratios = sorted(((self.bar(got, grads_t[name], 0.0, 1.0)[4], name)
+                         for name, got in zip(leaves, grads)), reverse=True)
+        log("  step-0 gradients, largest max|err| / max|ref|: " + ", ".join(
+            f"{name} {r:.2e}" for r, name in ratios[:5]))
+        caught = []
+        for name, got in zip(leaves, grads):
+            self.compare(f"step-0 grad {name}", "gradients vs torch", got,
+                         grads_t[name], quiet=True)
+            self.compare(f"step-0 grad {name}, relative",
+                         "gradients vs torch", got, grads_t[name],
+                         quiet=True, floor=0.0, rtol=GRAD_RTOL)
+            caught.append(self.sensitivity(got, grads_t[name], 0.0,
+                                           GRAD_RTOL))
+        zero, off = (min(c[i] for c in caught) for i in range(2))
+        log(f"  step-0 gradients: {len(grads)} tensors ok at {TOL} x max(1, "
+            f"max|ref|) and at {GRAD_RTOL} x max|ref|; against the latter a "
+            f"zeroed tensor would reach >= {zero:.3g} x the bar, one 2% off "
+            f">= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError("the gradient check would pass a zeroed or a "
+                               "2%-off gradient")
+
+        state0 = ttr.init_state(params)
+        steps = {}
+        per_step = {k: launches["forward"][k] + launches["backward"][k]
+                    for k in launches["forward"]}
+        batches = [batch] + [self.seg_batch(i)
+                             for i in range(1, TRAIN_STEPS + 1)]
+        for backend in ("kernels", "torch"):
+            step = ttr.make_train_step("enet", backend=backend)
+            state, losses = state0, []
+            for i in range(TRAIN_STEPS):
+                self.reset_counts()
+                state, m = step(state, batches[i])
+                torch.cuda.synchronize()
+                counts = self.read_counts()
+                want = (per_step if backend == "kernels"
+                        else dict.fromkeys(per_step, 0))
+                if counts != want:
+                    raise RuntimeError(f"{backend} step launches {counts} != "
+                                       f"{want}")
+                if m["skipped"].item():
+                    raise RuntimeError(f"{backend} step skipped")
+                losses.append(m["loss"].item())
+            steps[backend] = {"step": step, "state": state, "losses": losses}
+            log(f"  {backend}: losses {losses}, launches per step {counts}")
+        lk, lt = steps["kernels"]["losses"], steps["torch"]["losses"]
+        rels = [abs(a - b) / abs(b) for a, b in zip(lk, lt)]
+        if not (all(r <= TRAIN_LOSS_RTOL for r in rels)
+                and all(map(math.isfinite, lk)) and lk[-1] <= lk[0]):
+            raise RuntimeError(f"losses {lk} vs torch {lt} (rel {rels}): "
+                               f"not within {TRAIN_LOSS_RTOL}, not finite or "
+                               f"rising")
+        log(f"  losses agree (rel {max(rels):.2e}), finite, fall "
+            f"{lk[0]:.6f} -> {lk[-1]:.6f}")
+
+        state = steps["kernels"]["state"]
+        bad = batches[TRAIN_STEPS]
+        bad["image"][0, 5, 7, 1] = float("nan")
+        after, m = steps["kernels"]["step"](state, bad)
+        same = all(torch.equal(a, b) for a, b in zip(
+            self.leaves((after.params, after.opt)),
+            self.leaves((state.params, state.opt))))
+        halved = after.scale.scale.item() == state.scale.scale.item() / 2
+        log(f"  NaN batch: skipped {m['skipped'].item()}, params and AdamW "
+            f"state bit-identical {same}, scale {state.scale.scale.item()} "
+            f"-> {after.scale.scale.item()}")
+        if not (m["skipped"].item() == 1.0 and same and halved):
+            raise RuntimeError("the NaN batch was not skipped cleanly")
+        self.report["train"] = {
+            "launches_per_step": launches, "backward_variants": variants,
+            "step0_loss": loss.item(), "step0_loss_torch": value_t.item(),
+            "losses": {"kernels": lk, "torch": lt},
+            "step0_grad_rtol": GRAD_RTOL,
+            "step0_grad_err_over_max_ref": dict(
+                (name, r) for r, name in ratios),
+            "worst_grad_abs_err": self.worst["gradients vs torch"]}
+        return steps
+
+    def leaves(self, tree):
+        """The tensors of a tree of dicts and tuples, in order."""
+        if isinstance(tree, dict):
+            return [t for k in sorted(tree) for t in self.leaves(tree[k])]
+        if isinstance(tree, tuple):
+            return [t for item in tree for t in self.leaves(item)]
+        return [] if tree is None else [tree]
+
+    def phase_train_times(self, steps, batch, bwd_calls, taps):
+        torch = self.torch
+        from repro_torch.core import adjoints
+
+        from repro_torch.launch import train_recipes as ttr
+
+        log("phase 9: train-step times (fp32, TF32 off)")
+        times = {}
+        for backend, run in steps.items():
+            state = run["state"]
+
+            def one():
+                nonlocal state
+                state, _ = run["step"](state, batch)
+
+            ms = self.wall_ms(one)
+            loss = ttr.loss_fn("enet", backend=backend)
+            grad_ms = self.wall_ms(
+                lambda: ttr.loss_and_grads(loss, state.params, batch))
+            torch.cuda.reset_peak_memory_stats()
+            one()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            times[f"step_{backend}_ms"] = ms
+            times[f"loss_and_grads_{backend}_ms"] = grad_ms
+            times[f"peak_gib_{backend}"] = peak
+            log(f"  ENet-512 train step, backend={backend}: {ms:.3f} ms, "
+                f"{BATCH / ms * 1e3:.1f} images/s (median of 10); of it "
+                f"forward + backward {grad_ms:.3f} ms, the loss scaling, "
+                f"skip and AdamW the other {ms - grad_ms:.3f}; peak device "
+                f"memory {peak:.2f} GiB")
+            if backend == "kernels":
+                times["profile"] = self.profile_device(
+                    one, "train step", ms)
+        rows, per = self.time_calls(bwd_calls)
+        self.report["backward_calls"] = rows
+        times["geometries"] = self.geometry_table(rows, "a backward")
+        tap_ms = sum(self.device_ms(
+            lambda a=a, kw=kw: adjoints.tap_correlation(*a, **kw), reps=3,
+            rounds=1) for a, kw in taps)
+        matmuls = sum(a[2] * a[3] for a, _ in taps)
+        times["weight_gradients"] = {"tap_correlations": len(taps),
+                                     "matmuls": matmuls, "ms": tap_ms}
+        log(f"  weight gradients: {len(taps)} tap correlations, {matmuls} "
+            f"torch.matmul calls, {tap_ms:.3f} ms of device time a step")
+        entries = []
+        for name, p in per.items():
+            label = f"{name} (ENet backward)"
+            n = self.report["train"]["launches_per_step"]["backward"][name]
+            log(f"  {label}: {p['ms']:.3f} ms over {n} launches; bound "
+                f"{p['bound_ms']:.3f} ms; plain {p['plain_ms']:.3f} ms; "
+                f"library {p['library_ms']:.3f} ms")
+            entries.append(self.kernel_entry(name, label, n, p))
+            times[f"{name}_per_backward"] = p
+        self.report["train"].update(times)
+        return entries
 
     # ------------------------------------------- matmul and attention
     def phase_lm_kernels(self):
         torch = self.torch
         kmm, kfa = self.kmm, self.kfa
-        log(f"phase 6: matmul and flash attention vs plain on the card (fp32: "
+        log(f"phase 10: matmul and flash attention vs plain on the card "
+            f"(fp32: "
             f"{TOL} x max(1, max|plain|); bf16, each element: 2^-7 |plain| + "
             f"{TOL} x max(1, max|plain|))")
         g = torch.Generator().manual_seed(SEED + 3)
@@ -728,7 +1192,7 @@ class Smoke:
 
     def phase_lm_main(self):
         torch = self.torch
-        log(f"phase 7: kernels.ops at StableLM-2-1.6B width: d {LM_D}, "
+        log(f"phase 11: kernels.ops at StableLM-2-1.6B width: d {LM_D}, "
             f"{LM_HEADS} heads x {LM_HEAD_DIM}, d_ff {LM_FF}, batch 1, "
             f"{LM_SEQ} tokens, one layer, fp32 and bf16")
         calls = []
@@ -765,7 +1229,7 @@ class Smoke:
 
     def phase_lm_times(self, calls):
         torch = self.torch
-        log("phase 8: times of the StableLM-width calls (device ms, median "
+        log("phase 12: times of the StableLM-width calls (device ms, median "
             "of 3 rounds of 10 launches; plain 3 launches)")
         groups = {}  # (kernel, dtype, geometry) -> the timed calls
         with torch.no_grad():
@@ -888,13 +1352,17 @@ class Smoke:
                 f"{spec.residual})")
 
     def variant(self, name, args):
-        """The launch plan of a recorded call: its variant and tile width."""
+        """The launch plan of a recorded call: its variant (the 4-byte
+        copies for an input that is not 16-byte aligned, as the wrappers
+        decide) and tile width."""
         x, w = args[0], args[1]
         if name == "conv2d":
             plan = self.kconv.conv_plan(x.shape[-1], w.shape[-1], w.shape[0],
                                         w.shape[1], args[2])
         else:
             plan = self.ktr.tconv_plan(x.shape[-1], w.shape[-1], w.shape[0])
+        if x.data_ptr() % 16:
+            plan = plan._replace(vec=1)
         return f"{plan.variant}/n{plan.bn}"
 
     def work(self, name, args):

@@ -16,7 +16,11 @@ dilated or transposed execution with the decomposition applied:
 The device follows the tensors.  The reference's TPU-only knobs are not
 here: the tile overrides ``th``/``tc`` and their autotune, ``interpret``,
 and ``phase_sharding``; autotune and multi-device are later ROADMAP.md
-items.  This slice is forward only and fp32 only.
+items.  Gradients flow through both backends: the torch backend
+differentiates natively (it is the card-side oracle of the kernels'
+gradients), and the kernel wrappers' ``torch.autograd.Function`` classes
+re-enter the same two kernels through the adjoints of
+:mod:`repro_torch.core.adjoints` (DESIGN.md §6).  fp32 only.
 """
 
 from __future__ import annotations

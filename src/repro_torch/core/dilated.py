@@ -1,7 +1,7 @@
 """Input decomposition for dilated convolutions (paper §II-B), in PyTorch.
 
-The port of ``repro.core.dilated`` (forward only).  A dilated convolution
-with step ``d`` reads, for output ``(y, x)``, only inputs congruent to
+The port of ``repro.core.dilated`` (plain torch ops, so autograd
+differentiates it natively).  A dilated convolution with step ``d`` reads, for output ``(y, x)``, only inputs congruent to
 ``(y, x) mod d``: the input splits into ``d**2`` phase blocks, each
 convolved densely with the compact ``k x k`` kernel, and the outputs
 interleave back.  Three forms, all NHWC / HWIO:

@@ -1,8 +1,9 @@
 """Weight decomposition for transposed convolutions (paper §II-C), in PyTorch.
 
-The port of ``repro.core.transposed`` (forward only).  A stride-``s``
-transposed conv zero-inserts ``s - 1`` zeros between input elements and
-runs a dense ``k x k`` correlation; for output ``(y, x)`` only the taps with
+The port of ``repro.core.transposed`` (plain torch ops, so autograd
+differentiates it natively).  A stride-``s`` transposed conv zero-inserts
+``s - 1`` zeros between input elements and runs a dense ``k x k``
+correlation; for output ``(y, x)`` only the taps with
 ``(t - p_lo + r) % s == 0`` (``r`` the output parity) land on real input, so
 the kernel splits exactly into ``s**2`` parity sub-kernels that correlate
 directly with the un-upsampled input.

@@ -30,6 +30,13 @@ only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
 raises.  ``conv2d.launches`` counts kernel launches and
 ``conv2d.launches_by_variant`` splits them by :attr:`ConvPlan.variant`.
 PERF.md has each ENet layer's time beside its bound.
+
+Gradients (the port of ``_conv2d_vjp`` and ``_conv2d_ep_vjp``, DESIGN.md
+§6): under autograd :func:`conv2d` applies :class:`_Conv2dFn` or, with an
+epilogue, :class:`_Conv2dEpFn`, whose backward recomputes the conv without
+its epilogue and differentiates the epilogue elementwise.  dx re-enters
+the kernels (:func:`conv2d_dx`), dw is ``adjoints.dense_conv_dw``.  With no
+gradient requested the wrapper launches exactly as in serving.
 """
 
 from __future__ import annotations
@@ -40,7 +47,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import adjoints, nhwc
 from repro_torch.core.nhwc import Pads
+from repro_torch.core.transposed import zero_insert_input
 from repro_torch.kernels import build
 from repro_torch.kernels.epilogue import (NO_EPILOGUE, EpilogueSpec,
                                           apply_reference, kernel_operands,
@@ -81,11 +90,6 @@ def check_operands(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: x on {x.device} but w on {w.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            f"{what}: the port's kernels are forward only; gradients are "
-            f"the ENet-backward slice of ROADMAP.md (run under "
-            f"torch.no_grad())")
 
 
 def require_cuda(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
@@ -117,13 +121,119 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if stride < 1:
         raise ValueError(f"conv2d: stride must be >= 1, got {stride}")
     pads = resolve_pads(padding, w.shape[0], w.shape[1])
+    if not wants_grad(x, w, *eps):
+        return _conv2d_raw(x, w, stride, pads, spec, eps)
+    if spec.empty:
+        return _Conv2dFn.apply(x, w, stride, pads)
+    return _Conv2dEpFn.apply(x, w, spec, stride, pads,
+                             *tensor_operands(eps, x.device))
+
+
+conv2d.launches = 0
+
+
+def wants_grad(*ts) -> bool:
+    """Whether autograd will ask for a gradient of any of ``ts``."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
+def tensor_operands(eps: tuple, device: torch.device) -> tuple:
+    """Epilogue operands as fp32 tensors (a Python scalar slope becomes a
+    0-d tensor), so a ``Function`` can save them."""
+    return tuple(torch.as_tensor(e, dtype=torch.float32, device=device)
+                 for e in eps)
+
+
+def _conv2d_raw(x, w, stride, pads, spec, eps):
+    """One forward: the plain version on the CPU, else the kernel."""
     if x.device.type == "cpu":
         return conv2d_plain(x, w, stride, pads, spec, eps)
     return conv2d_cuda(x.contiguous(), w.contiguous(), stride, pads, spec,
                        eps)
 
 
-conv2d.launches = 0
+def conv2d_dx(g: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
+              h: int, w_in: int) -> torch.Tensor:
+    """Input-gradient of :func:`conv2d`, the port of ``_conv2d_bwd``.
+
+    A square kernel with equal low pads ``p <= k - 1`` goes through
+    ``adjoints.dense_conv_dx`` on the transposed engine: kernel 2 at
+    stride > 1, which routes stride 1 to the dense kernel.  Other pads and
+    rectangular kernels (ENet's 5x1/1x5) at stride 1 are the dense kernel
+    at the explicit pads of the reference's ``_dx_lax``; at stride > 1
+    they compose plain torch ops, as the reference falls back to a lax
+    conv.
+    """
+    from repro_torch.kernels.transposed_conv import transposed_conv2d
+
+    kh, kw = w.shape[0], w.shape[1]
+    (pt, _), (pl, _) = pads
+    if kh == kw and pt == pl and kh - 1 - pt >= 0:
+        def tconv_fn(gg, wf, s, p_lo, op):
+            return transposed_conv2d(gg, wf, stride=s, padding=p_lo,
+                                     output_padding=op)
+
+        return adjoints.dense_conv_dx(g, w, stride, pt, h, w_in, tconv_fn)
+    hg, wg = g.shape[1], g.shape[2]
+    lo_h, hi_h = kh - 1 - pt, h - (hg - 1) * stride - 1 + pt
+    lo_w, hi_w = kw - 1 - pl, w_in - (wg - 1) * stride - 1 + pl
+    wf = adjoints.flip_io(w)
+    if stride > 1:
+        return nhwc.conv(zero_insert_input(g, stride), wf, 1,
+                         ((lo_h, hi_h), (lo_w, hi_w)))
+    # negative pads crop the cotangent first; the kernel pads implicitly
+    gc = adjoints._pad_to(g, min(lo_h, 0), min(hi_h, 0), min(lo_w, 0),
+                          min(hi_w, 0))
+    return conv2d(gc, wf, padding=((max(lo_h, 0), max(hi_h, 0)),
+                                   (max(lo_w, 0), max(hi_w, 0))))
+
+
+class _Conv2dFn(torch.autograd.Function):
+    """Epilogue-free dense conv; the port of ``_conv2d_vjp``.  Saves
+    (x, w); dx by :func:`conv2d_dx` (skipped when x needs none, as for the
+    stem), dw by ``adjoints.dense_conv_dw``."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, pads):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, pads)
+        return _conv2d_raw(x, w, stride, pads, NO_EPILOGUE, ())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, pads = ctx.conf
+        (pt, _), (pl, _) = pads
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv2d_dx(g, w, stride, pads, x.shape[1], x.shape[2])
+        if ctx.needs_input_grad[1]:
+            dw = adjoints.dense_conv_dw(x, g, w.shape[0], w.shape[1], stride,
+                                        pt, pl)
+        return dx, dw, None, None
+
+
+class _Conv2dEpFn(torch.autograd.Function):
+    """Dense conv with a fused epilogue; the port of ``_conv2d_ep_vjp``.
+    Saves (x, w, *eps); the backward recomputes the conv through
+    :class:`_Conv2dFn` (``adjoints.fused_epilogue_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, spec, stride, pads, *eps):
+        ctx.save_for_backward(x, w, *eps)
+        ctx.conf = (spec, stride, pads)
+        return _conv2d_raw(x, w, stride, pads, spec, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, *eps = ctx.saved_tensors
+        spec, stride, pads = ctx.conf
+        needs = ctx.needs_input_grad
+        grads = adjoints.fused_epilogue_bwd(
+            lambda xx, ww: _Conv2dFn.apply(xx, ww, stride, pads), spec, x, w,
+            eps, g, needs[:2] + needs[5:])
+        return (*grads[:2], None, None, None, *grads[2:])
 
 
 #: the kernel's tiles by C id (``csrc/igemm.cuh::dispatch_tile``): Cout
@@ -268,6 +378,7 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
     return out
 
 
-__all__ = ["conv2d", "conv2d_plain", "conv2d_cuda", "conv_plan", "ConvPlan",
-           "cout_tile", "slab_fits", "TILES", "VARIANTS", "resolve_pads",
-           "out_extent", "check_operands", "require_cuda"]
+__all__ = ["conv2d", "conv2d_plain", "conv2d_cuda", "conv2d_dx", "conv_plan",
+           "ConvPlan", "cout_tile", "slab_fits", "TILES", "VARIANTS",
+           "resolve_pads", "out_extent", "check_operands", "require_cuda",
+           "wants_grad", "tensor_operands"]

@@ -8,6 +8,13 @@ back.  The per-channel epilogue ops commute with that relabeling and the
 residual rides the same transform, so BN, PReLU and the residual add all
 run inside the dense kernel.
 
+Gradients follow the reference: an odd-k conv with no epilogue takes
+:class:`_DilatedFn` (dx is the same dilated conv of the cotangent with the
+flipped kernel, dw a tap correlation at step ``d``); fused epilogues and
+even k differentiate by composition through the dense kernel's Functions
+on the phase-batched layout (all of ENet's dilated convs), and the
+strided class windows through its epilogue-free Function.
+
 ``stride > 1`` uses the output-class schedule
 (:func:`repro_torch.core.dilated.stride_class_schedule`): the class windows
 batch into one strided VALID dense conv, and the epilogue runs after the
@@ -16,6 +23,9 @@ stitch, as in the reference (its class windows have uneven output extents).
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.core import adjoints
 from repro_torch.core.dilated import (_batch_to_phase,
                                       _dilated_strided_decomposed,
                                       _phase_to_batch)
@@ -51,13 +61,50 @@ def dilated_conv2d(x, w, dilation: int, *, stride: int = 1,
 
         y = _dilated_strided_decomposed(x, w, d, s, "batched", conv_fn)
         return apply_reference(spec, y, eps)
+    if spec.empty and w.shape[0] % 2 and kconv.wants_grad(x, w):
+        return _DilatedFn.apply(x, w, d)
+    # fused epilogues and even k differentiate by composition through the
+    # dense kernel's Functions: the symmetry adjoint of _DilatedFn assumes
+    # odd-k symmetric SAME pads, and the epilogue's gradient needs the
+    # recompute of the dense epilogue Function
+    return _dilated_impl(x, w, d, spec, ep_kw)
+
+
+def _dilated_impl(x, w, d: int, spec: EpilogueSpec = NO_EPILOGUE,
+                  ep_kw: dict | None = None):
+    """Stride 1: phases on the batch axis, one dense SAME conv, stitch."""
+    ep_kw = dict(ep_kw or {})
     n, h, w_in, _ = x.shape
     xb, _, _ = _phase_to_batch(x, d)
     if "residual" in ep_kw:
         # the pad-up rows of the residual land in the cropped region
         ep_kw["residual"] = _phase_to_batch(ep_kw["residual"], d)[0]
-    yb = kconv.conv2d(xb, w, padding="SAME", epilogue=epilogue, **ep_kw)
+    yb = kconv.conv2d(xb, w, padding="SAME",
+                      epilogue=None if spec.empty else spec, **ep_kw)
     return _batch_to_phase(yb, d, n, h, w_in)
+
+
+class _DilatedFn(torch.autograd.Function):
+    """Odd-k, epilogue-free, stride-1 dilated conv; the port of
+    ``_dilated_vjp``.  dx re-enters the phase-batched engine with the
+    flipped kernel (``adjoints.dilated_conv_dx``); dw gathers taps at step
+    ``d`` (``adjoints.dilated_conv_dw``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, d):
+        ctx.save_for_backward(x, w)
+        ctx.d = d
+        return _dilated_impl(x, w, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = adjoints.dilated_conv_dx(g, w, ctx.d, _dilated_impl)
+        if ctx.needs_input_grad[1]:
+            dw = adjoints.dilated_conv_dw(x, g, w.shape[0], ctx.d)
+        return dx, dw, None
 
 
 __all__ = ["dilated_conv2d"]

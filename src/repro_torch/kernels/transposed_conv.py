@@ -26,6 +26,12 @@ plain conv.  :func:`transposed_conv2d` takes its plain version,
 :func:`tconv_plain` (per-parity live-tap ``torch.matmul`` sums from the same
 schedule), only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises.  ``transposed_conv2d.launches`` counts kernel launches.
+
+Gradients (the port of ``_tconv_vjp`` and ``_tconv_ep_vjp``): under
+autograd the wrapper applies :class:`_TconvFn` or :class:`_TconvEpFn`.
+dx is a strided VALID dense conv of the padded cotangent on kernel 1
+(``adjoints.tconv_dx``), dw ``adjoints.tconv_dw``; the fused epilogue's
+backward recomputes the conv without it.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import adjoints
 from repro_torch.kernels import build
 from repro_torch.kernels import conv2d as kconv
 from repro_torch.kernels.epilogue import (NO_EPILOGUE, EpilogueSpec,
@@ -97,13 +104,71 @@ def transposed_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 2,
                          f"got {stride}")
     eps = pack_args(spec, scale=scale, shift=shift, alpha=alpha,
                     residual=residual)
-    if x.device.type == "cpu":
-        return tconv_plain(x, w, stride, p_lo, p_hi, spec, eps)
-    return tconv_cuda(x.contiguous(), w.contiguous(), stride, p_lo, p_hi,
-                      spec, eps)
+    if not kconv.wants_grad(x, w, *eps):
+        return _tconv_raw(x, w, stride, p_lo, p_hi, spec, eps)
+    if spec.empty:
+        return _TconvFn.apply(x, w, stride, p_lo, p_hi)
+    return _TconvEpFn.apply(x, w, spec, stride, p_lo, p_hi,
+                            *kconv.tensor_operands(eps, x.device))
 
 
 transposed_conv2d.launches = 0
+
+
+def _tconv_raw(x, w, s, p_lo, p_hi, spec, eps):
+    """One forward: the plain version on the CPU, else the kernel."""
+    if x.device.type == "cpu":
+        return tconv_plain(x, w, s, p_lo, p_hi, spec, eps)
+    return tconv_cuda(x.contiguous(), w.contiguous(), s, p_lo, p_hi, spec,
+                      eps)
+
+
+class _TconvFn(torch.autograd.Function):
+    """Epilogue-free transposed conv (stride > 1); the port of
+    ``_tconv_vjp``.  dx is ``adjoints.tconv_dx`` on the dense kernel
+    (strided, VALID), dw ``adjoints.tconv_dw``."""
+
+    @staticmethod
+    def forward(ctx, x, w, s, p_lo, p_hi):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (s, p_lo, p_hi)
+        return _tconv_raw(x, w, s, p_lo, p_hi, NO_EPILOGUE, ())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        s, p_lo, p_hi = ctx.conf
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = adjoints.tconv_dx(
+                g, w, s, p_lo, p_hi,
+                lambda gp, wf, st: kconv.conv2d(gp, wf, stride=st,
+                                                padding="VALID"))
+        if ctx.needs_input_grad[1]:
+            dw = adjoints.tconv_dw(x, g, w.shape[0], s, p_lo, p_hi)
+        return dx, dw, None, None, None
+
+
+class _TconvEpFn(torch.autograd.Function):
+    """Transposed conv with a fused epilogue; the port of
+    ``_tconv_ep_vjp``: the backward recomputes through :class:`_TconvFn`
+    (``adjoints.fused_epilogue_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, spec, s, p_lo, p_hi, *eps):
+        ctx.save_for_backward(x, w, *eps)
+        ctx.conf = (spec, s, p_lo, p_hi)
+        return _tconv_raw(x, w, s, p_lo, p_hi, spec, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, *eps = ctx.saved_tensors
+        spec, s, p_lo, p_hi = ctx.conf
+        needs = ctx.needs_input_grad
+        grads = adjoints.fused_epilogue_bwd(
+            lambda xx, ww: _TconvFn.apply(xx, ww, s, p_lo, p_hi), spec, x, w,
+            eps, g, needs[:2] + needs[6:])
+        return (*grads[:2], None, None, None, None, *grads[2:])
 
 
 def tconv_plan(cin: int, cout: int, k: int) -> kconv.ConvPlan:

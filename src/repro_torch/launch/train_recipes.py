@@ -1,0 +1,162 @@
+"""The ENet train step of the port: fp32 masters, AdamW, loss scaling.
+
+The port of ``repro.launch.train_recipes`` for the ``"enet"`` recipe in
+fp32.  One step, as in the reference:
+
+* **fp32 masters**: parameters and AdamW state are fp32 ``{name: tensor}``
+  dicts (the names of ``ENet.named_parameters()``);
+* **fp32 loss**: the logits are promoted to fp32 before the log-softmax
+  NLL reduction;
+* **dynamic loss scaling** (:class:`repro_torch.optim.DynamicLossScale`):
+  the loss is amplified before the gradient and the gradients divided
+  after;
+* **skip on non-finite**: a step whose unscaled gradients hold an inf or
+  NaN applies no update (parameters and optimizer state pass through
+  bitwise via :func:`repro_torch.optim.select_tree`) and backs the scale
+  off.
+
+The step runs eagerly: the forward's convs launch the two conv kernels
+and autograd's backward re-enters them through the kernels'
+``torch.autograd.Function`` classes (``backend="kernels"``), or runs
+``F.conv2d`` compositions (``backend="torch"``, the yardstick).  A CUDA
+graph of the step is a later lever (ROADMAP.md).  ``"espnet"`` and
+``"dcgan"`` raise until their models are ported, and the sharded step
+waits for the multi-device item of ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.enet import ENet
+from repro_torch.optim import (DynamicLossScale, LossScaleState, adamw_init,
+                               adamw_update, select_tree)
+
+#: the reference's recipes; only "enet" is ported
+RECIPES = ("enet", "espnet", "dcgan")
+
+
+class TrainState(NamedTuple):
+    """Everything one step threads: fp32 params, AdamW state, scaler."""
+    params: dict
+    opt: object
+    scale: LossScaleState
+
+
+def _seg_loss(forward, params: dict, batch: dict) -> torch.Tensor:
+    """Mean per-pixel NLL, reduced in fp32."""
+    logits = forward(params, batch["image"])
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, batch["label"][..., None].long())
+    return nll.mean()
+
+
+@functools.lru_cache(maxsize=None)
+def _shell(num_classes: int) -> ENet:
+    """The module structure ``functional_call`` runs the parameters through:
+    an ENet on the meta device, which holds no weights."""
+    return ENet(num_classes, device="meta", generator=torch.Generator())
+
+
+def enet_forward(*, backend: str = "kernels", decomposed: bool = True):
+    """``forward(params, image)``: ENet as a function of a flat parameter
+    dict (the reference's ``enet.forward``), through
+    ``torch.func.functional_call`` on a weightless shell."""
+
+    def forward(params: dict, image: torch.Tensor) -> torch.Tensor:
+        return torch.func.functional_call(
+            _shell(params["fullconv"].shape[-1]), params, (image,),
+            {"backend": backend, "decomposed": decomposed})
+
+    return forward
+
+
+def loss_fn(model: str, *, backend: str = "kernels", decomposed: bool = True):
+    """``loss(params, batch)`` of a recipe."""
+    if model == "enet":
+        return functools.partial(
+            _seg_loss, enet_forward(backend=backend, decomposed=decomposed))
+    if model in RECIPES:
+        raise NotImplementedError(
+            f"recipe {model!r} waits for its model's slice of ROADMAP.md")
+    raise ValueError(f"unknown recipe {model!r}; known: {RECIPES}")
+
+
+def loss_and_grads(loss, params: dict, batch: dict, scale=None):
+    """``(loss, {name: grad})`` of ``loss(params, batch)``; ``scale(loss)``,
+    when given, is what is differentiated (the loss-scaled objective)."""
+    leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+    value = loss(leaves, batch)
+    target = value if scale is None else scale(value)
+    grads = torch.autograd.grad(target, list(leaves.values()))
+    return value.detach(), dict(zip(leaves, grads))
+
+
+def batch_to(batch: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
+    """A pipeline batch as tensors on ``device`` (labels as int64)."""
+    return {"image": torch.from_numpy(batch["image"]).to(device),
+            "label": torch.from_numpy(batch["label"]).to(device,
+                                                          torch.int64)}
+
+
+def init_state(params: dict,
+               scaler: DynamicLossScale | None = None) -> TrainState:
+    """fp32 masters, AdamW state and loss-scale state.  ``params`` maps
+    names to tensors or arrays (a reference tree through
+    :func:`repro_torch.models.enet.flatten_tree`), all on one device."""
+    params = {k: (v.detach() if isinstance(v, torch.Tensor)
+                  else torch.tensor(v)).to(torch.float32, copy=True)
+              for k, v in params.items()}
+    dev = next(iter(params.values())).device
+    scaler = scaler or DynamicLossScale()
+    return TrainState(params, adamw_init(params), scaler.init(dev))
+
+
+def make_train_step(model: str, *, backend: str = "kernels",
+                    decomposed: bool = True,
+                    scaler: DynamicLossScale | None = None,
+                    lr: float = 1e-3, weight_decay: float = 1e-4):
+    """``step(state, batch) -> (state', metrics)`` for one recipe.
+
+    ``batch`` is ``{"image", "label"}`` tensors on the state's device
+    (:func:`batch_to`).  Metrics, 0-d tensors: ``loss`` (unscaled, fp32),
+    ``grad_norm`` (of the applied gradients; 0 on a skipped step),
+    ``scale`` (after the update), ``skipped`` (1.0 when non-finite
+    gradients suppressed the update).
+    """
+    scaler = scaler or DynamicLossScale()
+    loss = loss_fn(model, backend=backend, decomposed=decomposed)
+
+    def step(state: TrainState, batch: dict):
+        value, grads = loss_and_grads(
+            loss, state.params, batch,
+            lambda v: scaler.scale(state.scale, v))
+        grads = scaler.unscale(state.scale, grads)
+        finite = scaler.all_finite(grads)
+        # a non-finite gradient must not reach the AdamW moments: zero the
+        # grads before the update, then discard the whole update anyway
+        zeros = {k: torch.zeros_like(g) for k, g in grads.items()}
+        safe = select_tree(finite, grads, zeros)
+        lr_t = torch.tensor(lr, dtype=torch.float32, device=finite.device)
+        new_params, new_opt, gnorm = adamw_update(
+            safe, state.opt, state.params, lr=lr_t,
+            weight_decay=weight_decay)
+        new_params = select_tree(finite, new_params, state.params)
+        new_opt = select_tree(finite, new_opt, state.opt)
+        scale_state = scaler.update(state.scale, finite)
+        metrics = {"loss": value,
+                   "grad_norm": torch.where(finite, gnorm,
+                                            torch.zeros_like(gnorm)),
+                   "scale": scale_state.scale,
+                   "skipped": 1.0 - finite.float()}
+        return TrainState(new_params, new_opt, scale_state), metrics
+
+    return step
+
+
+__all__ = ["RECIPES", "TrainState", "enet_forward", "loss_fn",
+           "loss_and_grads", "batch_to", "init_state", "make_train_step"]

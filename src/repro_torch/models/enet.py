@@ -1,6 +1,6 @@
 """ENet segmentation network in PyTorch, built on the paper's decomposition.
 
-The port of ``repro.models.enet`` (forward only).  Every conv goes through
+The port of ``repro.models.enet``.  Every conv goes through
 :func:`repro_torch.core.decompose.conv2d`: dilated convs through the input
 decomposition (phase-batched), transposed convs through the weight
 decomposition (live parity taps only), and every BN, PReLU and residual add
@@ -11,11 +11,17 @@ kernel and the 3 transposed convs on the parity-plane kernel.
 Parameters keep the reference's HWIO layout and its names
 (``initial``, ``b1_0.reduce``, ``b1_0.bn1.g``, ...), activations are NHWC,
 so :meth:`ENet.load_jax_params` carries a reference parameter tree across
-and the outputs compare directly.  The non-conv ops stay plain torch:
+and the outputs compare directly; :func:`flatten_tree` gives a reference
+tree (of parameters, gradients or optimizer moments) the names of
+``named_parameters()``.  The parameters train: under autograd every conv
+differentiates through the kernels' ``torch.autograd.Function`` classes, and
+serving runs under ``torch.no_grad()``.  The non-conv ops stay plain torch:
 2x2/s2 max-pool (floor), channel concat and zero-pad, nearest 2x repeat.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -36,11 +42,6 @@ _STAGE2 = [("reg", 1), ("dil", 2), ("asym", 1), ("dil", 4),
            ("reg", 1), ("dil", 8), ("asym", 1), ("dil", 16)]
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    # inference only in this slice: the kernels have no backward yet
-    return nn.Parameter(t, requires_grad=False)
-
-
 def _max_pool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 max-pool on NHWC, floor semantics (VALID)."""
     n, h, w, c = x.shape
@@ -58,16 +59,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         ci = max(c // 4, 1)
         self.ci = ci
-        self.a1, self.a2, self.a3 = (_param(torch.full((1,), 0.25))
+        self.a1, self.a2, self.a3 = (nn.Parameter(torch.full((1,), 0.25))
                                      for _ in range(3))
-        self.bn1, self.bn2, self.bn3 = (
-            nn.ParameterDict({k: _param(v) for k, v in bn_init(n).items()})
-            for n in (ci, ci, c))
+        self.bn1, self.bn2, self.bn3 = (nn.ParameterDict(bn_init(n))
+                                        for n in (ci, ci, c))
         # folded BN does not re-normalise per batch, so zero-init the closing
         # scale: each block starts as the identity ("zero-init residual")
-        self.bn3["g"].zero_()
-        self.reduce = _param(conv_init(g, reduce_k, reduce_k, cin, ci))
-        self.expand = _param(conv_init(g, 1, 1, ci, c))
+        with torch.no_grad():
+            self.bn3["g"].zero_()
+        self.reduce = nn.Parameter(conv_init(g, reduce_k, reduce_k, cin, ci))
+        self.expand = nn.Parameter(conv_init(g, 1, 1, ci, c))
 
     def ep(self, i: int) -> dict:
         """Fused BN_i + PReLU_i epilogue operands."""
@@ -95,7 +96,7 @@ class DilatedBottleneck(Bottleneck):
     def __init__(self, g: torch.Generator, c: int, dilation: int = 1):
         super().__init__(g, c, c)
         self.dilation = dilation
-        self.conv = _param(conv_init(g, 3, 3, self.ci, self.ci))
+        self.conv = nn.Parameter(conv_init(g, 3, 3, self.ci, self.ci))
 
     def branch(self, x, decomposed, strategy, backend):
         h = conv2d(x, self.reduce, backend=backend, **self.ep(1))
@@ -111,8 +112,10 @@ class AsymBottleneck(Bottleneck):
         super().__init__(g, c, c)
         ci = self.ci
         std = (2.0 / (asym * ci)) ** 0.5
-        self.conv_v = _param(torch.randn((asym, 1, ci, ci), generator=g) * std)
-        self.conv_h = _param(torch.randn((1, asym, ci, ci), generator=g) * std)
+        self.conv_v = nn.Parameter(
+            torch.randn((asym, 1, ci, ci), generator=g) * std)
+        self.conv_h = nn.Parameter(
+            torch.randn((1, asym, ci, ci), generator=g) * std)
 
     def branch(self, x, decomposed, strategy, backend):
         h = conv2d(x, self.reduce, backend=backend, **self.ep(1))
@@ -127,7 +130,7 @@ class DownBottleneck(Bottleneck):
     def __init__(self, g: torch.Generator, cin: int, c: int):
         super().__init__(g, c, cin, reduce_k=2)
         self.c = c
-        self.conv = _param(conv_init(g, 3, 3, self.ci, self.ci))
+        self.conv = nn.Parameter(conv_init(g, 3, 3, self.ci, self.ci))
 
     def branch(self, x, decomposed, strategy, backend):
         h = conv2d(x, self.reduce, stride=2, padding=0, backend=backend,
@@ -143,8 +146,8 @@ class UpBottleneck(Bottleneck):
 
     def __init__(self, g: torch.Generator, cin: int, c: int):
         super().__init__(g, c, cin)
-        self.deconv = _param(conv_init(g, 3, 3, self.ci, self.ci))
-        self.skip = _param(conv_init(g, 1, 1, cin, c))
+        self.deconv = nn.Parameter(conv_init(g, 3, 3, self.ci, self.ci))
+        self.skip = nn.Parameter(conv_init(g, 1, 1, cin, c))
 
     def branch(self, x, decomposed, strategy, backend):
         h = conv2d(x, self.reduce, backend=backend, **self.ep(1))
@@ -162,7 +165,8 @@ class ENet(nn.Module):
     Args:
       num_classes: output channels of the head (19 for Cityscapes).
       device: ``None`` -> CUDA (raises without a card); ``"cpu"`` runs the
-        kernels' plain versions.
+        kernels' plain versions; ``"meta"`` builds a shell that holds no
+        weights (nothing is drawn), for ``torch.func.functional_call``.
       generator: the ``torch.Generator`` the weights are drawn from (on the
         CPU, then moved to ``device``).
     """
@@ -170,9 +174,14 @@ class ENet(nn.Module):
     def __init__(self, num_classes: int = 19, device=None, *,
                  generator: torch.Generator):
         super().__init__()
-        dev = resolve_device(device)
-        g = generator
-        self.initial = _param(conv_init(g, 3, 3, 3, 13))
+        meta = device == "meta"
+        dev = torch.device("meta") if meta else resolve_device(device)
+        with torch.device("meta") if meta else contextlib.nullcontext():
+            self._build(generator, num_classes)
+        self.to(dev)
+
+    def _build(self, g: torch.Generator, num_classes: int) -> None:
+        self.initial = nn.Parameter(conv_init(g, 3, 3, 3, 13))
         blocks = [("b1_0", DownBottleneck(g, 16, 64))]
         blocks += [(f"b1_{i}", DilatedBottleneck(g, 64)) for i in range(1, 5)]
         blocks.append(("b2_0", DownBottleneck(g, 64, 128)))
@@ -188,8 +197,7 @@ class ENet(nn.Module):
         for name, blk in blocks:
             self.add_module(name, blk)
         self.block_names = [name for name, _ in blocks]
-        self.fullconv = _param(conv_init(g, 3, 3, 16, num_classes))
-        self.to(dev)
+        self.fullconv = nn.Parameter(conv_init(g, 3, 3, 16, num_classes))
 
     def forward(self, x: torch.Tensor, decomposed: bool = True,
                 strategy: str = "batched",
@@ -217,16 +225,7 @@ class ENet(nn.Module):
         present with its exact shape; anything missing, extra or misshapen
         raises before any parameter is written.
         """
-        flat = {}
-
-        def walk(prefix, node):
-            if isinstance(node, dict):
-                for k, v in node.items():
-                    walk(f"{prefix}.{k}" if prefix else k, v)
-            else:
-                flat[prefix] = node
-
-        walk("", tree)
+        flat = flatten_tree(tree)
         params = dict(self.named_parameters())
         if set(flat) != set(params):
             raise KeyError(f"parameter trees differ: missing "
@@ -242,5 +241,19 @@ class ENet(nn.Module):
             p.copy_(values[name])
 
 
-__all__ = ["ENet", "Bottleneck", "DilatedBottleneck", "AsymBottleneck",
-           "DownBottleneck", "UpBottleneck"]
+def flatten_tree(tree: dict, prefix: str = "") -> dict:
+    """A nested parameter tree (the reference's ``init_params`` layout) as
+    one flat dict keyed by dotted names (``b1_0.bn1.g``), the names of
+    ``ENet.named_parameters()``, so trees compare leaf by leaf."""
+    flat = {}
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            flat.update(flatten_tree(v, name))
+        else:
+            flat[name] = v
+    return flat
+
+
+__all__ = ["ENet", "flatten_tree", "Bottleneck", "DilatedBottleneck",
+           "AsymBottleneck", "DownBottleneck", "UpBottleneck"]

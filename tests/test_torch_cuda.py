@@ -20,7 +20,10 @@ cases reach every variant of ``conv_plan``: 4- and 16-byte input copies
 32 and 70), streamed weights, the phase-batched dilated shapes, and the
 transposed kernel's k3 s2 head with Cout 19, k4 s2 p_lo 2, k2 s3 (k < s)
 and weights streamed per plane at the largest k of stride 2 (k16, Cout 24
-and 32) and at k9 s3, each under every epilogue spec.
+and 32) and at k9 s3, each under every epilogue spec.  The backward cases
+mirror ``chip_smoke.py`` phase 7: gradients through the kernels' autograd
+Functions against ``backend="torch"`` autograd, per tensor
+``max |err| <= 1e-4 * max(1, max |ref|)``.
 """
 
 import pytest
@@ -315,3 +318,122 @@ def test_wgmma_variants_refuse_what_tma_cannot_take(cuda):
               kmm.VARIANTS["wgmma"], torch.cuda.current_stream().cuda_stream)
     assert code != 0
     assert b"invalid argument" in lib.matmul_error_string(code)
+
+
+# ------------------------------------------------------------- backward
+# The backward edge cases of chip_smoke.py phase 7: gradients through the
+# kernels' autograd Functions against ``backend="torch"`` autograd (cuDNN,
+# TF32 off), per tensor max |err| <= 1e-4 * max(1, max |ref|).
+
+_TCONV = dict(stride=2, transposed=True, output_padding=1)
+_GRAD_CASES = [  # label, conv kwargs, x shape, w shape, kernel launched
+    ("k2s2p0", dict(stride=2, padding=0), (2, 32, 30, 16), (2, 2, 16, 32),
+     "transposed_conv2d"),
+    ("k3s2same", dict(stride=2), (2, 33, 31, 16), (3, 3, 16, 24),
+     "transposed_conv2d"),
+    ("k4s2p1", dict(stride=2, padding=1), (2, 32, 30, 8), (4, 4, 8, 20),
+     "transposed_conv2d"),
+    ("5x1", {}, (2, 21, 19, 32), (5, 1, 32, 32), "conv2d"),
+    ("1x5", {}, (2, 21, 19, 32), (1, 5, 32, 32), "conv2d"),
+    ("tconv_k3s2op1_cout19", _TCONV, (2, 16, 16, 16), (3, 3, 16, 19),
+     "conv2d"),
+    ("dilated_d2s2", dict(dilation=2, stride=2), (2, 24, 22, 16),
+     (3, 3, 16, 16), "conv2d"),
+    ("dilated_d2", dict(dilation=2), (2, 25, 23, 16), (3, 3, 16, 16),
+     "conv2d"),
+    ("dilated_d4", dict(dilation=4), (2, 45, 38, 32), (3, 3, 32, 32),
+     "conv2d")]
+
+
+def _grads_both_backends(cuda, kw, xs, ws, spec, seed):
+    from repro_torch.core.decompose import conv2d
+
+    g = torch.Generator().manual_seed(seed)
+    # He-scaled weights keep y O(1), so sin' does not amplify the
+    # forward's fp32 rounding (as chip_smoke.py phase 7)
+    x = torch.randn(xs, generator=g).to(cuda)
+    w = torch.randn(ws, generator=g).to(cuda) * (ws[0] * ws[1] * ws[2]) ** -0.5
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        cout = conv2d(x, w, backend="torch", **kw).shape
+    ops = {}
+    if spec is not None and spec.bn:
+        ops["scale"] = torch.randn(cout[-1], generator=g).to(cuda)
+        ops["shift"] = torch.randn(cout[-1], generator=g).to(cuda)
+    if spec is not None and spec.prelu:
+        ops["alpha"] = 0.3 * torch.randn(1 if spec.bn else cout[-1],
+                                         generator=g).to(cuda)
+    if spec is not None and spec.residual != "none":
+        ops["residual"] = torch.randn(cout, generator=g).to(cuda)
+    out, launched = {}, {}
+    for backend in ("kernels", "torch"):
+        prims = [t.detach().requires_grad_() for t in (x, w, *ops.values())]
+        y = conv2d(prims[0], prims[1], backend=backend, epilogue=spec,
+                   **dict(zip(ops, prims[2:])), **kw)
+        before = (kconv.conv2d.launches, ktr.transposed_conv2d.launches)
+        out[backend] = torch.autograd.grad(torch.sin(y).sum(), prims)
+        torch.cuda.synchronize()
+        launched[backend] = {
+            "conv2d": kconv.conv2d.launches - before[0],
+            "transposed_conv2d": ktr.transposed_conv2d.launches - before[1]}
+        out[backend + "_fn"] = type(y.grad_fn).__name__
+    return out, launched
+
+
+def _close_grad(got, want, rtol=1e-4, floor=1.0):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    bar = rtol * max(floor, want.abs().max().item())
+    assert (got - want).abs().max().item() <= bar
+
+
+@pytest.mark.parametrize("case", _GRAD_CASES, ids=lambda c: c[0])
+def test_backward_matches_torch_backend(cuda, case):
+    label, kw, xs, ws, kernel = case
+    out, launched = _grads_both_backends(cuda, kw, xs, ws, None, len(label))
+    assert launched["kernels"][kernel] >= 1
+    assert launched["torch"] == {"conv2d": 0, "transposed_conv2d": 0}
+    if label in ("dilated_d2", "dilated_d4"):
+        assert out["kernels_fn"] == "_DilatedFnBackward"
+    for got, want in zip(out["kernels"], out["torch"]):
+        _close_grad(got, want)
+
+
+@pytest.mark.parametrize("spec", _ALL_SPECS, ids=str)
+@pytest.mark.parametrize("path", ["dense", "transposed"])
+def test_epilogue_operand_grads_match_torch_backend(cuda, path, spec):
+    kw, xs, ws = (({}, (2, 19, 23, 24), (3, 3, 24, 40)) if path == "dense"
+                  else (_TCONV, (2, 9, 11, 16), (3, 3, 16, 20)))
+    out, launched = _grads_both_backends(cuda, kw, xs, ws, spec, 7)
+    assert launched["kernels"]["conv2d"] >= 1
+    assert len(out["kernels"]) == 2 + len(spec.slots)
+    for got, want in zip(out["kernels"], out["torch"]):
+        _close_grad(got, want)
+
+
+def test_enet_backward_runs_on_the_kernels(cuda):
+    """One ENet training step's backward at 64x64: 165 dense and 4
+    transposed launches, every weight gradient, and gradients that match
+    the torch backend's per tensor at 1e-4 x max(1, max|ref|) and, since
+    the gradients are small, at 2e-3 x max|ref| (chip_smoke.py's
+    GRAD_RTOL)."""
+    from repro_torch.launch import train_recipes as ttr
+    from repro_torch.models.enet import ENet
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = ENet(5, device=cuda, generator=torch.Generator().manual_seed(0))
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    g = torch.Generator().manual_seed(1)
+    batch = {"image": torch.randn(2, 64, 64, 3, generator=g).to(cuda),
+             "label": torch.randint(0, 5, (2, 64, 64), generator=g).to(cuda)}
+    leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+    loss = ttr.loss_fn("enet")(leaves, batch)
+    before = (kconv.conv2d.launches, ktr.transposed_conv2d.launches)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    assert (kconv.conv2d.launches - before[0],
+            ktr.transposed_conv2d.launches - before[1]) == (165, 4)
+    _, want = ttr.loss_and_grads(ttr.loss_fn("enet", backend="torch"), params,
+                                 batch)
+    for name, got in zip(leaves, grads):
+        _close_grad(got, want[name])
+        _close_grad(got, want[name], rtol=2e-3, floor=0.0)

@@ -61,7 +61,10 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.core.decompose, "
             "repro_torch.models.enet, repro_torch.kernels.build, "
             "repro_torch.kernels.ref, repro_torch.kernels.ops, "
-            "repro_torch.kernels.matmul, repro_torch.kernels.flash_attention; "
+            "repro_torch.kernels.matmul, repro_torch.kernels.flash_attention, "
+            "repro_torch.core.adjoints, repro_torch.optim, repro_torch.data, "
+            "repro_torch.launch.train_recipes, "
+            "repro_torch.launch.train_enet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(_ROOT / "src"))
@@ -100,8 +103,10 @@ def test_kernel_wrappers_check_operands():
         ktr.transposed_conv2d(x[0], w)
     with pytest.raises(ValueError, match="square"):
         ktr.transposed_conv2d(x, torch.zeros(3, 2, 2, 2))
-    with pytest.raises(NotImplementedError, match="forward only"):
-        kconv.conv2d(x.requires_grad_(), w)
+    # the conv wrappers differentiate: a gradient request builds a graph
+    # through their autograd Functions instead of raising
+    y = kconv.conv2d(x.requires_grad_(), w)
+    assert y.grad_fn is not None and y.requires_grad
 
 
 def test_canon_dtype_is_fp32_only():
