@@ -70,8 +70,39 @@ nvcc, then:
    yardstick (``torch.matmul`` in the input dtype, TF32 off;
    ``F.scaled_dot_product_attention(is_causal=True)``);
 13. prints the ``{"kernels": [...]}`` line (all four kernels on their
-   paths, and the two conv kernels again on the ENet backward) and, last,
-   ``{"ok": true, "device": {...}}``.
+   paths, the two conv kernels again on the ENet backward, and both again
+   in bf16 on the forward and the backward) and, last,
+   ``{"ok": true, "device": {...}}``;
+
+and, before those two lines, the bf16 slice:
+
+14. holds the bf16 forms of both conv kernels against their plain versions
+   on the card, per element at 2^-7 |plain| + 1e-4 x max(1, max|plain|)
+   (backward calls of the 2^15-scaled loss without the max(1, .) floor):
+   every conv call of an ENet-512 batch-4 bf16 forward and of its
+   backward, recorded from the runs themselves, and phase 3's edge cases in
+   bf16 (stem Cin 3, Cin 4, Cout 4/8/13/19, the Cin-19 head dx, base
+   pointers 2 and 8 bytes off a 16-byte boundary, a streamed weight slab,
+   every epilogue spec, d = 2, 4, 8, 16, transposed k3/k4/k2/k<s/k16), and
+   shows that a zeroed output and one 2% off fail that bar;
+15. serves ENet-512 (batch 4, 19 classes) with ``compute_dtype="bf16"``
+   and ``backend="kernels"``: 86 + 3 launches, every conv2d launch on a
+   bf16 form, no plain version and no library conv, bf16 logits within
+   the reference's 5% of the fp32 range (DESIGN.md §12) of the torch
+   backend's bf16 logits and of the fp32 kernels' logits;
+16. trains it in bf16: the launches of a step (86 + 3, 165 + 4, bf16 forms,
+   no matmul but the weight gradients' tap correlations), step-0
+   gradients against the torch backend's bf16 ones at 10% relative L2
+   per tensor (the 81 scalar PReLU slopes, whose gradients are cancelling
+   sums that bf16 rounding moves by more than that on either backend,
+   together; and all 332 together), three
+   ``make_train_step("enet", compute_dtype="bf16")`` steps on both
+   backends (losses finite and within 5% of the fp32 run's, the step-0
+   gradient norm within 10%, masters fp32), and the NaN-image skip;
+17. times the bf16 forward and step on both backends, the busy share, and
+   every bf16 kernel call per geometry beside its bound (2 bytes an
+   element at 3.35 TB/s, or 2 x MACs at the 989 TFLOP/s bf16 peak), its
+   library call in bf16 and the fp32 kernel on the same geometry.
 
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
@@ -113,9 +144,28 @@ REL_L2_TOL = 1e-4
 LAUNCHES_PER_FORWARD = {"conv2d": 86, "transposed_conv2d": 3,
                         "matmul": 0, "flash_attention": 0}
 # the conv2d variants of one forward: the stem (Cin 3) takes the 4-byte
-# copies, every other conv the 16-byte ones; every weight slab is resident
-CONV_VARIANTS_PER_FORWARD = {"vec4-resident": 85, "vec4-streamed": 0,
-                             "scalar-resident": 1, "scalar-streamed": 0}
+# copies, every other conv the 16-byte ones; every weight slab is resident;
+# no launch takes a bf16 form
+CONV_VARIANTS_PER_FORWARD = {
+    "vec4-resident": 85, "vec4-streamed": 0, "scalar-resident": 1,
+    "scalar-streamed": 0, "bf16-vec8-resident": 0, "bf16-vec8-streamed": 0,
+    "bf16-vec4-resident": 0, "bf16-vec4-streamed": 0,
+    "bf16-scalar-resident": 0, "bf16-scalar-streamed": 0}
+# the conv2d variants of a bf16 forward and backward: 2-byte plain loads
+# for the odd channel counts (the stem's Cin 3, the head dx's Cin-19
+# cotangent), 8-byte copies for Cin 4, 16-byte ones for the rest
+BF16_VARIANTS = {
+    "forward": {"bf16-vec8-resident": 82, "bf16-vec4-resident": 3,
+                "bf16-scalar-resident": 1},
+    "backward": {"bf16-vec8-resident": 157, "bf16-vec4-resident": 7,
+                 "bf16-scalar-resident": 1}}
+# bf16 against fp32 and against the torch backend: the reference's bars
+# (DESIGN.md §12), forward within 5% of the fp32 output range, gradients
+# within 10% relative L2
+BF16_FWD_RTOL = 0.05
+BF16_GRAD_RTOL = 0.10
+# ENet's scalar PReLU slopes (phase 16 holds their gradients together)
+SLOPES = ("a1", "a2", "a3")
 # one ENet training step's launches: the forward's, then the backward's
 # (the 79 fused convs and 2 fused upsamplers recomputed without their
 # epilogue, 86 dense dx: 75 square stride-1, 8 rectangular and the 3
@@ -145,6 +195,30 @@ LAUNCHES_PER_LM_LAYER = {"conv2d": 0, "transposed_conv2d": 0, "matmul": 7,
                          "flash_attention": 1}
 # the variant every matmul and attention launch of the layer takes, by dtype
 LM_VARIANT = {"torch.float32": "simt", "torch.bfloat16": "wgmma"}
+# phase 3's edge cases (and phase 14's, in bf16)
+DENSE_EDGES = [  # label, x shape, w shape, stride, pads
+    ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
+     ((1, 1), (1, 1))),
+    ("k2 s2 p0", (2, 32, 30, 16), (2, 2, 16, 32), 2, ((0, 0), (0, 0))),
+    ("5x1 SAME", (2, 21, 19, 32), (5, 1, 32, 32), 1, ((2, 2), (0, 0))),
+    ("1x5 SAME", (2, 21, 19, 32), (1, 5, 32, 32), 1, ((0, 0), (2, 2))),
+    ("k2 SAME-even", (2, 15, 17, 8), (2, 2, 8, 24), 1, ((0, 1), (0, 1))),
+    ("k4 SAME-even s2", (2, 15, 17, 8), (4, 4, 8, 70), 2, ((1, 2), (1, 2))),
+    ("Cin4 3x3 (16-byte copies)", (2, 17, 19, 4), (3, 3, 4, 16), 1,
+     ((1, 1), (1, 1))),
+    ("Cout4 1x1", (2, 20, 18, 16), (1, 1, 16, 4), 1, ((0, 0), (0, 0))),
+    ("Cout8 3x3", (2, 17, 19, 16), (3, 3, 16, 8), 1, ((1, 1), (1, 1))),
+    ("Cout19 3x3", (2, 16, 15, 16), (3, 3, 16, 19), 1, ((1, 1), (1, 1))),
+    ("3x3 128->64, streamed slab", (2, 9, 10, 128), (3, 3, 128, 64), 1,
+     ((1, 1), (1, 1))),
+]
+TCONV_EDGES = [  # label, x shape, k, s, p_lo, output_padding, cin, cout
+    ("k3 s2 op1 Cout19", (2, 16, 16), 3, 2, 1, 1, 16, 19),
+    ("k4 s2 p_lo2", (2, 13, 11), 4, 2, 2, 0, 16, 24),
+    ("k2 s2 p_lo0", (2, 13, 11), 2, 2, 0, 0, 16, 24),
+    ("k2 s3 k<s + epilogue", (2, 9, 7), 2, 3, 1, 0, 8, 12),
+    ("k16 s2 Cout32, streamed taps", (2, 11, 9), 16, 2, 7, 1, 16, 32),
+]
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel's pallas_call)
     "conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
                "src/repro/kernels/conv2d.py:195"),
@@ -242,6 +316,29 @@ class Smoke:
             tol = BF16_STEP * mean + rtol * scale
             worst = (diff / (BF16_STEP * mag + rtol * scale)).max().item()
         return err, mean, top, tol, worst
+
+    def specs(self):
+        """Every epilogue spec: BN, PReLU and the residual placements."""
+        from repro_torch.kernels.epilogue import EpilogueSpec
+
+        return [EpilogueSpec(bn=b, prelu=p, residual=r)
+                for b in (False, True) for p in (False, True)
+                for r in ("none", "pre_act", "post_act")]
+
+    def ep_args(self, g, spec, out_shape, dtype=None):
+        """Random operands of ``spec`` for an output of ``out_shape``, drawn
+        from ``g``: fp32 channel operands, the residual in ``dtype`` (fp32
+        by default)."""
+        cout = out_shape[-1]
+        kw = {}
+        if spec.bn:
+            kw.update(scale=self.rand(g, cout), shift=self.rand(g, cout))
+        if spec.prelu:
+            kw["alpha"] = self.rand(g, cout if cout % 2 else 1)
+        if spec.residual != "none":
+            res = self.rand(g, *out_shape)
+            kw["residual"] = res if dtype is None else res.to(dtype)
+        return tuple(kw[s] for s in spec.slots)
 
     def compare(self, label, name, got, want, quiet=False, floor=1.0,
                 rtol=TOL):
@@ -381,12 +478,18 @@ class Smoke:
         steps = self.phase_train(params, batch)
         kernels_line["kernels"] += self.phase_train_times(steps, batch,
                                                           bwd_calls, taps)
+        fp32_train = {b: {k: run[k] for k in ("losses", "grad_norms")}
+                      for b, run in steps.items()}
         del params, batch, bwd_calls, taps, steps
         torch.cuda.empty_cache()
 
         self.phase_lm_kernels()
         lm_calls = self.phase_lm_main()
         kernels_line["kernels"] += self.phase_lm_times(lm_calls)
+        del lm_calls
+        torch.cuda.empty_cache()
+
+        kernels_line["kernels"] += self.run_bf16(fp32_train)
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
                   "w") as f:
@@ -449,55 +552,16 @@ class Smoke:
         log(f"  {len(calls)} ENet calls, {len(seen)} distinct geometries: ok")
 
         g = torch.Generator().manual_seed(SEED + 1)
-        specs = [EpilogueSpec(bn=b, prelu=p, residual=r)
-                 for b in (False, True) for p in (False, True)
-                 for r in ("none", "pre_act", "post_act")]
-
-        def ep_args(spec, out_shape):
-            cout = out_shape[-1]
-            kw = {}
-            if spec.bn:
-                kw.update(scale=self.rand(g, cout), shift=self.rand(g, cout))
-            if spec.prelu:
-                kw["alpha"] = self.rand(g, cout if cout % 2 else 1)
-            if spec.residual != "none":
-                kw["residual"] = self.rand(g, *out_shape)
-            return tuple(kw[s] for s in spec.slots)
-
         kconv, ktr = self.kconv, self.ktr
-        dense = [  # label, x shape, w shape, stride, pads
-            ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
-             ((1, 1), (1, 1))),
-            ("k2 s2 p0", (2, 32, 30, 16), (2, 2, 16, 32), 2,
-             ((0, 0), (0, 0))),
-            ("5x1 SAME", (2, 21, 19, 32), (5, 1, 32, 32), 1,
-             ((2, 2), (0, 0))),
-            ("1x5 SAME", (2, 21, 19, 32), (1, 5, 32, 32), 1,
-             ((0, 0), (2, 2))),
-            ("k2 SAME-even", (2, 15, 17, 8), (2, 2, 8, 24), 1,
-             ((0, 1), (0, 1))),
-            ("k4 SAME-even s2", (2, 15, 17, 8), (4, 4, 8, 70), 2,
-             ((1, 2), (1, 2))),
-            ("Cin4 3x3 (16-byte copies)", (2, 17, 19, 4), (3, 3, 4, 16), 1,
-             ((1, 1), (1, 1))),
-            ("Cout4 1x1", (2, 20, 18, 16), (1, 1, 16, 4), 1,
-             ((0, 0), (0, 0))),
-            ("Cout8 3x3", (2, 17, 19, 16), (3, 3, 16, 8), 1,
-             ((1, 1), (1, 1))),
-            ("Cout19 3x3", (2, 16, 15, 16), (3, 3, 16, 19), 1,
-             ((1, 1), (1, 1))),
-            ("3x3 128->64, streamed slab", (2, 9, 10, 128),
-             (3, 3, 128, 64), 1, ((1, 1), (1, 1))),
-        ]
-        for label, xs, ws, s, pads in dense:
+        for label, xs, ws, s, pads in DENSE_EDGES:
             xx, ww = self.rand(g, *xs), self.rand(g, *ws)
             self.compare(label, "conv2d",
                          kconv.conv2d(xx, ww, stride=s, padding=pads),
                          kconv.conv2d_plain(xx, ww, s, pads,
                                             EpilogueSpec(), ()))
         xx, ww = self.rand(g, 2, 19, 23, 24), self.rand(g, 3, 3, 24, 40)
-        for spec in specs:
-            eps = ep_args(spec, (2, 19, 23, 40))
+        for spec in self.specs():
+            eps = self.ep_args(g, spec, (2, 19, 23, 40))
             self.compare(f"epilogue {spec}", "conv2d",
                          kconv.conv2d_cuda(xx, ww, 1, ((1, 1), (1, 1)), spec,
                                            eps),
@@ -506,27 +570,19 @@ class Smoke:
         spec = EpilogueSpec(bn=True, prelu=True, residual="pre_act")
         for d in (2, 4, 8, 16):
             xx, ww = self.rand(g, 2, 45, 38, 32), self.rand(g, 3, 3, 32, 32)
-            eps = ep_args(spec, (2, 45, 38, 32))
+            eps = self.ep_args(g, spec, (2, 45, 38, 32))
             kw = dict(zip(spec.slots, eps))
             self.compare(f"dilated d={d}", "conv2d",
                          dilated_conv2d(xx, ww, d, epilogue=spec, **kw),
                          apply_reference(spec, dilated_conv2d_reference(
                              xx, ww, d), eps))
-        tconv = [  # label, x shape, k, s, p_lo, output_padding, cin, cout
-            ("k3 s2 op1 Cout19", (2, 16, 16), 3, 2, 1, 1, 16, 19),
-            ("k4 s2 p_lo2", (2, 13, 11), 4, 2, 2, 0, 16, 24),
-            ("k2 s2 p_lo0", (2, 13, 11), 2, 2, 0, 0, 16, 24),
-            ("k2 s3 k<s + epilogue", (2, 9, 7), 2, 3, 1, 0, 8, 12),
-            ("k16 s2 Cout32, streamed taps", (2, 11, 9), 16, 2, 7, 1, 16,
-             32),
-        ]
-        for label, (n, h, w_), k, s, p_lo, op, cin, cout in tconv:
+        for label, (n, h, w_), k, s, p_lo, op, cin, cout in TCONV_EDGES:
             xx, ww = self.rand(g, n, h, w_, cin), self.rand(g, k, k, cin, cout)
             sp = (EpilogueSpec(bn=True, residual="post_act") if "k<s" in label
                   else EpilogueSpec())
             oh, ow = (h - 1) * s + 2 * p_lo + op - k + 2, \
                 (w_ - 1) * s + 2 * p_lo + op - k + 2
-            eps = ep_args(sp, (n, oh, ow, cout))
+            eps = self.ep_args(g, sp, (n, oh, ow, cout))
             self.compare(label, "transposed_conv2d",
                          ktr.tconv_cuda(xx, ww, s, p_lo, p_lo + op, sp, eps),
                          ktr.tconv_plain(xx, ww, s, p_lo, p_lo + op, sp, eps))
@@ -606,20 +662,28 @@ class Smoke:
         times["geometries"] = self.geometry_table(rows, "a forward")
         return {"kernels": entries}, times
 
-    def time_calls(self, calls):
+    def time_calls(self, calls, fp32_too=False):
         """Per recorded kernel call: device ms of the kernel, its plain
-        version and its library call, beside its work and bound.  Returns
-        the rows and their sums per kernel."""
+        version and its library call, beside its work and bound (at the
+        peak of the call's dtype: the CUDA cores' fp32 rate, or the bf16
+        tensor-core rate for bf16).  ``fp32_too``: also the kernel's ms on
+        the same call in fp32.  Returns the rows and their sums per
+        kernel."""
         torch = self.torch
-        per = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                      "library_ms": 0.0, "bytes": 0, "flops": 0}
-               for name in self.kernels}
+        keys = ["ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
+                "bytes_ms", "flops", "bytes"] + (["fp32_ms"] if fp32_too
+                                                 else [])
+        per = {name: dict.fromkeys(keys, 0.0) for name in self.kernels}
         rows = []
         with torch.no_grad():
             for name, args in calls:
                 kern, plain, _ = self.kernels[name]
                 lib = self.library_call(name, args)
                 flops, nbytes = self.work(name, args)
+                peak = (PEAK_FP32_FLOPS if args[0].dtype == torch.float32
+                        else PEAK_BF16_FLOPS)
+                ops_ms = 1e3 * flops / peak
+                bytes_ms = 1e3 * nbytes / PEAK_BYTES_S
                 row = {"kernel": name, "geometry": self.geometry(name, args),
                        "variant": self.variant(name, args),
                        "ms": self.device_ms(lambda: kern(*args)),
@@ -627,25 +691,39 @@ class Smoke:
                                                   reps=3),
                        "library_ms": self.device_ms(lib),
                        "flops": flops, "bytes": nbytes,
-                       "bound_ms": 1e3 * max(flops / PEAK_FP32_FLOPS,
-                                             nbytes / PEAK_BYTES_S)}
+                       "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                       "bound_ms": max(ops_ms, bytes_ms)}
+                if fp32_too:
+                    args32 = self.as_fp32(args)
+                    row["fp32_ms"] = self.device_ms(lambda: kern(*args32))
                 rows.append(row)
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                            "flops", "bytes"):
+                for key in keys:
                     per[name][key] += row[key]
         return rows, per
+
+    def as_fp32(self, args):
+        """A recorded call's arguments with its tensors (x, w, the residual)
+        widened to fp32."""
+        torch = self.torch
+
+        def up(a):
+            if isinstance(a, tuple):
+                return tuple(up(e) for e in a)
+            if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16:
+                return a.float()
+            return a
+
+        return up(args)
 
     def kernel_entry(self, name, label, launches, p):
         """One entry of the ``{"kernels": [...]}`` line from per-kernel
         sums ``p`` (``time_calls``)."""
-        flops_bound = p["flops"] / PEAK_FP32_FLOPS
         return {
             "name": label, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": launches,
             "max_abs_err": self.worst[label], "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
-            "bound_by": ("operations"
-                         if flops_bound >= p["bytes"] / PEAK_BYTES_S
+            "bound_by": ("operations" if p["ops_ms"] >= p["bytes_ms"]
                          else "bytes"),
             "library_ms": p["library_ms"]}
 
@@ -654,28 +732,33 @@ class Smoke:
         forward"), logged as a table: calls, device ms, bound ms and what
         bounds it, x bound, library ms and the launch plan; then the
         geometry furthest from its bound."""
+        sums = ["ms", "bound_ms", "ops_ms", "bytes_ms", "library_ms",
+                "flops", "bytes"] + (["fp32_ms"] if "fp32_ms" in rows[0]
+                                     else [])
         groups = {}
         for r in rows:
             g = groups.setdefault((r["kernel"], r["geometry"]), {
                 "kernel": r["kernel"], "geometry": r["geometry"],
-                "variant": r["variant"], "calls": 0, "ms": 0.0,
-                "bound_ms": 0.0, "library_ms": 0.0, "flops": 0,
-                "bytes": 0})
+                "variant": r["variant"], "calls": 0,
+                **dict.fromkeys(sums, 0.0)})
             g["calls"] += 1
-            for k in ("ms", "bound_ms", "library_ms", "flops", "bytes"):
+            for k in sums:
                 g[k] += r[k]
         table = sorted(groups.values(), key=lambda g: -g["ms"])
+        fp32 = "fp32_ms" in sums
         log(f"  per geometry (sums over {per}'s calls; device ms):")
         log(f"    {'kernel':18s} {'calls':>5s} {'ms':>7s} {'bound':>7s} "
-            f"{'by':5s} {'xbound':>6s} {'library':>7s}  variant  geometry")
+            f"{'by':5s} {'xbound':>6s} {'library':>7s} "
+            + (f"{'fp32':>7s} " if fp32 else "") + " variant  geometry")
         for g in table:
-            by = ("ops" if g["flops"] / PEAK_FP32_FLOPS
-                  >= g["bytes"] / PEAK_BYTES_S else "bytes")
+            by = "ops" if g["ops_ms"] >= g["bytes_ms"] else "bytes"
             g["bound_by"] = "operations" if by == "ops" else "bytes"
             g["x_bound"] = g["ms"] / g["bound_ms"]
             log(f"    {g['kernel']:18s} {g['calls']:5d} {g['ms']:7.4f} "
                 f"{g['bound_ms']:7.4f} {by:5s} {g['x_bound']:6.1f} "
-                f"{g['library_ms']:7.4f}  {g['variant']}  {g['geometry']}")
+                f"{g['library_ms']:7.4f} "
+                + (f"{g['fp32_ms']:7.4f} " if fp32 else "")
+                + f" {g['variant']}  {g['geometry']}")
         worst = max(table, key=lambda g: g["x_bound"])
         log(f"  worst x bound: {worst['x_bound']:.1f} ({worst['kernel']} "
             f"{worst['geometry']}, {worst['ms']:.4f} ms against "
@@ -829,11 +912,7 @@ class Smoke:
     def grad_cases(self):
         """(label, conv kwargs, x shape, w shape, epilogue spec, the kernel
         the backward must launch) of phase 7."""
-        from repro_torch.kernels.epilogue import EpilogueSpec
-
-        specs = [EpilogueSpec(bn=b, prelu=p, residual=r)
-                 for b in (False, True) for p in (False, True)
-                 for r in ("none", "pre_act", "post_act")]
+        specs = self.specs()
         tconv = dict(stride=2, transposed=True, output_padding=1)
         return [
             ("dx on kernel 2: k2 s2 p0", dict(stride=2, padding=0),
@@ -969,7 +1048,7 @@ class Smoke:
                              for i in range(1, TRAIN_STEPS + 1)]
         for backend in ("kernels", "torch"):
             step = ttr.make_train_step("enet", backend=backend)
-            state, losses = state0, []
+            state, losses, gnorms = state0, [], []
             for i in range(TRAIN_STEPS):
                 self.reset_counts()
                 state, m = step(state, batches[i])
@@ -983,7 +1062,9 @@ class Smoke:
                 if m["skipped"].item():
                     raise RuntimeError(f"{backend} step skipped")
                 losses.append(m["loss"].item())
-            steps[backend] = {"step": step, "state": state, "losses": losses}
+                gnorms.append(m["grad_norm"].item())
+            steps[backend] = {"step": step, "state": state, "losses": losses,
+                              "grad_norms": gnorms}
             log(f"  {backend}: losses {losses}, launches per step {counts}")
         lk, lt = steps["kernels"]["losses"], steps["torch"]["losses"]
         rels = [abs(a - b) / abs(b) for a, b in zip(lk, lt)]
@@ -1081,6 +1162,401 @@ class Smoke:
             entries.append(self.kernel_entry(name, label, n, p))
             times[f"{name}_per_backward"] = p
         self.report["train"].update(times)
+        return entries
+
+    # ------------------------------------------------------ the bf16 slice
+    def run_bf16(self, fp32_train):
+        """Phases 14-17 on phase 4's ENet-512 (the same seeded weights, fp32
+        masters): kernels, serving, training and times in bf16.  Returns
+        the bf16 entries of the kernels line."""
+        torch = self.torch
+        model, x = self.make_model()
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        batch = self.seg_batch(0)
+        fwd_calls, bwd_calls = self.phase_bf16_kernels(model, x, params,
+                                                       batch)
+        self.phase_bf16_main(model, x)
+        steps = self.phase_bf16_train(params, fp32_train)
+        entries = self.phase_bf16_times(model, x, batch, steps, fwd_calls,
+                                        bwd_calls)
+        del model, x, params, batch, fwd_calls, bwd_calls, steps
+        torch.cuda.empty_cache()
+        return entries
+
+    def phase_bf16_kernels(self, model, x, params, batch):
+        torch = self.torch
+        from repro_torch.core.dilated import dilated_conv2d_reference
+        from repro_torch.kernels.dilated_conv import dilated_conv2d
+        from repro_torch.kernels.epilogue import (EpilogueSpec,
+                                                  apply_reference)
+        from repro_torch.launch import train_recipes as ttr
+        from repro_torch.optim import DynamicLossScale
+
+        bf16 = torch.bfloat16
+        log("phase 14: bf16 kernels vs plain on the card (each element: "
+            f"2^-7 |plain| + {TOL} x max(1, max|plain|); backward calls of "
+            "the 2^15-scaled loss without the max(1, .) floor)")
+        fwd_calls, bwd_calls = [], []
+        with torch.no_grad(), self.recording(fwd_calls):
+            model(x, compute_dtype="bf16")
+        scaler = DynamicLossScale()
+        scale = scaler.init(self.dev)
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        loss = scaler.scale(scale, ttr.loss_fn("enet", compute_dtype="bf16")(
+            leaves, batch))
+        with self.recording(bwd_calls):
+            torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        del loss, leaves
+        caught = []
+        for part, calls, floor in (("forward", fwd_calls, 1.0),
+                                   ("backward", bwd_calls, 0.0)):
+            seen = {}
+            for i, (name, args) in enumerate(calls):
+                if args[0].dtype != bf16 or args[1].dtype != bf16:
+                    raise RuntimeError(f"bf16 {part} call {i} of {name} "
+                                       f"took {args[0].dtype} operands")
+                kern, plain, _ = self.kernels[name]
+                label = (f"{name} (bf16)" if part == "forward"
+                         else f"{name} (bf16, ENet backward)")
+                got, ref = kern(*args), plain(*args)
+                key = (name, self.geometry(name, args),
+                       self.variant(name, args))
+                seen.setdefault(key, []).append(self.compare(
+                    f"bf16 {part} call {i}", label, got, ref, quiet=True,
+                    floor=floor))
+                caught.append(self.sensitivity(got, ref, floor, TOL))
+            for (name, geo, variant), errs in seen.items():
+                log(f"  {part} {name} [{variant}] {geo} x{len(errs)}: max "
+                    f"abs {max(e[0] for e in errs):.2e} tol "
+                    f"{min(e[2] for e in errs):.2e}")
+            log(f"  {len(calls)} bf16 {part} calls, {len(seen)} distinct "
+                "geometries and variants: ok")
+
+        g = torch.Generator().manual_seed(SEED + 5)
+
+        def rand16(*shape):
+            return self.rand(g, *shape).to(bf16)
+
+        def ep_args(spec, out_shape):
+            return self.ep_args(g, spec, out_shape, bf16)
+
+        kconv, ktr = self.kconv, self.ktr
+        none = EpilogueSpec()
+
+        def check(label, name, got, want):
+            self.compare(f"bf16 {label}", f"{name} (bf16)", got, want)
+            caught.append(self.sensitivity(got, want, 1.0, TOL))
+
+        dense = DENSE_EDGES + [
+            ("head dx: Cin-19 cotangent, 3x3 s2 VALID", (2, 33, 35, 19),
+             (3, 3, 19, 16), 2, ((0, 0), (0, 0)))]
+        for label, xs, ws, s, pads in dense:
+            xx, ww = rand16(*xs), rand16(*ws)
+            check(label, "conv2d",
+                  kconv.conv2d(xx, ww, stride=s, padding=pads),
+                  kconv.conv2d_plain(xx, ww, s, pads, none, ()))
+        # base pointers 2 and 8 bytes past a 16-byte boundary: plain
+        # 2-byte loads and 8-byte copies
+        for skip in (1, 4):
+            flat = rand16(skip + 2 * 17 * 19 * 32)
+            xx = flat[skip:].view(2, 17, 19, 32)
+            ww = rand16(3, 3, 32, 16)
+            variant = kconv.launch_plan(xx, ww, 1).variant
+            check(f"x {2 * skip} bytes off 16 ({variant})", "conv2d",
+                  kconv.conv2d_cuda(xx, ww, 1, ((1, 1), (1, 1)), none, ()),
+                  kconv.conv2d_plain(xx, ww, 1, ((1, 1), (1, 1)), none, ()))
+            xt = flat[skip:skip + 2 * 9 * 11 * 16].view(2, 9, 11, 16)
+            wt = rand16(3, 3, 16, 16)
+            check(f"transposed x {2 * skip} bytes off 16", "transposed_conv2d",
+                  ktr.tconv_cuda(xt, wt, 2, 1, 2, none, ()),
+                  ktr.tconv_plain(xt, wt, 2, 1, 2, none, ()))
+        xx, ww = rand16(2, 19, 23, 24), rand16(3, 3, 24, 40)
+        for spec in self.specs():
+            eps = ep_args(spec, (2, 19, 23, 40))
+            check(f"epilogue {spec}", "conv2d",
+                  kconv.conv2d_cuda(xx, ww, 1, ((1, 1), (1, 1)), spec, eps),
+                  kconv.conv2d_plain(xx, ww, 1, ((1, 1), (1, 1)), spec, eps))
+            eps_t = ep_args(spec, (2, 38, 46, 20))
+            xt, wt = rand16(2, 19, 23, 16), rand16(3, 3, 16, 20)
+            check(f"transposed epilogue {spec}", "transposed_conv2d",
+                  ktr.tconv_cuda(xt, wt, 2, 1, 2, spec, eps_t),
+                  ktr.tconv_plain(xt, wt, 2, 1, 2, spec, eps_t))
+        spec = EpilogueSpec(bn=True, prelu=True, residual="pre_act")
+        for d in (2, 4, 8, 16):
+            xx, ww = rand16(2, 45, 38, 32), rand16(3, 3, 32, 32)
+            eps = ep_args(spec, (2, 45, 38, 32))
+            kw = dict(zip(spec.slots, eps))
+            # the kernel's semantics: fp32 conv of the widened operands
+            # (cuDNN, TF32 off), fp32 epilogue, one rounding
+            eps32 = eps[:-1] + (eps[-1].float(),)
+            check(f"dilated d={d}", "conv2d",
+                  dilated_conv2d(xx, ww, d, epilogue=spec, **kw),
+                  apply_reference(spec, dilated_conv2d_reference(
+                      xx.float(), ww.float(), d), eps32).to(bf16))
+        for label, (n, h, w_), k, s, p_lo, op, cin, cout in TCONV_EDGES:
+            xx, ww = rand16(n, h, w_, cin), rand16(k, k, cin, cout)
+            sp = (EpilogueSpec(bn=True, residual="post_act") if "k<s" in label
+                  else none)
+            oh, ow = (h - 1) * s + 2 * p_lo + op - k + 2, \
+                (w_ - 1) * s + 2 * p_lo + op - k + 2
+            eps = ep_args(sp, (n, oh, ow, cout))
+            check(label, "transposed_conv2d",
+                  ktr.tconv_cuda(xx, ww, s, p_lo, p_lo + op, sp, eps),
+                  ktr.tconv_plain(xx, ww, s, p_lo, p_lo + op, sp, eps))
+        zero, off = (min(c[i] for c in caught) for i in range(2))
+        log(f"  {len(caught)} bf16 checks ok; a zeroed output would reach "
+            f">= {zero:.3g} x its bar and one 2% off >= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError("the bf16 check would pass a zeroed or a "
+                               "2%-off kernel output")
+        worst = {k: float(f"{v:.3e}") for k, v in self.worst.items()
+                 if "bf16" in k}
+        log(f"  worst max abs err {json.dumps(worst)}")
+        self.report["bf16_check"] = {
+            "calls": {"forward": len(fwd_calls), "backward": len(bwd_calls)},
+            "checks": len(caught), "min_zeroed_over_bar": zero,
+            "min_off_2pct_over_bar": off}
+        return fwd_calls, bwd_calls
+
+    def phase_bf16_main(self, model, x):
+        torch = self.torch
+        log("phase 15: serve ENet-512 in bf16, batch 4, 19 classes, "
+            "backend=kernels")
+        counts, taps = {}, []
+        self.reset_counts()
+        with torch.no_grad(), self.watching(counts, taps):
+            y = model(x, compute_dtype="bf16")
+        torch.cuda.synchronize()
+        launches = self.read_counts()
+        variants = self.read_variants()["conv2d"]
+        log(f"  launches per forward: {launches}; conv2d by variant "
+            f"{ {k: v for k, v in variants.items() if v} }; other calls "
+            f"{counts}")
+        want = dict.fromkeys(variants, 0)
+        want.update(BF16_VARIANTS["forward"])
+        if launches != LAUNCHES_PER_FORWARD or variants != want:
+            raise RuntimeError(f"bf16 launches {launches}, {variants} != "
+                               f"{LAUNCHES_PER_FORWARD}, {want}")
+        if any(counts.values()):
+            raise RuntimeError(f"the bf16 forward left the kernels: {counts}")
+        if y.dtype != torch.bfloat16 or tuple(y.shape) != (BATCH, HW, HW,
+                                                            CLASSES):
+            raise RuntimeError(f"bf16 logits {y.dtype} {tuple(y.shape)}")
+        if not bool(torch.isfinite(y).all()):
+            raise RuntimeError("non-finite bf16 logits")
+        with torch.no_grad():
+            y_torch = model(x, backend="torch", compute_dtype="bf16")
+            y32 = model(x)
+        bar = BF16_FWD_RTOL * y32.abs().max().item() + 1e-3
+        ratios = {}
+        for label, ref in (("torch backend bf16", y_torch),
+                           ("fp32 kernels", y32)):
+            err = (y.float() - ref.float()).abs().max().item()
+            ratios[label] = err / bar
+            log(f"  bf16 kernels vs {label}: max |err| {err:.4f}, "
+                f"{err / y32.abs().max().item():.4%} of the fp32 range "
+                f"(bar {BF16_FWD_RTOL:.0%}): {err / bar:.3f} x the bar")
+        if not all(r <= 1.0 for r in ratios.values()):
+            raise RuntimeError(f"bf16 logits off the fp32 range: {ratios}")
+        self.bf16_launches = {"forward": launches}
+        self.report["bf16_serve"] = {"launches": launches,
+                                     "conv2d_variants": variants,
+                                     "err_over_bar": ratios}
+
+    def phase_bf16_train(self, params, fp32_train):
+        torch = self.torch
+        from repro_torch.launch import train_recipes as ttr
+
+        log("phase 16: ENet-512 training in bf16 (compute_dtype=\"bf16\", "
+            f"fp32 masters), batch 4, SegDataPipeline batches 0-"
+            f"{TRAIN_STEPS - 1}")
+        batches = [self.seg_batch(i) for i in range(TRAIN_STEPS + 1)]
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        counts, taps = {}, []
+        self.reset_counts()
+        with self.watching(counts, taps):
+            loss = ttr.loss_fn("enet", compute_dtype="bf16")(leaves,
+                                                            batches[0])
+            torch.cuda.synchronize()
+            launches = {"forward": self.read_counts()}
+            self.reset_counts()
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            torch.cuda.synchronize()
+        launches["backward"] = self.read_counts()
+        variants = self.read_variants()["conv2d"]
+        matmuls = sum(a[2] * a[3] for a, _ in taps)
+        log(f"  launches per step: {launches}; backward conv2d by variant "
+            f"{ {k: v for k, v in variants.items() if v} }; other calls "
+            f"{counts}")
+        want = dict.fromkeys(variants, 0)
+        want.update(BF16_VARIANTS["backward"])
+        other = {"conv2d": 0, "conv_transpose2d": 0, "conv2d_plain": 0,
+                 "tconv_plain": 0, "matmul": matmuls,
+                 "tap_correlation": len(taps)}
+        if (launches != LAUNCHES_PER_STEP or variants != want
+                or {k: counts.get(k, 0) for k in other} != other):
+            raise RuntimeError(f"bf16 step launches {launches}, {variants}, "
+                               f"{counts}: not the kernels' bf16 forms only")
+        # step-0 gradients against the torch backend's bf16 ones, per tensor
+        _, g16_t = ttr.loss_and_grads(
+            ttr.loss_fn("enet", backend="torch", compute_dtype="bf16"),
+            params, batches[0])
+        _, g32_t = ttr.loss_and_grads(ttr.loss_fn("enet", backend="torch"),
+                                      params, batches[0])
+
+        def rel(a, b):
+            return ((a.float() - b.float()).norm()
+                    / b.float().norm().clamp_min(1e-30)).item()
+
+        mine = dict(zip(leaves, grads))
+        if any(t.dtype != torch.float32 for t in grads):
+            raise RuntimeError("bf16 step-0 gradients are not fp32")
+        # a scalar PReLU slope's gradient is one sum over a whole
+        # activation that cancels to a small part of its terms, so bf16
+        # rounding moves it by more than the bar on either backend (the
+        # torch backend's bf16 vs fp32 spread is printed beside it); the
+        # slopes are held together, every other tensor on its own
+        slopes = [n for n in leaves if n.rsplit(".", 1)[-1] in SLOPES]
+        per = {n: rel(mine[n], g16_t[n]) for n in leaves if n not in slopes}
+        spread = {n: rel(g16_t[n], g32_t[n]) for n in leaves}
+        def cat(gs, names):
+            return torch.cat([gs[n].float().reshape(-1) for n in names])
+
+        joint = rel(cat(mine, slopes), cat(g16_t, slopes))
+        total = rel(cat(mine, list(leaves)), cat(g16_t, list(leaves)))
+        worst = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+        wslope = sorted(slopes, key=lambda n: -rel(mine[n], g16_t[n]))[:4]
+        log(f"  step-0 gradients vs torch backend bf16, relative L2: "
+            f"{len(per)} tensors each <= {BF16_GRAD_RTOL} (worst "
+            + ", ".join(f"{n} {r:.2e}" for n, r in worst) + f"); the "
+            f"{len(slopes)} PReLU slopes together {joint:.2e} (worst alone "
+            + ", ".join(f"{n} {rel(mine[n], g16_t[n]):.2e}, torch bf16 vs "
+                        f"fp32 {spread[n]:.2e}" for n in wslope)
+            + f"); all {len(leaves)} together {total:.2e}")
+        zeroed = min(rel(torch.zeros_like(g16_t[n]), g16_t[n]) for n in per)
+        if not (all(r <= BF16_GRAD_RTOL for r in per.values())
+                and joint <= BF16_GRAD_RTOL and total <= BF16_GRAD_RTOL
+                and zeroed > BF16_GRAD_RTOL):
+            raise RuntimeError("bf16 step-0 gradients off the torch "
+                               "backend's")
+        del grads, g16_t, g32_t, mine, loss, leaves
+
+        state0 = ttr.init_state(params)
+        per_step = {k: launches["forward"][k] + launches["backward"][k]
+                    for k in launches["forward"]}
+        steps = {}
+        for backend in ("kernels", "torch"):
+            step = ttr.make_train_step("enet", backend=backend,
+                                       compute_dtype="bf16")
+            state, losses, gnorms = state0, [], []
+            for i in range(TRAIN_STEPS):
+                self.reset_counts()
+                state, m = step(state, batches[i])
+                torch.cuda.synchronize()
+                counts = self.read_counts()
+                want = (per_step if backend == "kernels"
+                        else dict.fromkeys(per_step, 0))
+                if counts != want:
+                    raise RuntimeError(f"bf16 {backend} step launches "
+                                       f"{counts} != {want}")
+                if m["skipped"].item():
+                    raise RuntimeError(f"bf16 {backend} step skipped")
+                losses.append(m["loss"].item())
+                gnorms.append(m["grad_norm"].item())
+            fp32 = fp32_train[backend]
+            rels = [abs(a / b - 1) for a, b in zip(losses, fp32["losses"])]
+            g_rel = abs(gnorms[0] / fp32["grad_norms"][0] - 1)
+            masters = all(t.dtype == torch.float32 for t in self.leaves(
+                (state.params, state.opt)) if t.is_floating_point())
+            log(f"  {backend}: losses {losses} (fp32 {fp32['losses']}, rel "
+                f"{max(rels):.2e}); step-0 grad norm {gnorms[0]:.6f} (fp32 "
+                f"{fp32['grad_norms'][0]:.6f}, rel {g_rel:.2e}); masters "
+                f"fp32 {masters}")
+            if not (all(map(math.isfinite, losses))
+                    and all(r <= BF16_FWD_RTOL for r in rels)
+                    and g_rel <= BF16_GRAD_RTOL and masters):
+                raise RuntimeError(f"bf16 {backend} steps off the fp32 run")
+            steps[backend] = {"step": step, "state": state, "losses": losses,
+                              "grad_norms": gnorms}
+
+        state = steps["kernels"]["state"]
+        bad = batches[TRAIN_STEPS]
+        bad["image"][0, 5, 7, 1] = float("nan")
+        after, m = steps["kernels"]["step"](state, bad)
+        same = all(torch.equal(a, b) for a, b in zip(
+            self.leaves((after.params, after.opt)),
+            self.leaves((state.params, state.opt))))
+        halved = after.scale.scale.item() == state.scale.scale.item() / 2
+        log(f"  NaN batch: skipped {m['skipped'].item()}, params and AdamW "
+            f"state bit-identical {same}, scale {state.scale.scale.item()} "
+            f"-> {after.scale.scale.item()}")
+        if not (m["skipped"].item() == 1.0 and same and halved):
+            raise RuntimeError("the bf16 NaN batch was not skipped cleanly")
+        self.bf16_launches.update(launches)
+        self.report["bf16_train"] = {
+            "launches_per_step": launches, "backward_variants": variants,
+            "losses": {b: r["losses"] for b, r in steps.items()},
+            "grad_norms": {b: r["grad_norms"] for b, r in steps.items()},
+            "step0_grad_rel_l2": per, "slopes_joint_rel_l2": joint,
+            "all_rel_l2": total, "torch_bf16_vs_fp32_rel_l2": spread}
+        return steps
+
+    def phase_bf16_times(self, model, x, batch, steps, fwd_calls, bwd_calls):
+        torch = self.torch
+        log("phase 17: bf16 times (bound: 2 bytes an element at 3.35 TB/s "
+            "or 2 x MACs at 989 TFLOP/s; library calls in bf16; fp32 the "
+            "fp32 kernel on the same call)")
+        times = {}
+        with torch.no_grad():
+            for label, kw in (("kernels", {}), ("torch", {"backend": "torch"})):
+                ms = self.wall_ms(lambda: model(x, compute_dtype="bf16", **kw))
+                times[f"forward_{label}_ms"] = ms
+                log(f"  ENet bf16 forward {label}: {ms:.3f} ms/batch, "
+                    f"{BATCH / ms * 1e3:.1f} images/s")
+
+        def forward():
+            with torch.no_grad():
+                model(x, compute_dtype="bf16")
+
+        times["forward_profile"] = self.profile_device(
+            forward, "bf16 forward", times["forward_kernels_ms"])
+        for backend, run in steps.items():
+            state = run["state"]
+
+            def one():
+                nonlocal state
+                state, _ = run["step"](state, batch)
+
+            ms = self.wall_ms(one)
+            torch.cuda.reset_peak_memory_stats()
+            one()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            times[f"step_{backend}_ms"] = ms
+            times[f"peak_gib_{backend}"] = peak
+            log(f"  ENet-512 bf16 train step, backend={backend}: {ms:.3f} "
+                f"ms, {BATCH / ms * 1e3:.1f} images/s (median of 10); peak "
+                f"device memory {peak:.2f} GiB")
+            if backend == "kernels":
+                times["step_profile"] = self.profile_device(
+                    one, "bf16 train step", ms)
+        entries = []
+        for part, calls in (("forward", fwd_calls), ("backward", bwd_calls)):
+            rows, per = self.time_calls(calls, fp32_too=True)
+            times[f"{part}_calls"] = rows
+            times[f"{part}_geometries"] = self.geometry_table(
+                rows, f"a bf16 {part}")
+            for name, p in per.items():
+                label = (f"{name} (bf16)" if part == "forward"
+                         else f"{name} (bf16, ENet backward)")
+                n = self.bf16_launches[part][name]
+                log(f"  {label}: {p['ms']:.3f} ms over {n} launches; bound "
+                    f"{p['bound_ms']:.3f} ms; plain {p['plain_ms']:.3f} ms; "
+                    f"library {p['library_ms']:.3f} ms; fp32 kernel "
+                    f"{p['fp32_ms']:.3f} ms")
+                entries.append(self.kernel_entry(name, label, n, p))
+        self.report["bf16_times"] = times
         return entries
 
     # ------------------------------------------- matmul and attention
@@ -1352,21 +1828,20 @@ class Smoke:
                 f"{spec.residual})")
 
     def variant(self, name, args):
-        """The launch plan of a recorded call: its variant (the 4-byte
-        copies for an input that is not 16-byte aligned, as the wrappers
-        decide) and tile width."""
+        """The launch plan of a recorded call, as the wrappers decide it
+        (``launch_plan``: a narrower copy for an input that is not aligned
+        to the plan's): its variant and tile width."""
         x, w = args[0], args[1]
         if name == "conv2d":
-            plan = self.kconv.conv_plan(x.shape[-1], w.shape[-1], w.shape[0],
-                                        w.shape[1], args[2])
+            plan = self.kconv.launch_plan(x, w, args[2])
         else:
-            plan = self.ktr.tconv_plan(x.shape[-1], w.shape[-1], w.shape[0])
-        if x.data_ptr() % 16:
-            plan = plan._replace(vec=1)
+            plan = self.ktr.launch_plan(x, w)
         return f"{plan.variant}/n{plan.bn}"
 
     def work(self, name, args):
-        """(flops of the nonzero MACs, bytes each operand moves once)."""
+        """(flops of the nonzero MACs, bytes each operand moves once: x, w,
+        the output and a residual at their element size, the fp32 channel
+        operands at 4 bytes)."""
         x, w, spec, eps = args[0], args[1], args[-2], args[-1]
         n, h, w_in, cin = x.shape
         cout = w.shape[-1]
@@ -1394,9 +1869,10 @@ class Smoke:
             lx, ow = live(w_in)
         macs = n * ly * lx * cin * cout
         out_numel = n * oh * ow * cout
-        ep_numel = sum(out_numel if s_ == "residual" else cout
-                       for s_ in spec.slots)
-        nbytes = 4 * (x.numel() + w.numel() + out_numel + ep_numel)
+        res_numel = out_numel if "residual" in spec.slots else 0
+        chan_numel = cout * sum(s_ != "residual" for s_ in spec.slots)
+        nbytes = (x.element_size() * (x.numel() + w.numel() + out_numel
+                                      + res_numel) + 4 * chan_numel)
         return 2 * macs, nbytes
 
     def library_call(self, name, args):

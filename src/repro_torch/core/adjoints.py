@@ -14,6 +14,9 @@ also governs gradients:
   slices, each contracted in one ``torch.matmul`` with fp32 accumulation,
   never reading an inserted zero.  The reference leaves these products to
   XLA outside any Pallas kernel, so the port leaves them to ``torch.matmul``.
+  The result is fp32 whatever the operands' dtype (the reference's
+  ``preferred_element_type=jnp.float32``); the callers cast it once to the
+  weight's dtype.
 
 The kernel wrappers' ``torch.autograd.Function`` classes
 (:mod:`repro_torch.kernels.conv2d`, ``transposed_conv``, ``dilated_conv``)
@@ -45,12 +48,17 @@ def tap_correlation(a: torch.Tensor, b: torch.Tensor, kh: int, kw: int, *,
     b[n, stride*oy + tap_step*ty, stride*ox + tap_step*tx, cb]``.
 
     Each tap is one strided slice of ``b`` contracted against ``a`` as a
-    ``(Ca, N*OH*OW) @ (N*OH*OW, Cb)`` product in fp32.  ``b`` must be
-    pre-padded so every index is in range.
+    ``(Ca, N*OH*OW) @ (N*OH*OW, Cb)`` product in fp32.  bf16 operands are
+    widened to fp32 first (exact), so the product and its split-K partial
+    sums are fp32 as the reference's ``preferred_element_type`` asks: a bf16
+    ``torch.matmul`` would return bf16 and may reduce its partials in
+    reduced precision.  The fp32 products run as the caller set TF32
+    (off by default; nothing here flips a global flag).  ``b`` must be
+    pre-padded so every index is in range.  Returns fp32.
     """
     n, oh, ow, ca = a.shape
     cb = b.shape[-1]
-    at = a.reshape(n * oh * ow, ca).t()
+    at = a.reshape(n * oh * ow, ca).float().t()
     rows = []
     for ty in range(kh):
         cols = []
@@ -58,7 +66,8 @@ def tap_correlation(a: torch.Tensor, b: torch.Tensor, kh: int, kw: int, *,
             y0, x0 = tap_step * ty, tap_step * tx
             bs = b[:, y0: y0 + stride * (oh - 1) + 1: stride,
                    x0: x0 + stride * (ow - 1) + 1: stride, :]
-            cols.append(torch.matmul(at, bs.reshape(n * oh * ow, cb)))
+            cols.append(torch.matmul(at,
+                                     bs.reshape(n * oh * ow, cb).float()))
         rows.append(torch.stack(cols))
     return torch.stack(rows)  # (kh, kw, Ca, Cb)
 
@@ -179,7 +188,10 @@ def fused_epilogue_bwd(conv_apply, spec, x, w, eps, g, needs):
     BN/PReLU/residual gradients are elementwise fp32 ops.
 
     ``needs`` flags which of ``(x, w, *eps)`` want a gradient.  Returns
-    ``(dx, dw, *deps)``, ``None`` where not needed.
+    ``(dx, dw, *deps)``, ``None`` where not needed, each in its primal's
+    dtype.  With bf16 x and w the recompute runs the bf16 kernel and the
+    epilogue's arithmetic stays fp32 (:func:`apply_reference` widens and
+    rounds back), as the reference's ``jax.vjp`` of the same composition.
     """
     with torch.enable_grad():
         prims = [t.detach().requires_grad_(bool(n))

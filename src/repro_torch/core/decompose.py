@@ -20,7 +20,8 @@ items.  Gradients flow through both backends: the torch backend
 differentiates natively (it is the card-side oracle of the kernels'
 gradients), and the kernel wrappers' ``torch.autograd.Function`` classes
 re-enter the same two kernels through the adjoints of
-:mod:`repro_torch.core.adjoints` (DESIGN.md §6).  fp32 only.
+:mod:`repro_torch.core.adjoints` (DESIGN.md §6).  ``compute_dtype`` casts to
+fp32 or bf16 as the reference does (DESIGN.md §12).
 """
 
 from __future__ import annotations
@@ -77,16 +78,21 @@ def conv2d(
       backend: 'kernels' (CUDA kernels) or 'torch' (plain ``F.conv2d``).
       epilogue: optional fused BN/PReLU/residual epilogue spec with matching
         ``scale``/``shift``/``alpha``/``residual`` operands.
-      compute_dtype: ``None`` or fp32; bf16 raises until its slice lands.
+      compute_dtype: mixed-precision opt-in (DESIGN.md §12): ``None`` keeps
+        the input dtype; a dtype or alias (``"bf16"``, ``"fp32"``) casts
+        ``x``/``w``/``residual`` to it before dispatch, and the output comes
+        back in it.  The epilogue's channel operands (scale/shift/alpha)
+        stay fp32.  The kernels accumulate in fp32, apply the epilogue in
+        fp32 and round once; the torch backend rounds the conv output to the
+        compute dtype and again after the fp32 epilogue, as the reference's
+        xla path does.  fp16 raises (still to port).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
     cd = canon_dtype(compute_dtype)
     if cd is not None:
-        x = x.to(cd)
-        w = w.to(cd)
-        if residual is not None:
-            residual = residual.to(cd)
+        x, w, residual = (t if t is None or t.dtype == cd else t.to(cd)
+                          for t in (x, w, residual))
     if backend == "kernels" and not decomposed:
         # the kernels ARE the decomposition; the naive zero-laden baseline
         # only exists as composed plain convs

@@ -2,14 +2,18 @@
 
 Replaces the TPU kernel ``src/repro/kernels/conv2d.py::_conv_kernel``
 (launched by ``_conv2d_raw``, ``pallas_call`` at ``conv2d.py:195``).  The
-kernel (``csrc/conv2d.cu`` on ``csrc/igemm.cuh``) is one implicit GEMM in
-fp32 on the CUDA cores: M = output pixels, N = Cout, K = kh*kw*Cin walked
+kernel (``csrc/conv2d.cu`` on ``csrc/igemm.cuh``) is one implicit GEMM on
+the CUDA cores: M = output pixels, N = Cout, K = kh*kw*Cin walked
 tap-major, inputs gathered under bounds masks (so padding is implicit) by
 asynchronous copies through a 4-stage ring, the Cout tile's weight slab
 resident in shared memory, and the fused epilogue (``csrc/epilogue.cuh``)
 applied as the tile leaves through shared memory in 16-byte stores.  It
 carries every dense conv of ENet and, through
-:mod:`repro_torch.kernels.dilated_conv`, every dilated conv.
+:mod:`repro_torch.kernels.dilated_conv`, every dilated conv.  As the Pallas
+kernel does, it takes fp32 or bf16 x and w (a residual of their dtype),
+accumulates in fp32, applies the epilogue in fp32 and returns their dtype,
+rounded once; the bf16 form stages bf16 in shared memory and widens it as
+the FMAs read it.
 
 Bound on the H100.  ENet's convs are thin (Cin, Cout 3..128): a forward's
 dense convs do 14.5 GFLOP, 0.217 ms at the 67 TFLOP/s of the CUDA cores,
@@ -20,22 +24,27 @@ the stem and the decoder's 3x3 4->4 are bound by device-memory bytes; the
 their FMAs.  So the design keeps loads in flight, stores wide and
 FMAs fed from float4 shared reads, and the epilogue is fused, so each
 output is written once.  No TF32: it would break the 1e-4 fp32 bar (3xTF32
-for the FMA-bound layers is in ROADMAP.md).
+for the FMA-bound layers is in ROADMAP.md).  bf16 halves the bytes of the
+first group; its FMAs stay on the CUDA cores in fp32 (a tensor-core bf16
+form is a ROADMAP.md lever).
 
-:func:`conv_plan` picks a launch's variant from the layer's shape alone: the
-copy width (16 bytes when Cin % 4 == 0, else 4), the Cout tile (4, 8, 16,
-20, 32 or 64 wide) and resident or streamed weights.  :func:`conv2d` takes
+:func:`conv_plan` picks a launch's variant from the layer's shape and dtype:
+the copy width (the widest of ``COPY_BYTES`` whose channel run divides
+Cin), the Cout tile (4, 8, 16, 20, 32 or 64 wide) and resident or streamed
+weights.  :func:`conv2d` takes
 its plain version, :func:`conv2d_plain` (a tap sum of ``torch.matmul``),
 only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
 raises.  ``conv2d.launches`` counts kernel launches and
-``conv2d.launches_by_variant`` splits them by :attr:`ConvPlan.variant`.
+``conv2d.launches_by_variant`` splits them by :attr:`ConvPlan.variant`,
+whose name carries the dtype (``vec4-resident``, ``bf16-vec8-resident``).
 PERF.md has each ENet layer's time beside its bound.
 
 Gradients (the port of ``_conv2d_vjp`` and ``_conv2d_ep_vjp``, DESIGN.md
 §6): under autograd :func:`conv2d` applies :class:`_Conv2dFn` or, with an
 epilogue, :class:`_Conv2dEpFn`, whose backward recomputes the conv without
 its epilogue and differentiates the epilogue elementwise.  dx re-enters
-the kernels (:func:`conv2d_dx`), dw is ``adjoints.dense_conv_dw``.  With no
+the kernels (:func:`conv2d_dx`), dw is ``adjoints.dense_conv_dw``; both come
+back in the primal dtypes, as the reference's VJPs cast them.  With no
 gradient requested the wrapper launches exactly as in serving.
 """
 
@@ -55,6 +64,7 @@ from repro_torch.kernels.epilogue import (NO_EPILOGUE, EpilogueSpec,
                                           apply_reference, kernel_operands,
                                           operand_ptrs, pack_args,
                                           residual_code)
+from repro_torch.kernels.util import DTYPE_CODES, dtype_code
 
 
 def resolve_pads(padding, kh: int, kw: int) -> Pads:
@@ -74,30 +84,40 @@ def out_extent(size: int, k: int, stride: int, lo: int, hi: int) -> int:
     return (size + lo + hi - k) // stride + 1
 
 
-def check_operands(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
-    """Raise on what the kernels and their plain versions do not take."""
+def check_operands(x: torch.Tensor, w: torch.Tensor, what: str,
+                   residual: torch.Tensor | None = None) -> None:
+    """Raise on what the kernels and their plain versions do not take: x
+    and w (and a residual) of one dtype, fp32 or bf16, on one device."""
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"{what}: x must be NHWC and w HWIO, got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if x.shape[-1] != w.shape[2]:
         raise ValueError(f"{what}: x has {x.shape[-1]} channels, w expects "
                          f"{w.shape[2]}")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
+    if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
         raise NotImplementedError(
-            f"{what}: the port is fp32 only until the bf16 slice of "
-            f"ROADMAP.md, got {x.dtype} and {w.dtype}")
+            f"{what}: the kernels take fp32 only or bf16 only operands (x "
+            f"and w of one dtype; fp16 is still to port, ROADMAP.md), got "
+            f"{x.dtype} and {w.dtype}")
+    if residual is not None and residual.dtype != x.dtype:
+        raise ValueError(f"{what}: the residual must be {x.dtype} like x, "
+                         f"got {residual.dtype}")
     if x.device != w.device:
         raise ValueError(f"{what}: x on {x.device} but w on {w.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
-def require_cuda(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
-    """The launch-side checks: a kernel takes contiguous CUDA tensors."""
+def require_cuda(x: torch.Tensor, w: torch.Tensor, what: str) -> int:
+    """The launch-side checks: a kernel takes contiguous CUDA tensors of
+    one dtype.  Returns the kernels' code of that dtype."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x must be a CUDA tensor, got {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{what}: x and w must be contiguous")
+    if w.dtype != x.dtype:
+        raise ValueError(f"{what}: x is {x.dtype} but w {w.dtype}")
+    return dtype_code(x, what)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -107,7 +127,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     """Dense convolution, NHWC x HWIO -> NHWC, with a fused epilogue.
 
     Args:
-      x: (N, H, W, Cin) fp32.  w: (kh, kw, Cin, Cout) fp32, rectangular ok.
+      x: (N, H, W, Cin) fp32 or bf16.  w: (kh, kw, Cin, Cout) of x's dtype,
+        rectangular ok.  The output has x's dtype; a bf16 one is rounded
+        once from the fp32 accumulator after the epilogue.
       stride: spatial stride >= 1.
       padding: "SAME", "VALID", a symmetric int, or per-dim
         ``((top, bottom), (left, right))`` pads.
@@ -117,7 +139,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     spec = NO_EPILOGUE if epilogue is None else epilogue
     eps = pack_args(spec, scale=scale, shift=shift, alpha=alpha,
                     residual=residual)
-    check_operands(x, w, "conv2d")
+    check_operands(x, w, "conv2d", residual)
     if stride < 1:
         raise ValueError(f"conv2d: stride must be >= 1, got {stride}")
     pads = resolve_pads(padding, w.shape[0], w.shape[1])
@@ -126,7 +148,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if spec.empty:
         return _Conv2dFn.apply(x, w, stride, pads)
     return _Conv2dEpFn.apply(x, w, spec, stride, pads,
-                             *tensor_operands(eps, x.device))
+                             *tensor_operands(spec, eps, x.device))
 
 
 conv2d.launches = 0
@@ -138,11 +160,14 @@ def wants_grad(*ts) -> bool:
         isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
 
 
-def tensor_operands(eps: tuple, device: torch.device) -> tuple:
-    """Epilogue operands as fp32 tensors (a Python scalar slope becomes a
-    0-d tensor), so a ``Function`` can save them."""
-    return tuple(torch.as_tensor(e, dtype=torch.float32, device=device)
-                 for e in eps)
+def tensor_operands(spec: EpilogueSpec, eps: tuple,
+                    device: torch.device) -> tuple:
+    """Epilogue operands as tensors, so a ``Function`` can save them: the
+    channel operands fp32 (a Python scalar slope becomes a 0-d tensor), the
+    residual in its own dtype (the output's)."""
+    return tuple(e if name == "residual"
+                 else torch.as_tensor(e, dtype=torch.float32, device=device)
+                 for name, e in zip(spec.slots, eps))
 
 
 def _conv2d_raw(x, w, stride, pads, spec, eps):
@@ -207,10 +232,11 @@ class _Conv2dFn(torch.autograd.Function):
         (pt, _), (pl, _) = pads
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = conv2d_dx(g, w, stride, pads, x.shape[1], x.shape[2])
+            dx = conv2d_dx(g, w, stride, pads, x.shape[1],
+                           x.shape[2]).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = adjoints.dense_conv_dw(x, g, w.shape[0], w.shape[1], stride,
-                                        pt, pl)
+                                        pt, pl).to(w.dtype)
         return dx, dw, None, None
 
 
@@ -253,17 +279,26 @@ SPLIT_K_TILE = 6
 K_STEP = 16
 #: weight slabs up to this size stay in shared memory (``kResidentBytes``)
 RESIDENT_BYTES = 48 * 1024
+#: the copy widths of the input gather, in bytes, widest first, by dtype
+#: (``csrc/igemm.cuh::dispatch_vec``): ``cp.async`` of 16 bytes, of 8 (bf16
+#: Cin 4) or 4 (fp32), and one bf16 element by a plain load (cp.async has
+#: no 2-byte form)
+COPY_BYTES = {torch.float32: (16, 4), torch.bfloat16: (16, 8, 2)}
 VARIANTS = ("vec4-resident", "vec4-streamed", "scalar-resident",
-            "scalar-streamed")
+            "scalar-streamed", "bf16-vec8-resident", "bf16-vec8-streamed",
+            "bf16-vec4-resident", "bf16-vec4-streamed",
+            "bf16-scalar-resident", "bf16-scalar-streamed")
 conv2d.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 class ConvPlan(NamedTuple):
-    """How ``csrc/conv2d.cu`` runs one conv."""
+    """How ``csrc/conv2d.cu`` (or ``transposed_conv.cu``) runs one conv."""
 
-    vec: int        # floats per async copy of x: 4 (16 bytes) or 1
+    vec: int        # elements per copy of x (COPY_BYTES): 4 or 1 fp32,
+    #                 8, 4 or 1 bf16
     tile: int       # index into TILES
     resident: bool  # the Cout tile's weight slab stays in shared memory
+    dtype: torch.dtype = torch.float32
 
     @property
     def bn(self) -> int:
@@ -272,8 +307,9 @@ class ConvPlan(NamedTuple):
 
     @property
     def variant(self) -> str:
-        return (f"{'vec4' if self.vec == 4 else 'scalar'}-"
-                f"{'resident' if self.resident else 'streamed'}")
+        kind = "" if self.dtype == torch.float32 else "bf16-"
+        copy = "scalar" if self.vec == 1 else f"vec{self.vec}"
+        return f"{kind}{copy}-{'resident' if self.resident else 'streamed'}"
 
 
 def cout_tile(cout: int, widest: int = 64) -> int:
@@ -286,16 +322,31 @@ def cout_tile(cout: int, widest: int = 64) -> int:
     return fits[-1]
 
 
-def conv_plan(cin: int, cout: int, kh: int, kw: int,
-              stride: int) -> ConvPlan:
+def copy_vec(cin: int, dtype: torch.dtype = torch.float32,
+             address: int = 0) -> int:
+    """Elements per copy of the input gather: the widest of
+    ``COPY_BYTES[dtype]`` whose run of channels divides ``cin`` (a group of
+    K rows is then channels of one tap) and whose bytes divide ``address``
+    (the input's base pointer, when known)."""
+    for nbytes in COPY_BYTES[dtype]:
+        if cin % (nbytes // dtype.itemsize) == 0 and address % nbytes == 0:
+            return nbytes // dtype.itemsize
+    raise ValueError(f"no copy of {dtype} fits Cin {cin} at address "
+                     f"{address:#x}")
+
+
+def conv_plan(cin: int, cout: int, kh: int, kw: int, stride: int,
+              dtype: torch.dtype = torch.float32) -> ConvPlan:
     """The variant of ``csrc/conv2d.cu`` for a (kh, kw, cin, cout) conv.
 
-    16-byte copies of the input when ``cin % 4 == 0`` (a group of 4 K rows
-    is then 4 channels of one tap), else 4-byte ones; the narrowest Cout
-    tile that covers ``cout`` (64 wide past 64; a 32-wide one splits K
-    over 4 thread groups, ``SPLIT_K_TILE``); the weight slab resident
-    when its ``ceil(K / 16) * 16`` rows of the tile fit ``RESIDENT_BYTES``.
-    The stride changes the gather's addresses, not the plan.
+    The widest copy of the input whose channel run divides ``cin``
+    (:func:`copy_vec`: in fp32 16 bytes when ``cin % 4 == 0``, else 4; in
+    bf16 16 bytes when ``cin % 8 == 0``, 8 when ``cin % 4 == 0``, else one
+    element); the narrowest Cout tile that covers ``cout`` (64 wide past
+    64; a 32-wide one splits K over 4 thread groups, ``SPLIT_K_TILE``); the
+    weight slab resident when its ``ceil(K / 16) * 16`` rows of the tile fit
+    ``RESIDENT_BYTES`` at the dtype's size.  The stride changes the
+    gather's addresses, not the plan.
     """
     if min(cin, cout, kh, kw, stride) < 1:
         raise ValueError(f"conv_plan: bad conv ({kh}, {kw}, {cin}, {cout}) "
@@ -303,20 +354,32 @@ def conv_plan(cin: int, cout: int, kh: int, kw: int,
     tile = cout_tile(cout)
     if TILES[tile][0] == TILES[SPLIT_K_TILE][0]:
         tile = SPLIT_K_TILE
-    return ConvPlan(vec=4 if cin % 4 == 0 else 1, tile=tile,
-                    resident=slab_fits(kh * kw * cin, tile))
+    return ConvPlan(vec=copy_vec(cin, dtype), tile=tile,
+                    resident=slab_fits(kh * kw * cin, tile, dtype),
+                    dtype=dtype)
 
 
-def slab_fits(k: int, tile: int) -> bool:
+def launch_plan(x: torch.Tensor, w: torch.Tensor, stride: int) -> ConvPlan:
+    """:func:`conv_plan` of a launch: an input that is not aligned to the
+    plan's copy takes the widest copy its address allows."""
+    plan = conv_plan(x.shape[-1], w.shape[-1], w.shape[0], w.shape[1],
+                     stride, x.dtype)
+    return plan._replace(vec=copy_vec(x.shape[-1], x.dtype, x.data_ptr()))
+
+
+def slab_fits(k: int, tile: int, dtype: torch.dtype = torch.float32) -> bool:
     """Whether the weight slab of ``k`` K rows (rounded up to whole
     stages) and one Cout tile of ``tile`` fits ``RESIDENT_BYTES``."""
-    return -(-k // K_STEP) * K_STEP * TILES[tile][0] * 4 <= RESIDENT_BYTES
+    return (-(-k // K_STEP) * K_STEP * TILES[tile][0] * dtype.itemsize
+            <= RESIDENT_BYTES)
 
 
 def conv2d_plain(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
                  spec: EpilogueSpec, eps: tuple) -> torch.Tensor:
-    """Plain version: the conv as a sum of kh*kw shifted ``torch.matmul``
-    taps into an fp32 accumulator, then :func:`apply_reference`."""
+    """Plain version, with the kernel's arithmetic: the conv as a sum of
+    kh*kw shifted ``torch.matmul`` taps, widened to fp32, into an fp32
+    accumulator, then :func:`apply_reference` on it in fp32, rounded once to
+    ``x.dtype``."""
     n, h, w_in, cin = x.shape
     kh, kw, _, cout = w.shape
     (pt, pb), (pl, pr) = pads
@@ -324,21 +387,22 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
     oh, ow = out_extent(h, kh, s, pt, pb), out_extent(w_in, kw, s, pl, pr)
     if oh <= 0 or ow <= 0:
         raise ValueError(f"conv2d: empty output {oh}x{ow}")
-    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
-    acc = x.new_zeros((n * oh * ow, cout))
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb)).float()
+    acc = xp.new_zeros((n * oh * ow, cout))
     for dy in range(kh):
         for dx in range(kw):
             rows = xp[:, dy: dy + s * (oh - 1) + 1: s,
                       dx: dx + s * (ow - 1) + 1: s, :]
-            acc += torch.matmul(rows.reshape(-1, cin), w[dy, dx])
-    return apply_reference(spec, acc.reshape(n, oh, ow, cout), eps)
+            acc += torch.matmul(rows.reshape(-1, cin), w[dy, dx].float())
+    return apply_reference(spec, acc.reshape(n, oh, ow, cout),
+                           eps).to(x.dtype)
 
 
 def _conv2d_fn():
     lib = build.load("conv2d")
     fn = lib.conv2d_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 18
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 19
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.conv2d_error_string.argtypes = [ctypes.c_int]
@@ -348,10 +412,9 @@ def _conv2d_fn():
 
 def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
                 spec: EpilogueSpec, eps: tuple) -> torch.Tensor:
-    """Launch ``csrc/conv2d.cu`` on PyTorch's current stream, with
-    :func:`conv_plan`'s variant.  An input that is not 16-byte aligned
-    takes the 4-byte copies."""
-    require_cuda(x, w, "conv2d_cuda")
+    """Launch ``csrc/conv2d.cu`` on PyTorch's current stream, in x's dtype,
+    with :func:`launch_plan`'s variant."""
+    dt = require_cuda(x, w, "conv2d_cuda")
     n, h, w_in, cin = x.shape
     kh, kw, _, cout = w.shape
     (pt, pb), (pl, pr) = pads
@@ -360,16 +423,14 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
     if oh <= 0 or ow <= 0:
         raise ValueError(f"conv2d: empty output {oh}x{ow}")
     out = torch.empty((n, oh, ow, cout), device=x.device, dtype=x.dtype)
-    ops = kernel_operands(spec, eps, tuple(out.shape), x.device)
-    plan = conv_plan(cin, cout, kh, kw, stride)
-    if x.data_ptr() % 16:
-        plan = plan._replace(vec=1)
+    ops = kernel_operands(spec, eps, tuple(out.shape), x.device, x.dtype)
+    plan = launch_plan(x, w, stride)
     lib, fn = _conv2d_fn()
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                   *operand_ptrs(ops), n, h, w_in, cin, oh, ow, cout, kh, kw,
                   stride, pt, pl, int(spec.bn), int(spec.prelu),
-                  residual_code(spec), plan.vec, plan.tile,
+                  residual_code(spec), dt, plan.vec, plan.tile,
                   int(plan.resident),
                   torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, f"conv2d ({plan.variant})", lib.conv2d_error_string)
@@ -379,6 +440,7 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
 
 
 __all__ = ["conv2d", "conv2d_plain", "conv2d_cuda", "conv2d_dx", "conv_plan",
-           "ConvPlan", "cout_tile", "slab_fits", "TILES", "VARIANTS",
+           "launch_plan", "copy_vec", "ConvPlan", "cout_tile", "slab_fits",
+           "TILES", "VARIANTS", "COPY_BYTES",
            "resolve_pads", "out_extent", "check_operands", "require_cuda",
            "wants_grad", "tensor_operands"]

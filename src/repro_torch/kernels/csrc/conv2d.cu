@@ -1,4 +1,5 @@
-// Dense NHWC x HWIO convolution with a fused epilogue, fp32, for sm_90a.
+// Dense NHWC x HWIO convolution with a fused epilogue, fp32 or bf16, for
+// sm_90a.
 //
 // Replaces the TPU kernel src/repro/kernels/conv2d.py::_conv_kernel
 // (pallas_call at conv2d.py:195), which sums kh*kw shifted GEMM taps into an
@@ -10,12 +11,18 @@
 // (asymmetric for even k), VALID and int padding cost nothing and need no
 // padded copy or halo.  The high pads only set the output extent, which
 // the caller passes.  Stride is any positive integer; rectangular kernels
-// (5x1 / 1x5) are native.
+// (5x1 / 1x5) are native.  As the Pallas kernel does, it takes fp32 or bf16
+// x and w (and a residual of their type), accumulates in fp32 and returns
+// their type: bf16 is staged as bf16 in shared memory, widened as the FMAs
+// read it, and rounded once after the epilogue.
 //
 // Bound on the H100 (igemm.cuh): device-memory bytes for ENet's 1x1
 // projections, k2 s2 downsamples, stem and decoder 3x3 4->4; FMAs for its
-// 3x3 (dense and dilated), 5x1 and 1x5 layers at Cin 16-32.  The plan (kernels/conv2d.py::conv_plan)
-// picks the copy width (16 bytes when Cin % 4 == 0), the Cout tile and
+// 3x3 (dense and dilated), 5x1 and 1x5 layers at Cin 16-32; bf16 halves
+// the bytes of the first group and leaves the FMAs of the second on the
+// CUDA cores (a tensor-core form is a ROADMAP.md lever).  The plan
+// (kernels/conv2d.py::conv_plan) picks the copy width (the widest of 16, 8
+// bytes whose channel run divides Cin, else one element), the Cout tile and
 // resident or streamed weights; PERF.md has each layer's time beside its
 // bound.
 
@@ -25,46 +32,49 @@
 
 namespace repro {
 
-template <class T, int VEC, bool RESIDENT>
+template <class T, class E, int VEC, bool RESIDENT>
 __global__ void __launch_bounds__(T::THREADS)
-    conv2d_kernel(ConvGeo g, const float* __restrict__ x,
-                  const float* __restrict__ w, float* __restrict__ out,
-                  Epilogue ep) {
-  igemm_conv<T, VEC, RESIDENT>(g, x, w, out, ep);
+    conv2d_kernel(ConvGeo g, const E* __restrict__ x,
+                  const E* __restrict__ w, E* __restrict__ out,
+                  Epilogue<E> ep) {
+  igemm_conv<T, E, VEC, RESIDENT>(g, x, w, out, ep);
 }
 
-template <class T, int V, bool RESIDENT>
-cudaError_t launch_conv2d(const ConvGeo& g, const float* x, const float* w,
-                          float* out, const Epilogue& ep, cudaStream_t st) {
-  const int bytes = static_cast<int>(
-      ConvSmem::of<T>(g.K, RESIDENT, ep.residual_mode != kResidualNone)
-          .total *
-      sizeof(float));
+template <class T, class E, int V, bool RESIDENT>
+cudaError_t launch_conv2d(const ConvGeo& g, const E* x, const E* w, E* out,
+                          const Epilogue<E>& ep, cudaStream_t st) {
+  const int bytes =
+      ConvSmem::of<T, E>(g.K, RESIDENT, ep.residual_mode != kResidualNone)
+          .total;
   static unsigned smem_set = 0;
   cudaError_t err = allow_big_smem(
-      reinterpret_cast<const void*>(conv2d_kernel<T, V, RESIDENT>), bytes,
+      reinterpret_cast<const void*>(conv2d_kernel<T, E, V, RESIDENT>), bytes,
       &smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid(static_cast<unsigned>((g.M + T::BM - 1) / T::BM),
             static_cast<unsigned>((g.cout + T::BN - 1) / T::BN), 1);
-  conv2d_kernel<T, V, RESIDENT><<<grid, T::THREADS, bytes, st>>>(g, x, w,
-                                                                  out, ep);
+  conv2d_kernel<T, E, V, RESIDENT><<<grid, T::THREADS, bytes, st>>>(
+      g, x, w, out, ep);
   return cudaGetLastError();
 }
 
 }  // namespace repro
 
-// vec: 4 (16-byte copies of x; needs Cin % 4 == 0 and a 16-byte aligned x)
-// or 1; tile: an id of dispatch_tile but the one-group 32-wide tile; resident: keep the weight slab in
-// shared memory.
-// Returns cudaErrorInvalidValue for a plan the kernel cannot run.
-extern "C" int conv2d_fwd(const float* x, const float* w, float* out,
+// x, w, out and residual are of dtype code `dtype` (kF32 or kBF16); scale,
+// shift and alpha are fp32.  vec: elements per copy of x, 4 or 1 for fp32
+// (16 or 4 bytes), 8, 4 or 1 for bf16 (16, 8 or 2 bytes); Cin must be a
+// multiple of it and x aligned to its bytes.  tile: an id of dispatch_tile
+// but the one-group 32-wide tile; resident: keep the weight slab in shared
+// memory.
+// Returns cudaErrorInvalidValue for a dtype or plan the kernel cannot run.
+extern "C" int conv2d_fwd(const void* x, const void* w, void* out,
                           const float* scale, const float* shift,
-                          const float* alpha, const float* residual, int n,
+                          const float* alpha, const void* residual, int n,
                           int h, int w_in, int cin, int oh, int ow, int cout,
                           int kh, int kw, int stride, int pad_top,
                           int pad_left, int bn, int prelu, int residual_mode,
-                          int vec, int tile, int resident, void* stream) {
+                          int dtype, int vec, int tile, int resident,
+                          void* stream) {
   using namespace repro;
   ConvGeo g;
   g.M = static_cast<int64_t>(n) * oh * ow;
@@ -79,23 +89,33 @@ extern "C" int conv2d_fwd(const float* x, const float* w, float* out,
   g.stride = stride;
   g.pad_top = pad_top;
   g.pad_left = pad_left;
-  if (vec == 4 && (cin % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Epilogue ep = {scale, shift, alpha, residual, bn, prelu,
-                       residual_mode};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  dispatch_tile(tile, [&](auto t) {
-    using T = decltype(t);
-    // conv_plan takes the split-K tile for a 32-wide Cout tile, so the
-    // one-group 32-wide tile (the transposed conv's) is not built here
-    if constexpr (!(T::BN == 32 && T::KS == 1)) {
-      dispatch_vec(vec, [&](auto v) {
-        constexpr int V = decltype(v)::value;
-        err = resident ? launch_conv2d<T, V, true>(g, x, w, out, ep, st)
-                       : launch_conv2d<T, V, false>(g, x, w, out, ep, st);
-      });
-    }
+  dispatch_dtype(dtype, [&](auto e) {
+    using E = decltype(e);
+    const int run = vec * static_cast<int>(sizeof(E));
+    if (vec < 1 || cin % vec != 0 ||
+        reinterpret_cast<uintptr_t>(x) % run != 0)
+      return;
+    const Epilogue<E> ep = {scale, shift, alpha,
+                            static_cast<const E*>(residual), bn, prelu,
+                            residual_mode};
+    const E* xe = static_cast<const E*>(x);
+    const E* we = static_cast<const E*>(w);
+    E* oe = static_cast<E*>(out);
+    dispatch_tile(tile, [&](auto t) {
+      using T = decltype(t);
+      // conv_plan takes the split-K tile for a 32-wide Cout tile, so the
+      // one-group 32-wide tile (the transposed conv's) is not built here
+      if constexpr (!(T::BN == 32 && T::KS == 1)) {
+        dispatch_vec<E>(vec, [&](auto v) {
+          constexpr int V = decltype(v)::value;
+          err = resident
+                    ? launch_conv2d<T, E, V, true>(g, xe, we, oe, ep, st)
+                    : launch_conv2d<T, E, V, false>(g, xe, we, oe, ep, st);
+        });
+      }
+    });
   });
   return static_cast<int>(err);
 }

@@ -1,5 +1,10 @@
 // Implicit-GEMM building blocks of the dense and the transposed conv
-// kernels, fp32 on the CUDA cores, for sm_90a.
+// kernels, on the CUDA cores, for sm_90a.  Operands (x, w, residual, out)
+// are stored as E = float or __nv_bfloat16 (element.cuh picks it from the
+// wrapper's dtype code); the accumulators, the staged output tile, the
+// epilogue's channel operands and all arithmetic are fp32, and a bf16
+// output is rounded once (to nearest even) after the epilogue, as the
+// Pallas kernels cast once at their store.
 //
 // A conv is a GEMM with M = output pixels, N = Cout and K = taps x Cin whose
 // A operand (the im2col matrix) is never materialised.  ENet's convs are
@@ -19,13 +24,19 @@
 //     consecutive K rows is 4 channels of one tap: the tap is decoded once
 //     per group and per pipeline stage, and the A gather of one pixel at one
 //     tap is a contiguous channel run.
-//   * Async copies.  A is gathered with 16-byte `cp.async` when Cin % 4 ==
-//     0 (4-byte otherwise, as for the stem's Cin 3), through L1 (`.ca`), so
-//     the taps of a 3x3 find their neighbours' lines there; the 16-byte
-//     copies of weights and residual bypass L1 (`.cg`).  A tap outside the
-//     image, a pixel past M or a K row past K copies with src-size 0,
-//     which zero-fills: padding stays free and needs no branch around the
-//     copy.
+//   * Async copies.  A is gathered with 16-byte `cp.async` when a 16-byte
+//     run of channels divides Cin (Cin % 4 == 0 in fp32, % 8 in bf16),
+//     else with the widest copy that does (8 bytes for bf16 Cin 4, 4 bytes
+//     for fp32 Cin 3), through L1 (`.ca`), so the taps of a 3x3 find their
+//     neighbours' lines there; the 16-byte copies of weights and residual
+//     bypass L1 (`.cg`).  A tap outside the image, a pixel past M or a K
+//     row past K copies with src-size 0, which zero-fills: padding stays
+//     free and needs no branch around the copy.  cp.async has no 2-byte
+//     form, so bf16 runs of odd length (the stem's Cin 3, a Cin-19
+//     cotangent, Cout 13 and 19) take plain loads and stores instead.
+//   * bf16 staging.  bf16 operands stay bf16 in shared memory (half the
+//     bytes of a stage and of a weight slab) and are widened to fp32 pairs
+//     (`__bfloat1622float2`) as the FMA loop reads them.
 //   * Pipeline.  A ring of kStages stages of kBK = 16 K rows, with
 //     commit_group / wait_group, keeps the next three stages' loads in
 //     flight while the FMAs of the current one run.
@@ -57,41 +68,94 @@
 
 #include <cuda_runtime.h>
 
+#include "element.cuh"
 #include "epilogue.cuh"
 
 namespace repro {
 
 constexpr int kBK = 16;      // K rows per pipeline stage
 constexpr int kStages = 4;   // depth of the ring
-constexpr int kAStride = kBK + 4;  // floats per staged pixel: 5 quads, odd
+// elements per staged pixel of a stage: whole 16-byte quads, an odd number
+// of them (fp32 5, bf16 3), so lanes on neighbouring pixels hit distinct
+// banks
+template <class E>
+constexpr int kAStride = sizeof(E) == 4 ? kBK + 4 : kBK + 8;
 // weight slabs up to this size stay in shared memory (conv2d.py mirrors it)
 constexpr int kResidentBytes = 48 * 1024;
 // an invalid pixel's input origin: every tap then fails the bounds check
 constexpr int kNoPixel = INT_MIN / 2;
 
+__host__ __device__ constexpr int align16(int bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
 // --------------------------------------------------------------- cp.async
-// Copy VEC floats from global `src` to shared `dst`, or zero-fill them when
-// `valid` is false (src-size 0: nothing is read, but `src` must still be a
-// mapped address).  L1: keep the line in L1 too (`.ca`), for the input
-// gather, whose taps read neighbouring pixels again; else L2 only (`.cg`).
-template <int VEC, bool L1 = false>
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
+// Copy BYTES (4, 8 or 16) from global `src` to shared `dst`, or zero-fill
+// them when `valid` is false (src-size 0: nothing is read, but `src` must
+// still be a mapped address).  L1: keep the line in L1 too (`.ca`), for the
+// input gather, whose taps read neighbouring pixels again; else L2 only
+// (`.cg`, which takes 16-byte copies only).
+template <int BYTES, bool L1 = false>
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
                                            bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (VEC == 4 && L1) {
+  if constexpr (BYTES == 16 && L1) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                  "l"(src), "r"(valid ? 16 : 0)
                  : "memory");
-  } else if constexpr (VEC == 4) {
+  } else if constexpr (BYTES == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                  "l"(src), "r"(valid ? 16 : 0)
                  : "memory");
+  } else if constexpr (BYTES == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 8 : 0)
+                 : "memory");
   } else {
-    static_assert(VEC == 1, "4- or 16-byte copies");
+    static_assert(BYTES == 4, "4-, 8- or 16-byte copies");
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                  "l"(src), "r"(valid ? 4 : 0)
                  : "memory");
   }
+}
+
+// Copy VEC elements of type E (zero when !valid): a cp.async of their
+// bytes, or, for one 2-byte bf16 element, a plain load and store (visible
+// to the block after its next __syncthreads, like a landed copy).
+template <class E, int VEC, bool L1 = false>
+__device__ __forceinline__ void copy_elems(E* dst, const E* src, bool valid) {
+  constexpr int BYTES = VEC * static_cast<int>(sizeof(E));
+  if constexpr (BYTES >= 4) {
+    copy_async<BYTES, L1>(dst, src, valid);
+  } else {
+    static_assert(BYTES == 2, "a single bf16 element");
+    *dst = valid ? *src : from_f32<E>(0.0f);
+  }
+}
+
+// 4 consecutive elements (8- or 16-byte aligned) widened to fp32, and 4
+// fp32 values rounded to E and stored (RNE for bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 __device__ __forceinline__ void copy_commit() {
@@ -141,14 +205,21 @@ inline bool dispatch_tile(int id, F&& f) {
   }
 }
 
-// Call `f(Vec<V>{})` for a copy width V of 1 or 4 floats.
+// Call `f(Vec<V>{})` for a copy width of V elements of E: 4 or 1 floats
+// (16 or 4 bytes), 8, 4 or 1 bf16 (16, 8 or 2 bytes); false for another.
 template <int V>
 struct Vec {
   static constexpr int value = V;
 };
-template <class F>
+template <class E, class F>
 inline bool dispatch_vec(int vec, F&& f) {
-  if (vec == 4) { f(Vec<4>{}); return true; }
+  if (vec == 16 / static_cast<int>(sizeof(E))) {
+    f(Vec<16 / static_cast<int>(sizeof(E))>{});
+    return true;
+  }
+  if constexpr (sizeof(E) == 2) {
+    if (vec == 4) { f(Vec<4>{}); return true; }
+  }
   if (vec == 1) { f(Vec<1>{}); return true; }
   return false;
 }
@@ -202,38 +273,48 @@ __device__ __forceinline__ void fma_slice(float (&acc)[TM][TN],
 
 // ------------------------------------------------------ weight slab copies
 // Copy K rows k0 .. k0 + rows - 1 of the (K, Cout) weight matrix, columns
-// n0 .. n0 + BN - 1, into dst (rows of BN floats); rows past K and columns
-// past Cout are zero-filled.  16-byte copies when Cout % 4 == 0 and the
-// weights are 16-byte aligned, else 4-byte.
-template <class T>
-__device__ __forceinline__ void copy_weights(float* dst, const float* w,
-                                             int k0, int rows, int K,
-                                             int cout, int n0, bool wide) {
+// n0 .. n0 + BN - 1, into dst (rows of BN elements); rows past K and
+// columns past Cout are zero-filled.  Runs of 4 elements (16 bytes fp32, 8
+// bf16) when Cout % 4 == 0 and the weights are aligned to such a run, else
+// one element at a time.
+template <class T, class E>
+__device__ __forceinline__ void copy_weights(E* dst, const E* w, int k0,
+                                             int rows, int K, int cout,
+                                             int n0, bool wide) {
   if (wide) {
     constexpr int Q = T::BN / 4;
     for (int e = threadIdx.x; e < rows * Q; e += T::THREADS) {
       const int r = e / Q, c = (e - r * Q) * 4;
       const bool v = k0 + r < K && n0 + c < cout;
-      copy_async<4>(dst + r * T::BN + c,
-                    v ? w + static_cast<int64_t>(k0 + r) * cout + n0 + c : w,
-                    v);
+      copy_elems<E, 4>(dst + r * T::BN + c,
+                       v ? w + static_cast<int64_t>(k0 + r) * cout + n0 + c
+                         : w,
+                       v);
     }
   } else {
     for (int e = threadIdx.x; e < rows * T::BN; e += T::THREADS) {
       const int r = e / T::BN, c = e - r * T::BN;
       const bool v = k0 + r < K && n0 + c < cout;
-      copy_async<1>(dst + r * T::BN + c,
-                    v ? w + static_cast<int64_t>(k0 + r) * cout + n0 + c : w,
-                    v);
+      copy_elems<E, 1>(dst + r * T::BN + c,
+                       v ? w + static_cast<int64_t>(k0 + r) * cout + n0 + c
+                         : w,
+                       v);
     }
   }
 }
 
+// whether runs of 4 elements of `p` (16 bytes fp32, 8 bf16) are aligned
+template <class E>
+__device__ __forceinline__ bool quad_aligned(const E* p) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(E) - 1)) == 0;
+}
+
 // ---------------------------------------------------------------- epilogue
 // scale, shift and alpha of the block's BN couts, staged once (ev: 3 * BN)
-template <class T>
-__device__ __forceinline__ void stage_epilogue(float* ev, const Epilogue& ep,
-                                               int n0, int cout) {
+template <class T, class E>
+__device__ __forceinline__ void stage_epilogue(float* ev,
+                                               const Epilogue<E>& ep, int n0,
+                                               int cout) {
   for (int c = threadIdx.x; c < T::BN; c += T::THREADS) {
     const int co = n0 + c;
     const bool v = co < cout;
@@ -243,28 +324,27 @@ __device__ __forceinline__ void stage_epilogue(float* ev, const Epilogue& ep,
   }
 }
 
-// Write a staged output tile `cs` (pixels of T::CS floats) to NHWC `out`
-// with the fused epilogue.  The tile is `nruns` runs of consecutive output
-// pixels: run r's pixel i is staged at cs[(r * run_stride + i) * CS] and is
-// output pixel pix0 + i, where run(r, &pix0, &npix) gives the run.  The
-// threads walk each run's (pixel, channel) elements 4 at a time.  A quad is
-// one float4 shared read when the block's width nb is a multiple of 4 (it
-// then lies in one pixel), and one float4 residual read and store when its
-// 4 elements are adjacent and 16-byte aligned in `out` (Cout % 4 == 0, or
-// the block covers all of Cout and the run is aligned).  `rs`, when not
-// null, is the residual already staged like `cs`; else the residual is
-// read from global memory.
-template <class T, class Run>
-__device__ __forceinline__ void store_tile(const float* cs, const float* rs,
+// Write a staged fp32 output tile `cs` (pixels of T::CS floats) to NHWC
+// `out` with the fused epilogue, rounding once to E.  The tile is `nruns`
+// runs of consecutive output pixels: run r's pixel i is staged at
+// cs[(r * run_stride + i) * CS] and is output pixel pix0 + i, where run(r,
+// &pix0, &npix) gives the run.  The threads walk each run's (pixel,
+// channel) elements 4 at a time.  A quad is one float4 shared read when the
+// block's width nb is a multiple of 4 (it then lies in one pixel), and one
+// 4-element residual read and store (16 bytes fp32, 8 bf16) when its 4
+// elements are adjacent and aligned in `out` (Cout % 4 == 0, or the block
+// covers all of Cout and the run is aligned).  `rs`, when not null, is the
+// residual already staged like `cs` (in E); else the residual is read from
+// global memory.
+template <class T, class E, class Run>
+__device__ __forceinline__ void store_tile(const float* cs, const E* rs,
                                            const float* ev, int nruns,
                                            int run_stride, Run run, int n0,
-                                           int cout, float* __restrict__ out,
-                                           const Epilogue& ep) {
+                                           int cout, E* __restrict__ out,
+                                           const Epilogue<E>& ep) {
   const int nb = min(T::BN, cout - n0);
   const bool has_res = ep.residual_mode != kResidualNone;
-  const bool res_ok =
-      rs != nullptr || !has_res ||
-      (reinterpret_cast<uintptr_t>(ep.residual) & 15) == 0;
+  const bool res_ok = rs != nullptr || !has_res || quad_aligned(ep.residual);
   const bool in_pixel = nb % 4 == 0;
   for (int r = 0; r < nruns; ++r) {
     int64_t pix0;
@@ -276,7 +356,7 @@ __device__ __forceinline__ void store_tile(const float* cs, const float* rs,
         res_ok && ((cout % 4 == 0) ||
                    (nb == cout && base % 4 == 0 && len % 4 == 0));
     const float* stage = cs + r * run_stride * T::CS;
-    const float* rstage = rs ? rs + r * run_stride * T::CS : nullptr;
+    const E* rstage = rs ? rs + r * run_stride * T::CS : nullptr;
     for (int e = threadIdx.x * 4; e < len; e += T::THREADS * 4) {
       const int n = min(4, len - e);
       int p = e / nb, c = e - p * nb;
@@ -288,8 +368,7 @@ __device__ __forceinline__ void store_tile(const float* cs, const float* rs,
         sc = *reinterpret_cast<const float4*>(ev + c);
         sh = *reinterpret_cast<const float4*>(ev + T::BN + c);
         al = *reinterpret_cast<const float4*>(ev + 2 * T::BN + c);
-        if (has_res && rs != nullptr)
-          res = *reinterpret_cast<const float4*>(rstage + st);
+        if (has_res && rs != nullptr) res = load4(rstage + st);
         const int64_t o = base + static_cast<int64_t>(p) * cout + c;
         off[0] = o, off[1] = o + 1, off[2] = o + 2, off[3] = o + 3;
       } else {
@@ -303,7 +382,7 @@ __device__ __forceinline__ void store_tile(const float* cs, const float* rs,
           const int st = p * T::CS + c;
           const bool in = j < n;
           yv[j] = in ? stage[st] : 0.0f;
-          rv[j] = in && has_res && rs != nullptr ? rstage[st] : 0.0f;
+          rv[j] = in && has_res && rs != nullptr ? to_f32(rstage[st]) : 0.0f;
           scv[j] = ev[c];
           shv[j] = ev[T::BN + c];
           alv[j] = ev[2 * T::BN + c];
@@ -318,22 +397,22 @@ __device__ __forceinline__ void store_tile(const float* cs, const float* rs,
       }
       if (has_res && rs == nullptr) {
         if (wide) {
-          res = *reinterpret_cast<const float4*>(ep.residual + off[0]);
+          res = load4(ep.residual + off[0]);
         } else {
-          res.x = ep.residual[off[0]];
-          if (n > 1) res.y = ep.residual[off[1]];
-          if (n > 2) res.z = ep.residual[off[2]];
-          if (n > 3) res.w = ep.residual[off[3]];
+          res.x = to_f32(ep.residual[off[0]]);
+          if (n > 1) res.y = to_f32(ep.residual[off[1]]);
+          if (n > 2) res.z = to_f32(ep.residual[off[2]]);
+          if (n > 3) res.w = to_f32(ep.residual[off[3]]);
         }
       }
       const float4 v = apply_epilogue4(y, sc, sh, al, res, ep);
       if (wide) {
-        *reinterpret_cast<float4*>(out + off[0]) = v;
+        store4(out + off[0], v);
       } else {
-        out[off[0]] = v.x;
-        if (n > 1) out[off[1]] = v.y;
-        if (n > 2) out[off[2]] = v.z;
-        if (n > 3) out[off[3]] = v.w;
+        out[off[0]] = from_f32<E>(v.x);
+        if (n > 1) out[off[1]] = from_f32<E>(v.y);
+        if (n > 2) out[off[2]] = from_f32<E>(v.z);
+        if (n > 3) out[off[3]] = from_f32<E>(v.w);
       }
     }
   }
@@ -358,75 +437,78 @@ struct ConvGeo {
   }
 };
 
-// Shared memory of igemm_conv, in floats: the A ring (reused by the staged
-// output tile), the weight slab or its ring, the staged residual (when the
-// epilogue adds one), the pixel table, the epilogue's channel operands.
+// Shared memory of igemm_conv, as 16-byte aligned byte offsets: the A ring
+// of E (reused by the fp32 staged output tile), the weight slab or its ring
+// of E, the staged residual of E (when the epilogue adds one), the pixel
+// table, the epilogue's fp32 channel operands.  For fp32 these are the
+// float offsets of the fp32-only kernel times 4.
 struct ConvSmem {
   int nk, a, b, r, pix, ev, total;
-  template <class T>
+  template <class T, class E>
   __host__ __device__ static ConvSmem of(int K, bool resident,
                                          bool residual) {
+    constexpr int es = static_cast<int>(sizeof(E));
     ConvSmem s;
     s.nk = (K + kBK - 1) / kBK;
     const int slots = s.nk < kStages ? s.nk : kStages;
-    const int ring = slots * T::BM * kAStride, stage = T::BM * T::CS;
+    const int ring = slots * T::BM * kAStride<E> * es;
+    const int stage = T::BM * T::CS * 4;
     s.a = 0;
-    s.b = ring > stage ? ring : stage;
-    s.r = s.b + (resident ? s.nk : slots) * kBK * T::BN;
-    s.pix = s.r + (residual ? stage : 0);
-    s.ev = s.pix + 4 * T::BM;
-    s.total = s.ev + 3 * T::BN;
+    s.b = align16(ring > stage ? ring : stage);
+    s.r = s.b + align16((resident ? s.nk : slots) * kBK * T::BN * es);
+    s.pix = s.r + (residual ? align16(T::BM * T::CS * es) : 0);
+    s.ev = s.pix + 16 * T::BM;
+    s.total = s.ev + 3 * T::BN * 4;
     return s;
   }
 };
 
 // Copy the block's residual tile (npix pixels from m0, couts n0 .. n0 +
 // nb - 1) into rs, laid out like the staged output tile.
-template <class T>
-__device__ __forceinline__ void copy_residual(float* rs, const float* res,
-                                              int64_t m0, int npix, int n0,
-                                              int cout) {
+template <class T, class E>
+__device__ __forceinline__ void copy_residual(E* rs, const E* res, int64_t m0,
+                                              int npix, int n0, int cout) {
   const int nb = min(T::BN, cout - n0);
-  if (cout % 4 == 0 && (reinterpret_cast<uintptr_t>(res) & 15) == 0) {
+  if (cout % 4 == 0 && quad_aligned(res)) {
     constexpr int Q = T::BN / 4;
     for (int e = threadIdx.x; e < T::BM * Q; e += T::THREADS) {
       const int p = e / Q, c = (e - p * Q) * 4;
       if (p < npix && c < nb)
-        copy_async<4>(rs + p * T::CS + c, res + (m0 + p) * cout + n0 + c,
-                      true);
+        copy_elems<E, 4>(rs + p * T::CS + c, res + (m0 + p) * cout + n0 + c,
+                         true);
     }
   } else {
     for (int e = threadIdx.x; e < T::BM * T::BN; e += T::THREADS) {
       const int p = e / T::BN, c = e - p * T::BN;
       if (p < npix && c < nb)
-        copy_async<1>(rs + p * T::CS + c, res + (m0 + p) * cout + n0 + c,
-                      true);
+        copy_elems<E, 1>(rs + p * T::CS + c, res + (m0 + p) * cout + n0 + c,
+                         true);
     }
   }
 }
 
-template <class T, int VEC, bool RESIDENT>
+template <class T, class E, int VEC, bool RESIDENT>
 __device__ __forceinline__ void igemm_conv(const ConvGeo& g,
-                                           const float* __restrict__ x,
-                                           const float* __restrict__ w,
-                                           float* __restrict__ out,
-                                           const Epilogue& ep) {
-  extern __shared__ __align__(16) float smem[];
+                                           const E* __restrict__ x,
+                                           const E* __restrict__ w,
+                                           E* __restrict__ out,
+                                           const Epilogue<E>& ep) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int AS = kAStride<E>;
   const bool has_res = ep.residual_mode != kResidualNone;
-  const ConvSmem L = ConvSmem::of<T>(g.K, RESIDENT, has_res);
-  float* As = smem + L.a;
-  float* Bs = smem + L.b;
-  float* Rs = smem + L.r;
+  const ConvSmem L = ConvSmem::of<T, E>(g.K, RESIDENT, has_res);
+  E* As = reinterpret_cast<E*>(smem + L.a);
+  E* Bs = reinterpret_cast<E*>(smem + L.b);
+  E* Rs = reinterpret_cast<E*>(smem + L.r);
   int4* pix = reinterpret_cast<int4*>(smem + L.pix);
-  float* ev = smem + L.ev;
+  float* ev = reinterpret_cast<float*>(smem + L.ev);
 
   const int t = threadIdx.x;
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * T::BM;
   const int n0 = blockIdx.y * T::BN;
   const int64_t rest = g.M - m0;
   const int npix = static_cast<int>(rest < T::BM ? rest : T::BM);
-  const bool wide_w = g.cout % 4 == 0 &&
-                      (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const bool wide_w = g.cout % 4 == 0 && quad_aligned(w);
 
   for (int p = t; p < T::BM; p += T::THREADS) pix[p] = g.pixel(m0 + p);
   stage_epilogue<T>(ev, ep, n0, g.cout);
@@ -444,18 +526,18 @@ __device__ __forceinline__ void igemm_conv(const ConvGeo& g,
     const int tap = k / g.cin;
     const int ci = k - tap * g.cin;
     const int dy = tap / g.kw, dx = tap - (tap / g.kw) * g.kw;
-    float* dst = As + (kt % kStages) * T::BM * kAStride + gc * VEC;
+    E* dst = As + (kt % kStages) * T::BM * AS + gc * VEC;
     for (int p = pr; p < T::BM; p += RPP) {
       const int4 q = pix[p];
       const int iy = q.y + dy, ix = q.z + dx;
       const bool v = kval &&
                      static_cast<unsigned>(iy) < static_cast<unsigned>(g.h) &&
                      static_cast<unsigned>(ix) < static_cast<unsigned>(g.w);
-      const float* src =
+      const E* src =
           v ? x + ((static_cast<int64_t>(q.x) * g.h + iy) * g.w + ix) * g.cin +
                   ci
             : x;
-      copy_async<VEC, true>(dst + p * kAStride, src, v);
+      copy_elems<E, VEC, true>(dst + p * AS, src, v);
     }
   };
   auto load_b = [&](int kt) {
@@ -494,8 +576,8 @@ __device__ __forceinline__ void igemm_conv(const ConvGeo& g,
     if (kt == 0 && has_res) copy_residual<T>(Rs, ep.residual, m0, npix, n0,
                                              g.cout);
     copy_commit();
-    const float* a_s = As + (kt % kStages) * T::BM * kAStride;
-    const float* b_s =
+    const E* a_s = As + (kt % kStages) * T::BM * AS;
+    const E* b_s =
         Bs + (RESIDENT ? kt : kt % kStages) * kBK * T::BN + tx * T::TN;
 #pragma unroll
     for (int u = 0; u < kBK / 4 / T::KS; ++u) {
@@ -503,14 +585,12 @@ __device__ __forceinline__ void igemm_conv(const ConvGeo& g,
       float4 a[T::TM], b[4][T::TN / 4];
 #pragma unroll
       for (int i = 0; i < T::TM; ++i)
-        a[i] = *reinterpret_cast<const float4*>(
-            a_s + (ty + i * T::TY) * kAStride + kk);
+        a[i] = load4(a_s + (ty + i * T::TY) * AS + kk);
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
         for (int jn = 0; jn < T::TN / 4; ++jn)
-          b[q][jn] = *reinterpret_cast<const float4*>(
-              b_s + (kk + q) * T::BN + 4 * jn);
+          b[q][jn] = load4(b_s + (kk + q) * T::BN + 4 * jn);
       fma_slice(acc, a, b);
     }
   }
@@ -518,7 +598,7 @@ __device__ __forceinline__ void igemm_conv(const ConvGeo& g,
   __syncthreads();  // the ring is read out: stage the tile over it
 
   // the K groups' partial tiles meet in shared memory, one group at a time
-  float* cs = As;
+  float* cs = reinterpret_cast<float*>(smem + L.a);
 #pragma unroll
   for (int gi = 0; gi < T::KS; ++gi) {
     if (kg == gi) {
@@ -540,7 +620,7 @@ __device__ __forceinline__ void igemm_conv(const ConvGeo& g,
     __syncthreads();
   }
   store_tile<T>(
-      cs, has_res ? Rs : nullptr, ev, 1, 0,
+      cs, has_res ? Rs : static_cast<const E*>(nullptr), ev, 1, 0,
       [&](int, int64_t* p0, int* np) {
         *p0 = m0;
         *np = npix;

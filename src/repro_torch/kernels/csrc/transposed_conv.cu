@@ -1,4 +1,5 @@
-// Decomposed transposed convolution with a fused epilogue, fp32, for sm_90a.
+// Decomposed transposed convolution with a fused epilogue, fp32 or bf16, for
+// sm_90a.
 //
 // Replaces the TPU kernel src/repro/kernels/transposed_conv.py::_tconv_kernel
 // (pallas_call at transposed_conv.py:235).  A stride-s transposed conv splits
@@ -11,7 +12,8 @@
 // input tile: TBH x TBW plane pixels (block rows and cols b, c), a Cout
 // tile of BN.  Per chunk of 16 input channels it stages the input tile
 // with its halo (rows b + off for every live offset) in shared memory with
-// asynchronous copies (16-byte when Cin % 4 == 0), once for all planes.
+// asynchronous copies (16-byte when a 16-byte channel run divides Cin; bf16
+// Cin 4 takes 8-byte ones, odd Cin plain loads), once for all planes.
 // The chunk's k*k x BN weights are staged with it when they fit
 // kResidentBytes (every ENet layer: 12 KB at most); a larger k streams them
 // per plane, a group of whole rows of the plane's live taps at a time, so
@@ -21,13 +23,17 @@
 // plane with no live tap (k < s) adds nothing and still gets the epilogue
 // (BN shift and residual are not zero).  The finished tile leaves as
 // contiguous NHWC rows, the residual read and the result written with
-// 16-byte accesses (igemm.cuh::store_tile): no stride-s scatter, no plane
-// buffer and no de-interleave pass.
+// 16-byte (bf16: 8-byte) accesses (igemm.cuh::store_tile): no stride-s
+// scatter, no plane buffer and no de-interleave pass.  As the Pallas
+// kernel does, x, w, residual and output are fp32 or bf16 (E); the input
+// tile and weights are staged in E and widened as the FMAs read them, the
+// output tile is fp32, and a bf16 result is rounded once, at the store.
 //
 // Bound on the H100: device-memory bytes for ENet's decoder (Cin 4..16);
 // its 19-class head moves 97 MB, mostly its fp32 output, and does 1.4
 // GFLOP, so its FMAs alone take nearly three quarters of its byte time and
-// the Cout tile is 20 wide for 19 (5% idle lanes).  PERF.md has the times.
+// the Cout tile is 20 wide for 19 (5% idle lanes); bf16 halves those
+// bytes.  PERF.md has the times.
 
 #include <algorithm>
 
@@ -40,10 +46,12 @@ namespace repro {
 constexpr int kMaxStride = 8;
 constexpr int kMaxTaps = 8;   // live taps per parity: ceil(k / s)
 // input channels staged at a time (fewer are zero-padded to it, so the
-// channel loop is unrolled at compile time), and the floats of a staged
-// pixel: 5 quads, odd, so lanes on neighbouring pixels hit distinct banks
+// channel loop is unrolled at compile time), and the elements of a staged
+// pixel: whole 16-byte quads, an odd number (fp32 5, bf16 3), so lanes on
+// neighbouring pixels hit distinct banks
 constexpr int kChunk = 16;
-constexpr int kChunkStride = kChunk + 4;
+template <class E>
+constexpr int kChunkStride = sizeof(E) == 4 ? kChunk + 4 : kChunk + 8;
 
 struct Schedule {
   int count[kMaxStride];
@@ -61,34 +69,39 @@ struct TconvGeo {
   Schedule sched;
 };
 
-// Shared memory of the kernel, in floats: the input tile (pixels of
-// kChunkStride floats), the weights of wtaps taps, the interleaved output
-// tile, the epilogue's channel operands.
+// Shared memory of the kernel, as 16-byte aligned byte offsets: the input
+// tile (pixels of kChunkStride elements of E), the weights (E) of wtaps
+// taps, the interleaved fp32 output tile, the epilogue's fp32 channel
+// operands.  For fp32 these are the float offsets of the fp32-only kernel
+// times 4.
 struct TconvSmem {
   int xs, ws, ot, ev, total;
-  template <class T>
+  template <class T, class E>
   __host__ __device__ static TconvSmem of(const TconvGeo& g) {
+    constexpr int es = static_cast<int>(sizeof(E));
     TconvSmem m;
     m.xs = 0;
-    m.ws = (g.tbh + g.span) * (g.tbw + g.span) * kChunkStride;
-    m.ot = m.ws + g.wtaps * kChunk * T::BN;
-    m.ev = m.ot + g.s * g.tbh * g.s * g.tbw * T::CS;
-    m.total = m.ev + 3 * T::BN;
+    m.ws = align16((g.tbh + g.span) * (g.tbw + g.span) * kChunkStride<E> *
+                   es);
+    m.ot = m.ws + align16(g.wtaps * kChunk * T::BN * es);
+    m.ev = m.ot + g.s * g.tbh * g.s * g.tbw * T::CS * 4;
+    m.total = m.ev + 3 * T::BN * 4;
     return m;
   }
 };
 
-template <class T, int VEC>
+template <class T, class E, int VEC>
 __global__ void __launch_bounds__(T::THREADS)
     tconv_kernel(const __grid_constant__ TconvGeo g,
-                 const float* __restrict__ x, const float* __restrict__ w,
-                 float* __restrict__ out, Epilogue ep) {
-  extern __shared__ __align__(16) float smem[];
-  const TconvSmem L = TconvSmem::of<T>(g);
-  float* xs = smem + L.xs;
-  float* ws = smem + L.ws;
-  float* ot = smem + L.ot;
-  float* ev = smem + L.ev;
+                 const E* __restrict__ x, const E* __restrict__ w,
+                 E* __restrict__ out, Epilogue<E> ep) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int CST = kChunkStride<E>;
+  const TconvSmem L = TconvSmem::of<T, E>(g);
+  E* xs = reinterpret_cast<E*>(smem + L.xs);
+  E* ws = reinterpret_cast<E*>(smem + L.ws);
+  float* ot = reinterpret_cast<float*>(smem + L.ot);
+  float* ev = reinterpret_cast<float*>(smem + L.ev);
 
   const int t = threadIdx.x;
   int bid = blockIdx.x;
@@ -102,8 +115,7 @@ __global__ void __launch_bounds__(T::THREADS)
   const int npix = (g.tbh + g.span) * xw;
   const int otw = g.s * g.tbw;  // output tile width, pixels
   const int ot_floats = g.s * g.tbh * otw * T::CS;
-  const bool wide_w = g.cout % 4 == 0 &&
-                      (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const bool wide_w = g.cout % 4 == 0 && quad_aligned(w);
 
   stage_epilogue<T>(ev, ep, n0, g.cout);
   for (int e = t * 4; e < ot_floats; e += T::THREADS * 4)
@@ -116,7 +128,7 @@ __global__ void __launch_bounds__(T::THREADS)
 #pragma unroll
   for (int i = 0; i < T::TM; ++i) {
     const int p = min(ty + i * T::TY, plane_px - 1);
-    xoff[i] = ((p / g.tbw) * xw + p % g.tbw) * kChunkStride;
+    xoff[i] = ((p / g.tbw) * xw + p % g.tbw) * CST;
   }
 
   for (int cbase = 0; cbase < g.cin; cbase += kChunk) {
@@ -130,11 +142,11 @@ __global__ void __launch_bounds__(T::THREADS)
       const bool v = static_cast<unsigned>(iy) < static_cast<unsigned>(g.h) &&
                      static_cast<unsigned>(ix) < static_cast<unsigned>(g.w) &&
                      ci < g.cin;
-      const float* src =
+      const E* src =
           v ? x + ((static_cast<int64_t>(img) * g.h + iy) * g.w + ix) * g.cin +
                   ci
             : x;
-      copy_async<VEC>(xs + q * kChunkStride + gi * VEC, src, v);
+      copy_elems<E, VEC>(xs + q * CST + gi * VEC, src, v);
     }
     // weights of kernel tap `tap` into slot `slot`: rows (channel) of BN
     // couts, zero past Cin
@@ -144,7 +156,7 @@ __global__ void __launch_bounds__(T::THREADS)
                       rows, tap * g.cin + cbase + rows, g.cout, n0, wide_w);
       if (rows < kChunk)
         for (int e = t; e < (kChunk - rows) * T::BN; e += T::THREADS)
-          ws[(slot * kChunk + rows) * T::BN + e] = 0.0f;
+          ws[(slot * kChunk + rows) * T::BN + e] = from_f32<E>(0.0f);
     };
     if (g.resident)
       for (int tap = 0; tap < g.k * g.k; ++tap) stage_tap(tap, tap);
@@ -181,21 +193,18 @@ __global__ void __launch_bounds__(T::THREADS)
           const int ky = g.sched.tap[ry][jy];
           for (int jx = 0; jx < nx; ++jx) {
             const int shift =
-                (oy * xw + g.sched.off[rx][jx] - g.offmin) * kChunkStride;
+                (oy * xw + g.sched.off[rx][jx] - g.offmin) * CST;
             const int slot = g.resident ? ky * g.k + g.sched.tap[rx][jx]
                                         : (jy - jy0) * nx + jx;
-            const float* wt = ws + slot * kChunk * T::BN + tx * 4;
+            const E* wt = ws + slot * kChunk * T::BN + tx * 4;
 #pragma unroll
             for (int cq = 0; cq < kChunk; cq += 4) {
               float4 a[T::TM], b[4][1];
 #pragma unroll
               for (int i = 0; i < T::TM; ++i)
-                a[i] = *reinterpret_cast<const float4*>(xs + xoff[i] + shift +
-                                                        cq);
+                a[i] = load4(xs + xoff[i] + shift + cq);
 #pragma unroll
-              for (int q = 0; q < 4; ++q)
-                b[q][0] =
-                    *reinterpret_cast<const float4*>(wt + (cq + q) * T::BN);
+              for (int q = 0; q < 4; ++q) b[q][0] = load4(wt + (cq + q) * T::BN);
               fma_slice(acc, a, b);
             }
           }
@@ -219,7 +228,7 @@ __global__ void __launch_bounds__(T::THREADS)
   // output row y0 + r, cols x0 .. x0 + otw - 1 (clipped to the output)
   const int y0 = g.s * b0, x0 = g.s * c0;
   store_tile<T>(
-      ot, nullptr, ev, g.s * g.tbh, otw,
+      ot, static_cast<const E*>(nullptr), ev, g.s * g.tbh, otw,
       [&](int r, int64_t* p0, int* np) {
         const int y = y0 + r;
         *p0 = (static_cast<int64_t>(img) * g.oh + y) * g.ow + x0;
@@ -228,44 +237,81 @@ __global__ void __launch_bounds__(T::THREADS)
       n0, g.cout, out, ep);
 }
 
-template <class T, int V>
-cudaError_t launch_tconv(const TconvGeo& g, int n, const float* x,
-                         const float* w, float* out, const Epilogue& ep,
-                         cudaStream_t st) {
-  const int bytes =
-      static_cast<int>(TconvSmem::of<T>(g).total * sizeof(float));
+template <class T, class E, int V>
+cudaError_t launch_tconv(const TconvGeo& g, int n, const E* x, const E* w,
+                         E* out, const Epilogue<E>& ep, cudaStream_t st) {
+  const int bytes = TconvSmem::of<T, E>(g).total;
   static unsigned smem_set = 0;
   cudaError_t err = allow_big_smem(
-      reinterpret_cast<const void*>(tconv_kernel<T, V>), bytes, &smem_set);
+      reinterpret_cast<const void*>(tconv_kernel<T, E, V>), bytes, &smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid(static_cast<unsigned>(n * g.tiles_h * g.tiles_w),
             static_cast<unsigned>((g.cout + T::BN - 1) / T::BN), 1);
-  tconv_kernel<T, V><<<grid, T::THREADS, bytes, st>>>(g, x, w, out, ep);
+  tconv_kernel<T, E, V><<<grid, T::THREADS, bytes, st>>>(g, x, w, out, ep);
   return cudaGetLastError();
+}
+
+// Launch the plan (vec, tile, resident) of a geometry whose schedule is set:
+// pick the block's plane tile and the weight buffer, then the kernel
+// instance.  cudaErrorInvalidValue for a plan the kernel cannot take.
+template <class E>
+cudaError_t launch_tconv_plan(TconvGeo g, int n, const E* x, const E* w,
+                              E* out, const Epilogue<E>& ep, int vec,
+                              int tile, int resident, cudaStream_t st) {
+  if (vec < 1 || g.cin % vec != 0 ||
+      reinterpret_cast<uintptr_t>(x) % (vec * sizeof(E)) != 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  dispatch_tile(tile, [&](auto t) {
+    using T = decltype(t);
+    // one K group and 4-wide register tiles, up to 32 couts a block
+    if constexpr (T::TN == 4 && T::KS == 1 && T::BN <= 32) {
+      constexpr int tap_bytes = kChunk * T::BN * static_cast<int>(sizeof(E));
+      static_assert(kResidentBytes / tap_bytes >= kMaxTaps,
+                    "a row of live taps fits the streamed weight buffer");
+      const int k = g.k, s = g.s;
+      if (resident && k * k * tap_bytes > kResidentBytes) return;
+      g.resident = resident;
+      g.wtaps = resident ? k * k
+                         : std::min(k * k, kResidentBytes / tap_bytes);
+      // plane pixels per block: up to BM, and an output tile of at most
+      // 4 BM pixels (s = 2 fills both)
+      const int hb = (g.oh + s - 1) / s, wb = (g.ow + s - 1) / s;
+      const int cap = std::max(1, 4 * T::BM / (s * s));
+      g.tbw = std::min({16, wb, cap});
+      g.tbh = std::max(1, std::min(hb, std::min(T::BM, cap) / g.tbw));
+      g.tiles_h = (hb + g.tbh - 1) / g.tbh;
+      g.tiles_w = (wb + g.tbw - 1) / g.tbw;
+      dispatch_vec<E>(vec, [&](auto v) {
+        err = launch_tconv<T, E, decltype(v)::value>(g, n, x, w, out, ep, st);
+      });
+    }
+  });
+  return err;
 }
 
 }  // namespace repro
 
-// sched: for each parity r < s, kMaxTaps (tap, offset) pairs after a count,
-// i.e. s rows of 1 + 2 * kMaxTaps ints.  vec: 4 (16-byte copies of x; needs
-// Cin % 4 == 0 and a 16-byte aligned x) or 1; tile: a tile id of 4-wide
+// x, w, out and residual are of dtype code `dtype` (kF32 or kBF16); scale,
+// shift and alpha are fp32.  sched: for each parity r < s, kMaxTaps (tap,
+// offset) pairs after a count, i.e. s rows of 1 + 2 * kMaxTaps ints.  vec:
+// elements per copy of x, as for conv2d_fwd (4 or 1 fp32; 8, 4 or 1 bf16;
+// Cin a multiple of it, x aligned to its bytes); tile: a tile id of 4-wide
 // register tiles and one K group, at most 32 couts wide; resident: stage
 // all k*k taps' weights of a chunk at once (they must fit kResidentBytes),
 // else stream them per plane.
-// Returns cudaErrorInvalidValue for a schedule or plan the kernel cannot
-// take.
-extern "C" int tconv_fwd(const float* x, const float* w, float* out,
+// Returns cudaErrorInvalidValue for a dtype, schedule or plan the kernel
+// cannot take.
+extern "C" int tconv_fwd(const void* x, const void* w, void* out,
                          const float* scale, const float* shift,
-                         const float* alpha, const float* residual, int n,
+                         const float* alpha, const void* residual, int n,
                          int h, int w_in, int cin, int oh, int ow, int cout,
                          int k, int s, const int* sched, int bn, int prelu,
-                         int residual_mode, int vec, int tile, int resident,
-                         void* stream) {
+                         int residual_mode, int dtype, int vec, int tile,
+                         int resident, void* stream) {
   using namespace repro;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (s < 2 || s > kMaxStride) return bad;
-  if (vec == 4 && (cin % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0))
-    return bad;
   TconvGeo g;
   g.h = h;
   g.w = w_in;
@@ -297,34 +343,16 @@ extern "C" int tconv_fwd(const float* x, const float* w, float* out,
   if (offmin > offmax) offmin = offmax = 0;  // no live tap at all
   g.offmin = offmin;
   g.span = offmax - offmin;
-  const Epilogue ep = {scale, shift, alpha, residual, bn, prelu,
-                       residual_mode};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  dispatch_tile(tile, [&](auto t) {
-    using T = decltype(t);
-    // one K group and 4-wide register tiles, up to 32 couts a block
-    if constexpr (T::TN == 4 && T::KS == 1 && T::BN <= 32) {
-      constexpr int tap_floats = kChunk * T::BN;
-      static_assert(kResidentBytes / (tap_floats * 4) >= kMaxTaps,
-                    "a row of live taps fits the streamed weight buffer");
-      const int slab = k * k * tap_floats * static_cast<int>(sizeof(float));
-      if (resident && slab > kResidentBytes) return;
-      g.resident = resident;
-      g.wtaps = resident ? k * k
-                         : std::min(k * k, kResidentBytes / (tap_floats * 4));
-      // plane pixels per block: up to BM, and an output tile of at most
-      // 4 BM pixels (s = 2 fills both)
-      const int hb = (oh + s - 1) / s, wb = (ow + s - 1) / s;
-      const int cap = std::max(1, 4 * T::BM / (s * s));
-      g.tbw = std::min({16, wb, cap});
-      g.tbh = std::max(1, std::min(hb, std::min(T::BM, cap) / g.tbw));
-      g.tiles_h = (hb + g.tbh - 1) / g.tbh;
-      g.tiles_w = (wb + g.tbw - 1) / g.tbw;
-      dispatch_vec(vec, [&](auto v) {
-        err = launch_tconv<T, decltype(v)::value>(g, n, x, w, out, ep, st);
-      });
-    }
+  dispatch_dtype(dtype, [&](auto e) {
+    using E = decltype(e);
+    const Epilogue<E> ep = {scale, shift, alpha,
+                            static_cast<const E*>(residual), bn, prelu,
+                            residual_mode};
+    err = launch_tconv_plan(g, n, static_cast<const E*>(x),
+                            static_cast<const E*>(w), static_cast<E*>(out),
+                            ep, vec, tile, resident, st);
   });
   return static_cast<int>(err);
 }

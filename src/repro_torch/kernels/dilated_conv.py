@@ -6,11 +6,13 @@ the ``d**2`` phase blocks are stacked on the batch axis by a pure layout
 transform, ONE dense SAME conv runs all of them, and the outputs interleave
 back.  The per-channel epilogue ops commute with that relabeling and the
 residual rides the same transform, so BN, PReLU and the residual add all
-run inside the dense kernel.
+run inside the dense kernel.  The layout transforms keep the dtype, so a
+bf16 conv stays bf16 through them.
 
 Gradients follow the reference: an odd-k conv with no epilogue takes
 :class:`_DilatedFn` (dx is the same dilated conv of the cotangent with the
-flipped kernel, dw a tap correlation at step ``d``); fused epilogues and
+flipped kernel, dw a tap correlation at step ``d``, both returned in the
+primal dtypes); fused epilogues and
 even k differentiate by composition through the dense kernel's Functions
 on the phase-batched layout (all of ENet's dilated convs), and the
 strided class windows through its epilogue-free Function.
@@ -101,9 +103,10 @@ class _DilatedFn(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = adjoints.dilated_conv_dx(g, w, ctx.d, _dilated_impl)
+            dx = adjoints.dilated_conv_dx(g, w, ctx.d,
+                                          _dilated_impl).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = adjoints.dilated_conv_dw(x, g, w.shape[0], ctx.d)
+            dw = adjoints.dilated_conv_dw(x, g, w.shape[0], ctx.d).to(w.dtype)
         return dx, dw, None
 
 

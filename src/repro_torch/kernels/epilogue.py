@@ -10,8 +10,9 @@ output is stored, in this order::
     y = where(y >= 0, y, alpha * y)      if spec.prelu
     y = y + residual                     if spec.residual == "post_act"
 
-``scale``/``shift`` are per-``Cout`` vectors, ``alpha`` a scalar or
-per-channel slope, ``residual`` has the output's NHWC shape.  Inside the
+``scale``/``shift`` are fp32 per-``Cout`` vectors, ``alpha`` a scalar or
+per-channel fp32 slope, ``residual`` has the output's NHWC shape and dtype
+(fp32 or bf16; it is widened to fp32 for the add).  Inside the
 CUDA kernels the same ops run per output element in registers
 (``csrc/epilogue.cuh::apply_epilogue``); :func:`apply_reference` is the
 unfused plain version that the torch backend and the kernels' plain
@@ -120,13 +121,16 @@ def apply_reference(spec: EpilogueSpec, z: torch.Tensor,
 
 
 def kernel_operands(spec: EpilogueSpec, args: tuple[torch.Tensor, ...],
-                    out_shape: tuple[int, ...], device: torch.device
+                    out_shape: tuple[int, ...], device: torch.device,
+                    dtype: torch.dtype = torch.float32
                     ) -> dict[str, torch.Tensor | None]:
-    """The epilogue operands as the CUDA kernels take them.
+    """The epilogue operands as the CUDA kernels take them, for an output of
+    ``out_shape`` and ``dtype`` (fp32 or bf16) on ``device``.
 
     Channel vectors become contiguous fp32 ``(cout,)`` tensors (a scalar
-    slope is broadcast); the residual must be fp32, contiguous and exactly
-    the output's shape.  Absent slots map to ``None`` (a null pointer).
+    slope is broadcast); the residual must have the output's dtype, device
+    and exact shape, and is made contiguous.  Absent slots map to ``None``
+    (a null pointer).
     """
     cout = out_shape[-1]
     ops = dict.fromkeys(("scale", "shift", "alpha", "residual"))
@@ -135,8 +139,8 @@ def kernel_operands(spec: EpilogueSpec, args: tuple[torch.Tensor, ...],
             if tuple(v.shape) != tuple(out_shape):
                 raise ValueError(f"residual shape {tuple(v.shape)} != output "
                                  f"{tuple(out_shape)}")
-            if v.dtype != torch.float32 or v.device != device:
-                raise ValueError(f"residual must be float32 on {device}, got "
+            if v.dtype != dtype or v.device != device:
+                raise ValueError(f"residual must be {dtype} on {device}, got "
                                  f"{v.dtype} on {v.device}")
             ops[name] = v.contiguous()
         else:

@@ -12,13 +12,15 @@ copies (the weights per plane instead when a large ``k`` does not fit, see
 nonzero MACs), and the planes' results meet in an interleaved output tile in shared
 memory, which leaves as contiguous NHWC rows through the fused epilogue in
 16-byte stores (the all-zero planes of ``k < s`` get the epilogue too).  No
-stride-``s`` scatter, plane buffer or de-interleave pass.
+stride-``s`` scatter, plane buffer or de-interleave pass.  As the Pallas
+kernel does, it takes fp32 or bf16 operands, accumulates in fp32 and
+returns the input dtype, rounded once after the epilogue.
 
 Bound on the H100: device-memory bytes for ENet's decoder (Cin 4..16).
 The 19-class head moves 97 MB, mostly its fp32 output, and its 1.4 GFLOP
 alone take nearly three quarters of that time at the CUDA cores' 67
-TFLOP/s, so its Cout tile is 20 wide (:func:`tconv_plan`).  PERF.md has
-the times.
+TFLOP/s, so its Cout tile is 20 wide (:func:`tconv_plan`); bf16 halves the
+bytes.  PERF.md has the times.
 
 Stride 1 is a plain padded conv and routes to the dense kernel
 (:func:`repro_torch.kernels.conv2d.conv2d`), as the reference leaves it to a
@@ -30,8 +32,8 @@ kernel or raises.  ``transposed_conv2d.launches`` counts kernel launches.
 Gradients (the port of ``_tconv_vjp`` and ``_tconv_ep_vjp``): under
 autograd the wrapper applies :class:`_TconvFn` or :class:`_TconvEpFn`.
 dx is a strided VALID dense conv of the padded cotangent on kernel 1
-(``adjoints.tconv_dx``), dw ``adjoints.tconv_dw``; the fused epilogue's
-backward recomputes the conv without it.
+(``adjoints.tconv_dx``), dw ``adjoints.tconv_dw``, both in the primal
+dtypes; the fused epilogue's backward recomputes the conv without it.
 """
 
 from __future__ import annotations
@@ -79,16 +81,17 @@ def transposed_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 2,
     """Fused decomposed transposed conv for square ``k`` and any stride.
 
     Args:
-      x: (N, H, W, Cin) fp32.   w: (k, k, Cin, Cout) fp32.
+      x: (N, H, W, Cin) fp32 or bf16.   w: (k, k, Cin, Cout) of x's dtype.
       stride: upsampling factor ``s >= 1``.
       padding: low-side pad ``p_lo`` of the zero-inserted input;
         ``None`` -> ``(k-1)//2``.
       output_padding: extra high-side size (``p_hi = p_lo + it``).
       epilogue: optional :class:`EpilogueSpec` with matching operands.
     Returns:
-      (N, OH, OW, Cout) with ``OH = (H-1)*s + p_lo + p_hi - k + 2``.
+      (N, OH, OW, Cout) of x's dtype, with ``OH = (H-1)*s + p_lo + p_hi -
+      k + 2``.
     """
-    kconv.check_operands(x, w, "transposed_conv2d")
+    kconv.check_operands(x, w, "transposed_conv2d", residual)
     k = w.shape[0]
     if w.shape[1] != k:
         raise ValueError(f"square kernels only, got {k}x{w.shape[1]}")
@@ -109,7 +112,7 @@ def transposed_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 2,
     if spec.empty:
         return _TconvFn.apply(x, w, stride, p_lo, p_hi)
     return _TconvEpFn.apply(x, w, spec, stride, p_lo, p_hi,
-                            *kconv.tensor_operands(eps, x.device))
+                            *kconv.tensor_operands(spec, eps, x.device))
 
 
 transposed_conv2d.launches = 0
@@ -143,9 +146,10 @@ class _TconvFn(torch.autograd.Function):
             dx = adjoints.tconv_dx(
                 g, w, s, p_lo, p_hi,
                 lambda gp, wf, st: kconv.conv2d(gp, wf, stride=st,
-                                                padding="VALID"))
+                                                padding="VALID")).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = adjoints.tconv_dw(x, g, w.shape[0], s, p_lo, p_hi)
+            dw = adjoints.tconv_dw(x, g, w.shape[0], s, p_lo,
+                                   p_hi).to(w.dtype)
         return dx, dw, None, None, None
 
 
@@ -171,17 +175,27 @@ class _TconvEpFn(torch.autograd.Function):
         return (*grads[:2], None, None, None, None, *grads[2:])
 
 
-def tconv_plan(cin: int, cout: int, k: int) -> kconv.ConvPlan:
+def tconv_plan(cin: int, cout: int, k: int,
+               dtype: torch.dtype = torch.float32) -> kconv.ConvPlan:
     """The variant of ``csrc/transposed_conv.cu`` for a (k, k, cin, cout)
-    kernel: 16-byte copies of the input when ``cin % 4 == 0``, the
+    kernel: the widest copy of the input whose channel run divides ``cin``
+    (``kconv.copy_vec``; in fp32 16 bytes when ``cin % 4 == 0``), the
     narrowest Cout tile covering ``cout`` (32 wide past 32, so the staged
     output tile stays small), and the weights of all ``k*k`` taps of a
-    16-channel chunk resident when they fit ``RESIDENT_BYTES``, else
-    streamed per parity plane."""
+    16-channel chunk resident when they fit ``RESIDENT_BYTES`` at the
+    dtype's size, else streamed per parity plane."""
     tile = kconv.cout_tile(cout, widest=32)
-    slab = k * k * CHUNK * kconv.TILES[tile][0] * 4
-    return kconv.ConvPlan(vec=4 if cin % 4 == 0 else 1, tile=tile,
-                          resident=slab <= kconv.RESIDENT_BYTES)
+    slab = k * k * CHUNK * kconv.TILES[tile][0] * dtype.itemsize
+    return kconv.ConvPlan(vec=kconv.copy_vec(cin, dtype), tile=tile,
+                          resident=slab <= kconv.RESIDENT_BYTES, dtype=dtype)
+
+
+def launch_plan(x: torch.Tensor, w: torch.Tensor) -> kconv.ConvPlan:
+    """:func:`tconv_plan` of a launch: an input that is not aligned to the
+    plan's copy takes the widest copy its address allows."""
+    plan = tconv_plan(x.shape[-1], w.shape[-1], w.shape[0], x.dtype)
+    return plan._replace(vec=kconv.copy_vec(x.shape[-1], x.dtype,
+                                            x.data_ptr()))
 
 
 def _out_hw(x: torch.Tensor, k: int, s: int, p_lo: int,
@@ -196,9 +210,11 @@ def _out_hw(x: torch.Tensor, k: int, s: int, p_lo: int,
 
 def tconv_plain(x: torch.Tensor, w: torch.Tensor, s: int, p_lo: int,
                 p_hi: int, spec: EpilogueSpec, eps: tuple) -> torch.Tensor:
-    """Plain version: per parity plane, the sum of its live taps as
-    ``torch.matmul`` products, interleaved, then :func:`apply_reference`
-    (which also covers the zero planes of ``k < s``)."""
+    """Plain version, with the kernel's arithmetic: per parity plane, the
+    sum of its live taps as ``torch.matmul`` products of operands widened to
+    fp32, in fp32, interleaved, then :func:`apply_reference` on the fp32
+    planes (which also covers the zero planes of ``k < s``), rounded once
+    to ``x.dtype``."""
     n, h, w_in, cin = x.shape
     k, _, _, cout = w.shape
     oh, ow = _out_hw(x, k, s, p_lo, p_hi)
@@ -209,22 +225,23 @@ def tconv_plain(x: torch.Tensor, w: torch.Tensor, s: int, p_lo: int,
     # pad so that every block index b reads rows b + off + shift in bounds
     pad_b = max(0, hb + max(offs, default=0) + shift - (h + shift))
     pad_r = max(0, wb + max(offs, default=0) + shift - (w_in + shift))
-    xp = F.pad(x, (0, 0, shift, pad_r, shift, pad_b))
-    out = x.new_zeros((n, oh, ow, cout))
+    xp = F.pad(x, (0, 0, shift, pad_r, shift, pad_b)).float()
+    out = xp.new_zeros((n, oh, ow, cout))
     for ry, rtaps in enumerate(sched):
         nyr = len(range(ry, oh, s))
         for rx, ctaps in enumerate(sched):
             nxr = len(range(rx, ow, s))
             if nyr == 0 or nxr == 0 or not rtaps or not ctaps:
                 continue
-            acc = x.new_zeros((n * nyr * nxr, cout))
+            acc = xp.new_zeros((n * nyr * nxr, cout))
             for ty, oy in rtaps:
                 for tx, ox in ctaps:
                     rows = xp[:, oy + shift: oy + shift + nyr,
                               ox + shift: ox + shift + nxr, :]
-                    acc += torch.matmul(rows.reshape(-1, cin), w[ty, tx])
+                    acc += torch.matmul(rows.reshape(-1, cin),
+                                        w[ty, tx].float())
             out[:, ry::s, rx::s, :] = acc.reshape(n, nyr, nxr, cout)
-    return apply_reference(spec, out, eps)
+    return apply_reference(spec, out, eps).to(x.dtype)
 
 
 def schedule_array(k: int, s: int, p_lo: int) -> ctypes.Array:
@@ -250,7 +267,7 @@ def _tconv_fn():
     fn = lib.tconv_fwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.tconv_error_string.argtypes = [ctypes.c_int]
@@ -260,25 +277,22 @@ def _tconv_fn():
 
 def tconv_cuda(x: torch.Tensor, w: torch.Tensor, s: int, p_lo: int,
                p_hi: int, spec: EpilogueSpec, eps: tuple) -> torch.Tensor:
-    """Launch ``csrc/transposed_conv.cu`` on PyTorch's current stream, with
-    :func:`tconv_plan`'s variant.  An input that is not 16-byte aligned
-    takes the 4-byte copies."""
-    kconv.require_cuda(x, w, "tconv_cuda")
+    """Launch ``csrc/transposed_conv.cu`` on PyTorch's current stream, in
+    x's dtype, with :func:`launch_plan`'s variant."""
+    dt = kconv.require_cuda(x, w, "tconv_cuda")
     n, h, w_in, cin = x.shape
     k, _, _, cout = w.shape
     oh, ow = _out_hw(x, k, s, p_lo, p_hi)
     sched = schedule_array(k, s, p_lo)
     out = torch.empty((n, oh, ow, cout), device=x.device, dtype=x.dtype)
-    ops = kernel_operands(spec, eps, tuple(out.shape), x.device)
-    plan = tconv_plan(cin, cout, k)
-    if x.data_ptr() % 16:
-        plan = plan._replace(vec=1)
+    ops = kernel_operands(spec, eps, tuple(out.shape), x.device, x.dtype)
+    plan = launch_plan(x, w)
     lib, fn = _tconv_fn()
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                   *operand_ptrs(ops), n, h, w_in, cin, oh, ow, cout, k, s,
                   sched, int(spec.bn), int(spec.prelu), residual_code(spec),
-                  plan.vec, plan.tile, int(plan.resident),
+                  dt, plan.vec, plan.tile, int(plan.resident),
                   torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "transposed_conv2d", lib.tconv_error_string)
     transposed_conv2d.launches += 1
@@ -286,4 +300,4 @@ def tconv_cuda(x: torch.Tensor, w: torch.Tensor, s: int, p_lo: int,
 
 
 __all__ = ["parity_schedule", "transposed_conv2d", "tconv_plain",
-           "tconv_cuda", "tconv_plan", "schedule_array"]
+           "tconv_cuda", "tconv_plan", "launch_plan", "schedule_array"]

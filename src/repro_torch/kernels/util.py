@@ -16,9 +16,9 @@ def canon_dtype(compute_dtype) -> torch.dtype | None:
     """Canonicalise a ``compute_dtype`` argument to a torch dtype (or None).
 
     Accepts ``None`` (keep the input dtype), a ``torch.dtype`` or a string
-    alias (``"fp32"``/``"float32"``/...).  This slice of the port is fp32
-    only: bf16 and fp16 raise ``NotImplementedError`` until the bf16 slice
-    of ROADMAP.md (queue 1) lands.
+    alias (``"bf16"``/``"bfloat16"``/``"fp32"``/...), as the reference's
+    ``repro.kernels.util.canon_dtype`` does.  fp32 and bf16 are ported;
+    fp16 raises ``NotImplementedError`` (still to port, ROADMAP.md).
     """
     if compute_dtype is None:
         return None
@@ -33,10 +33,10 @@ def canon_dtype(compute_dtype) -> torch.dtype | None:
     else:
         raise ValueError(f"compute_dtype must be None, a string alias or a "
                          f"torch.dtype, got {compute_dtype!r}")
-    if dtype != torch.float32:
+    if dtype not in DTYPE_CODES:
         raise NotImplementedError(
-            f"compute_dtype {dtype} is not ported yet: the port is fp32 only "
-            f"until the bf16 slice of ROADMAP.md")
+            f"compute_dtype {dtype} is not ported: the port computes in "
+            f"float32 or bfloat16 (fp16 is still to port, ROADMAP.md)")
     return dtype
 
 
@@ -56,8 +56,7 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-#: element types of the matmul and attention kernels, by their C dtype code
-#: (``csrc/element.cuh``)
+#: element types of the kernels, by their C dtype code (``csrc/element.cuh``)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,17 +1,22 @@
 """Train ENet on synthetic Cityscapes-like data through the port's kernels.
 
     PYTHONPATH=src python -m repro_torch.launch.train_enet --steps 200 --hw 64
+    PYTHONPATH=src python -m repro_torch.launch.train_enet --dtype bf16
     PYTHONPATH=src python -m repro_torch.launch.train_enet --smoke --device cpu
 
-The port of ``examples/train_enet.py`` in fp32.  With ``--backend kernels``
+The port of ``examples/train_enet.py``.  With ``--backend kernels``
 (the default) every conv of the forward runs on the two hand-written conv
 kernels and the backward re-enters them through the adjoints (input
 gradients as transposed or strided dense convs, weight gradients as
 tap-gather correlations, DESIGN.md §6); ``--backend torch`` composes
 ``F.conv2d``, and ``--naive`` (torch only) runs the zero-laden baseline.
-It runs on CUDA unless ``--device cpu`` is given (the kernels' plain
-versions then stand in for them) and ends with the pixel accuracy on a
-held-out batch.
+``--dtype bf16`` trains through the mixed-precision recipe
+(``train_recipes.make_train_step(..., compute_dtype="bf16")``: fp32 masters,
+bf16 activations through the kernels' bf16 forms, dynamic loss scaling and
+the skip of a non-finite step, at the constant ``--lr``), as the reference
+example does.  It runs on CUDA unless ``--device cpu`` is given (the
+kernels' plain versions then stand in for them) and ends with the pixel
+accuracy on a held-out batch.
 """
 
 from __future__ import annotations
@@ -41,6 +46,10 @@ def main(argv=None) -> None:
     ap.add_argument("--backend", choices=("kernels", "torch"),
                     default="kernels",
                     help="execution engine for every conv (fwd AND bwd)")
+    ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32",
+                    help="compute dtype of the forward/backward activations; "
+                         "bf16 trains through the mixed-precision recipe "
+                         "(fp32 masters + dynamic loss scaling)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--smoke", action="store_true",
@@ -66,16 +75,27 @@ def main(argv=None) -> None:
                            seed=args.seed)
     loss = train_recipes.loss_fn("enet", backend=args.backend,
                                  decomposed=not args.naive)
+    cd = "bf16" if args.dtype == "bf16" else None
+    if cd is not None:
+        # the mixed-precision recipe owns the optimizer and loss scaling
+        state = train_recipes.init_state(params)
+        recipe_step = train_recipes.make_train_step(
+            "enet", backend=args.backend, decomposed=not args.naive,
+            compute_dtype=cd, lr=args.lr, weight_decay=1e-4)
 
     losses = []
     for step in range(args.steps):
         batch = train_recipes.batch_to(pipe.batch_at(step), dev)
-        lr = cosine_schedule(step, args.steps // 10, args.steps,
-                             args.lr).to(dev)
         t0 = time.perf_counter()
-        value, grads = train_recipes.loss_and_grads(loss, params, batch)
-        params, opt, gnorm = adamw_update(grads, opt, params, lr=lr,
-                                          weight_decay=1e-4)
+        if cd is not None:
+            state, m = recipe_step(state, batch)
+            params, value, gnorm = state.params, m["loss"], m["grad_norm"]
+        else:
+            lr = cosine_schedule(step, args.steps // 10, args.steps,
+                                 args.lr).to(dev)
+            value, grads = train_recipes.loss_and_grads(loss, params, batch)
+            params, opt, gnorm = adamw_update(grads, opt, params, lr=lr,
+                                              weight_decay=1e-4)
         losses.append(value.item())
         if step % args.log_every == 0:
             print(f"step {step:4d} loss {losses[-1]:.4f} "
@@ -89,7 +109,8 @@ def main(argv=None) -> None:
           f"({'improved' if last < first else 'NOT improved'})")
     batch = train_recipes.batch_to(pipe.batch_at(10_000), dev)
     forward = train_recipes.enet_forward(backend=args.backend,
-                                         decomposed=not args.naive)
+                                         decomposed=not args.naive,
+                                         compute_dtype=cd)
     with torch.no_grad():
         pred = forward(params, batch["image"]).argmax(-1)
     acc = (pred == batch["label"]).float().mean().item()

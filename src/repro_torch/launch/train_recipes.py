@@ -1,12 +1,15 @@
 """The ENet train step of the port: fp32 masters, AdamW, loss scaling.
 
-The port of ``repro.launch.train_recipes`` for the ``"enet"`` recipe in
-fp32.  One step, as in the reference:
+The port of ``repro.launch.train_recipes`` for the ``"enet"`` recipe, in
+fp32 or, with ``compute_dtype="bf16"``, in the reference's mixed precision
+(DESIGN.md §12).  One step, as in the reference:
 
 * **fp32 masters**: parameters and AdamW state are fp32 ``{name: tensor}``
-  dicts (the names of ``ENet.named_parameters()``);
-* **fp32 loss**: the logits are promoted to fp32 before the log-softmax
-  NLL reduction;
+  dicts (the names of ``ENet.named_parameters()``), whatever the compute
+  dtype; a bf16 forward casts them per conv, so the gradients land on them
+  in fp32;
+* **fp32 loss**: the logits (bf16 under ``compute_dtype="bf16"``) are
+  promoted to fp32 before the log-softmax NLL reduction;
 * **dynamic loss scaling** (:class:`repro_torch.optim.DynamicLossScale`):
   the loss is amplified before the gradient and the gradients divided
   after;
@@ -32,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.util import canon_dtype
 from repro_torch.models.enet import ENet
 from repro_torch.optim import (DynamicLossScale, LossScaleState, adamw_init,
                                adamw_update, select_tree)
@@ -62,24 +66,31 @@ def _shell(num_classes: int) -> ENet:
     return ENet(num_classes, device="meta", generator=torch.Generator())
 
 
-def enet_forward(*, backend: str = "kernels", decomposed: bool = True):
+def enet_forward(*, backend: str = "kernels", decomposed: bool = True,
+                 compute_dtype=None):
     """``forward(params, image)``: ENet as a function of a flat parameter
     dict (the reference's ``enet.forward``), through
-    ``torch.func.functional_call`` on a weightless shell."""
+    ``torch.func.functional_call`` on a weightless shell.  The logits come
+    back in ``compute_dtype`` (``None``: fp32)."""
+    cd = canon_dtype(compute_dtype)
 
     def forward(params: dict, image: torch.Tensor) -> torch.Tensor:
         return torch.func.functional_call(
             _shell(params["fullconv"].shape[-1]), params, (image,),
-            {"backend": backend, "decomposed": decomposed})
+            {"backend": backend, "decomposed": decomposed,
+             "compute_dtype": cd})
 
     return forward
 
 
-def loss_fn(model: str, *, backend: str = "kernels", decomposed: bool = True):
-    """``loss(params, batch)`` of a recipe."""
+def loss_fn(model: str, *, backend: str = "kernels", decomposed: bool = True,
+            compute_dtype=None):
+    """``loss(params, batch)`` of a recipe; the forward runs in
+    ``compute_dtype`` and the loss is reduced in fp32."""
     if model == "enet":
         return functools.partial(
-            _seg_loss, enet_forward(backend=backend, decomposed=decomposed))
+            _seg_loss, enet_forward(backend=backend, decomposed=decomposed,
+                                    compute_dtype=compute_dtype))
     if model in RECIPES:
         raise NotImplementedError(
             f"recipe {model!r} waits for its model's slice of ROADMAP.md")
@@ -117,11 +128,13 @@ def init_state(params: dict,
 
 
 def make_train_step(model: str, *, backend: str = "kernels",
-                    decomposed: bool = True,
+                    decomposed: bool = True, compute_dtype=None,
                     scaler: DynamicLossScale | None = None,
                     lr: float = 1e-3, weight_decay: float = 1e-4):
     """``step(state, batch) -> (state', metrics)`` for one recipe.
 
+    ``compute_dtype`` (``None``/``"fp32"`` or ``"bf16"``) is the forward's
+    and backward's activation dtype; the state stays fp32 either way.
     ``batch`` is ``{"image", "label"}`` tensors on the state's device
     (:func:`batch_to`).  Metrics, 0-d tensors: ``loss`` (unscaled, fp32),
     ``grad_norm`` (of the applied gradients; 0 on a skipped step),
@@ -129,7 +142,8 @@ def make_train_step(model: str, *, backend: str = "kernels",
     gradients suppressed the update).
     """
     scaler = scaler or DynamicLossScale()
-    loss = loss_fn(model, backend=backend, decomposed=decomposed)
+    loss = loss_fn(model, backend=backend, decomposed=decomposed,
+                   compute_dtype=compute_dtype)
 
     def step(state: TrainState, batch: dict):
         value, grads = loss_and_grads(

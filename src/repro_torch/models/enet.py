@@ -13,7 +13,11 @@ Parameters keep the reference's HWIO layout and its names
 so :meth:`ENet.load_jax_params` carries a reference parameter tree across
 and the outputs compare directly; :func:`flatten_tree` gives a reference
 tree (of parameters, gradients or optimizer moments) the names of
-``named_parameters()``.  The parameters train: under autograd every conv
+``named_parameters()``.  ``compute_dtype="bf16"`` runs the activations in
+bf16 end to end off fp32 master parameters, as the reference does
+(DESIGN.md §12): the input is cast once, every conv casts its weight (the
+dispatcher's ``compute_dtype``), the folded BN and PReLU operands stay
+fp32, and the logits come back in bf16.  The parameters train: under autograd every conv
 differentiates through the kernels' ``torch.autograd.Function`` classes, and
 serving runs under ``torch.no_grad()``.  The non-conv ops stay plain torch:
 2x2/s2 max-pool (floor), channel concat and zero-pad, nearest 2x repeat.
@@ -29,7 +33,7 @@ from torch import nn
 
 from repro_torch.core.decompose import conv2d
 from repro_torch.kernels.epilogue import EpilogueSpec
-from repro_torch.kernels.util import resolve_device
+from repro_torch.kernels.util import canon_dtype, resolve_device
 from repro_torch.models.common import bn_init, conv_init, fold_bn
 
 # BN+PReLU after the reduce and middle convs; BN + residual add + PReLU
@@ -76,18 +80,21 @@ class Bottleneck(nn.Module):
         return dict(epilogue=_EP_BN_ACT, scale=scale, shift=shift,
                     alpha=getattr(self, f"a{i}"))
 
-    def branch(self, x, decomposed: bool, strategy: str, backend: str):
-        """-> (main-branch activations before expand, skip tensor)."""
+    def branch(self, x, decomposed: bool, strategy: str, backend: str,
+               cd: torch.dtype | None):
+        """-> (main-branch activations before expand, skip tensor); ``cd``
+        is every conv's ``compute_dtype``."""
         raise NotImplementedError
 
     def forward(self, x: torch.Tensor, decomposed: bool = True,
-                strategy: str = "batched",
-                backend: str = "kernels") -> torch.Tensor:
-        h, skip = self.branch(x, decomposed, strategy, backend)
+                strategy: str = "batched", backend: str = "kernels",
+                compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+        h, skip = self.branch(x, decomposed, strategy, backend, compute_dtype)
         s3, b3 = fold_bn(self.bn3)
         return conv2d(h, self.expand, backend=backend,
                       epilogue=_EP_BN_RES_ACT, scale=s3, shift=b3,
-                      alpha=self.a3, residual=skip)
+                      alpha=self.a3, residual=skip,
+                      compute_dtype=compute_dtype)
 
 
 class DilatedBottleneck(Bottleneck):
@@ -98,10 +105,12 @@ class DilatedBottleneck(Bottleneck):
         self.dilation = dilation
         self.conv = nn.Parameter(conv_init(g, 3, 3, self.ci, self.ci))
 
-    def branch(self, x, decomposed, strategy, backend):
-        h = conv2d(x, self.reduce, backend=backend, **self.ep(1))
+    def branch(self, x, decomposed, strategy, backend, cd):
+        h = conv2d(x, self.reduce, backend=backend, compute_dtype=cd,
+                   **self.ep(1))
         h = conv2d(h, self.conv, dilation=self.dilation, decomposed=decomposed,
-                   strategy=strategy, backend=backend, **self.ep(2))
+                   strategy=strategy, backend=backend, compute_dtype=cd,
+                   **self.ep(2))
         return h, x
 
 
@@ -117,10 +126,12 @@ class AsymBottleneck(Bottleneck):
         self.conv_h = nn.Parameter(
             torch.randn((1, asym, ci, ci), generator=g) * std)
 
-    def branch(self, x, decomposed, strategy, backend):
-        h = conv2d(x, self.reduce, backend=backend, **self.ep(1))
-        h = conv2d(h, self.conv_v, backend=backend)
-        h = conv2d(h, self.conv_h, backend=backend, **self.ep(2))
+    def branch(self, x, decomposed, strategy, backend, cd):
+        h = conv2d(x, self.reduce, backend=backend, compute_dtype=cd,
+                   **self.ep(1))
+        h = conv2d(h, self.conv_v, backend=backend, compute_dtype=cd)
+        h = conv2d(h, self.conv_h, backend=backend, compute_dtype=cd,
+                   **self.ep(2))
         return h, x
 
 
@@ -132,11 +143,12 @@ class DownBottleneck(Bottleneck):
         self.c = c
         self.conv = nn.Parameter(conv_init(g, 3, 3, self.ci, self.ci))
 
-    def branch(self, x, decomposed, strategy, backend):
+    def branch(self, x, decomposed, strategy, backend, cd):
         h = conv2d(x, self.reduce, stride=2, padding=0, backend=backend,
-                   **self.ep(1))
+                   compute_dtype=cd, **self.ep(1))
         skip = F.pad(_max_pool2(x), (0, self.c - x.shape[-1]))
-        h = conv2d(h, self.conv, backend=backend, **self.ep(2))
+        h = conv2d(h, self.conv, backend=backend, compute_dtype=cd,
+                   **self.ep(2))
         return h, skip
 
 
@@ -149,13 +161,14 @@ class UpBottleneck(Bottleneck):
         self.deconv = nn.Parameter(conv_init(g, 3, 3, self.ci, self.ci))
         self.skip = nn.Parameter(conv_init(g, 1, 1, cin, c))
 
-    def branch(self, x, decomposed, strategy, backend):
-        h = conv2d(x, self.reduce, backend=backend, **self.ep(1))
-        skip = conv2d(x, self.skip, backend=backend)
+    def branch(self, x, decomposed, strategy, backend, cd):
+        h = conv2d(x, self.reduce, backend=backend, compute_dtype=cd,
+                   **self.ep(1))
+        skip = conv2d(x, self.skip, backend=backend, compute_dtype=cd)
         skip = skip.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         h = conv2d(h, self.deconv, stride=2, transposed=True,
                    output_padding=1, decomposed=decomposed, backend=backend,
-                   **self.ep(2))
+                   compute_dtype=cd, **self.ep(2))
         return h, skip
 
 
@@ -200,21 +213,28 @@ class ENet(nn.Module):
         self.fullconv = nn.Parameter(conv_init(g, 3, 3, 16, num_classes))
 
     def forward(self, x: torch.Tensor, decomposed: bool = True,
-                strategy: str = "batched",
-                backend: str = "kernels") -> torch.Tensor:
+                strategy: str = "batched", backend: str = "kernels",
+                compute_dtype=None) -> torch.Tensor:
         """x: (N, H, W, 3) fp32 -> logits (N, H, W, num_classes).
 
         ``backend="kernels"`` runs every conv on the CUDA kernels (their
         plain versions on the CPU); ``"torch"`` composes ``F.conv2d``.
         ``decomposed=False`` is the naive zero-laden baseline (torch only).
+        ``compute_dtype`` (``None``, ``"fp32"`` or ``"bf16"``) casts the
+        input once and every conv's operands, off the fp32 parameters; the
+        logits come back in it.
         """
-        h = conv2d(x, self.initial, stride=2, backend=backend)
+        cd = canon_dtype(compute_dtype)
+        if cd is not None:
+            x = x.to(cd)
+        h = conv2d(x, self.initial, stride=2, backend=backend,
+                   compute_dtype=cd)
         h = torch.cat([h, _max_pool2(x)], dim=-1)          # (N, H/2, W/2, 16)
         for name in self.block_names:
-            h = getattr(self, name)(h, decomposed, strategy, backend)
+            h = getattr(self, name)(h, decomposed, strategy, backend, cd)
         return conv2d(h, self.fullconv, stride=2, transposed=True,
                       output_padding=1, decomposed=decomposed,
-                      backend=backend)
+                      backend=backend, compute_dtype=cd)
 
     @torch.no_grad()
     def load_jax_params(self, tree: dict) -> None:

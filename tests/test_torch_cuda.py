@@ -437,3 +437,164 @@ def test_enet_backward_runs_on_the_kernels(cuda):
     for name, got in zip(leaves, grads):
         _close_grad(got, want[name])
         _close_grad(got, want[name], rtol=2e-3, floor=0.0)
+
+
+# ------------------------------------------------------------------ bf16
+# The bf16 forms of both conv kernels (chip_smoke.py phase 14) against
+# their plain versions, which widen to fp32, accumulate and apply the
+# epilogue in fp32 and round once, per element at 2^-7 |plain| + 1e-4 x
+# max(1, max |plain|) (_close).  The cases reach every bf16 copy width
+# (16-byte for Cin % 8 == 0, 8-byte for Cin 4 and 12, plain 2-byte loads
+# for Cin 3 and 19 and for unaligned inputs), resident and streamed
+# slabs, and odd Cout stores (13, 19).
+
+_BF16_PLAN_CASES = [  # label, x shape, w shape, stride, pads, variant
+    ("stem cin3 cout13 s2", (2, 33, 31, 3), (3, 3, 3, 13), 2, _SAME3,
+     "bf16-scalar-resident"),
+    ("cin4", (2, 17, 19, 4), (3, 3, 4, 16), 1, _SAME3, "bf16-vec4-resident"),
+    ("cin12 cout70", (2, 9, 10, 12), (3, 3, 12, 70), 1, _SAME3,
+     "bf16-vec4-resident"),
+    ("cout4", (2, 20, 18, 16), (1, 1, 16, 4), 1, ((0, 0), (0, 0)),
+     "bf16-vec8-resident"),
+    ("cout8", (2, 17, 19, 16), (3, 3, 16, 8), 1, _SAME3,
+     "bf16-vec8-resident"),
+    ("cout19", (2, 16, 15, 16), (3, 3, 16, 19), 1, _SAME3,
+     "bf16-vec8-resident"),
+    ("head dx cin19 s2 valid", (2, 33, 35, 19), (3, 3, 19, 16), 2,
+     ((0, 0), (0, 0)), "bf16-scalar-resident"),
+    ("1x1 128->32", (3, 9, 10, 128), (1, 1, 128, 32), 1, ((0, 0), (0, 0)),
+     "bf16-vec8-resident"),
+    ("5x1", (2, 16, 15, 32), (5, 1, 32, 32), 1, ((2, 2), (0, 0)),
+     "bf16-vec8-resident"),
+    ("streamed", (2, 9, 10, 128), (3, 3, 128, 64), 1, _SAME3,
+     "bf16-vec8-streamed"),
+    ("streamed cin4", (1, 14, 13, 4), (11, 11, 4, 64), 1, ((5, 5), (5, 5)),
+     "bf16-vec4-streamed"),
+    ("streamed cin3", (1, 20, 21, 3), (15, 15, 3, 40), 1, ((7, 7), (7, 7)),
+     "bf16-scalar-streamed"),
+    *[(f"phase batch {xs}", xs, (3, 3, 32, 32), 1, _SAME3,
+       "bf16-vec8-resident")
+      for xs in ((16, 8, 8, 32), (64, 4, 4, 32), (1024, 1, 1, 32))]]
+
+
+def _bf16(spec, eps):
+    """Epilogue operands for a bf16 call: the residual in bf16."""
+    return tuple(e.bfloat16() if s == "residual" else e
+                 for s, e in zip(spec.slots, eps))
+
+
+@pytest.mark.parametrize("spec", _ALL_SPECS, ids=str)
+@pytest.mark.parametrize("case", _BF16_PLAN_CASES, ids=lambda c: c[0])
+def test_bf16_conv2d_plan_variants_match_plain(cuda, case, spec):
+    _, xs, ws, stride, pads, variant = case
+    g = torch.Generator().manual_seed(xs[0] + ws[3] + 11)
+    x = torch.randn(xs, generator=g).to(cuda, torch.bfloat16)
+    w = torch.randn(ws, generator=g).to(cuda, torch.bfloat16)
+    oh = kconv.out_extent(xs[1], ws[0], stride, *pads[0])
+    ow = kconv.out_extent(xs[2], ws[1], stride, *pads[1])
+    eps = _bf16(spec, _ops(spec, (xs[0], oh, ow, ws[3]), g, cuda))
+    assert kconv.conv_plan(xs[3], ws[3], ws[0], ws[1], stride,
+                           torch.bfloat16).variant == variant
+    before = dict(kconv.conv2d.launches_by_variant)
+    got = kconv.conv2d_cuda(x, w, stride, pads, spec, eps)
+    torch.cuda.synchronize()
+    after = kconv.conv2d.launches_by_variant
+    assert {v: after[v] - before[v] for v in after} == \
+        {v: int(v == variant) for v in after}
+    assert got.dtype == torch.bfloat16
+    _close(got, kconv.conv2d_plain(x, w, stride, pads, spec, eps))
+
+
+@pytest.mark.parametrize("spec", _ALL_SPECS, ids=str)
+@pytest.mark.parametrize("xs,k,cout,s,p_lo,op", [
+    ((2, 16, 16, 16), 3, 19, 2, 1, 1), ((2, 16, 16, 16), 3, 16, 2, 1, 1),
+    ((2, 32, 30, 4), 3, 4, 2, 1, 1), ((2, 7, 9, 8), 4, 12, 2, 2, 0),
+    ((2, 7, 9, 8), 2, 12, 3, 1, 0), ((1, 6, 5, 3), 3, 5, 2, 1, 1),
+    ((1, 5, 6, 20), 3, 40, 2, 1, 1), ((1, 9, 7, 16), 16, 32, 2, 7, 1),
+    ((1, 6, 5, 8), 9, 19, 3, 4, 2)])
+def test_bf16_tconv_matches_plain(cuda, xs, k, cout, s, p_lo, op, spec):
+    g = torch.Generator().manual_seed(xs[3] + cout + 11)
+    x = torch.randn(xs, generator=g).to(cuda, torch.bfloat16)
+    w = torch.randn((k, k, xs[3], cout), generator=g).to(cuda,
+                                                         torch.bfloat16)
+    oh = (xs[1] - 1) * s + 2 * p_lo + op - k + 2
+    ow = (xs[2] - 1) * s + 2 * p_lo + op - k + 2
+    eps = _bf16(spec, _ops(spec, (xs[0], oh, ow, cout), g, cuda))
+    got = ktr.tconv_cuda(x, w, s, p_lo, p_lo + op, spec, eps)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    _close(got, ktr.tconv_plain(x, w, s, p_lo, p_lo + op, spec, eps))
+
+
+@pytest.mark.parametrize("skip,variant", [(1, "bf16-scalar-resident"),
+                                          (4, "bf16-vec4-resident")])
+def test_bf16_unaligned_input_takes_narrower_copies(cuda, skip, variant):
+    """An input 2 (8) bytes past a 16-byte boundary takes plain loads
+    (8-byte copies), on both kernels."""
+    g = torch.Generator().manual_seed(4)
+    flat = torch.randn(2 * 9 * 10 * 16 + skip, generator=g).to(
+        cuda, torch.bfloat16)
+    x = flat[skip:].view(2, 9, 10, 16)
+    w = torch.randn((3, 3, 16, 16), generator=g).to(cuda, torch.bfloat16)
+    assert kconv.launch_plan(x, w, 1).variant == variant
+    before = kconv.conv2d.launches_by_variant[variant]
+    got = kconv.conv2d_cuda(x, w, 1, _SAME3, EpilogueSpec(), ())
+    torch.cuda.synchronize()
+    assert kconv.conv2d.launches_by_variant[variant] == before + 1
+    _close(got, kconv.conv2d_plain(x, w, 1, _SAME3, EpilogueSpec(), ()))
+    got = ktr.tconv_cuda(x, w, 2, 1, 2, EpilogueSpec(), ())
+    torch.cuda.synchronize()
+    _close(got, ktr.tconv_plain(x, w, 2, 1, 2, EpilogueSpec(), ()))
+
+
+def test_bf16_kernels_refuse_a_plan_they_do_not_build(cuda):
+    """conv2d_fwd refuses a copy width the dtype has no form of (8 fp32
+    elements) and a dtype code it does not know."""
+    x = torch.randn(1, 8, 8, 8, device=cuda)
+    w = torch.randn(3, 3, 8, 8, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        orig = kconv.launch_plan
+        try:
+            kconv.launch_plan = lambda *a: orig(*a)._replace(vec=8)
+            kconv.conv2d_cuda(x, w, 1, _SAME3, EpilogueSpec(), ())
+        finally:
+            kconv.launch_plan = orig
+
+
+def test_bf16_enet_step_runs_on_the_bf16_kernels(cuda):
+    """One bf16 ENet step at 64x64: 86 + 3 forward and 165 + 4 backward
+    launches, every conv2d launch on a bf16 form, fp32 gradients on the
+    fp32 masters, within 10% relative L2 of the torch backend's bf16
+    gradients over all tensors together (a scalar PReLU slope's gradient
+    alone is a cancelling sum that bf16 rounding moves by more than that
+    on either backend)."""
+    from repro_torch.launch import train_recipes as ttr
+    from repro_torch.models.enet import ENet
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = ENet(5, device=cuda, generator=torch.Generator().manual_seed(0))
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    g = torch.Generator().manual_seed(1)
+    batch = {"image": torch.randn(2, 64, 64, 3, generator=g).to(cuda),
+             "label": torch.randint(0, 5, (2, 64, 64), generator=g).to(cuda)}
+    leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+    variants = dict(kconv.conv2d.launches_by_variant)
+    before = (kconv.conv2d.launches, ktr.transposed_conv2d.launches)
+    loss = ttr.loss_fn("enet", compute_dtype="bf16")(leaves, batch)
+    mid = (kconv.conv2d.launches, ktr.transposed_conv2d.launches)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    after = (kconv.conv2d.launches, ktr.transposed_conv2d.launches)
+    assert (mid[0] - before[0], mid[1] - before[1]) == (86, 3)
+    assert (after[0] - mid[0], after[1] - mid[1]) == (165, 4)
+    moved = {v: n - variants[v]
+             for v, n in kconv.conv2d.launches_by_variant.items()}
+    assert sum(moved.values()) == 86 + 165
+    assert all(v.startswith("bf16-") for v, n in moved.items() if n)
+    _, want = ttr.loss_and_grads(
+        ttr.loss_fn("enet", backend="torch", compute_dtype="bf16"), params,
+        batch)
+    assert all(got.dtype == torch.float32 for got in grads)
+    got = torch.cat([t.reshape(-1) for t in grads])
+    ref = torch.cat([want[n].reshape(-1) for n in leaves])
+    assert ((got - ref).norm() / ref.norm()).item() <= 0.10

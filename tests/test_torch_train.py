@@ -173,8 +173,11 @@ def test_adamw_update_matches_reference(gscale):
 
 
 def test_adamw_bf16_memory_mode_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        toptim.adamw_init({"w": torch.zeros(2)}, memory_mode="bf16")
+    # the bf16 slice has landed: the mode keeps bf16 moments and no master
+    # (tests/test_torch_bf16.py holds its updates to the reference)
+    state = toptim.adamw_init({"w": torch.zeros(2)}, memory_mode="bf16")
+    assert state.master is None and state.mu["w"].dtype == torch.bfloat16
+    assert state.nu["w"].dtype == torch.bfloat16
     with pytest.raises(ValueError, match="memory_mode"):
         toptim.adamw_init({"w": torch.zeros(2)}, memory_mode="fp8")
 
