@@ -70,9 +70,9 @@ nvcc, then:
    yardstick (``torch.matmul`` in the input dtype, TF32 off;
    ``F.scaled_dot_product_attention(is_causal=True)``);
 13. prints the ``{"kernels": [...]}`` line (all four kernels on their
-   paths, the two conv kernels again on the ENet backward, and both again
-   in bf16 on the forward and the backward) and, last,
-   ``{"ok": true, "device": {...}}``;
+   paths, the two conv kernels again on the ENet backward, both again
+   in bf16 on the forward and the backward, and both on each path of
+   phases 18-22) and, last, ``{"ok": true, "device": {...}}``;
 
 and, before those two lines, the bf16 slice:
 
@@ -104,6 +104,36 @@ and, before those two lines, the bf16 slice:
    element at 3.35 TB/s, or 2 x MACs at the 989 TFLOP/s bf16 peak), its
    library call in bf16 and the fp32 kernel on the same geometry.
 
+and then the conv models of the port, each at full width with seeded
+weights (BN, GroupNorm and PReLU redrawn around their init): ESPNet-512
+(phase 18; 19 classes, batch 4), DCGAN-64 (19; nz 100, ngf 64, batch
+128), DCGAN-128 (20), the U-Net denoiser (21; widths 256/128/64 from an
+8x8 mid-block to 64x64, batch 8) and the whisper-small frontend (22; 80
+mels, 3000 frames, d_model 768, batch 4).  For each, in fp32 and in bf16
+where the reference takes ``compute_dtype`` (the Whisper frontend is fp32
+only):
+
+a. every kernel call of a forward and of a backward (ESPNet's and
+   DCGAN-64's recipe loss scaled by 2^15, the denoiser's noise-prediction
+   loss, fp32), recorded from the runs, against its plain version at
+   phases 3, 6 and 14's bars, showing that a zeroed output and one 2% off
+   fail them, and each run's launches as counted on the CPU (ESPNet 38 +
+   3 and 39 + 3, DCGAN 0 + 4 and 4 + 3, DCGAN-128 0 + 5, denoiser 11 + 3
+   and 16 + 3, Whisper 2 + 0) with no library conv, no plain version and
+   no ``torch.matmul`` but the model's own (DCGAN's projection, the
+   timestep MLP) and the weight gradients' tap correlations;
+b. one served batch per dtype against ``backend="torch"``: fp32 at
+   relative L2 1e-4, bf16 within 5% of the fp32 output's range;
+c. ESPNet's and DCGAN-64's recipes (``make_train_step("espnet" /
+   "dcgan")``), three steps per dtype on both backends: the launches of
+   each step, finite losses agreeing at 1e-4 (fp32) and 5% (bf16), fp32
+   masters, and a NaN batch skipped bit for bit; the denoiser's
+   gradients against the torch backend's at phase 8's bars;
+d. forward and step times on both backends, the busy share of the fp32
+   forward and step, and every recorded call per geometry beside its
+   bound and library call; their sums are the kernels line's entries
+   ``conv2d (ESPNet-512 bf16 backward)`` etc.
+
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
 with TF32 off.  The full per-call results go to
@@ -116,6 +146,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -219,6 +250,37 @@ TCONV_EDGES = [  # label, x shape, k, s, p_lo, output_padding, cin, cout
     ("k2 s3 k<s + epilogue", (2, 9, 7), 2, 3, 1, 0, 8, 12),
     ("k16 s2 Cout32, streamed taps", (2, 11, 9), 16, 2, 7, 1, 16, 32),
 ]
+# the conv models of phases 18-22, at their published widths: DCGAN
+# (Radford et al. 2016) nz 100, ngf 64, batch 128; the U-Net denoiser's
+# widths (256, 128, 64) from an 8x8 mid-block to 64x64, batch 8;
+# whisper-small's frontend (80 mels, 3000 frames, d_model 768), batch 4.
+# ESPNet-512 takes ENet's BATCH, HW and CLASSES.
+DCGAN_NZ, DCGAN_NGF, DCGAN_BATCH = 100, 64, 128
+UNET_MID, UNET_BATCH = 8, 8
+WHISPER_BATCH = 4
+# each model's launches of a forward and of a backward (counted on the CPU
+# by tests/test_torch_{espnet,generative,whisper}.py): ESPNet's 38 dense
+# (stem, 5 a module over 7 ESP modules, skip2, head) and 3 transposed;
+# its backward's 2 recomputes (stem, up1), 35 dense dx and the two
+# stride-2 d=1 branches' dx on the transposed kernel; DCGAN's stages and,
+# backward, its 3 fused stages recomputed and 4 strided dx; the
+# denoiser's 4 encoders, 6 decoder convs, head and 3 upsamplers, and
+# backward 9 recomputes, 7 dense and 3 strided dx; Whisper's two convs
+MODEL_LAUNCHES = {
+    "ESPNet-512": {"forward": {"conv2d": 38, "transposed_conv2d": 3},
+                   "backward": {"conv2d": 39, "transposed_conv2d": 3}},
+    "DCGAN-64": {"forward": {"conv2d": 0, "transposed_conv2d": 4},
+                 "backward": {"conv2d": 4, "transposed_conv2d": 3}},
+    "DCGAN-128": {"forward": {"conv2d": 0, "transposed_conv2d": 5}},
+    "U-Net denoiser": {"forward": {"conv2d": 11, "transposed_conv2d": 3},
+                       "backward": {"conv2d": 16, "transposed_conv2d": 3}},
+    "Whisper frontend": {"forward": {"conv2d": 2, "transposed_conv2d": 0}},
+}
+# launches of each timed call in phases 18-22 (median of 3 rounds)
+MODEL_REPS = 5
+# a learnable PReLU slope's name: ``stem_a``, ``down1.a``, ``dec.l0_a1``,
+# ``dec.l2_aup``
+SLOPE_NAME = re.compile(r"[._]a(\d|up)?$")
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel's pallas_call)
     "conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
                "src/repro/kernels/conv2d.py:195"),
@@ -258,6 +320,41 @@ def main() -> int:
         return 1
     sys.path.insert(0, src)
     return Smoke(torch).run()
+
+
+def nest(flat: dict) -> dict:
+    """A flat {dotted name: tensor} dict as the nested dict a functional
+    model takes (the inverse of ``models.common.flatten_tree``)."""
+    out = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        d = out
+        for part in path:
+            d = d.setdefault(part, {})
+        d[leaf] = v
+    return out
+
+
+class ModelPath:
+    """One model of phases 18-22: how to run it and what it must launch.
+
+    ``forward(params, backend, compute_dtype)`` runs the main path on a
+    flat parameter dict; ``objective(params, backend, compute_dtype)`` is
+    the scalar its backward differentiates (a recipe's loss).  A model
+    with a ``recipe`` trains on ``batches`` (the last spoiled by
+    ``spoil`` for the NaN step).
+    """
+
+    def __init__(self, label, forward, params, out_shape, launches, *,
+                 dtypes=(None, "bf16"), objective=None,
+                 grad_dtypes=(None, "bf16"), matmuls=0, recipe=None,
+                 batches=None, spoil=None, items=1, unit="items"):
+        self.label, self.forward, self.params = label, forward, params
+        self.out_shape, self.launches = out_shape, launches
+        self.dtypes, self.objective = dtypes, objective
+        self.grad_dtypes, self.matmuls = grad_dtypes, matmuls
+        self.recipe, self.batches, self.spoil = recipe, batches, spoil
+        self.items, self.unit = items, unit
 
 
 class Smoke:
@@ -490,6 +587,7 @@ class Smoke:
         torch.cuda.empty_cache()
 
         kernels_line["kernels"] += self.run_bf16(fp32_train)
+        kernels_line["kernels"] += self.run_models()
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
                   "w") as f:
@@ -662,7 +760,7 @@ class Smoke:
         times["geometries"] = self.geometry_table(rows, "a forward")
         return {"kernels": entries}, times
 
-    def time_calls(self, calls, fp32_too=False):
+    def time_calls(self, calls, fp32_too=False, reps=10):
         """Per recorded kernel call: device ms of the kernel, its plain
         version and its library call, beside its work and bound (at the
         peak of the call's dtype: the CUDA cores' fp32 rate, or the bf16
@@ -686,16 +784,17 @@ class Smoke:
                 bytes_ms = 1e3 * nbytes / PEAK_BYTES_S
                 row = {"kernel": name, "geometry": self.geometry(name, args),
                        "variant": self.variant(name, args),
-                       "ms": self.device_ms(lambda: kern(*args)),
+                       "ms": self.device_ms(lambda: kern(*args), reps=reps),
                        "plain_ms": self.device_ms(lambda: plain(*args),
                                                   reps=3),
-                       "library_ms": self.device_ms(lib),
+                       "library_ms": self.device_ms(lib, reps=reps),
                        "flops": flops, "bytes": nbytes,
                        "ops_ms": ops_ms, "bytes_ms": bytes_ms,
                        "bound_ms": max(ops_ms, bytes_ms)}
                 if fp32_too:
                     args32 = self.as_fp32(args)
-                    row["fp32_ms"] = self.device_ms(lambda: kern(*args32))
+                    row["fp32_ms"] = self.device_ms(lambda: kern(*args32),
+                                                    reps=reps)
                 rows.append(row)
                 for key in keys:
                     per[name][key] += row[key]
@@ -778,18 +877,23 @@ class Smoke:
 
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels, ops = [], []
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            if us > 0:
-                (kernels if e.device_type == DeviceType.CUDA else ops).append(
-                    (us / 1e3, e.count, e.key))
+        # a profiled window now and then records no device event at all;
+        # up to three windows are taken before the share is "not measured"
+        for _ in range(3):
+            kernels, ops = [], []
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = getattr(e, "self_cuda_time_total", 0)
+                if us > 0:
+                    (kernels if e.device_type == DeviceType.CUDA
+                     else ops).append((us / 1e3, e.count, e.key))
+            if kernels:
+                break
         kernels.sort(reverse=True)
         ops.sort(reverse=True)
         busy = sum(r[0] for r in kernels)
@@ -1557,6 +1661,482 @@ class Smoke:
                     f"{p['fp32_ms']:.3f} ms")
                 entries.append(self.kernel_entry(name, label, n, p))
         self.report["bf16_times"] = times
+        return entries
+
+    # ---------------------------------------------------- the conv models
+    def run_models(self):
+        """Phases 18-22: ESPNet-512, DCGAN-64, DCGAN-128, the U-Net
+        denoiser and the Whisper frontend, each through :meth:`run_path`.
+        Returns their entries of the kernels line."""
+        torch = self.torch
+        entries = []
+        self.report["models"] = {}
+        for phase, make in ((18, self.espnet_path),
+                            (19, lambda: self.dcgan_path(64)),
+                            (20, lambda: self.dcgan_path(128)),
+                            (21, self.unet_path), (22, self.whisper_path)):
+            path = make()
+            entries += self.run_path(phase, path)
+            del path
+            torch.cuda.empty_cache()
+        return entries
+
+    def redraw(self, params, g):
+        """BN and GroupNorm affines and PReLU slopes drawn as phase 4 draws
+        ENet's, around their init: scales x U(0.7, 1.3), shifts 0.1 N(0,
+        1), slopes U(0.1, 0.4) (a fixed init would hide the convs behind
+        them).  ``params`` is a flat {name: tensor} dict, changed in place
+        and returned."""
+        torch = self.torch
+        with torch.no_grad():
+            for name, p in params.items():
+                if name.endswith(".g"):
+                    p.mul_((0.7 + 0.6 * torch.rand(p.shape, generator=g))
+                           .to(p.device))
+                elif name.endswith(".b"):
+                    p.copy_(0.1 * torch.randn(p.shape, generator=g))
+                elif SLOPE_NAME.search(name):
+                    p.copy_(0.1 + 0.3 * torch.rand(p.shape, generator=g))
+        return params
+
+    def espnet_path(self):
+        torch = self.torch
+        from repro_torch.launch import train_recipes as ttr
+        from repro_torch.models.espnet import ESPNet
+
+        g = torch.Generator().manual_seed(SEED + 10)
+        model = ESPNet(CLASSES, generator=g)
+        params = self.redraw({n: p.detach() for n, p in
+                              model.named_parameters()}, g)
+        x = self.rand(g, BATCH, HW, HW, 3)
+        batches = [self.seg_batch(i) for i in range(TRAIN_STEPS + 1)]
+
+        def forward(p, backend, cd):
+            return ttr.model_forward("espnet", backend=backend,
+                                     compute_dtype=cd)(p, x)
+
+        def objective(p, backend, cd):
+            return ttr.loss_fn("espnet", backend=backend,
+                               compute_dtype=cd)(p, batches[0])
+
+        def spoil(batch):
+            batch["image"][0, 5, 7, 1] = float("nan")
+
+        return ModelPath(
+            "ESPNet-512", forward, params, (BATCH, HW, HW, CLASSES),
+            MODEL_LAUNCHES["ESPNet-512"], objective=objective,
+            recipe="espnet", batches=batches, spoil=spoil,
+            items=BATCH, unit="images")
+
+    def dcgan_path(self, size):
+        torch = self.torch
+        from repro_torch.launch import train_recipes as ttr
+        from repro_torch.models.dcgan import DCGAN
+
+        label = f"DCGAN-{size}"
+        g = torch.Generator().manual_seed(SEED + size)
+        model = DCGAN(size, nz=DCGAN_NZ, ngf=DCGAN_NGF, generator=g)
+        params = self.redraw({n: p.detach() for n, p in
+                              model.named_parameters()}, g)
+        z = self.rand(g, DCGAN_BATCH, DCGAN_NZ)
+
+        def forward(p, backend, cd):
+            return ttr.model_forward("dcgan", backend=backend,
+                                     compute_dtype=cd)(p, z)
+
+        kw = dict(matmuls=1)
+        if size == 64:     # the recipe's generator: served and trained
+            batches = [{"z": self.rand(g, DCGAN_BATCH, DCGAN_NZ),
+                        "target": torch.rand(
+                            (DCGAN_BATCH, size, size, 3), generator=g).to(
+                                self.dev) * 2 - 1}
+                       for _ in range(TRAIN_STEPS + 1)]
+
+            def objective(p, backend, cd):
+                return ttr.loss_fn("dcgan", backend=backend,
+                                   compute_dtype=cd)(p, batches[0])
+
+            def spoil(batch):
+                batch["z"][1, 7] = float("nan")
+
+            kw.update(objective=objective, recipe="dcgan", batches=batches,
+                      spoil=spoil)
+        return ModelPath(label, forward, params,
+                         (DCGAN_BATCH, size, size, 3), MODEL_LAUNCHES[label],
+                         items=DCGAN_BATCH, unit="images", **kw)
+
+    def unet_path(self):
+        torch = self.torch
+        from repro_torch.models import unet_decoder as ud
+        from repro_torch.models.common import flatten_tree
+
+        g = torch.Generator().manual_seed(SEED + 11)
+        tree = ud.init_denoiser_params(g)
+        params = self.redraw(flatten_tree(tree), g)
+        s = UNET_MID * 2 ** len(ud.UNET_WIDTHS)
+        x_t = self.rand(g, UNET_BATCH, s, s, 3)
+        noise = self.rand(g, UNET_BATCH, s, s, 3)
+        t = torch.randint(0, 1000, (UNET_BATCH,), generator=g).to(self.dev)
+
+        def forward(p, backend, cd):
+            return ud.denoise(nest(p), x_t, t, backend=backend,
+                              compute_dtype=cd)
+
+        def objective(p, backend, cd):
+            eps = forward(p, backend, cd)
+            return (eps.float() - noise).square().mean()
+
+        return ModelPath(
+            "U-Net denoiser", forward, params, (UNET_BATCH, s, s, 3),
+            MODEL_LAUNCHES["U-Net denoiser"], objective=objective,
+            grad_dtypes=(None,), matmuls=2, items=UNET_BATCH,
+            unit="images")
+
+    def whisper_path(self):
+        torch = self.torch
+        from repro_torch.models import whisper as wh
+
+        g = torch.Generator().manual_seed(SEED + 12)
+        params = wh.init_frontend_params(g)
+        mel = self.rand(g, WHISPER_BATCH, wh.N_FRAMES, wh.N_MELS)
+
+        def forward(p, backend, cd):
+            return wh.frontend(p, mel, backend=backend)
+
+        return ModelPath(
+            "Whisper frontend", forward, params,
+            (WHISPER_BATCH, (wh.N_FRAMES + 1) // 2, wh.D_MODEL),
+            MODEL_LAUNCHES["Whisper frontend"], dtypes=(None,),
+            items=WHISPER_BATCH, unit="clips")
+
+    def run_path(self, phase, path):
+        """Drive one model as phases 3-9 and 14-17 drive ENet: (a) every
+        kernel call of a forward and of a backward, per dtype, against its
+        plain version; (b) serving: launch counts, no plain version and no
+        library conv, the output against ``backend="torch"``; (c) the
+        recipe's steps, or the backward's gradients against the torch
+        backend's; (d) times.  Returns its entries of the kernels line."""
+        log(f"phase {phase}: {path.label}")
+        report = self.report["models"][path.label] = {}
+        calls, launches = self.path_kernels(phase, path, report)
+        self.path_serve(phase, path, launches, report)
+        steps = {}
+        if path.recipe:
+            steps = self.path_train(phase, path, launches, report)
+        elif path.objective:
+            self.path_grads(phase, path, report)
+        return self.path_times(phase, path, calls, launches, steps, report)
+
+    @staticmethod
+    def dtype_label(cd):
+        return "fp32" if cd is None else cd
+
+    def path_kernels(self, phase, path, report):
+        """Record each kernel call of the main path's runs (counts set to 0
+        just before each, read just after) and hold each against its plain
+        version: forward calls at TOL x max(1, max|plain|), backward calls
+        (of the loss-scaled objective, as phase 6) without the floor; bf16
+        per element as phase 14.  Returns the calls and launches by
+        (dtype, part)."""
+        torch = self.torch
+        from repro_torch.optim import DynamicLossScale
+
+        log(f"phase {phase}a: {path.label} kernel calls vs plain")
+        calls, launches, caught = {}, {}, []
+        scaler = DynamicLossScale()
+        scale = scaler.init(self.dev)
+        for cd in path.dtypes:
+            runs = [("forward", 1.0)]
+            if path.objective and cd in path.grad_dtypes:
+                runs.append(("backward", 0.0))
+            for part, floor in runs:
+                key = (self.dtype_label(cd), part)
+                rec, counts, taps = [], {}, []
+                if part == "forward":
+                    self.reset_counts()
+                    with torch.no_grad(), self.recording(rec), \
+                            self.watching(counts, taps):
+                        path.forward(path.params, "kernels", cd)
+                    torch.cuda.synchronize()
+                    matmuls = path.matmuls
+                else:
+                    leaves = {k: p.detach().requires_grad_()
+                              for k, p in path.params.items()}
+                    loss = scaler.scale(scale, path.objective(
+                        leaves, "kernels", cd))
+                    self.reset_counts()
+                    with self.recording(rec), self.watching(counts, taps):
+                        torch.autograd.grad(loss, list(leaves.values()))
+                    torch.cuda.synchronize()
+                    del loss, leaves
+                    matmuls = sum(a[2] * a[3] for a, _ in taps)
+                launches[key] = self.read_counts()
+                self.check_launches(path, key, launches[key], counts,
+                                    matmuls, len(taps))
+                seen = {}
+                for i, (name, args) in enumerate(rec):
+                    if cd is not None and args[0].dtype != torch.bfloat16:
+                        raise RuntimeError(f"{path.label} {key} call {i} "
+                                           f"took {args[0].dtype}")
+                    kern, plain, _ = self.kernels[name]
+                    got, ref = kern(*args), plain(*args)
+                    geo = (name, self.geometry(name, args),
+                           self.variant(name, args))
+                    seen.setdefault(geo, []).append(self.compare(
+                        f"{path.label} {key[0]} {part} call {i}",
+                        self.entry_label(name, path, key), got, ref,
+                        quiet=True, floor=floor))
+                    caught.append(self.sensitivity(got, ref, floor, TOL))
+                for (name, geo, variant), errs in seen.items():
+                    log(f"  {key[0]} {part} {name} [{variant}] {geo} "
+                        f"x{len(errs)}: max abs "
+                        f"{max(e[0] for e in errs):.2e} tol "
+                        f"{min(e[2] for e in errs):.2e}")
+                calls[key] = rec
+        zero, off = (min(c[i] for c in caught) for i in range(2))
+        log(f"  {len(caught)} calls ok; a zeroed output would reach >= "
+            f"{zero:.3g} x its bar and one 2% off >= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError(f"{path.label}: the check would pass a zeroed "
+                               f"or a 2%-off kernel output")
+        report["check"] = {"calls": {f"{k[0]} {k[1]}": len(v)
+                                     for k, v in calls.items()},
+                           "launches": {f"{k[0]} {k[1]}": v
+                                        for k, v in launches.items()},
+                           "min_zeroed_over_bar": zero,
+                           "min_off_2pct_over_bar": off}
+        return calls, launches
+
+    def check_launches(self, path, key, got, counts, matmuls, taps):
+        """The launches of one run of the main path are the counted ones,
+        and no conv left the kernels: no library conv, no plain version,
+        no ``torch.matmul`` but the model's own and the weight gradients'
+        tap correlations."""
+        want = dict.fromkeys(self.counters, 0)
+        want.update(path.launches[key[1]])
+        other = {"conv2d": 0, "conv_transpose2d": 0, "conv2d_plain": 0,
+                 "tconv_plain": 0, "matmul": matmuls,
+                 "tap_correlation": taps}
+        seen = {k: counts.get(k, 0) for k in other}
+        log(f"  {path.label} {key[0]} {key[1]}: launches {got}; other calls "
+            f"{seen}")
+        if got != want or seen != other:
+            raise RuntimeError(f"{path.label} {key}: launches {got} != "
+                               f"{want} or other calls {seen} != {other}")
+
+    def entry_label(self, name, path, key):
+        return f"{name} ({path.label} {key[0]} {key[1]})"
+
+    def path_serve(self, phase, path, launches, report):
+        """Serve one batch per dtype through the kernels (counts 0 just
+        before, read just after) and hold it against the torch backend:
+        fp32 at relative L2 REL_L2_TOL, bf16 within BF16_FWD_RTOL of the
+        fp32 output's range."""
+        torch = self.torch
+        log(f"phase {phase}b: serve {path.label}, backend=kernels")
+        outs, report["serve"] = {}, {}
+        for cd in path.dtypes:
+            key = (self.dtype_label(cd), "forward")
+            counts, taps = {}, []
+            self.reset_counts()
+            with torch.no_grad(), self.watching(counts, taps):
+                y = path.forward(path.params, "kernels", cd)
+            torch.cuda.synchronize()
+            got = self.read_counts()
+            self.check_launches(path, key, got, counts, path.matmuls, 0)
+            if got != launches[key]:
+                raise RuntimeError(f"{path.label}: served launches {got} != "
+                                   f"the recorded run's {launches[key]}")
+            want_dtype = torch.float32 if cd is None else torch.bfloat16
+            if tuple(y.shape) != path.out_shape or y.dtype != want_dtype:
+                raise RuntimeError(f"{path.label} {key[0]}: output "
+                                   f"{tuple(y.shape)} {y.dtype}")
+            if not bool(torch.isfinite(y).all()):
+                raise RuntimeError(f"{path.label} {key[0]}: non-finite")
+            with torch.no_grad():
+                y_t = path.forward(path.params, "torch", cd)
+            outs[key[0]] = y
+            if cd is None:
+                rel = ((y - y_t).norm() / y_t.norm()).item()
+                ok = rel <= REL_L2_TOL
+                report["serve"]["fp32_rel_l2"] = rel
+                log(f"  fp32 kernels vs torch backend: rel L2 {rel:.3e} "
+                    f"(tol {REL_L2_TOL}); max |y| "
+                    f"{y.abs().max().item():.4f}")
+            else:
+                top = outs["fp32"].abs().max().item()
+                bar = BF16_FWD_RTOL * top + 1e-3
+                err = (y.float() - y_t.float()).abs().max().item()
+                vs32 = (y.float() - outs["fp32"]).abs().max().item()
+                ok = err <= bar
+                report["serve"]["bf16_err_over_bar"] = err / bar
+                report["serve"]["bf16_vs_fp32_over_bar"] = vs32 / bar
+                log(f"  bf16 kernels vs torch backend bf16: max |err| "
+                    f"{err:.4f}, {err / top:.3%} of the fp32 range (bar "
+                    f"{BF16_FWD_RTOL:.0%}): {err / bar:.3f} x the bar; vs "
+                    f"the fp32 kernels {vs32 / bar:.3f} x (not gated)")
+            if not ok:
+                raise RuntimeError(f"{path.label} {key[0]}: kernels off the "
+                                   f"torch backend")
+        report["serve"]["launches"] = {k: launches[(k, "forward")]
+                                       for k in outs}
+
+    def path_train(self, phase, path, launches, report):
+        """``make_train_step(path.recipe)``, TRAIN_STEPS steps per dtype on
+        both backends from one state: launches per step, finite losses
+        that agree (fp32 at TRAIN_LOSS_RTOL, bf16 at BF16_FWD_RTOL), and a
+        spoiled batch that the kernels' step skips bit for bit."""
+        torch = self.torch
+        from repro_torch.launch import train_recipes as ttr
+
+        log(f"phase {phase}c: {path.label} \"{path.recipe}\" recipe, "
+            f"{TRAIN_STEPS} steps per dtype and backend")
+        state0 = ttr.init_state(path.params)
+        steps, report["train"] = {}, {}
+        for cd in path.dtypes:
+            dl = self.dtype_label(cd)
+            per_step = {k: launches[(dl, "forward")][k]
+                        + launches[(dl, "backward")][k]
+                        for k in self.counters}
+            runs = {}
+            for backend in ("kernels", "torch"):
+                step = ttr.make_train_step(path.recipe, backend=backend,
+                                           compute_dtype=cd)
+                state, losses, gnorms = state0, [], []
+                for i in range(TRAIN_STEPS):
+                    self.reset_counts()
+                    state, m = step(state, path.batches[i])
+                    torch.cuda.synchronize()
+                    counts = self.read_counts()
+                    want = (per_step if backend == "kernels"
+                            else dict.fromkeys(per_step, 0))
+                    if counts != want:
+                        raise RuntimeError(f"{path.label} {dl} {backend} "
+                                           f"step launches {counts} != "
+                                           f"{want}")
+                    if m["skipped"].item():
+                        raise RuntimeError(f"{path.label} {dl} {backend} "
+                                           f"step skipped")
+                    losses.append(m["loss"].item())
+                    gnorms.append(m["grad_norm"].item())
+                runs[backend] = {"step": step, "state": state,
+                                 "losses": losses, "grad_norms": gnorms}
+                log(f"  {dl} {backend}: losses {losses}, grad norms "
+                    f"{gnorms}")
+            lk, lt = runs["kernels"]["losses"], runs["torch"]["losses"]
+            rtol = TRAIN_LOSS_RTOL if cd is None else BF16_FWD_RTOL
+            rels = [abs(a - b) / abs(b) for a, b in zip(lk, lt)]
+            masters = all(t.dtype == torch.float32 for t in self.leaves(
+                (runs["kernels"]["state"].params,
+                 runs["kernels"]["state"].opt)) if t.is_floating_point())
+            log(f"  {dl}: kernels vs torch losses rel {max(rels):.2e} (tol "
+                f"{rtol}); masters fp32 {masters}")
+            if not (all(map(math.isfinite, lk + lt))
+                    and all(r <= rtol for r in rels) and masters):
+                raise RuntimeError(f"{path.label} {dl}: losses {lk} vs "
+                                   f"torch {lt}")
+            state = runs["kernels"]["state"]
+            bad = {k: v.clone() for k, v in path.batches[TRAIN_STEPS].items()}
+            path.spoil(bad)
+            after, m = runs["kernels"]["step"](state, bad)
+            same = all(torch.equal(a, b) for a, b in zip(
+                self.leaves((after.params, after.opt)),
+                self.leaves((state.params, state.opt))))
+            halved = after.scale.scale.item() == state.scale.scale.item() / 2
+            log(f"  {dl} NaN batch: skipped {m['skipped'].item()}, params "
+                f"and AdamW state bit-identical {same}, scale "
+                f"{state.scale.scale.item()} -> {after.scale.scale.item()}")
+            if not (m["skipped"].item() == 1.0 and same and halved):
+                raise RuntimeError(f"{path.label} {dl}: the NaN batch was "
+                                   f"not skipped cleanly")
+            steps[dl] = runs
+            report["train"][dl] = {
+                "launches_per_step": per_step,
+                "losses": {b: r["losses"] for b, r in runs.items()},
+                "grad_norms": {b: r["grad_norms"] for b, r in runs.items()},
+                "loss_rel": rels}
+        return steps
+
+    def path_grads(self, phase, path, report):
+        """The backward's gradients on both backends, per tensor at TOL x
+        max(1, max|ref|) and GRAD_RTOL x max|ref| (phase 8's bars)."""
+        torch = self.torch
+        log(f"phase {phase}c: {path.label} gradients, kernels vs torch "
+            f"backend (fp32)")
+        grads = {}
+        for backend in ("kernels", "torch"):
+            leaves = {k: p.detach().requires_grad_()
+                      for k, p in path.params.items()}
+            loss = path.objective(leaves, backend, None)
+            grads[backend] = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        label = f"gradients vs torch ({path.label})"
+        ratios = []
+        for name, got in grads["kernels"].items():
+            want = grads["torch"][name]
+            self.compare(f"{path.label} grad {name}", label, got, want,
+                         quiet=True)
+            self.compare(f"{path.label} grad {name}, relative", label, got,
+                         want, quiet=True, floor=0.0, rtol=GRAD_RTOL)
+            ratios.append((self.bar(got, want, 0.0, 1.0)[4], name))
+        ratios.sort(reverse=True)
+        log(f"  {len(ratios)} gradient tensors ok; largest max|err| / "
+            f"max|ref|: " + ", ".join(f"{n} {r:.2e}" for r, n in ratios[:4]))
+        report["grads"] = {n: r for r, n in ratios}
+
+    def path_times(self, phase, path, calls, launches, steps, report):
+        """Forward and step times on both backends (wall clock, median),
+        the device's busy share of the fp32 kernels forward and step, and
+        every recorded kernel call per geometry beside its bound and
+        library call.  Returns the path's entries of the kernels line."""
+        torch = self.torch
+        log(f"phase {phase}d: {path.label} times")
+        times = report["times"] = {}
+        for cd in path.dtypes:
+            dl = self.dtype_label(cd)
+            for backend in ("kernels", "torch"):
+                with torch.no_grad():
+                    ms = self.wall_ms(lambda: path.forward(
+                        path.params, backend, cd), reps=MODEL_REPS)
+                times[f"forward_{dl}_{backend}_ms"] = ms
+                log(f"  forward {dl} {backend}: {ms:.3f} ms/batch, "
+                    f"{path.items / ms * 1e3:.1f} {path.unit}/s")
+            for backend, run in steps.get(dl, {}).items():
+                state = run["state"]
+
+                def one():
+                    nonlocal state
+                    state, _ = run["step"](state, path.batches[0])
+
+                ms = self.wall_ms(one, reps=MODEL_REPS)
+                times[f"step_{dl}_{backend}_ms"] = ms
+                log(f"  train step {dl} {backend}: {ms:.3f} ms, "
+                    f"{path.items / ms * 1e3:.1f} {path.unit}/s")
+                if backend == "kernels" and cd is None:
+                    times["step_profile"] = self.profile_device(
+                        one, "train step", ms)
+
+        def forward():
+            with torch.no_grad():
+                path.forward(path.params, "kernels", None)
+
+        times["forward_profile"] = self.profile_device(
+            forward, "forward", times["forward_fp32_kernels_ms"])
+        entries = []
+        for key, rec in calls.items():
+            rows, per = self.time_calls(rec, reps=MODEL_REPS)
+            times[f"{key[0]}_{key[1]}_geometries"] = self.geometry_table(
+                rows, f"a {key[0]} {key[1]}")
+            for name, p in per.items():
+                n = launches[key][name]
+                if not n:
+                    continue
+                label = self.entry_label(name, path, key)
+                log(f"  {label}: {p['ms']:.3f} ms over {n} launches; bound "
+                    f"{p['bound_ms']:.3f} ms; plain {p['plain_ms']:.3f} ms; "
+                    f"library {p['library_ms']:.3f} ms")
+                entries.append(self.kernel_entry(name, label, n, p))
+                times[f"{label}_sums"] = p
         return entries
 
     # ------------------------------------------- matmul and attention

@@ -108,9 +108,9 @@ def main(argv=None) -> None:
     print(f"\nloss: first10={first:.4f} last10={last:.4f} "
           f"({'improved' if last < first else 'NOT improved'})")
     batch = train_recipes.batch_to(pipe.batch_at(10_000), dev)
-    forward = train_recipes.enet_forward(backend=args.backend,
-                                         decomposed=not args.naive,
-                                         compute_dtype=cd)
+    forward = train_recipes.model_forward("enet", backend=args.backend,
+                                          decomposed=not args.naive,
+                                          compute_dtype=cd)
     with torch.no_grad():
         pred = forward(params, batch["image"]).argmax(-1)
     acc = (pred == batch["label"]).float().mean().item()

@@ -1,15 +1,18 @@
-"""The ENet train step of the port: fp32 masters, AdamW, loss scaling.
+"""The train steps of the port: fp32 masters, AdamW, loss scaling.
 
-The port of ``repro.launch.train_recipes`` for the ``"enet"`` recipe, in
-fp32 or, with ``compute_dtype="bf16"``, in the reference's mixed precision
-(DESIGN.md §12).  One step, as in the reference:
+The port of ``repro.launch.train_recipes``: the ``"enet"`` and ``"espnet"``
+recipes (per-pixel NLL of a segmentation net, batches ``{"image",
+"label"}``) and the ``"dcgan"`` one (the generator alone against a pixel
+target, batches ``{"z", "target"}``), in fp32 or, with
+``compute_dtype="bf16"``, in the reference's mixed precision (DESIGN.md
+§12).  One step, as in the reference:
 
 * **fp32 masters**: parameters and AdamW state are fp32 ``{name: tensor}``
-  dicts (the names of ``ENet.named_parameters()``), whatever the compute
-  dtype; a bf16 forward casts them per conv, so the gradients land on them
-  in fp32;
-* **fp32 loss**: the logits (bf16 under ``compute_dtype="bf16"``) are
-  promoted to fp32 before the log-softmax NLL reduction;
+  dicts (the names of the model's ``named_parameters()``), whatever the
+  compute dtype; a bf16 forward casts them per conv, so the gradients land
+  on them in fp32;
+* **fp32 loss**: the logits or images (bf16 under
+  ``compute_dtype="bf16"``) are promoted to fp32 before the reduction;
 * **dynamic loss scaling** (:class:`repro_torch.optim.DynamicLossScale`):
   the loss is amplified before the gradient and the gradients divided
   after;
@@ -21,10 +24,12 @@ fp32 or, with ``compute_dtype="bf16"``, in the reference's mixed precision
 The step runs eagerly: the forward's convs launch the two conv kernels
 and autograd's backward re-enters them through the kernels'
 ``torch.autograd.Function`` classes (``backend="kernels"``), or runs
-``F.conv2d`` compositions (``backend="torch"``, the yardstick).  A CUDA
-graph of the step is a later lever (ROADMAP.md).  ``"espnet"`` and
-``"dcgan"`` raise until their models are ported, and the sharded step
-waits for the multi-device item of ROADMAP.md.
+``F.conv2d`` compositions (``backend="torch"``, the yardstick).  Each
+recipe's model runs as a function of a flat parameter dict
+(:func:`model_forward`) through a weightless shell on the meta device,
+whose configuration is read off the parameters' shapes.  A CUDA graph of
+the step is a later lever (ROADMAP.md), and the sharded step waits for the
+multi-device item of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -36,11 +41,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.util import canon_dtype
+from repro_torch.models.dcgan import DCGAN
 from repro_torch.models.enet import ENet
+from repro_torch.models.espnet import ESPNet
 from repro_torch.optim import (DynamicLossScale, LossScaleState, adamw_init,
                                adamw_update, select_tree)
 
-#: the reference's recipes; only "enet" is ported
+#: the reference's recipes
 RECIPES = ("enet", "espnet", "dcgan")
 
 
@@ -59,26 +66,52 @@ def _seg_loss(forward, params: dict, batch: dict) -> torch.Tensor:
     return nll.mean()
 
 
+def _gen_loss(forward, params: dict, batch: dict) -> torch.Tensor:
+    """Generator pixel-regression objective, reduced in fp32."""
+    img = forward(params, batch["z"])
+    return (img.float() - batch["target"].float()).square().mean()
+
+
 @functools.lru_cache(maxsize=None)
-def _shell(num_classes: int) -> ENet:
-    """The module structure ``functional_call`` runs the parameters through:
-    an ENet on the meta device, which holds no weights."""
-    return ENet(num_classes, device="meta", generator=torch.Generator())
+def _meta(cls, *config):
+    """A weightless shell of ``cls(*config)`` on the meta device."""
+    return cls(*config, device="meta", generator=torch.Generator())
 
 
-def enet_forward(*, backend: str = "kernels", decomposed: bool = True,
-                 compute_dtype=None):
-    """``forward(params, image)``: ENet as a function of a flat parameter
-    dict (the reference's ``enet.forward``), through
-    ``torch.func.functional_call`` on a weightless shell.  The logits come
-    back in ``compute_dtype`` (``None``: fp32)."""
-    cd = canon_dtype(compute_dtype)
+def _count(params: dict, prefix: str) -> int:
+    """Distinct top-level modules named ``<prefix><i>``."""
+    return len({k.split(".")[0] for k in params if k.startswith(prefix)})
 
-    def forward(params: dict, image: torch.Tensor) -> torch.Tensor:
-        return torch.func.functional_call(
-            _shell(params["fullconv"].shape[-1]), params, (image,),
-            {"backend": backend, "decomposed": decomposed,
-             "compute_dtype": cd})
+
+def _shell(model: str, params: dict):
+    """The module structure ``functional_call`` runs the parameters of a
+    recipe's model through: the model on the meta device (no weights),
+    configured from the parameters' names and shapes."""
+    if model == "enet":
+        return _meta(ENet, params["fullconv"].shape[-1])
+    if model == "espnet":
+        return _meta(ESPNet, params["head"].shape[-1], _count(params, "l2_"),
+                     _count(params, "l3_"))
+    nz, proj = params["proj"].shape
+    size = 4 * 2 ** (_count(params, "up") + 1)
+    ngf = proj // 16 // (size // 8)
+    return _meta(DCGAN, size, nz, ngf, params["head"].shape[-1])
+
+
+def model_forward(model: str, *, backend: str = "kernels",
+                  decomposed: bool = True, compute_dtype=None):
+    """``forward(params, inputs)``: a recipe's model as a function of a flat
+    parameter dict (the reference's ``<model>.forward``), through
+    ``torch.func.functional_call`` on a weightless shell.  The output
+    comes back in ``compute_dtype`` (``None``: fp32)."""
+    if model not in RECIPES:
+        raise ValueError(f"unknown recipe {model!r}; known: {RECIPES}")
+    kwargs = {"backend": backend, "decomposed": decomposed,
+              "compute_dtype": canon_dtype(compute_dtype)}
+
+    def forward(params: dict, inputs: torch.Tensor) -> torch.Tensor:
+        return torch.func.functional_call(_shell(model, params), params,
+                                          (inputs,), kwargs)
 
     return forward
 
@@ -87,14 +120,10 @@ def loss_fn(model: str, *, backend: str = "kernels", decomposed: bool = True,
             compute_dtype=None):
     """``loss(params, batch)`` of a recipe; the forward runs in
     ``compute_dtype`` and the loss is reduced in fp32."""
-    if model == "enet":
-        return functools.partial(
-            _seg_loss, enet_forward(backend=backend, decomposed=decomposed,
-                                    compute_dtype=compute_dtype))
-    if model in RECIPES:
-        raise NotImplementedError(
-            f"recipe {model!r} waits for its model's slice of ROADMAP.md")
-    raise ValueError(f"unknown recipe {model!r}; known: {RECIPES}")
+    forward = model_forward(model, backend=backend, decomposed=decomposed,
+                            compute_dtype=compute_dtype)
+    loss = _gen_loss if model == "dcgan" else _seg_loss
+    return functools.partial(loss, forward)
 
 
 def loss_and_grads(loss, params: dict, batch: dict, scale=None):
@@ -108,17 +137,20 @@ def loss_and_grads(loss, params: dict, batch: dict, scale=None):
 
 
 def batch_to(batch: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
-    """A pipeline batch as tensors on ``device`` (labels as int64)."""
-    return {"image": torch.from_numpy(batch["image"]).to(device),
-            "label": torch.from_numpy(batch["label"]).to(device,
-                                                          torch.int64)}
+    """A batch of either kind (``{"image", "label"}`` or ``{"z",
+    "target"}``) as tensors on ``device``, labels as int64."""
+    out = {k: torch.from_numpy(np.asarray(v)).to(device)
+           for k, v in batch.items()}
+    if "label" in out:
+        out["label"] = out["label"].long()
+    return out
 
 
 def init_state(params: dict,
                scaler: DynamicLossScale | None = None) -> TrainState:
     """fp32 masters, AdamW state and loss-scale state.  ``params`` maps
     names to tensors or arrays (a reference tree through
-    :func:`repro_torch.models.enet.flatten_tree`), all on one device."""
+    :func:`repro_torch.models.common.flatten_tree`), all on one device."""
     params = {k: (v.detach() if isinstance(v, torch.Tensor)
                   else torch.tensor(v)).to(torch.float32, copy=True)
               for k, v in params.items()}
@@ -135,8 +167,9 @@ def make_train_step(model: str, *, backend: str = "kernels",
 
     ``compute_dtype`` (``None``/``"fp32"`` or ``"bf16"``) is the forward's
     and backward's activation dtype; the state stays fp32 either way.
-    ``batch`` is ``{"image", "label"}`` tensors on the state's device
-    (:func:`batch_to`).  Metrics, 0-d tensors: ``loss`` (unscaled, fp32),
+    ``batch`` is ``{"image", "label"}`` (``{"z", "target"}`` for
+    ``"dcgan"``) tensors on the state's device (:func:`batch_to`).
+    Metrics, 0-d tensors: ``loss`` (unscaled, fp32),
     ``grad_norm`` (of the applied gradients; 0 on a skipped step),
     ``scale`` (after the update), ``skipped`` (1.0 when non-finite
     gradients suppressed the update).
@@ -172,5 +205,5 @@ def make_train_step(model: str, *, backend: str = "kernels",
     return step
 
 
-__all__ = ["RECIPES", "TrainState", "enet_forward", "loss_fn",
+__all__ = ["RECIPES", "TrainState", "model_forward", "loss_fn",
            "loss_and_grads", "batch_to", "init_state", "make_train_step"]

@@ -11,7 +11,8 @@ kernel and the 3 transposed convs on the parity-plane kernel.
 Parameters keep the reference's HWIO layout and its names
 (``initial``, ``b1_0.reduce``, ``b1_0.bn1.g``, ...), activations are NHWC,
 so :meth:`ENet.load_jax_params` carries a reference parameter tree across
-and the outputs compare directly; :func:`flatten_tree` gives a reference
+and the outputs compare directly; :func:`flatten_tree` (of
+:mod:`repro_torch.models.common`, re-exported here) gives a reference
 tree (of parameters, gradients or optimizer moments) the names of
 ``named_parameters()``.  ``compute_dtype="bf16"`` runs the activations in
 bf16 end to end off fp32 master parameters, as the reference does
@@ -25,16 +26,15 @@ serving runs under ``torch.no_grad()``.  The non-conv ops stay plain torch:
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.decompose import conv2d
 from repro_torch.kernels.epilogue import EpilogueSpec
-from repro_torch.kernels.util import canon_dtype, resolve_device
-from repro_torch.models.common import bn_init, conv_init, fold_bn
+from repro_torch.kernels.util import canon_dtype
+from repro_torch.models.common import (SeededModule, bn_init, conv_init,
+                                       flatten_tree, fold_bn)
 
 # BN+PReLU after the reduce and middle convs; BN + residual add + PReLU
 # closing every bottleneck
@@ -172,7 +172,7 @@ class UpBottleneck(Bottleneck):
         return h, skip
 
 
-class ENet(nn.Module):
+class ENet(SeededModule):
     """ENet (Paszke et al. 2016) at full width, as the reference builds it.
 
     Args:
@@ -187,11 +187,7 @@ class ENet(nn.Module):
     def __init__(self, num_classes: int = 19, device=None, *,
                  generator: torch.Generator):
         super().__init__()
-        meta = device == "meta"
-        dev = torch.device("meta") if meta else resolve_device(device)
-        with torch.device("meta") if meta else contextlib.nullcontext():
-            self._build(generator, num_classes)
-        self.to(dev)
+        self._materialise(device, lambda: self._build(generator, num_classes))
 
     def _build(self, g: torch.Generator, num_classes: int) -> None:
         self.initial = nn.Parameter(conv_init(g, 3, 3, 3, 13))
@@ -235,44 +231,6 @@ class ENet(nn.Module):
         return conv2d(h, self.fullconv, stride=2, transposed=True,
                       output_padding=1, decomposed=decomposed,
                       backend=backend, compute_dtype=cd)
-
-    @torch.no_grad()
-    def load_jax_params(self, tree: dict) -> None:
-        """Fill the module from the reference's parameter tree.
-
-        ``tree`` is ``repro.models.enet.init_params(...)`` as nested dicts of
-        numpy arrays (same keys, HWIO kernels).  Every parameter must be
-        present with its exact shape; anything missing, extra or misshapen
-        raises before any parameter is written.
-        """
-        flat = flatten_tree(tree)
-        params = dict(self.named_parameters())
-        if set(flat) != set(params):
-            raise KeyError(f"parameter trees differ: missing "
-                           f"{sorted(set(params) - set(flat))}, extra "
-                           f"{sorted(set(flat) - set(params))}")
-        values = {name: torch.tensor(flat[name], dtype=torch.float32)
-                  for name in params}
-        for name, p in params.items():
-            if tuple(values[name].shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(values[name].shape)} "
-                                 f"!= {tuple(p.shape)}")
-        for name, p in params.items():
-            p.copy_(values[name])
-
-
-def flatten_tree(tree: dict, prefix: str = "") -> dict:
-    """A nested parameter tree (the reference's ``init_params`` layout) as
-    one flat dict keyed by dotted names (``b1_0.bn1.g``), the names of
-    ``ENet.named_parameters()``, so trees compare leaf by leaf."""
-    flat = {}
-    for k, v in tree.items():
-        name = f"{prefix}.{k}" if prefix else k
-        if isinstance(v, dict):
-            flat.update(flatten_tree(v, name))
-        else:
-            flat[name] = v
-    return flat
 
 
 __all__ = ["ENet", "flatten_tree", "Bottleneck", "DilatedBottleneck",

@@ -598,3 +598,88 @@ def test_bf16_enet_step_runs_on_the_bf16_kernels(cuda):
     got = torch.cat([t.reshape(-1) for t in grads])
     ref = torch.cat([want[n].reshape(-1) for n in leaves])
     assert ((got - ref).norm() / ref.norm()).item() <= 0.10
+
+
+# ------------------------------------------- the conv models' geometries
+# (ESPNet's class windows, DCGAN's and the U-Net's upsamplers, the Whisper
+# frontend's rows), each in fp32 and bf16
+
+_DTYPES_CONV = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES_CONV, ids=str)
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_strided_dilated_class_windows_match_reference(cuda, d, dtype):
+    """ESPNet's downsampling branches: d = 2, 4, 8 at stride 2 on uneven
+    extents, as class windows batched into one strided VALID launch and
+    stitched; against cuDNN's dilated conv of the widened operands (TF32
+    off), rounded once."""
+    from repro_torch.core.dilated import dilated_conv2d_reference
+    from repro_torch.kernels.dilated_conv import dilated_conv2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn((2, 50, 46, 32), generator=g).to(cuda, dtype)
+    w = torch.randn((3, 3, 32, 32), generator=g).to(cuda, dtype)
+    before = kconv.conv2d.launches
+    got = dilated_conv2d(x, w, d, stride=2)
+    torch.cuda.synchronize()
+    assert kconv.conv2d.launches == before + 1
+    assert got.shape == (2, 25, 23, 32)
+    _close(got, dilated_conv2d_reference(x.float(), w.float(), d,
+                                         stride=2).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", _DTYPES_CONV, ids=str)
+@pytest.mark.parametrize("xs,k,cout,p_lo,spec", [
+    ((2, 4, 4, 512), 4, 256, 2, EpilogueSpec(bn=True, prelu=True)),
+    ((2, 8, 8, 512), 4, 3, 2, EpilogueSpec()),
+    ((2, 4, 4, 1024), 4, 512, 2, EpilogueSpec(bn=True, prelu=True)),
+    ((2, 16, 16, 128), 2, 64, 1, EpilogueSpec(prelu=True)),
+    ((2, 8, 8, 256), 4, 128, 2, EpilogueSpec(prelu=True))],
+    ids=["dcgan k4 512->256", "dcgan head 512->3", "dcgan128 k4 1024->512",
+         "unet k2 s2 p1", "unet k4 s2 p2"])
+def test_generative_upsamplers_match_plain(cuda, xs, k, cout, p_lo, spec,
+                                           dtype):
+    """DCGAN's k4 s2 p_lo 2 stages at Cin 512 and 1024 (K loops 32 and 64
+    chunks deep) and its Cout-3 head, the U-Net's k2 s2 p1 and k4 s2 p2."""
+    g = torch.Generator().manual_seed(xs[3] + cout)
+    x = torch.randn(xs, generator=g).to(cuda, dtype)
+    w = (torch.randn((k, k, xs[3], cout), generator=g)
+         * (k * k * xs[3] / 4) ** -0.5).to(cuda, dtype)
+    oh, ow = 2 * xs[1], 2 * xs[2]
+    eps = _bf16(spec, _ops(spec, (xs[0], oh, ow, cout), g, cuda)) \
+        if dtype == torch.bfloat16 else _ops(spec, (xs[0], oh, ow, cout), g,
+                                             cuda)
+    got = ktr.tconv_cuda(x, w, 2, p_lo, p_lo, spec, eps)
+    torch.cuda.synchronize()
+    assert got.shape == (xs[0], oh, ow, cout) and got.dtype == dtype
+    _close(got, ktr.tconv_plain(x, w, 2, p_lo, p_lo, spec, eps))
+
+
+@pytest.mark.parametrize("dtype", _DTYPES_CONV, ids=str)
+@pytest.mark.parametrize("stride", [1, 2])
+def test_whisper_rows_match_plain(cuda, stride, dtype):
+    """An H = 1 row of 3000 frames through a (1, 3) kernel, SAME pads
+    (1, 1) along W, at stride 1 and 2."""
+    g = torch.Generator().manual_seed(stride)
+    x = torch.randn((2, 1, 3000, 80), generator=g).to(cuda, dtype)
+    w = (torch.randn((1, 3, 80, 96), generator=g) * 240 ** -0.5).to(cuda,
+                                                                  dtype)
+    pads = ((0, 0), (1, 1))
+    got = kconv.conv2d_cuda(x, w, stride, pads, EpilogueSpec(), ())
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1, 3000 // stride, 96)
+    _close(got, kconv.conv2d_plain(x, w, stride, pads, EpilogueSpec(), ()))
+
+
+@pytest.mark.parametrize("d", [4, 8])
+def test_strided_dilated_grads_match_torch_backend(cuda, d):
+    """The class windows' backward (dx through the dense kernel's Function
+    on the windows, the stitch by autograd) at d = 4 and 8, stride 2."""
+    out, launched = _grads_both_backends(
+        cuda, dict(dilation=d, stride=2), (2, 34, 30, 16), (3, 3, 16, 16),
+        None, d)
+    assert launched["kernels"]["conv2d"] >= 1
+    for got, want in zip(out["kernels"], out["torch"]):
+        _close_grad(got, want)

@@ -23,7 +23,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import transposed_conv as ktr
 from repro_torch.kernels.epilogue import NO_EPILOGUE
 from repro_torch.kernels.util import canon_dtype, resolve_device
+from repro_torch.models import unet_decoder, whisper
+from repro_torch.models.dcgan import DCGAN
 from repro_torch.models.enet import ENet
+from repro_torch.models.espnet import ESPNet
 
 _ROOT = Path(__file__).resolve().parents[1]
 _PORT = _ROOT / "src" / "repro_torch"
@@ -59,7 +62,9 @@ def test_ast_check_catches_forbidden_imports():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.core.decompose, "
-            "repro_torch.models.enet, repro_torch.kernels.build, "
+            "repro_torch.models.enet, repro_torch.models.espnet, "
+            "repro_torch.models.dcgan, repro_torch.models.unet_decoder, "
+            "repro_torch.models.whisper, repro_torch.kernels.build, "
             "repro_torch.kernels.ref, repro_torch.kernels.ops, "
             "repro_torch.kernels.matmul, repro_torch.kernels.flash_attention, "
             "repro_torch.core.adjoints, repro_torch.optim, repro_torch.data, "
@@ -80,6 +85,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ENet(4, generator=g)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENet(4, device="cuda", generator=g)
+    for build in (lambda: ESPNet(4, generator=g),
+                  lambda: DCGAN(64, nz=4, ngf=1, generator=g),
+                  lambda: unet_decoder.init_params(g, widths=(8, 8)),
+                  lambda: unet_decoder.init_denoiser_params(g, widths=(8,)),
+                  lambda: whisper.init_frontend_params(g, 4, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
