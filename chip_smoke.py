@@ -72,7 +72,7 @@ nvcc, then:
 13. prints the ``{"kernels": [...]}`` line (all four kernels on their
    paths, the two conv kernels again on the ENet backward, both again
    in bf16 on the forward and the backward, and both on each path of
-   phases 18-22) and, last, ``{"ok": true, "device": {...}}``;
+   phases 18-23) and, last, ``{"ok": true, "device": {...}}``;
 
 and, before those two lines, the bf16 slice:
 
@@ -134,6 +134,50 @@ d. forward and step times on both backends, the busy share of the fp32
    bound and library call; their sums are the kernels line's entries
    ``conv2d (ESPNet-512 bf16 backward)`` etc.
 
+and last, the served generative path (23), ``repro_torch.launch.serve_gen.
+GenServer`` on the card with seeded weights (GroupNorm, BN and PReLU
+redrawn as in phase 21) carried in as ``params=``:
+
+a. a denoiser lane (widths 256/128/64 from an 8x8 mid-block, 64x64
+   images), batch 8, 4 DDIM steps a tick, ``backend="kernels"``: 24
+   requests cycling over 50, 25, 10 and 1 steps and the realtime,
+   standard and batch classes, one cancelled in flight and one timed out.
+   Each tick (counts 0 just before, read just after) launches 4 x (11 +
+   3) conv kernels, 4 x 2 ``torch.matmul`` calls (the timestep MLP) and
+   no library conv or plain version; every sample is held to the port's
+   unbatched loop at batch 1 and to the same drain on
+   ``backend="torch"`` at 1e-5 x max(1, max|ref|) (the reference's
+   cross-backend bar), with what a zeroed sample and one 2% off would
+   read, and one 50-step trajectory's kernels-vs-torch error is printed
+   step by step;
+b. the same drain at 1 step a tick (bitwise the same images, the same
+   substeps, more dispatches) and with ``autoscale=True`` (max batch 16);
+c. a bf16 lane: the state bf16 after every tick, samples finite and
+   within 5% of the fp32 sample's range of the unbatched bf16 loop; the
+   error against the torch backend's bf16 drain printed per step budget;
+d. a DCGAN-64 lane (nz 100, ngf 64), batch 32, 64 requests in 2 ticks of
+   0 + 4 launches: each image against the batch-1 forward of its latent at
+   1e-5 x max(1, max|ref|) and the drain against ``backend="torch"`` at
+   relative L2 1e-4;
+e. fault drills: a broken kernels backend degrades the lane to torch
+   (``degraded == 1``, samples within (a)'s bar of the clean drain); a
+   kill at a mid tick restored from per-tick snapshots under
+   ``chiprun_out/`` finishes bit for bit; a corrupted slot re-runs bit
+   for bit.  Every other drain ends with no retry and no degraded lane;
+f. times of both lanes on both backends in fp32 and bf16, each lane on
+   drains of its own of several hundred denoiser or thousands of DCGAN
+   requests: a saturated drain (the queue topped up to two batches before
+   every tick) gives the warm images/s, substeps/s and mean tick wall; a
+   paced drain (a fixed number of arrivals a tick, 75% of the lane's
+   capacity) the p50/p99 latency; a backlog drain (every request queued
+   before the first tick; fp32, kernels) the rates behind a long queue;
+   each printed beside its request count, ticks and warm window.
+   One tick's device ms and busy share (``torch.profiler``); and every
+   kernel call of one tick against its plain version and per geometry
+   beside its bound and library call: the kernels line's ``conv2d
+   (GenServer unet_dec tick)``, ``transposed_conv2d (GenServer unet_dec
+   tick)`` and ``transposed_conv2d (GenServer dcgan64 tick)``.
+
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
 with TF32 off.  The full per-call results go to
@@ -151,6 +195,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -278,6 +324,37 @@ MODEL_LAUNCHES = {
 }
 # launches of each timed call in phases 18-22 (median of 3 rounds)
 MODEL_REPS = 5
+# phase 23, the served generative path: GenServer's denoiser lane at the
+# widths of phase 21 (256/128/64 from an 8x8 mid-block, 64x64 images), batch
+# 8, 4 DDIM steps a tick; 24 requests cycling over these step budgets and
+# SLO classes; request 0 cancelled after 8 substeps and request 12 timed out
+# after 24 (ticks scale with the depth, so every depth does the same work)
+SERVE_BATCH, SERVE_SCAN, SERVE_REQUESTS = 8, 4, 24
+SERVE_STEPS = (50, 25, 10, 1)
+SERVE_SLOS = ("realtime", "standard", "batch")
+SERVE_CANCEL, SERVE_TIMEOUT = (0, 8), (12, 24)   # (rid, substeps)
+# per DDIM substep: the denoiser's launches and its timestep MLP's matmuls
+SERVE_SUBSTEP = {"conv2d": 11, "transposed_conv2d": 3, "matmul": 2}
+# served samples against the unbatched loop and the torch backend: max
+# |err| <= SERVE_BAR x max(1, max|ref|), the reference's cross-backend bar
+# (tests/test_serve_gen.py)
+SERVE_BAR = 1e-5
+# the fault drills' requests (step budgets cycled), on the denoiser lane
+DRILL_STEPS, DRILL_REQUESTS = (25, 10, 1), 10
+# the DCGAN-64 lane (nz 100, ngf 64): batch 32, 64 requests in 2 ticks of
+# 0 + 4 launches and the projection's matmul
+GAN_BATCH, GAN_REQUESTS = 32, 64
+GAN_TICK = {"conv2d": 0, "transposed_conv2d": 4, "matmul": 1}
+# 23f's timed drains, each lane on its own at the widths and batch above:
+# (requests, arrivals a tick when paced).  A denoiser request holds a slot
+# for 6 ticks on average over SERVE_STEPS at 4 steps a tick (13, 7, 3, 1),
+# so 8 slots serve 4/3 requests a tick and 1 a tick loads them to 75%;
+# DCGAN's 24 a tick fill 75% of its 32 slots.  A saturated drain tops the
+# queue up to two batches before every tick, so the lane never waits for
+# work; a backlog drain queues every request before the first tick, so the
+# scheduler works through a long queue.
+TIMED = {"unet_dec": (320, 1), "dcgan64": (8192, 24)}
+ARRIVALS = ("saturated", "paced", "backlog")
 # a learnable PReLU slope's name: ``stem_a``, ``down1.a``, ``dec.l0_a1``,
 # ``dec.l2_aup``
 SLOPE_NAME = re.compile(r"[._]a(\d|up)?$")
@@ -322,19 +399,6 @@ def main() -> int:
     return Smoke(torch).run()
 
 
-def nest(flat: dict) -> dict:
-    """A flat {dotted name: tensor} dict as the nested dict a functional
-    model takes (the inverse of ``models.common.flatten_tree``)."""
-    out = {}
-    for name, v in flat.items():
-        *path, leaf = name.split(".")
-        d = out
-        for part in path:
-            d = d.setdefault(part, {})
-        d[leaf] = v
-    return out
-
-
 class ModelPath:
     """One model of phases 18-22: how to run it and what it must launch.
 
@@ -364,8 +428,10 @@ class Smoke:
         from repro_torch.kernels import flash_attention as kfa
         from repro_torch.kernels import matmul as kmm
         from repro_torch.kernels import transposed_conv as ktr
+        from repro_torch.launch import serve_gen
 
         self.torch = torch
+        self.sg = serve_gen
         self.build = build
         self.kconv = kconv
         self.ktr = ktr
@@ -385,6 +451,8 @@ class Smoke:
                          "flash_attention": kfa.flash_attention}
         self.report = {"checks": [], "calls": [], "lm_calls": []}
         self.worst = {name: 0.0 for name in self.counters}
+        # phase 23: each lane's launches in one tick, by kernel
+        self.serve_launches = {}
 
     # ---------------------------------------------------------------- utils
     def rand(self, g, *shape):
@@ -559,7 +627,6 @@ class Smoke:
                 log(f"  {fn}: {use.get('registers')} registers, "
                     f"{use.get('spill_stores')} B spill stores, "
                     f"{use.get('spill_loads')} B spill loads (ptxas)")
-
         model, x = self.make_model()
         calls = self.phase_kernels(model, x)
         y = self.phase_main(model, x)
@@ -588,10 +655,10 @@ class Smoke:
 
         kernels_line["kernels"] += self.run_bf16(fp32_train)
         kernels_line["kernels"] += self.run_models()
-        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
-                  "w") as f:
-            json.dump({"card": card, **self.report}, f, indent=1)
+        t23 = time.perf_counter()
+        kernels_line["kernels"] += self.run_serving()
+        log(f"phase 23: {time.perf_counter() - t23:.1f} s")
+        self.write_report(card)
         log(f"class maps: {tuple(y.argmax(-1).shape)}")
         log(card)
         log(json.dumps(kernels_line))
@@ -599,6 +666,12 @@ class Smoke:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+
+    def write_report(self, card):
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
+                  "w") as f:
+            json.dump({"card": card, **self.report}, f, indent=1)
 
     def make_model(self):
         """ENet-512 (19 classes) with seeded random weights.  BN scales and
@@ -1768,7 +1841,7 @@ class Smoke:
     def unet_path(self):
         torch = self.torch
         from repro_torch.models import unet_decoder as ud
-        from repro_torch.models.common import flatten_tree
+        from repro_torch.models.common import flatten_tree, unflatten_tree
 
         g = torch.Generator().manual_seed(SEED + 11)
         tree = ud.init_denoiser_params(g)
@@ -1779,7 +1852,7 @@ class Smoke:
         t = torch.randint(0, 1000, (UNET_BATCH,), generator=g).to(self.dev)
 
         def forward(p, backend, cd):
-            return ud.denoise(nest(p), x_t, t, backend=backend,
+            return ud.denoise(unflatten_tree(p), x_t, t, backend=backend,
                               compute_dtype=cd)
 
         def objective(p, backend, cd):
@@ -2138,6 +2211,486 @@ class Smoke:
                 entries.append(self.kernel_entry(name, label, n, p))
                 times[f"{label}_sums"] = p
         return entries
+
+    # ------------------------------------- phase 23: generative serving
+    def run_serving(self):
+        """Phase 23: ``GenServer`` on the card, the denoiser and DCGAN-64
+        lanes at full width (module docstring, 23a-f).  Every gate's
+        reading is printed and the phase fails at the first that misses.
+        Returns its entries of the kernels line."""
+        torch = self.torch
+        sg = self.sg
+        rep = self.report["serving"] = {}
+        den, gan = self.serving_params()
+        size = UNET_MID * 2 ** 3
+
+        log(f"phase 23a: GenServer unet_dec lane, backend=kernels: batch "
+            f"{SERVE_BATCH}, {SERVE_SCAN} DDIM steps a tick, "
+            f"{SERVE_REQUESTS} requests (steps {SERVE_STEPS}, SLOs "
+            f"{SERVE_SLOS}; request {SERVE_CANCEL[0]} cancelled in flight, "
+            f"{SERVE_TIMEOUT[0]} timed out)")
+        rec = []
+        want = {k: SERVE_SCAN * v for k, v in SERVE_SUBSTEP.items()}
+        srv, imgs = self.serve_drain(
+            {"unet_dec": den}, SERVE_SCAN, "kernels",
+            check=self.tick_check("unet_dec", want, rec))
+        drains = {("fp32", "kernels"): srv}
+        statuses = [srv.request(r).status for r in range(SERVE_REQUESTS)]
+        done = sorted(imgs)
+        log(f"  {srv._tick} ticks, {len(done)} done; statuses of the "
+            f"cancelled and timed-out requests: "
+            f"{statuses[SERVE_CANCEL[0]]}, {statuses[SERVE_TIMEOUT[0]]}")
+        self.gate(statuses[SERVE_CANCEL[0]] == "cancelled"
+                  and statuses[SERVE_TIMEOUT[0]] == "timeout"
+                  and len(done) == SERVE_REQUESTS - 2,
+                  f"drain statuses {statuses}")
+        params = srv._lanes["unet_dec"].params
+        refs = {r: sg.reference_sample(
+            params, steps=srv.request(r).steps, seed=srv.request(r).seed,
+            image_size=size) for r in done}
+        self.hold_images("served vs the unbatched loop (kernels)", imgs,
+                         refs, SERVE_BAR, rep)
+        srv_t, imgs_t = self.serve_drain({"unet_dec": den}, SERVE_SCAN,
+                                         "torch")
+        drains[("fp32", "torch")] = srv_t
+        self.hold_images("kernels drain vs torch-backend drain", imgs,
+                         imgs_t, SERVE_BAR, rep)
+        longest = max(SERVE_STEPS)
+        long = next(r for r in done if srv.request(r).steps == longest)
+        growth = self.serve_growth(params, srv.request(long).seed, longest,
+                                   size)
+        rep["growth"] = growth
+        log(f"  one {longest}-step trajectory at batch 1, kernels vs torch "
+            "backend, max|err| / max(1, max|x|) after step: " + ", ".join(
+                f"{i + 1}: {e:.2e}" for i, e in enumerate(growth)
+                if i in (0, 4, 9, 19, 29, 39, 48, 49)))
+
+        log(f"phase 23b: the same drain at 1 DDIM step a tick, and with "
+            f"autoscale=True (max batch {2 * SERVE_BATCH})")
+        srv1, imgs1 = self.serve_drain({"unet_dec": den}, 1, "kernels")
+        same = sorted(imgs1) == done and all(
+            np.array_equal(imgs1[r], imgs[r]) for r in done)
+        st, st1 = srv.stats(), srv1.stats()
+        log(f"  K=1: images bitwise equal to K={SERVE_SCAN}'s {same}; "
+            f"substeps {st1['substeps']} vs {st['substeps']}; dispatches "
+            f"{st1['device_steps']} vs {st['device_steps']}")
+        self.gate(same and st1["substeps"] == st["substeps"]
+                  and st1["device_steps"] > st["device_steps"],
+                  "K=1 drain differs from the K-step drain")
+        srv_a, imgs_a = self.serve_drain(
+            {"unet_dec": den}, SERVE_SCAN, "kernels", autoscale=True,
+            max_batch=2 * SERVE_BATCH)
+        batches = srv_a._lanes["unet_dec"].seen_sizes
+        bitwise = sorted(imgs_a) == done and all(
+            np.array_equal(imgs_a[r], imgs[r]) for r in done)
+        log(f"  autoscale: lane batches {sorted(batches)}; images bitwise "
+            f"equal to the fixed batch's {bitwise}")
+        self.gate(max(batches) == 2 * SERVE_BATCH,
+                  f"autoscale never grew the lane ({sorted(batches)})")
+        self.hold_images("autoscaled drain vs fixed batch", imgs_a, imgs,
+                         SERVE_BAR, rep)
+
+        log("phase 23c: the bf16 lane (compute_dtype=\"bf16\")")
+        srv_b, imgs_b = self.serve_drain(
+            {"unet_dec": den}, SERVE_SCAN, "kernels", compute_dtype="bf16",
+            check=self.tick_check("unet_dec", want, None,
+                                  dtype=torch.bfloat16))
+        drains[("bf16", "kernels")] = srv_b
+        finite = sorted(imgs_b) == done and all(
+            np.isfinite(imgs_b[r]).all() for r in done)
+        self.gate(finite, "bf16 samples missing or non-finite")
+        refs_b = {r: sg.reference_sample(
+            params, steps=srv.request(r).steps, seed=srv.request(r).seed,
+            image_size=size, compute_dtype="bf16") for r in done}
+        worst = float(max(np.abs(imgs_b[r] - refs_b[r]).max()
+                          / (BF16_FWD_RTOL * np.abs(imgs[r]).max() + 1e-3)
+                          for r in done))
+        rep["bf16_vs_loop_over_bar"] = worst
+        log(f"  state bf16 every tick, {len(done)} samples finite; served vs "
+            f"the unbatched bf16 loop: {worst:.3f} x the bar "
+            f"({BF16_FWD_RTOL:.0%} of the fp32 sample's range + 1e-3)")
+        self.gate(worst <= 1.0, "bf16 served off the unbatched bf16 loop")
+        srv_bt, imgs_bt = self.serve_drain({"unet_dec": den}, SERVE_SCAN,
+                                           "torch", compute_dtype="bf16")
+        drains[("bf16", "torch")] = srv_bt
+        for steps in SERVE_STEPS:
+            rs = [r for r in done if srv.request(r).steps == steps]
+            err = float(max(np.abs(imgs_b[r] - imgs_bt[r]).max()
+                            / np.abs(imgs[r]).max() for r in rs))
+            rep[f"bf16_vs_torch_{steps}_steps"] = err
+            log(f"  bf16 kernels vs torch backend bf16, {steps} steps: max "
+                f"|err| {err:.3%} of the fp32 range (not gated)")
+
+        log(f"phase 23d: GenServer dcgan64 lane (nz {DCGAN_NZ}, ngf "
+            f"{DCGAN_NGF}), batch {GAN_BATCH}, {GAN_REQUESTS} requests")
+        rec_g = []
+        srv_g, imgs_g = self.gan_drain(
+            gan, "kernels", GAN_REQUESTS,
+            check=self.tick_check("dcgan64", GAN_TICK, rec_g))
+        self.gate(srv_g._tick == GAN_REQUESTS // GAN_BATCH
+                  and sorted(imgs_g) == list(range(GAN_REQUESTS)),
+                  f"dcgan64 drain took {srv_g._tick} ticks")
+        model = srv_g._lanes["dcgan64"].model
+        with torch.no_grad():
+            refs_g = {r: model(sg.init_noise(
+                srv_g.request(r).seed, (DCGAN_NZ,))[None].to(self.dev))
+                [0].cpu().numpy() for r in imgs_g}
+        self.hold_images("served vs batch-1 forwards (kernels)", imgs_g,
+                         refs_g, SERVE_BAR, rep)
+        srv_gt, imgs_gt = self.gan_drain(gan, "torch", GAN_REQUESTS)
+        a = np.stack([imgs_g[r] for r in sorted(imgs_g)])
+        b = np.stack([imgs_gt[r] for r in sorted(imgs_g)])
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        rep["dcgan_vs_torch_rel_l2"] = rel
+        log(f"  kernels vs torch backend: rel L2 {rel:.3e} (tol "
+            f"{REL_L2_TOL})")
+        self.gate(rel <= REL_L2_TOL, "dcgan64 kernels off the torch backend")
+
+        self.serve_drills(den, imgs, size, rep)
+        rep["drains"] = {f"{d} {b}": s.stats() for (d, b), s in
+                         drains.items()}
+        return self.serve_times(den, gan, rec, rec_g, rep)
+
+    def gate(self, ok, what):
+        """Fail phase 23 at a check that missed."""
+        if not ok:
+            raise RuntimeError(f"phase 23: {what}")
+
+    def serving_params(self):
+        """The denoiser's and DCGAN-64's trees as numpy (the form
+        ``GenServer(params=)`` takes), drawn on the CPU with GroupNorm, BN
+        and PReLU redrawn as phase 21 draws them."""
+        torch = self.torch
+        from repro_torch.models import unet_decoder as ud
+        from repro_torch.models.common import flatten_tree, unflatten_tree
+        from repro_torch.models.dcgan import DCGAN
+
+        g = torch.Generator().manual_seed(SEED + 23)
+        den = self.redraw(flatten_tree(ud.init_denoiser_params(
+            g, device="cpu")), g)
+        m = DCGAN(64, nz=DCGAN_NZ, ngf=DCGAN_NGF, device="cpu", generator=g)
+        gan = self.redraw({n: p.detach() for n, p in m.named_parameters()},
+                          g)
+        return tuple(unflatten_tree({k: v.numpy() for k, v in t.items()})
+                     for t in (den, gan))
+
+    def serve_requests(self, scan):
+        """The denoiser drain's requests at depth ``scan``: (steps, seed,
+        slo, timeout_ticks), and the (tick, rid) to cancel after."""
+        reqs = []
+        for i in range(SERVE_REQUESTS):
+            timeout = (SERVE_TIMEOUT[1] // scan if i == SERVE_TIMEOUT[0]
+                       else None)
+            reqs.append((SERVE_STEPS[i % len(SERVE_STEPS)], SEED + 100 + i,
+                         SERVE_SLOS[i % len(SERVE_SLOS)], timeout))
+        return reqs, (SERVE_CANCEL[1] // scan - 1, SERVE_CANCEL[0])
+
+    def serve_drain(self, params, scan, backend, *, check=None,
+                    requests=None, cancel=None, drill=False, **kw):
+        """Drain requests (default: :meth:`serve_requests` at ``scan``) on
+        a fresh denoiser lane; ``check(tick, step)`` runs each tick.  Every
+        drain but the fault drills must end with no retry and no degraded
+        lane.  Returns (server, rid -> image)."""
+        if requests is None:
+            requests, cancel = self.serve_requests(scan)
+        srv = self.sg.GenServer(batch=SERVE_BATCH, scan_steps=scan,
+                                backend=backend, params=params, **kw)
+        for steps, seed, slo, timeout in requests:
+            srv.submit("unet_dec", steps=steps, seed=seed, slo=slo,
+                       timeout_ticks=timeout)
+        return srv, self.drive(srv, check, cancel, drill)
+
+    def gan_drain(self, params, backend, n, *, check=None, **kw):
+        srv = self.sg.GenServer(batch=GAN_BATCH, backend=backend,
+                                params={"dcgan64": params}, **kw)
+        for i in range(n):
+            srv.submit("dcgan64", seed=SEED + 300 + i,
+                       slo=SERVE_SLOS[i % len(SERVE_SLOS)])
+        return srv, self.drive(srv, check, None, False)
+
+    def drive(self, srv, check, cancel, drill):
+        tick = 0
+        while srv._pending or any(l.busy for l in srv._lanes.values()):
+            if check is None:
+                srv.step()
+            else:
+                check(tick, srv)
+            if cancel is not None and tick == cancel[0]:
+                self.gate(srv.request(cancel[1]).status == "active"
+                          and srv.cancel(cancel[1]),
+                          f"request {cancel[1]} not in flight at tick {tick}")
+            tick += 1
+        st = srv.stats()
+        if not drill:
+            self.gate(st["degraded"] == 0 and st["retries"] == 0,
+                      f"a clean drain retried or degraded: {st}")
+        return srv.run()
+
+    def tick_check(self, workload, want, rec, dtype=None):
+        """Per tick: counts 0 just before, read just after; the tick's
+        launches are ``want``'s conv kernels, its ``torch.matmul`` calls
+        ``want["matmul"]``, nothing else (no library conv, no plain
+        version); ``dtype``: the lane's state stays in it.  Tick 1's
+        kernel calls are recorded into ``rec``."""
+        torch = self.torch
+        launches = dict.fromkeys(self.counters, 0)
+        launches.update({k: v for k, v in want.items() if k != "matmul"})
+        other = {"conv2d": 0, "conv_transpose2d": 0, "conv2d_plain": 0,
+                 "tconv_plain": 0, "matmul": want["matmul"],
+                 "tap_correlation": 0}
+
+        def check(tick, srv):
+            counts, taps = {}, []
+            calls = rec if rec is not None and tick == 1 else []
+            self.reset_counts()
+            with self.watching(counts, taps), self.recording(calls):
+                srv.step()
+            got = self.read_counts()
+            if tick == 1:
+                self.serve_launches[workload] = got
+            seen = {k: counts.get(k, 0) for k in other}
+            if tick == 0:
+                log(f"  {workload} tick 0: launches {got}; other calls "
+                    f"{seen}")
+            self.gate(got == launches and seen == other,
+                      f"{workload} tick {tick}: launches {got} != "
+                      f"{launches} or other calls {seen} != {other}")
+            if dtype is not None:
+                x = srv._lanes[workload].x
+                self.gate(x.dtype == dtype,
+                          f"{workload} state {x.dtype} after tick {tick}")
+
+        return check
+
+    def hold_images(self, what, got, want, bar, rep):
+        """Every image of ``want`` present in ``got`` within ``bar`` x
+        max(1, max|want|); and the bar's reach: what a zeroed sample and
+        one 2% off would read."""
+        errs = {r: float(np.abs(got[r] - want[r]).max()
+                         / max(1.0, np.abs(want[r]).max())) for r in want
+                if r in got}
+        worst = max(errs.values()) if errs else math.inf
+        scale = [max(1.0, np.abs(w).max()) for w in want.values()]
+        zero = float(min(np.abs(w).max() / s
+                         for w, s in zip(want.values(), scale)))
+        off = 0.02 * zero
+        rep[what] = {"worst": worst, "bar": bar, "zeroed": zero,
+                     "off_2pct": off}
+        log(f"  {what}: {len(errs)} of {len(want)} images, worst max|err| / "
+            f"max(1, max|ref|) {worst:.2e} (bar {bar:g}); a zeroed sample "
+            f"would read >= {zero:.3g}, one 2% off >= {off:.3g}")
+        self.gate(len(errs) == len(want) and worst <= bar
+                  and zero > bar and off > bar, f"{what}: {worst:.3e}")
+
+    def serve_growth(self, params, seed, steps, size):
+        """One ``steps``-step trajectory at batch 1 on both backends in
+        lockstep: max|kernels - torch| / max(1, max|torch|) after each
+        step."""
+        torch = self.torch
+        from repro_torch.launch.steps import (ddim_timesteps,
+                                              make_gen_scan_step)
+
+        traj = ddim_timesteps(steps)
+        fns = {b: make_gen_scan_step(1, backend=b) for b in
+               ("kernels", "torch")}
+        x0 = self.sg.init_noise(seed, (size, size, 3))[None].to(self.dev)
+        xs = dict.fromkeys(fns, x0)
+        errs = []
+        with torch.no_grad():
+            for i, t in enumerate(traj):
+                nxt = int(traj[i + 1]) if i + 1 < len(traj) else -1
+                batch = {"t": torch.full((1, 1), int(t), device=self.dev),
+                         "t_next": torch.full((1, 1), nxt, device=self.dev),
+                         "active": torch.ones((1, 1), dtype=torch.bool,
+                                              device=self.dev)}
+                xs = {b: fn(params, xs[b], batch) for b, fn in fns.items()}
+                k, t_ = (xs[b][0].cpu().numpy() for b in fns)
+                errs.append(float(np.abs(k - t_).max()
+                                  / max(1.0, np.abs(t_).max())))
+        return errs
+
+    def serve_drills(self, den, imgs, size, rep):
+        """23e: the fault drills on the card, on a drain of DRILL_REQUESTS
+        requests: a broken kernels backend degrades the lane to torch; a
+        kill at a mid tick restores from per-tick snapshots under
+        chiprun_out/ bit for bit; a corrupted slot re-runs bit for bit."""
+        import shutil
+
+        from repro_torch.distributed.fault_tolerance import (
+            FailureInjector, Fault, InjectedFault, failure_faults)
+
+        log(f"phase 23e: fault drills, {DRILL_REQUESTS} requests (steps "
+            f"{DRILL_STEPS})")
+        reqs = [(DRILL_STEPS[i % len(DRILL_STEPS)], SEED + 200 + i,
+                 SERVE_SLOS[i % len(SERVE_SLOS)], None)
+                for i in range(DRILL_REQUESTS)]
+        p = {"unet_dec": den}
+        clean, imgs_c = self.serve_drain(p, SERVE_SCAN, "kernels",
+                                         requests=reqs)
+        deg, imgs_d = self.serve_drain(
+            p, SERVE_SCAN, "kernels", requests=reqs, drill=True,
+            max_retries=1, retry_backoff_s=1e-3,
+            faults=failure_faults(backend_broken="kernels"))
+        st = deg.stats()
+        log(f"  kernels broken: degraded {st['degraded']:.0f}, retries "
+            f"{st['retries']:.0f}, lane backend "
+            f"{deg._lanes['unet_dec'].backend}")
+        self.gate(st["degraded"] == 1 and deg._lanes["unet_dec"].backend
+                  == "torch", "the broken kernels backend did not degrade")
+        self.hold_images("degraded drain vs clean drain", imgs_d, imgs_c,
+                         SERVE_BAR, rep)
+        snap = os.path.join(ROOT, "chiprun_out", "serve_gen_snapshots")
+        shutil.rmtree(snap, ignore_errors=True)
+        kill, killed = clean._tick // 2, False
+        try:
+            self.serve_drain(p, SERVE_SCAN, "kernels", requests=reqs,
+                             snapshot_dir=snap, snapshot_every=1,
+                             faults=failure_faults(kill_at=kill))
+        except InjectedFault:
+            killed = True
+        self.gate(killed, f"no kill at tick {kill}")
+        restored = self.sg.GenServer.restore(snap)
+        at = restored._tick
+        imgs_r = self.drive(restored, None, None, False)
+        same = sorted(imgs_r) == sorted(imgs_c) and all(
+            np.array_equal(imgs_r[r], imgs_c[r]) for r in imgs_c)
+        log(f"  killed at tick {kill} of {clean._tick}, restored at tick "
+            f"{at}: bitwise equal to the clean drain {same}")
+        self.gate(same and at == kill, "kill/restore drain differs")
+        shutil.rmtree(snap, ignore_errors=True)
+        inj = FailureInjector(faults=[Fault(at=1, kind="corrupt", slot=0)])
+        cor, imgs_x = self.serve_drain(p, SERVE_SCAN, "kernels",
+                                       requests=reqs, faults=inj)
+        requeued = [r for r in imgs_c if cor.request(r).requeues]
+        same = sorted(imgs_x) == sorted(imgs_c) and all(
+            np.array_equal(imgs_x[r], imgs_c[r]) for r in imgs_c)
+        log(f"  corrupted slot 0 at tick 1: requeued {requeued}; bitwise "
+            f"equal to the clean drain {same}")
+        self.gate(len(requeued) == 1 and same
+                  and cor.stats()["degraded"] == 0, "corrupt drill")
+        rep["drills"] = {"degraded": st, "kill_tick": kill,
+                         "requeued": requeued}
+
+    def serve_times(self, den, gan, rec, rec_g, rep):
+        """23f: each lane's throughput and latency on drains of its own
+        (:data:`TIMED`), both backends, fp32 and bf16; the device ms and
+        busy share of one tick; every recorded kernel call of one tick
+        against its plain version and per geometry beside its bound and
+        library call."""
+        log("phase 23f: times")
+        params = {"unet_dec": den, "dcgan64": gan}
+        tick_ms = {}
+        for workload in ("unet_dec", "dcgan64"):
+            for dl in ("fp32", "bf16"):
+                for backend in ("kernels", "torch"):
+                    for arrivals in ARRIVALS:
+                        if arrivals == "backlog" and (dl, backend) != (
+                                "fp32", "kernels"):
+                            continue
+                        srv = self.timed_drain(workload, params[workload],
+                                               backend, dl, arrivals)
+                        run = self.log_serve(workload, dl, backend,
+                                             arrivals, srv, rep)
+                        if (dl, backend, arrivals) == ("fp32", "kernels",
+                                                       "saturated"):
+                            tick_ms[workload] = run["mean_warm_tick_ms"]
+        # enough work for the cold tick and the profiler's 2 to 4 ticks
+        for workload, n in (("unet_dec", SERVE_BATCH),
+                            ("dcgan64", 6 * GAN_BATCH)):
+            srv = self.sg.GenServer(
+                batch=SERVE_BATCH if workload == "unet_dec" else GAN_BATCH,
+                scan_steps=SERVE_SCAN, params=params)
+            for i in range(n):
+                srv.submit(workload, steps=50, seed=SEED + 400 + i)
+            srv.step()                                     # the cold tick
+            ms = tick_ms[workload]
+            rep[f"{workload}_tick_ms"] = ms
+            rep[f"{workload}_tick_profile"] = self.profile_device(
+                srv.step, f"{workload} tick (the saturated fp32 kernels "
+                "drain's mean warm tick wall)", ms)
+        entries = []
+        for workload, calls in (("unet_dec", rec), ("dcgan64", rec_g)):
+            label = f"GenServer {workload} tick"
+            caught = []
+            for i, (name, args) in enumerate(calls):
+                kern, plain, _ = self.kernels[name]
+                got, ref = kern(*args), plain(*args)
+                self.compare(f"{label} call {i}", f"{name} ({label})", got,
+                             ref, quiet=True)
+                caught.append(self.sensitivity(got, ref, 1.0, TOL))
+            zero, off = (min(c[j] for c in caught) for j in range(2))
+            log(f"  {label}: {len(calls)} calls vs plain ok; a zeroed "
+                f"output would reach >= {zero:.3g} x its bar, one 2% off "
+                f">= {off:.3g} x")
+            self.gate(zero > 1.0 and off > 1.0, f"{label}: weak bar")
+            rows, per = self.time_calls(calls, reps=MODEL_REPS)
+            rep[f"{workload}_geometries"] = self.geometry_table(
+                rows, f"a {workload} tick")
+            for name, p in per.items():
+                n = self.serve_launches[workload][name]
+                if not n:
+                    continue
+                full = f"{name} ({label})"
+                log(f"  {full}: {p['ms']:.3f} ms over {n} launches; bound "
+                    f"{p['bound_ms']:.3f} ms; plain {p['plain_ms']:.3f} ms; "
+                    f"library {p['library_ms']:.3f} ms")
+                entries.append(self.kernel_entry(name, full, n, p))
+                rep[f"{full}_sums"] = p
+        return entries
+
+    def timed_drain(self, workload, params, backend, dl, arrivals):
+        """One of 23f's timed drains (:data:`TIMED`, ``arrivals`` one of
+        :data:`ARRIVALS`) on a fresh lane, with no per-tick check.  Ends
+        with every request done, no retry and no degraded lane.  Returns
+        the server."""
+        n, pace = TIMED[workload]
+        batch = SERVE_BATCH if workload == "unet_dec" else GAN_BATCH
+        srv = self.sg.GenServer(
+            batch=batch, scan_steps=SERVE_SCAN, backend=backend,
+            params={workload: params},
+            compute_dtype=None if dl == "fp32" else "bf16")
+        sent = 0
+        while (sent < n or srv._pending
+               or any(l.busy for l in srv._lanes.values())):
+            new = {"saturated": 2 * batch - len(srv._pending),
+                   "paced": pace, "backlog": n}[arrivals]
+            for _ in range(max(0, min(new, n - sent))):
+                srv.submit(workload, seed=SEED + 1000 + sent,
+                           steps=SERVE_STEPS[sent % len(SERVE_STEPS)],
+                           slo=SERVE_SLOS[sent % len(SERVE_SLOS)])
+                sent += 1
+            srv.step()
+        st = srv.stats()
+        self.gate(st["requests"] == n and st["degraded"] == 0
+                  and st["retries"] == 0,
+                  f"{workload} {dl} {backend} {arrivals} drain: {st}")
+        return srv
+
+    def log_serve(self, workload, dl, backend, arrivals, srv, rep):
+        """Print and record one timed drain: its latency (paced) or rates
+        beside its request count, ticks and warm window."""
+        st = srv.stats()
+        warm = sum(1 for t in srv._tick_log if not t[4])
+        n, pace = TIMED[workload]
+        how = f"paced {pace} a tick" if arrivals == "paced" else arrivals
+        run = dict(st, warm_ticks=warm, arrivals=arrivals,
+                   mean_warm_tick_ms=1e3 * st["warm_wall_s"] / warm)
+        rep[f"{workload} {dl} {backend} {how}"] = run
+        window = (f"{n} requests, {st['ticks']} ticks ({warm} warm, "
+                  f"{st['warm_wall_s']:.3f} s)")
+        if arrivals == "paced":
+            log(f"  {workload} {dl} {backend} {how}: {window}: latency p50 "
+                f"{st['latency_p50_s'] * 1e3:.1f} / p99 "
+                f"{st['latency_p99_s'] * 1e3:.1f} ms, mean wait "
+                f"{st['mean_wait_ticks']:.2f} ticks")
+        else:
+            log(f"  {workload} {dl} {backend} {how}: {window}: warm "
+                f"{st['warm_images_per_s']:.2f} images/s, "
+                f"{st['warm_steps_per_s']:.1f} substeps/s, mean warm tick "
+                f"{run['mean_warm_tick_ms']:.3f} ms; {st['device_steps']} "
+                f"dispatches, {st['substeps']} substeps")
+        return run
+
 
     # ------------------------------------------- matmul and attention
     def phase_lm_kernels(self):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -182,13 +183,30 @@ class SeededModule(nn.Module):
 
 
 def to_device(tree: dict, device) -> dict:
-    """A nested dict of CPU tensors (a functional model's parameters) moved
-    to ``device`` (``None`` -> CUDA, raising without a card)."""
+    """A functional model's parameter tree, nested dicts of tensors or
+    arrays (the reference's ``init_params`` output as numpy, say), as the
+    same nested dicts of fp32 tensors on ``device`` (``None`` -> CUDA,
+    raising without a card).  Arrays are copied."""
     dev = resolve_device(device)
-    return {k: to_device(v, dev) if isinstance(v, dict) else v.to(dev)
+    return {k: to_device(v, dev) if isinstance(v, dict)
+            else (v if isinstance(v, torch.Tensor)
+                  else torch.tensor(np.asarray(v))).to(dev, torch.float32)
             for k, v in tree.items()}
+
+
+def unflatten_tree(flat: dict) -> dict:
+    """A flat {dotted name: leaf} dict as the nested dict a functional
+    model takes (the inverse of :func:`flatten_tree`)."""
+    out: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        d = out
+        for part in path:
+            d = d.setdefault(part, {})
+        d[leaf] = v
+    return out
 
 
 __all__ = ["conv_init", "tconv_init", "prelu", "bn_init", "bn", "fold_bn",
            "gn_init", "group_norm", "fold_gn", "timestep_embedding",
-           "flatten_tree", "SeededModule", "to_device"]
+           "flatten_tree", "unflatten_tree", "SeededModule", "to_device"]

@@ -22,17 +22,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.decompose import conv2d
+from repro_torch.core.gen_spec import UNET_UP_KERNELS, UNET_WIDTHS
 from repro_torch.kernels.epilogue import EpilogueSpec
 from repro_torch.kernels.util import canon_dtype
 from repro_torch.models.common import (conv_init, fold_gn, gn_init,
                                        tconv_init, timestep_embedding,
                                        to_device)
 
-#: per-level upsampling kernels (k=4 and k=2 both run), and the default
-#: level widths: level i runs at ``8 * 2**i`` with this many channels (the
-#: port's copy of ``repro/core/gen_spec.py``'s tables)
-UNET_UP_KERNELS = (4, 2, 4)
-UNET_WIDTHS = (256, 128, 64)
 #: timestep-embedding width of the denoiser
 DENOISE_EMB_DIM = 64
 

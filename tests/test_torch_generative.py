@@ -42,11 +42,6 @@ def _tree(init, *args, **kw):
                    np.random.default_rng(0))
 
 
-def _to_torch(tree):
-    return {k: _to_torch(v) if isinstance(v, dict) else torch.tensor(v)
-            for k, v in tree.items()}
-
-
 def _grad_tree(params, loss):
     """Gradients of ``loss(params)`` for a nested dict of leaves, as a flat
     dict of the reference's dotted names."""
@@ -54,17 +49,8 @@ def _grad_tree(params, loss):
     prims = {k: v.detach().clone().requires_grad_() for k, v in
              leaves.items()}
 
-    def nest(flat):
-        out = {}
-        for name, v in flat.items():
-            *path, leaf = name.split(".")
-            d = out
-            for p in path:
-                d = d.setdefault(p, {})
-            d[leaf] = v
-        return out
-
-    grads = torch.autograd.grad(loss(nest(prims)), list(prims.values()))
+    grads = torch.autograd.grad(loss(tcommon.unflatten_tree(prims)),
+                                list(prims.values()))
     return dict(zip(prims, grads))
 
 
@@ -244,7 +230,7 @@ def unet():
 
 def _unet_port(unet, **kw):
     tree, x, skips = unet
-    return tud.forward(_to_torch(tree), torch.from_numpy(x),
+    return tud.forward(tcommon.to_device(tree, "cpu"), torch.from_numpy(x),
                        tuple(map(torch.from_numpy, skips)), **kw)
 
 
@@ -281,7 +267,7 @@ def test_unet_grads_match_reference(unet, cd, backend):
     want = _jgrad_tree(lambda p: jnp.mean(jnp.square(jud.forward(
         p, jx, js, compute_dtype=cd).astype(jnp.float32))), tree)
     tx, ts = torch.from_numpy(x), tuple(map(torch.from_numpy, skips))
-    grads = _grad_tree(_to_torch(tree), lambda p: tud.forward(
+    grads = _grad_tree(tcommon.to_device(tree, "cpu"), lambda p: tud.forward(
         p, tx, ts, backend=backend, compute_dtype=cd).float().square()
         .mean())
     assert set(grads) == set(want)
@@ -312,7 +298,7 @@ def test_denoise_matches_reference(denoiser, cd):
     want = np.asarray(jud.denoise(tree, jnp.asarray(x_t), jnp.asarray(t),
                                   compute_dtype=cd)).astype(np.float32)
     with torch.no_grad():
-        y = tud.denoise(_to_torch(tree), torch.from_numpy(x_t),
+        y = tud.denoise(tcommon.to_device(tree, "cpu"), torch.from_numpy(x_t),
                         torch.from_numpy(t), compute_dtype=cd)
     assert y.shape == x_t.shape
     if cd is None:
@@ -325,7 +311,7 @@ def test_denoise_grads_match_reference(denoiser):
     tree, x_t, t = denoiser
     want = _jgrad_tree(lambda p: jnp.mean(jnp.square(jud.denoise(
         p, jnp.asarray(x_t), jnp.asarray(t)))), tree)
-    grads = _grad_tree(_to_torch(tree), lambda p: tud.denoise(
+    grads = _grad_tree(tcommon.to_device(tree, "cpu"), lambda p: tud.denoise(
         p, torch.from_numpy(x_t), torch.from_numpy(t)).square().mean())
     assert set(grads) == set(want)
     for name, g in grads.items():
@@ -351,7 +337,7 @@ def test_denoise_dispatch_counts_and_bf16_stays_bf16(denoiser, monkeypatch):
         monkeypatch.setattr(mod, attr, lambda *a, fn=fn: (
             dtypes.append(a[0].dtype), fn(*a))[1])
     counts = Counts(monkeypatch)
-    p = _to_torch(tree)
+    p = tcommon.to_device(tree, "cpu")
     with torch.no_grad():
         tud.denoise(p, torch.from_numpy(x_t), torch.from_numpy(t),
                     compute_dtype="bf16")

@@ -23,6 +23,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import transposed_conv as ktr
 from repro_torch.kernels.epilogue import NO_EPILOGUE
 from repro_torch.kernels.util import canon_dtype, resolve_device
+from repro_torch.launch import serve_gen
 from repro_torch.models import unet_decoder, whisper
 from repro_torch.models.dcgan import DCGAN
 from repro_torch.models.enet import ENet
@@ -31,6 +32,13 @@ from repro_torch.models.espnet import ESPNet
 _ROOT = Path(__file__).resolve().parents[1]
 _PORT = _ROOT / "src" / "repro_torch"
 _FILES = sorted(_PORT.rglob("*.py")) + [_ROOT / "chip_smoke.py"]
+
+
+def test_walk_covers_every_package():
+    packages = {p.parent.name for p in _FILES if p.name == "__init__.py"}
+    assert {"checkpoint", "core", "distributed", "kernels", "launch",
+            "models", "optim", "data"} <= packages
+    assert _PORT / "launch" / "serve_gen.py" in _FILES
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -69,7 +77,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.kernels.matmul, repro_torch.kernels.flash_attention, "
             "repro_torch.core.adjoints, repro_torch.optim, repro_torch.data, "
             "repro_torch.launch.train_recipes, "
-            "repro_torch.launch.train_enet; "
+            "repro_torch.launch.train_enet, repro_torch.launch.steps, "
+            "repro_torch.launch.serve_gen, repro_torch.core.gen_spec, "
+            "repro_torch.checkpoint, repro_torch.distributed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(_ROOT / "src"))
@@ -92,6 +102,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                   lambda: whisper.init_frontend_params(g, 4, 8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
+    for serve in (lambda: serve_gen.GenServer(),
+                  lambda: serve_gen.GenServer(device="cuda", batch=1),
+                  lambda: serve_gen.main(["--smoke"]),
+                  lambda: serve_gen.reference_sample({}, steps=1, seed=0,
+                                                     image_size=4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve()
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
