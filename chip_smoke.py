@@ -71,8 +71,9 @@ nvcc, then:
    ``F.scaled_dot_product_attention(is_causal=True)``);
 13. prints the ``{"kernels": [...]}`` line (all four kernels on their
    paths, the two conv kernels again on the ENet backward, both again
-   in bf16 on the forward and the backward, and both on each path of
-   phases 18-23) and, last, ``{"ok": true, "device": {...}}``;
+   in bf16 on the forward and the backward, both on each path of
+   phases 18-23, and on phase 24's tuned forwards) and, last,
+   ``{"ok": true, "device": {...}}``;
 
 and, before those two lines, the bf16 slice:
 
@@ -178,6 +179,62 @@ f. times of both lanes on both backends in fp32 and bf16, each lane on
    (GenServer unet_dec tick)``, ``transposed_conv2d (GenServer unet_dec
    tick)`` and ``transposed_conv2d (GenServer dcgan64 tick)``.
 
+At start the port's plan table is pointed at a fresh, emptied
+``chiprun_out/autotune/`` with tuning off (and its calibration cache at
+``chiprun_out/calibration/``), so phases 1-23 run every launch on its
+shape's default plan.  Last, phase 24 drives the plan table, the
+calibration and the cycle model on the card:
+
+a. every distinct kernel-1 and kernel-2 launch of an ENet-512 (batch 4),
+   DCGAN-128 (batch 128) and denoiser-substep (batch 8) forward, fp32 and
+   bf16, recorded from the forwards: for each plan of the full grid (7
+   tiles, resident or streamed) the policy's shared-memory footprint
+   (``kernels/tiling_policy.py``) equals the size the kernel asks for
+   (``conv2d_smem_bytes``, ``tconv_smem_bytes``) byte for byte; every plan
+   the policy admits launches and matches the plain version at phase 3's
+   and 14's bars; every plan it scores inf is refused by the kernel or over
+   the card's per-block shared memory;
+b. autotune (``kernels/autotune.py``) of each geometry: the policy's top
+   ``POLICY_TOP`` plans and the default timed on the card, the winner
+   saved to the table.  Each forward then runs on the table read back from
+   disk: its output against the untuned forward's at 1e-4 x max(1,
+   max|untuned|) (fp32) or 5% of max|untuned| (bf16), with what a zeroed
+   output and one 2% off would read; as many launches as untuned, each on
+   the plan its table entry names; every tuned call against its plain
+   version and per geometry beside its bound and library call (the kernels
+   line's ``conv2d (tuned ENet-512 fp32 forward)`` etc.); per geometry the
+   default and tuned device ms beside the bound; per forward the untuned
+   and tuned wall ms; and the host's cost of a launch's plan lookup (us a
+   call: the shape's plan alone, as before the table; a repeated launch's
+   lookup; a geometry's first lookup in a process);
+c. calibration capture (``core/calibrate.py``) of the reference's
+   ``default_cases(smoke=False)`` on both backends in fp32 and bf16: the
+   fit's MAPE per key, every slope positive, the fit saved; a denoiser lane
+   served with it and ``scan_steps="auto"``: the K it picks (within 1..8),
+   the ``est_us`` stamped on a request, every request of the drain done,
+   and the cycle model's ``serve_report`` beside the measured stats; every
+   24b geometry tuned again with the fit (``tune(calibration=)``: the
+   policy's per-wave term weighed by the fitted dispatch overhead), each
+   key's weight printed and the timed sets and winners against 24b's;
+d. the paper's Figure 10 per layer: for each dilated and transposed layer
+   of ENet-512 at batch 4, the cycle model's decomposed-vs-naive speedup
+   (its 168-MAC array, not this card) beside the measured one: kernel 1 on
+   the zero-laden operands (the zero-filled (k-1)d+1 weight; the
+   zero-inserted input) over the decomposed call, device time, the two
+   outputs held equal; and the totals against ``report()`` and
+   ``headline()``;
+e. tuning switched on (``$REPRO_TORCH_AUTOTUNE=1``) over an empty table,
+   so each miss tunes inside the launch that meets it: one fp32 forward
+   and backward of the denoiser's training objective (batch 8), then the
+   same on the table read back with tuning off, every launch on its
+   entry's plan, the loss and every gradient against the untuned ones at
+   phase 8's bars, 1e-4 x max(1, max|untuned|) and 2e-3 x max|untuned|;
+   and an autoscaled denoiser drain (phase
+   23b's requests, batch up to 16) tuning each batch size it packs, its
+   samples against the untuned autoscaled drain's at phase 23's bar (a
+   tuned table is not bitwise across batch sizes: a plan's summation order
+   follows its tile).
+
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
 with TF32 off.  The full per-call results go to
@@ -191,6 +248,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -358,6 +416,14 @@ ARRIVALS = ("saturated", "paced", "backlog")
 # a learnable PReLU slope's name: ``stem_a``, ``down1.a``, ``dec.l0_a1``,
 # ``dec.l2_aup``
 SLOPE_NAME = re.compile(r"[._]a(\d|up)?$")
+# phase 24c: requests of the calibrated denoiser drain (step budgets and SLO
+# classes cycled as phase 23's)
+CALIB_REQUESTS = 8
+# the port's plan-table switches, cleared at start so that no environment
+# tunes or sweeps a launch of phases 1-23
+AUTOTUNE_SWITCHES = ("REPRO_TORCH_AUTOTUNE", "REPRO_TORCH_AUTOTUNE_SWEEP")
+# phase 24b: calls of each kind timed to price a launch's plan lookup
+LOOKUP_CALLS = 2000
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel's pallas_call)
     "conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
                "src/repro/kernels/conv2d.py:195"),
@@ -396,7 +462,25 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, src)
+    fresh_tables()
     return Smoke(torch).run()
+
+
+def fresh_tables() -> None:
+    """Point the port's plan table at a fresh, emptied
+    ``chiprun_out/autotune/`` with tuning off, and its calibration cache at
+    an emptied ``chiprun_out/calibration/``: no table left by an earlier
+    run moves a plan in phases 1-23, whose gates are bitwise; phase 24
+    fills both."""
+    out = os.path.join(ROOT, "chiprun_out")
+    for var, sub in (("REPRO_TORCH_AUTOTUNE_CACHE", "autotune"),
+                     ("REPRO_TORCH_CALIBRATION_CACHE", "calibration")):
+        path = os.path.join(out, sub)
+        shutil.rmtree(path, ignore_errors=True)
+        os.makedirs(path)
+        os.environ[var] = path
+    for var in AUTOTUNE_SWITCHES:
+        os.environ.pop(var, None)
 
 
 class ModelPath:
@@ -423,14 +507,17 @@ class ModelPath:
 
 class Smoke:
     def __init__(self, torch):
-        from repro_torch.kernels import build
+        from repro_torch.kernels import autotune, build
         from repro_torch.kernels import conv2d as kconv
         from repro_torch.kernels import flash_attention as kfa
         from repro_torch.kernels import matmul as kmm
+        from repro_torch.kernels import tiling_policy
         from repro_torch.kernels import transposed_conv as ktr
         from repro_torch.launch import serve_gen
 
         self.torch = torch
+        self.at = autotune
+        self.tp = tiling_policy
         self.sg = serve_gen
         self.build = build
         self.kconv = kconv
@@ -544,9 +631,9 @@ class Smoke:
         orig = (kconv.conv2d_cuda, ktr.tconv_cuda)
 
         def rec(name, fn):
-            def wrapper(*args):
+            def wrapper(*args, **kw):
                 calls.append((name, args))
-                return fn(*args)
+                return fn(*args, **kw)
             return wrapper
 
         kconv.conv2d_cuda = rec("conv2d", orig[0])
@@ -658,6 +745,7 @@ class Smoke:
         t23 = time.perf_counter()
         kernels_line["kernels"] += self.run_serving()
         log(f"phase 23: {time.perf_counter() - t23:.1f} s")
+        kernels_line["kernels"] += self.run_tuning()
         self.write_report(card)
         log(f"class maps: {tuple(y.argmax(-1).shape)}")
         log(card)
@@ -2462,10 +2550,10 @@ class Smoke:
 
         return check
 
-    def hold_images(self, what, got, want, bar, rep):
+    def hold_images(self, what, got, want, bar, rep, gate=None):
         """Every image of ``want`` present in ``got`` within ``bar`` x
         max(1, max|want|); and the bar's reach: what a zeroed sample and
-        one 2% off would read."""
+        one 2% off would read.  ``gate`` fails the phase (default 23's)."""
         errs = {r: float(np.abs(got[r] - want[r]).max()
                          / max(1.0, np.abs(want[r]).max())) for r in want
                 if r in got}
@@ -2479,8 +2567,9 @@ class Smoke:
         log(f"  {what}: {len(errs)} of {len(want)} images, worst max|err| / "
             f"max(1, max|ref|) {worst:.2e} (bar {bar:g}); a zeroed sample "
             f"would read >= {zero:.3g}, one 2% off >= {off:.3g}")
-        self.gate(len(errs) == len(want) and worst <= bar
-                  and zero > bar and off > bar, f"{what}: {worst:.3e}")
+        (gate or self.gate)(len(errs) == len(want) and worst <= bar
+                            and zero > bar and off > bar,
+                            f"{what}: {worst:.3e}")
 
     def serve_growth(self, params, seed, steps, size):
         """One ``steps``-step trajectory at batch 1 on both backends in
@@ -2948,6 +3037,678 @@ class Smoke:
                 "library_ms": p["library_ms"]})
         return entries
 
+    # -------------------------------------------------------------- phase 24
+    def run_tuning(self):
+        """Phase 24: the plan table, the calibration and the cycle model on
+        the card (module docstring, 24a-d).  Returns its entries of the
+        kernels line."""
+        t24 = time.perf_counter()
+        rep = self.report["tuning"] = {}
+        forwards = self.tune_forwards()
+        geos = self.tune_geometries(forwards)
+        self.phase_policy(geos, rep)
+        entries = self.phase_autotune(forwards, geos, rep)
+        del forwards
+        self.torch.cuda.empty_cache()
+        self.phase_calibration(geos, rep)
+        self.phase_fig10(rep)
+        self.phase_on_miss(rep)
+        log(f"phase 24: {time.perf_counter() - t24:.1f} s")
+        return entries
+
+    def gate24(self, ok, what):
+        """Fail phase 24 at a check that missed."""
+        if not ok:
+            raise RuntimeError(f"phase 24: {what}")
+
+    def tune_forwards(self):
+        """24b's forwards, ``label -> fn(compute_dtype)``: ENet-512 (batch
+        4), DCGAN-128 (batch 128, nz 100, ngf 64) and the GenServer
+        denoiser's substep (widths 256/128/64, batch 8), seeded as phases
+        4, 20 and 21 draw them."""
+        torch = self.torch
+        model, x = self.make_model()
+        dcgan, unet = self.dcgan_path(128), self.unet_path()
+
+        def run(fn):
+            def call(cd):
+                with torch.no_grad():
+                    return fn(cd)
+            return call
+
+        return {
+            "ENet-512": run(lambda cd: model(x, compute_dtype=cd)),
+            "DCGAN-128": run(lambda cd: dcgan.forward(dcgan.params,
+                                                      "kernels", cd)),
+            "U-Net denoiser": run(lambda cd: unet.forward(unet.params,
+                                                          "kernels", cd)),
+        }
+
+    def launch_geometry(self, name, args):
+        """(kind, x shape, w shape, stride, padding, output padding,
+        epilogue spec, dtype) of a recorded kernel call, as the plan table
+        keys it."""
+        x, w, s, spec = args[0], args[1], args[2], args[-2]
+        if name == "conv2d":
+            return ("dense", tuple(x.shape), tuple(w.shape), s, args[3],
+                    None, spec, x.dtype)
+        return ("tconv", tuple(x.shape), tuple(w.shape), s, args[3],
+                args[4] - args[3], spec, x.dtype)
+
+    def tune_geometries(self, forwards):
+        """Every distinct kernel-1 and kernel-2 launch of 24b's forwards,
+        fp32 and bf16, recorded from the forwards themselves (untuned):
+        ``geometry -> (name, args, labels)``."""
+        torch = self.torch
+        geos = {}
+        for label, fn in forwards.items():
+            for cd in (None, "bf16"):
+                rec = []
+                with self.recording(rec):
+                    fn(cd)
+                torch.cuda.synchronize()
+                for name, args in rec:
+                    g = self.launch_geometry(name, args)
+                    entry = geos.setdefault(g, (name, args, set()))
+                    entry[2].add(label)
+        log(f"phase 24: {len(geos)} distinct launch geometries "
+            f"({sum(g[0] == 'dense' for g in geos)} kernel 1, "
+            f"{sum(g[0] == 'tconv' for g in geos)} kernel 2) over "
+            f"{', '.join(forwards)}, fp32 and bf16")
+        return geos
+
+    def phase_policy(self, geos, rep):
+        """24a: for every plan of the full grid (7 tiles x resident or
+        streamed) of every geometry, the policy's footprint against the
+        shared memory the kernel asks for (``conv2d_smem_bytes``,
+        ``tconv_smem_bytes``), byte for byte; every plan the policy admits
+        (a finite score) launches and matches the plain version; every plan
+        it scores inf is one the kernel refuses or the card cannot hold."""
+        torch = self.torch
+        at, tp = self.at, self.tp
+        card = tp.card_of(self.dev)
+        log(f"phase 24a: policy vs kernel; card: {card.sms} SMs, "
+            f"{card.smem_optin} B a block, {card.smem_per_sm} B an SM")
+        checked = admitted = launched = refused = 0
+        worst = 0.0
+        for (kind, xs, ws, s, pad, op, spec, dt), (name, args, _) in \
+                geos.items():
+            kern, plain, _ = self.kernels[name]
+            ref = plain(*args)
+            g = tp.geometry(kind, xs, ws, stride=s, padding=pad,
+                            output_padding=op, epilogue=spec)
+            for tile in range(len(self.kconv.TILES)):
+                for res in (True, False):
+                    plan = self.kconv.ConvPlan(self.kconv.copy_vec(
+                        xs[-1], dt, args[0].data_ptr()), tile, res, dt)
+                    fp = tp.footprint_bytes(kind, xs, ws, plan, stride=s,
+                                            padding=pad, output_padding=op,
+                                            epilogue=spec)
+                    if kind == "dense":
+                        kb = self.kconv.kernel_smem_bytes(
+                            g.k_rows, plan, g.residual)
+                    else:
+                        kb = self.ktr.kernel_smem_bytes(
+                            g.oh, g.ow, g.kh, s, g.pads[0], plan)
+                    checked += 1
+                    self.gate24((fp is None and kb == -1) or fp == kb,
+                                f"{kind} {xs} {ws} tile {tile} resident "
+                                f"{res}: policy {fp} B, kernel {kb} B")
+                    score = tp.rank(kind, xs, ws, [plan], stride=s,
+                                    padding=pad, output_padding=op,
+                                    dtype=dt, epilogue=spec, card=card)[0][0]
+                    if not math.isfinite(score):
+                        refused += 1
+                        self.gate24(kb == -1 or kb > card.smem_optin,
+                                    f"{kind} {xs} {ws} tile {tile}: scored "
+                                    f"inf but the kernel takes {kb} B")
+                        continue
+                    admitted += 1
+                    got = kern(*args, plan=plan)
+                    torch.cuda.synchronize()
+                    launched += 1
+                    err = self.compare(
+                        f"24a {kind} {xs} {ws} tile {tile} res {res}",
+                        f"{name} (24a plans)", got, ref, quiet=True)[0]
+                    worst = max(worst, err)
+            del ref
+        log(f"  {checked} plans of {len(geos)} geometries: footprint == "
+            f"kernel's shared memory for all; {admitted} admitted, all "
+            f"launched and matched plain (max abs err {worst:.2e}); "
+            f"{refused} scored inf, each refused by the kernel or over "
+            f"{card.smem_optin} B")
+        rep["policy"] = {"plans": checked, "admitted": admitted,
+                         "launched": launched, "refused": refused,
+                         "max_abs_err": worst}
+
+    @contextlib.contextmanager
+    def plan_table(self, sub=None, tune=False):
+        """Launch on 24b's tuned plan table, or on the table in its
+        subdirectory ``sub`` (``"empty"`` is never written: every launch on
+        its shape's default plan), with tuning on a miss switched on by
+        ``tune``; the table is re-read from disk either way."""
+        at = self.at
+        keep = os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+        if sub is not None:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(keep, sub)
+        if tune:
+            os.environ["REPRO_TORCH_AUTOTUNE"] = "1"
+        at.clear_memory_cache()
+        try:
+            yield
+        finally:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = keep
+            os.environ.pop("REPRO_TORCH_AUTOTUNE", None)
+            at.clear_memory_cache()
+
+    def phase_autotune(self, forwards, geos, rep):
+        """24b: tune every geometry (the policy's top ``POLICY_TOP`` plus
+        the default plan, device time), then run each forward on the tuned
+        table: outputs against the untuned forward's, launches and their
+        variants, per-geometry and per-forward times, and every tuned call
+        against its plain version and per geometry."""
+        torch = self.torch
+        at = self.at
+        log(f"phase 24b: autotune {len(geos)} geometries (top "
+            f"{at.POLICY_TOP} plans + the default, device time, best of 3)")
+        t0 = time.perf_counter()
+        rows, moved = [], 0
+        self.tuned = {}     # geometry -> (winner, the plans timed)
+        for geo, (name, args, labels) in geos.items():
+            kind, xs, ws, s, pad, op, spec, dt = geo
+            times = {}
+            best = at.tune(kind, xs, ws, stride=s, dtype=dt, padding=pad,
+                           output_padding=op, epilogue=spec, device=self.dev,
+                           timings=times)
+            self.tuned[geo] = (best, set(times))
+            default = at.default_plan(kind, xs, ws, stride=s, dtype=dt)
+            flops, nbytes = self.work(name, args)
+            peak = (PEAK_FP32_FLOPS if dt == torch.float32
+                    else PEAK_BF16_FLOPS)
+            bound = max(1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES_S)
+            row = {"geometry": self.geometry(name, args),
+                   "forwards": sorted(labels), "dtype": str(dt),
+                   "default": f"{default.variant}/n{default.bn}",
+                   "default_ms": 1e3 * times[default],
+                   "tuned": f"{best.variant}/n{best.bn}",
+                   "tuned_ms": 1e3 * times[best], "bound_ms": bound,
+                   "timed": len(times)}
+            moved += best != default
+            rows.append(row)
+        log(f"  tuned in {time.perf_counter() - t0:.1f} s; {moved} of "
+            f"{len(rows)} geometries moved off the default plan")
+        log(f"    {'dtype':8s} {'default ms':>10s} {'tuned ms':>9s} "
+            f"{'bound':>7s} {'x bound':>7s}  default -> tuned  geometry "
+            f"[forwards]")
+        for r in sorted(rows, key=lambda r: r["tuned_ms"] - r["default_ms"]):
+            log(f"    {r['dtype'][6:]:8s} {r['default_ms']:10.4f} "
+                f"{r['tuned_ms']:9.4f} {r['bound_ms']:7.4f} "
+                f"{r['tuned_ms'] / r['bound_ms']:7.1f}  {r['default']} -> "
+                f"{r['tuned']}  {r['geometry']} {r['forwards']}")
+        rep["geometries"] = rows
+        with self.plan_table():
+            self.plan_lookup_cost(geos, rep)
+
+        entries, caught = [], []
+        rep["forwards"] = {}
+        for label, fn in forwards.items():
+            for cd in (None, "bf16"):
+                dl = self.dtype_label(cd)
+                with self.plan_table("empty"):
+                    self.reset_counts()
+                    want = fn(cd)
+                    torch.cuda.synchronize()
+                    n_untuned = self.read_counts()
+                    untuned_ms = self.wall_ms(lambda: fn(cd))
+                rec = []
+                with self.plan_table():
+                    self.reset_counts()
+                    with self.recording(rec):
+                        got = fn(cd)
+                    torch.cuda.synchronize()
+                    n_tuned = self.read_counts()
+                    variants = self.read_variants()["conv2d"]
+                    tuned_ms = self.wall_ms(lambda: fn(cd))
+                    on_table = self.plans_follow_table(rec)
+                    self.gate24(n_tuned == n_untuned,
+                                f"{label} {dl}: {n_tuned} launches tuned, "
+                                f"{n_untuned} untuned")
+                    planned = {}
+                    for name, args in rec:
+                        if name == "conv2d":
+                            v = self.kconv.launch_plan(
+                                args[0], args[1], args[2], args[3],
+                                args[-2]).variant
+                            planned[v] = planned.get(v, 0) + 1
+                    self.gate24(all(variants[v] == planned.get(v, 0)
+                                    for v in variants),
+                                f"{label} {dl}: variants {variants} vs the "
+                                f"table's {planned}")
+                    full = f"tuned {label} {dl} forward"
+                    for i, (name, args) in enumerate(rec):
+                        kern, plain, _ = self.kernels[name]
+                        out, ref = kern(*args), plain(*args)
+                        self.compare(f"{full} call {i}", f"{name} ({full})",
+                                     out, ref, quiet=True)
+                        caught.append(self.sensitivity(out, ref, 1.0, TOL))
+                    rows_t, per = self.time_calls(rec, reps=MODEL_REPS)
+                if cd is None:
+                    err, _, top, tol, over = self.bar(got, want)
+                    zero, off = self.sensitivity(got, want, 1.0, TOL)
+                    bar_txt = "1e-4 x max(1, max|untuned|)"
+                else:
+                    top = want.float().abs().max().item()
+                    err = (got.float() - want.float()).abs().max().item()
+                    tol = BF16_FWD_RTOL * top
+                    over = err / tol
+                    zero = top / tol
+                    off = (0.02 * want.float()).abs().max().item() / tol
+                    bar_txt = f"{BF16_FWD_RTOL:.0%} of max|untuned|"
+                log(f"  {label} {dl}: tuned vs untuned max abs {err:.3e} "
+                    f"= {over:.3f} x the bar ({bar_txt} = {tol:.3e}); a "
+                    f"zeroed output would read {zero:.3g} x, one 2% off "
+                    f"{off:.3g} x; launches {n_tuned} as untuned, all on "
+                    f"the table's plans {on_table}; wall ms untuned "
+                    f"{untuned_ms:.3f}, tuned {tuned_ms:.3f}")
+                self.gate24(over <= 1.0 and on_table,
+                            f"{label} {dl}: tuned output off the untuned")
+                rep["forwards"][f"{label} {dl}"] = {
+                    "max_abs_err": err, "tol": tol, "over_bar": over,
+                    "untuned_ms": untuned_ms, "tuned_ms": tuned_ms,
+                    "launches": n_tuned,
+                    "geometries": self.geometry_table(rows_t, full)}
+                for name, p in per.items():
+                    if not n_tuned[name]:
+                        continue
+                    entry = f"{name} ({full})"
+                    log(f"  {entry}: {p['ms']:.3f} ms over "
+                        f"{n_tuned[name]} launches; bound "
+                        f"{p['bound_ms']:.3f} ms; plain {p['plain_ms']:.3f}"
+                        f" ms; library {p['library_ms']:.3f} ms")
+                    entries.append(self.kernel_entry(name, entry,
+                                                     n_tuned[name], p))
+                del want, got, rec, rows_t
+        zero, off = (min(c[i] for c in caught) for i in range(2))
+        log(f"  {len(caught)} tuned calls vs plain ok; a zeroed output "
+            f"would reach >= {zero:.3g} x its bar, one 2% off >= {off:.3g} x")
+        self.gate24(zero > 1.0 and off > 1.0, "tuned calls: weak bar")
+        return entries
+
+    def plan_lookup_cost(self, geos, rep):
+        """24b: the host's cost of a launch's plan, us a call, over every
+        geometry's recorded operands on the tuned table: the shape's plan
+        alone with the address's copy width (``conv_plan`` /
+        ``tconv_plan``: a launch's plan before the table), a repeated
+        launch's lookup (``launch_plan``), and a geometry's first lookup in
+        a process (the in-process caches emptied before each call, the
+        table read from disk kept)."""
+        at, kconv, ktr = self.at, self.kconv, self.ktr
+        calls = []
+        for name, args, _ in geos.values():
+            x, w, s, spec = args[0], args[1], args[2], args[-2]
+            if name == "conv2d":
+                def shape_only(x=x, w=w, s=s):
+                    return kconv.conv_plan(
+                        x.shape[-1], w.shape[-1], w.shape[0], w.shape[1], s,
+                        x.dtype)._replace(vec=kconv.copy_vec(
+                            x.shape[-1], x.dtype, x.data_ptr()))
+
+                def lookup(x=x, w=w, s=s, pads=args[3], spec=spec):
+                    return kconv.launch_plan(x, w, s, pads, spec)
+            else:
+                def shape_only(x=x, w=w):
+                    return ktr.tconv_plan(
+                        x.shape[-1], w.shape[-1], w.shape[0],
+                        x.dtype)._replace(vec=kconv.copy_vec(
+                            x.shape[-1], x.dtype, x.data_ptr()))
+
+                def lookup(x=x, w=w, s=s, lo=args[3], hi=args[4],
+                           spec=spec):
+                    return ktr.launch_plan(x, w, s, lo, hi, spec)
+            calls.append((shape_only, lookup))
+
+        def us_a_call(i, first=False):
+            n = 0
+            t0 = time.perf_counter()
+            while n < LOOKUP_CALLS:
+                for pair in calls:
+                    if first:
+                        at._MEM.clear()
+                        at._FAST.clear()
+                    pair[i]()
+                    n += 1
+            return (time.perf_counter() - t0) / n * 1e6
+
+        for pair in calls:
+            pair[1]()
+        us = {"shape_only": us_a_call(0), "lookup": us_a_call(1),
+              "first_lookup": us_a_call(1, first=True)}
+        log(f"  a launch's plan, host us a call over {len(calls)} "
+            f"geometries: the shape's plan alone (before the table) "
+            f"{us['shape_only']:.2f}; a repeated launch's lookup "
+            f"{us['lookup']:.2f}; a geometry's first lookup in a process "
+            f"{us['first_lookup']:.2f}")
+        rep["lookup_us"] = us
+
+    def calibrated_tune(self, geos, calib, rep):
+        """24c: every 24b geometry tuned again with the fit
+        (``tune(calibration=calib)``) into a table of its own: each
+        geometry's per-wave weight (``tiling_policy._cell_weight``: the
+        fitted dispatch overhead over the modeled compute; 1e-3 without a
+        fit), and the timed sets and winners against 24b's."""
+        at, tp = self.at, self.tp
+        from repro_torch.core import calibrate as cal
+
+        t0 = time.perf_counter()
+        weights, changed, moved = [], 0, 0
+        with self.plan_table("calibrated"):
+            for geo in geos:
+                kind, xs, ws, s, pad, op, spec, dt = geo
+                times = {}
+                best = at.tune(kind, xs, ws, stride=s, dtype=dt,
+                               padding=pad, output_padding=op, epilogue=spec,
+                               calibration=calib, device=self.dev,
+                               timings=times)
+                default = at.default_plan(kind, xs, ws, stride=s, dtype=dt)
+                self.gate24(default in times and best in times,
+                            f"calibrated tune of {kind} {xs} {ws}: the "
+                            f"default or the winner was not timed")
+                base = cal.modeled_cycles(cal.CaptureCase(kind, xs, ws,
+                                                          stride=s))
+                weights.append(tp._cell_weight(kind, "kernels", base, calib,
+                                               dt))
+                was, timed = self.tuned[geo]
+                changed += set(times) != timed
+                moved += best != was
+        log(f"  tuned again with the fit: {len(geos)} geometries in "
+            f"{time.perf_counter() - t0:.1f} s; per-wave weight "
+            f"{min(weights):.3g} to {max(weights):.3g} (median "
+            f"{statistics.median(weights):.3g}; 1e-3 without a fit); timed "
+            f"sets differ from 24b's for {changed}, winners for {moved}")
+        self.gate24(all(math.isfinite(w) and w >= 0 and w != 1e-3
+                        for w in weights),
+                    f"a per-wave weight not from the fit: {weights}")
+        rep["calibrated_tune"] = {
+            "weights": weights, "timed_sets_changed": changed,
+            "winners_changed": moved}
+
+    def phase_on_miss(self, rep):
+        """24e: tuning switched on over an empty table, so each miss tunes
+        inside the launch that meets it, then the table read back with
+        tuning off (module docstring, 24e)."""
+        torch, at = self.torch, self.at
+        log("phase 24e: $REPRO_TORCH_AUTOTUNE=1 over an empty table (each "
+            "miss tuned inside its launch): the denoiser's training "
+            "objective forward and backward (fp32, batch 8), and an "
+            f"autoscaled denoiser drain (batch up to {2 * SERVE_BATCH})")
+        t0 = time.perf_counter()
+        out = rep["on_miss"] = {}
+        path = self.unet_path()
+
+        def objective():
+            leaves = {k: p.detach().requires_grad_()
+                      for k, p in path.params.items()}
+            loss = path.objective(leaves, "kernels", None)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            return {"loss": loss.detach().reshape(1),
+                    **dict(zip(leaves, grads))}
+
+        with self.plan_table("empty"):
+            want = objective()
+        with self.plan_table("on_miss", tune=True):
+            t1 = time.perf_counter()
+            tuning = objective()
+            torch.cuda.synchronize()
+            t_tune = time.perf_counter() - t1
+        rec = []
+        with self.plan_table("on_miss"):
+            with self.recording(rec):
+                got = objective()
+            torch.cuda.synchronize()
+            on_table = self.plans_follow_table(rec)
+            table = dict(at._load_disk(at.cache_path(self.dev)))
+        keys = {}       # the objective's launch keys -> their default plan
+        for g in {self.launch_geometry(n, a) for n, a in rec}:
+            kind, xs, ws, st, pad, op, spec, dt = g
+            keys[at.make_key(kind, xs, ws, stride=st, padding=pad,
+                             output_padding=op, epilogue=spec, dtype=dt)] = \
+                at.default_plan(kind, xs, ws, stride=st, dtype=dt)
+        moved = sum(table.get(k) != (p.tile, p.resident)
+                    for k, p in keys.items())
+        worst, caught = 0.0, []
+        for k, ref in want.items():
+            # an all-zero gradient has no relative bar: the absolute one
+            bars = (((1.0, TOL), (0.0, GRAD_RTOL)) if bool(ref.any())
+                    else ((1.0, TOL),))
+            for floor, rtol in bars:
+                err, _, tol = self.compare(f"24e {k}", "24e tuned objective",
+                                           got[k], ref, quiet=True,
+                                           floor=floor, rtol=rtol)
+                worst = max(worst, err / tol)
+            if len(bars) == 2:
+                caught.append(self.sensitivity(got[k], ref, 0.0, GRAD_RTOL))
+        zero, off = (min(c[i] for c in caught) for i in range(2))
+        same = all(torch.equal(tuning[k], got[k]) for k in got)
+        log(f"  objective: {len(rec)} launches, {len(keys)} distinct keys, "
+            f"tuned on their misses in {t_tune:.1f} s (table {len(table)} "
+            f"entries, {moved} off the default plan); read "
+            f"back with tuning off, every launch on its entry's plan "
+            f"{on_table}; the loss and {len(got) - 1} gradients vs untuned: "
+            f"worst {worst:.3f} x the bars (1e-4 x max(1, max|untuned|) and "
+            f"{GRAD_RTOL:g} x max|untuned|), a zeroed tensor would read "
+            f">= {zero:.3g} x the second, one 2% off >= "
+            f"{off:.3g} x; bitwise equal to the tuning run's {same}")
+        self.gate24(on_table and keys.keys() <= set(table) and zero > 1.0
+                    and off > 1.0, "tuned objective off its table")
+        out["objective"] = {
+            "launches": len(rec), "keys": len(keys), "table": len(table),
+            "off_default": moved, "tune_s": t_tune,
+            "over_bar": worst, "bitwise_as_tuning_run": same}
+        del want, tuning, got, rec, path
+
+        den, _ = self.serving_params()
+        kw = dict(autoscale=True, max_batch=2 * SERVE_BATCH)
+        with self.plan_table("empty"):
+            _, imgs_u = self.serve_drain({"unet_dec": den}, SERVE_SCAN,
+                                         "kernels", **kw)
+        with self.plan_table("on_miss", tune=True):
+            before = len(at._load_disk(at.cache_path(self.dev)))
+            t1 = time.perf_counter()
+            srv, imgs_t = self.serve_drain({"unet_dec": den}, SERVE_SCAN,
+                                           "kernels", **kw)
+            t_drain = time.perf_counter() - t1
+            after = len(at._load_disk(at.cache_path(self.dev)))
+        sizes = sorted(srv._lanes["unet_dec"].seen_sizes)
+        bitwise = sorted(imgs_t) == sorted(imgs_u) and all(
+            np.array_equal(imgs_t[r], imgs_u[r]) for r in imgs_u)
+        log(f"  autoscaled drain: lane batches {sizes}; {after - before} "
+            f"keys tuned inside its ticks, drain {t_drain:.1f} s; samples "
+            f"bitwise equal to the untuned drain's {bitwise} (not gated)")
+        self.hold_images("24e tuned autoscaled drain vs untuned", imgs_t,
+                         imgs_u, SERVE_BAR, out, gate=self.gate24)
+        self.gate24(max(sizes) == 2 * SERVE_BATCH and after > before,
+                    f"the drain never grew ({sizes}) or tuned nothing")
+        out["drain"] = {"batches": sizes, "keys_tuned": after - before,
+                        "drain_s": t_drain, "bitwise": bitwise}
+        log(f"  24e: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+    def plans_follow_table(self, rec):
+        """Whether every recorded call's plan has the tile and resident
+        flag its plan-table entry names."""
+        at = self.at
+        table = at._load_disk(at.cache_path(self.dev))
+        for name, args in rec:
+            kind, xs, ws, s, pad, op, spec, dt = self.launch_geometry(
+                name, args)
+            key = at.make_key(kind, xs, ws, stride=s, dtype=dt, padding=pad,
+                              output_padding=op, epilogue=spec)
+            if name == "conv2d":
+                plan = self.kconv.launch_plan(args[0], args[1], s, pad, spec)
+            else:
+                plan = self.ktr.launch_plan(args[0], args[1], s, args[3],
+                                            args[4], spec)
+            if key not in table or table[key] != (plan.tile, plan.resident):
+                return False
+        return True
+
+    def phase_calibration(self, geos, rep):
+        """24c: capture the reference's full sweep (``default_cases(smoke=
+        False)``) on both backends in fp32 and bf16, fit, print each key's
+        MAPE, save the fit under ``chiprun_out/``, then serve a denoiser
+        lane with it and ``scan_steps="auto"``, and tune ``geos`` again
+        with it."""
+        torch = self.torch
+        sg = self.sg
+        from repro_torch.core import calibrate as cal
+        from repro_torch.core import gen_spec
+
+        log("phase 24c: calibration capture (default_cases(smoke=False), "
+            "kernels and torch, fp32 and bf16)")
+        t0 = time.perf_counter()
+        samples = cal.capture_samples(
+            smoke=False, backends=("kernels", "torch"),
+            dtypes=("float32", "bfloat16"), device=self.dev)
+        calib = cal.Calibration.fit(samples)
+        errors = calib.error_report(samples)
+        path = cal.default_cache_path()
+        calib.save(path)
+        log(f"  {len(samples)} samples in {time.perf_counter() - t0:.1f} s; "
+            f"fit saved to {os.path.relpath(path, ROOT)}")
+        for key, e in errors.items():
+            log(f"    {key}: a {e['a_us_per_cycle']:.4e} us/cycle, b "
+                f"{e['b_us']:.2f} us, n {e['n']}, MAPE {e['mape_pct']:.2f}% "
+                f"(max {e['max_abs_err_pct']:.2f}%)")
+        self.gate24(len(errors) == 12 and all(
+            e["a_us_per_cycle"] > 0 for e in errors.values()),
+            "a calibration key without a positive slope")
+        rep["calibration"] = {"errors": errors, "fit": calib.to_payload()}
+
+        den, _ = self.serving_params()
+        layers = gen_spec.unet_decoder_layers(hw=UNET_MID)
+        srv = sg.GenServer(batch=SERVE_BATCH, backend="kernels",
+                           params={"unet_dec": den}, calibration=calib,
+                           scan_steps="auto")
+        k = srv._lane_scan_steps("unet_dec")
+        split = calib.predict_layers_split(layers, backend="kernels")
+        self.gate24(split is not None, "no calibrated estimate of a pass")
+        steps_list = [SERVE_STEPS[i % len(SERVE_STEPS)]
+                      for i in range(CALIB_REQUESTS)]
+        rids = [srv.submit("unet_dec", steps=st, seed=SEED + 400 + i,
+                           slo=SERVE_SLOS[i % len(SERVE_SLOS)])
+                for i, st in enumerate(steps_list)]
+        est = [srv.request(r).est_us for r in rids]
+        log(f"  GenServer unet_dec lane, batch {SERVE_BATCH}, calibrated: "
+            f"one pass {split[0]:.1f} us compute + {split[1]:.1f} us "
+            f"dispatch; scan_steps=\"auto\" picks K = {k} (of 1.."
+            f"{sg.MAX_SCAN_STEPS}); est_us of request 0 ({steps_list[0]} "
+            f"steps): {est[0]:.1f}")
+        self.gate24(1 <= k <= sg.MAX_SCAN_STEPS and all(
+            e is not None and e > 0 for e in est), f"auto K {k}, est {est}")
+        imgs = srv.run()
+        st = srv.stats()
+        statuses = [srv.request(r).status for r in rids]
+        log(f"  drained {len(imgs)} of {len(rids)} requests in "
+            f"{st['ticks']} ticks, {st['device_steps']} dispatches; shed "
+            f"{st['shed']:.0f}; {st['images_per_s']:.2f} images/s, p50 "
+            f"{st['latency_p50_s'] * 1e3:.1f} ms, p99 "
+            f"{st['latency_p99_s'] * 1e3:.1f} ms (measured)")
+        self.gate24(all(s == "done" for s in statuses),
+                    f"calibrated drain statuses {statuses}")
+        report = sg.print_serve_report(srv, "unet_dec", steps_list,
+                                       len(rids), srv._lanes[
+                                           "unet_dec"].scan_steps)
+        rep["serve"] = {"scan_steps": k, "est_us": est, "stats": st,
+                        "serve_report": report}
+        del srv
+        torch.cuda.empty_cache()
+        self.calibrated_tune(geos, calib, rep)
+
+    def phase_fig10(self, rep):
+        """24d: the paper's Figure 10 per layer on the card: for each
+        dilated and transposed layer of ENet-512 at batch 4, the cycle
+        model's decomposed-vs-naive speedup beside the measured one (kernel
+        1 on the zero-laden operands over the decomposed call, device
+        time)."""
+        torch = self.torch
+        from repro_torch.core import cycle_model as cm
+        from repro_torch.core import enet_spec
+        from repro_torch.core.decompose import conv2d
+        from repro_torch.core.dilated import zero_insert_weight
+        from repro_torch.core.transposed import zero_insert_input
+
+        log("phase 24d: ENet-512 batch 4, decomposed vs naive per layer: "
+            "the cycle model (168-MAC array, 500 MHz) beside kernel 1 on "
+            "the zero-laden operands on this card")
+        layers = enet_spec.enet_512_layers(CLASSES)
+        g = torch.Generator().manual_seed(SEED + 24)
+        done, rows = {}, []
+        with torch.no_grad():
+            for l in layers:
+                if l.kind not in ("dilated", "transposed"):
+                    continue
+                geo = (l.kind, l.h_out, l.cin, l.cout, l.D)
+                if geo not in done:
+                    if l.kind == "dilated":
+                        d = l.D + 1
+                        x = self.rand(g, BATCH, l.h_out, l.w_out, l.cin)
+                        w = self.rand(g, 3, 3, l.cin, l.cout)
+
+                        def dec():
+                            return conv2d(x, w, dilation=d)
+                        wz = zero_insert_weight(w, d)
+
+                        def naive():
+                            return self.kconv.conv2d(x, wz)
+                    else:
+                        s = l.stride
+                        h = l.h_out // s
+                        x = self.rand(g, BATCH, h, h, l.cin)
+                        w = self.rand(g, 3, 3, l.cin, l.cout)
+                        p_lo, p_hi = cm.tconv_pads(l)
+
+                        def dec():
+                            return conv2d(x, w, stride=s, transposed=True,
+                                          output_padding=1)
+                        xz = zero_insert_input(x, s)
+
+                        def naive():
+                            return self.kconv.conv2d(
+                                xz, w, padding=((p_lo, p_hi), (p_lo, p_hi)))
+                    err = self.compare(f"24d {l.name} naive vs decomposed",
+                                       "conv2d (24d naive)", naive(), dec(),
+                                       quiet=True)[0]
+                    done[geo] = (self.device_ms(naive, reps=5),
+                                 self.device_ms(dec, reps=5), err)
+                    del x, w
+                naive_ms, dec_ms, err = done[geo]
+                model = cm.cycles_our_general(l) / cm.cycles_our_decomposed(l)
+                rows.append({"layer": l.name, "kind": l.kind,
+                             "model_speedup": model, "naive_ms": naive_ms,
+                             "decomposed_ms": dec_ms,
+                             "measured_speedup": naive_ms / dec_ms,
+                             "naive_vs_decomposed_err": err})
+        log(f"    {'layer':24s} {'model':>7s} {'naive ms':>9s} "
+            f"{'dec ms':>8s} {'measured':>8s}")
+        for r in rows:
+            log(f"    {r['layer']:24s} {r['model_speedup']:7.2f} "
+                f"{r['naive_ms']:9.4f} {r['decomposed_ms']:8.4f} "
+                f"{r['measured_speedup']:8.2f}")
+        sub = [l for l in layers if l.kind in ("dilated", "transposed")]
+        model_sub = (sum(cm.cycles_our_general(l) for l in sub)
+                     / sum(cm.cycles_our_decomposed(l) for l in sub))
+        measured = (sum(r["naive_ms"] for r in rows)
+                    / sum(r["decomposed_ms"] for r in rows))
+        full = cm.report(layers)["speedup_vs_naive"]
+        head = cm.headline(layers)["speedup"]
+        log(f"  dilated + transposed layers: model {model_sub:.2f}x, "
+            f"measured {measured:.2f}x (sum of naive ms over sum of "
+            f"decomposed ms); whole ENet-512 model: speedup_vs_naive "
+            f"{full:.2f}x, headline {head:.2f}x")
+        rep["fig10"] = {"layers": rows, "model_dilated_transposed": model_sub,
+                        "measured_dilated_transposed": measured,
+                        "model_speedup_vs_naive": full, "model_headline": head}
+
     # --------------------------------------------------- per-call helpers
     def geometry(self, name, args):
         x, w = args[0], args[1]
@@ -2964,11 +3725,12 @@ class Smoke:
         """The launch plan of a recorded call, as the wrappers decide it
         (``launch_plan``: a narrower copy for an input that is not aligned
         to the plan's): its variant and tile width."""
-        x, w = args[0], args[1]
+        x, w, spec = args[0], args[1], args[-2]
         if name == "conv2d":
-            plan = self.kconv.launch_plan(x, w, args[2])
+            plan = self.kconv.launch_plan(x, w, args[2], args[3], spec)
         else:
-            plan = self.ktr.launch_plan(x, w)
+            plan = self.ktr.launch_plan(x, w, args[2], args[3], args[4],
+                                        spec)
         return f"{plan.variant}/n{plan.bn}"
 
     def work(self, name, args):

@@ -13,10 +13,15 @@ dilated or transposed execution with the decomposition applied:
   ``F.conv2d`` calls with the same decompositions and applies the epilogue
   after the conv (:func:`repro_torch.kernels.epilogue.apply_reference`).
 
-The device follows the tensors.  The reference's TPU-only knobs are not
-here: the tile overrides ``th``/``tc`` and their autotune, ``interpret``,
-and ``phase_sharding``; autotune and multi-device are later ROADMAP.md
-items.  Gradients flow through both backends: the torch backend
+The device follows the tensors.  The counterpart of the reference's
+autotuned tiling (its ``_resolve_tiles``) sits at each kernel launch: the
+launch plan (Cout tile, resident or streamed weights) comes from the plan
+table of :mod:`repro_torch.kernels.autotune` (``conv2d.launch_plan``,
+``transposed_conv.launch_plan``), and from the shape alone on a miss; the
+backward passes' launches are keyed the same way.  The reference's
+TPU-only knobs are not here: the tile overrides ``th``/``tc``,
+``interpret`` and ``phase_sharding`` (multi-device is a later ROADMAP.md
+item).  Gradients flow through both backends: the torch backend
 differentiates natively (it is the card-side oracle of the kernels'
 gradients), and the kernel wrappers' ``torch.autograd.Function`` classes
 re-enter the same two kernels through the adjoints of

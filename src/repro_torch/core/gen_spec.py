@@ -21,7 +21,8 @@ Geometry notes:
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+
+from repro_torch.core.enet_spec import ConvLayer
 
 #: per-level upsampling kernels of the U-Net decoder
 UNET_UP_KERNELS = (4, 2, 4)
@@ -29,26 +30,6 @@ UNET_UP_KERNELS = (4, 2, 4)
 #: default U-Net decoder widths: level i runs at ``8 * 2**i`` spatial with
 #: this many channels (the skip concat doubles the first conv's input)
 UNET_WIDTHS = (256, 128, 64)
-
-
-@dataclass(frozen=True)
-class ConvLayer:
-    """One conv workload (the port's copy of ``repro.core.enet_spec``'s)."""
-    name: str
-    kind: str            # conv | dilated | transposed
-    h_out: int           # output spatial height
-    w_out: int           # output spatial width
-    cin: int
-    cout: int
-    kh: int = 3
-    kw: int = 3
-    D: int = 0           # zeros between taps (dilated only); d = D + 1
-    stride: int = 1      # upsampling factor (transposed) or output stride
-    group: str = "general"  # general | dilated | transposed
-    output_padding: int = 1  # transposed only: extra high-side output size
-    # transposed only: low-side pad of the zero-inserted input (p_lo); None
-    # is the default (k-1)//2
-    padding: int | None = None
 
 
 def dcgan_layers(size: int = 64, nz: int = 100, ngf: int = 64,

@@ -359,11 +359,17 @@ def conv_plan(cin: int, cout: int, kh: int, kw: int, stride: int,
                     dtype=dtype)
 
 
-def launch_plan(x: torch.Tensor, w: torch.Tensor, stride: int) -> ConvPlan:
-    """:func:`conv_plan` of a launch: an input that is not aligned to the
-    plan's copy takes the widest copy its address allows."""
-    plan = conv_plan(x.shape[-1], w.shape[-1], w.shape[0], w.shape[1],
-                     stride, x.dtype)
+def launch_plan(x: torch.Tensor, w: torch.Tensor, stride: int,
+                pads=None, spec: EpilogueSpec | None = None) -> ConvPlan:
+    """The plan of a launch: the tile and resident flag of the plan table
+    (``autotune.get_plan``: a tuned plan, else :func:`conv_plan`'s), with
+    the widest copy the input's address allows.  ``pads`` (default SAME)
+    and ``spec`` complete the table's key."""
+    from repro_torch.kernels import autotune
+
+    plan = autotune.get_plan("dense", tuple(x.shape), tuple(w.shape),
+                             stride=stride, dtype=x.dtype, padding=pads,
+                             epilogue=spec, device=x.device)
     return plan._replace(vec=copy_vec(x.shape[-1], x.dtype, x.data_ptr()))
 
 
@@ -407,13 +413,26 @@ def _conv2d_fn():
         fn.restype = ctypes.c_int
         lib.conv2d_error_string.argtypes = [ctypes.c_int]
         lib.conv2d_error_string.restype = ctypes.c_char_p
+        lib.conv2d_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.conv2d_smem_bytes.restype = ctypes.c_int
     return lib, fn
 
 
+def kernel_smem_bytes(k_rows: int, plan: ConvPlan, residual: bool) -> int:
+    """The dynamic shared memory ``csrc/conv2d.cu`` asks for with ``plan``
+    on K = ``k_rows`` rows (``conv2d_smem_bytes``), or -1 for a tile it
+    does not build; needs the built library, not a card."""
+    lib, _ = _conv2d_fn()
+    return lib.conv2d_smem_bytes(k_rows, DTYPE_CODES[plan.dtype], plan.tile,
+                                 int(plan.resident), int(residual))
+
+
 def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
-                spec: EpilogueSpec, eps: tuple) -> torch.Tensor:
+                spec: EpilogueSpec, eps: tuple,
+                plan: ConvPlan | None = None) -> torch.Tensor:
     """Launch ``csrc/conv2d.cu`` on PyTorch's current stream, in x's dtype,
-    with :func:`launch_plan`'s variant."""
+    with :func:`launch_plan`'s variant (or ``plan``, as the autotune sweep
+    times each candidate)."""
     dt = require_cuda(x, w, "conv2d_cuda")
     n, h, w_in, cin = x.shape
     kh, kw, _, cout = w.shape
@@ -424,7 +443,8 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
         raise ValueError(f"conv2d: empty output {oh}x{ow}")
     out = torch.empty((n, oh, ow, cout), device=x.device, dtype=x.dtype)
     ops = kernel_operands(spec, eps, tuple(out.shape), x.device, x.dtype)
-    plan = launch_plan(x, w, stride)
+    if plan is None:
+        plan = launch_plan(x, w, stride, pads, spec)
     lib, fn = _conv2d_fn()
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
@@ -440,7 +460,7 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
 
 
 __all__ = ["conv2d", "conv2d_plain", "conv2d_cuda", "conv2d_dx", "conv_plan",
-           "launch_plan", "copy_vec", "ConvPlan", "cout_tile", "slab_fits",
+           "launch_plan", "kernel_smem_bytes", "copy_vec", "ConvPlan", "cout_tile", "slab_fits",
            "TILES", "VARIANTS", "COPY_BYTES",
            "resolve_pads", "out_extent", "check_operands", "require_cuda",
            "wants_grad", "tensor_operands"]

@@ -123,3 +123,23 @@ extern "C" int conv2d_fwd(const void* x, const void* w, void* out,
 extern "C" const char* conv2d_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// Dynamic shared memory (bytes) that conv2d_fwd asks for with the plan
+// (tile, resident) on K = kh * kw * Cin rows, with or without a residual in
+// the epilogue, or -1 for a dtype or tile the kernel does not build.
+// kernels/tiling_policy.py is held to it.
+extern "C" int conv2d_smem_bytes(int k_rows, int dtype, int tile,
+                                 int resident, int residual) {
+  using namespace repro;
+  int bytes = -1;
+  dispatch_dtype(dtype, [&](auto e) {
+    using E = decltype(e);
+    dispatch_tile(tile, [&](auto t) {
+      using T = decltype(t);
+      if constexpr (!(T::BN == 32 && T::KS == 1))
+        bytes = ConvSmem::of<T, E>(k_rows, resident != 0, residual != 0)
+                    .total;
+    });
+  });
+  return bytes;
+}

@@ -251,6 +251,39 @@ cudaError_t launch_tconv(const TconvGeo& g, int n, const E* x, const E* w,
   return cudaGetLastError();
 }
 
+// Fill in a plan's block shape and weight buffer for tile T, on a geometry
+// whose schedule is set: the plane tile of a block (up to BM plane pixels,
+// and an output tile of at most 4 BM pixels; s = 2 fills both), the taps
+// the weight buffer holds and the grid's tiles.  False for a resident plan
+// whose k*k taps of a chunk do not fit kResidentBytes.
+template <class T, class E>
+bool plan_tconv_geo(TconvGeo& g, int resident) {
+  constexpr int tap_bytes = kChunk * T::BN * static_cast<int>(sizeof(E));
+  static_assert(kResidentBytes / tap_bytes >= kMaxTaps,
+                "a row of live taps fits the streamed weight buffer");
+  const int k = g.k, s = g.s;
+  if (resident && k * k * tap_bytes > kResidentBytes) return false;
+  g.resident = resident;
+  g.wtaps = resident ? k * k : std::min(k * k, kResidentBytes / tap_bytes);
+  const int hb = (g.oh + s - 1) / s, wb = (g.ow + s - 1) / s;
+  const int cap = std::max(1, 4 * T::BM / (s * s));
+  g.tbw = std::min({16, wb, cap});
+  g.tbh = std::max(1, std::min(hb, std::min(T::BM, cap) / g.tbw));
+  g.tiles_h = (hb + g.tbh - 1) / g.tbh;
+  g.tiles_w = (wb + g.tbw - 1) / g.tbw;
+  return true;
+}
+
+// Run `f(T{})` for a tile id the transposed kernel builds: one K group and
+// 4-wide register tiles, up to 32 couts a block.
+template <class F>
+void dispatch_tconv_tile(int tile, F&& f) {
+  dispatch_tile(tile, [&](auto t) {
+    using T = decltype(t);
+    if constexpr (T::TN == 4 && T::KS == 1 && T::BN <= 32) f(t);
+  });
+}
+
 // Launch the plan (vec, tile, resident) of a geometry whose schedule is set:
 // pick the block's plane tile and the weight buffer, then the kernel
 // instance.  cudaErrorInvalidValue for a plan the kernel cannot take.
@@ -262,32 +295,44 @@ cudaError_t launch_tconv_plan(TconvGeo g, int n, const E* x, const E* w,
       reinterpret_cast<uintptr_t>(x) % (vec * sizeof(E)) != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaErrorInvalidValue;
-  dispatch_tile(tile, [&](auto t) {
+  dispatch_tconv_tile(tile, [&](auto t) {
     using T = decltype(t);
-    // one K group and 4-wide register tiles, up to 32 couts a block
-    if constexpr (T::TN == 4 && T::KS == 1 && T::BN <= 32) {
-      constexpr int tap_bytes = kChunk * T::BN * static_cast<int>(sizeof(E));
-      static_assert(kResidentBytes / tap_bytes >= kMaxTaps,
-                    "a row of live taps fits the streamed weight buffer");
-      const int k = g.k, s = g.s;
-      if (resident && k * k * tap_bytes > kResidentBytes) return;
-      g.resident = resident;
-      g.wtaps = resident ? k * k
-                         : std::min(k * k, kResidentBytes / tap_bytes);
-      // plane pixels per block: up to BM, and an output tile of at most
-      // 4 BM pixels (s = 2 fills both)
-      const int hb = (g.oh + s - 1) / s, wb = (g.ow + s - 1) / s;
-      const int cap = std::max(1, 4 * T::BM / (s * s));
-      g.tbw = std::min({16, wb, cap});
-      g.tbh = std::max(1, std::min(hb, std::min(T::BM, cap) / g.tbw));
-      g.tiles_h = (hb + g.tbh - 1) / g.tbh;
-      g.tiles_w = (wb + g.tbw - 1) / g.tbw;
-      dispatch_vec<E>(vec, [&](auto v) {
-        err = launch_tconv<T, E, decltype(v)::value>(g, n, x, w, out, ep, st);
-      });
-    }
+    if (!plan_tconv_geo<T, E>(g, resident)) return;
+    dispatch_vec<E>(vec, [&](auto v) {
+      err = launch_tconv<T, E, decltype(v)::value>(g, n, x, w, out, ep, st);
+    });
   });
   return err;
+}
+
+// Read the wrapper's schedule (s rows of a count and kMaxTaps (tap, offset)
+// pairs) into g, with the smallest live offset and the offsets' span.
+// False for a stride or count the kernel cannot take.
+inline bool read_schedule(TconvGeo& g, const int* sched, int s) {
+  if (s < 2 || s > kMaxStride) return false;
+  int offmin = INT_MAX, offmax = INT_MIN;
+  for (int r = 0; r < kMaxStride; ++r) {
+    g.sched.count[r] = 0;
+    for (int j = 0; j < kMaxTaps; ++j) {
+      g.sched.tap[r][j] = 0;
+      g.sched.off[r][j] = 0;
+    }
+  }
+  for (int r = 0; r < s; ++r) {
+    const int* row = sched + r * (1 + 2 * kMaxTaps);
+    if (row[0] < 0 || row[0] > kMaxTaps) return false;
+    g.sched.count[r] = row[0];
+    for (int j = 0; j < row[0]; ++j) {
+      g.sched.tap[r][j] = row[1 + 2 * j];
+      g.sched.off[r][j] = row[2 + 2 * j];
+      offmin = offmin < row[2 + 2 * j] ? offmin : row[2 + 2 * j];
+      offmax = offmax > row[2 + 2 * j] ? offmax : row[2 + 2 * j];
+    }
+  }
+  if (offmin > offmax) offmin = offmax = 0;  // no live tap at all
+  g.offmin = offmin;
+  g.span = offmax - offmin;
+  return true;
 }
 
 }  // namespace repro
@@ -310,8 +355,6 @@ extern "C" int tconv_fwd(const void* x, const void* w, void* out,
                          int residual_mode, int dtype, int vec, int tile,
                          int resident, void* stream) {
   using namespace repro;
-  const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (s < 2 || s > kMaxStride) return bad;
   TconvGeo g;
   g.h = h;
   g.w = w_in;
@@ -321,28 +364,8 @@ extern "C" int tconv_fwd(const void* x, const void* w, void* out,
   g.ow = ow;
   g.k = k;
   g.s = s;
-  int offmin = INT_MAX, offmax = INT_MIN;
-  for (int r = 0; r < kMaxStride; ++r) {
-    g.sched.count[r] = 0;
-    for (int j = 0; j < kMaxTaps; ++j) {
-      g.sched.tap[r][j] = 0;
-      g.sched.off[r][j] = 0;
-    }
-  }
-  for (int r = 0; r < s; ++r) {
-    const int* row = sched + r * (1 + 2 * kMaxTaps);
-    if (row[0] < 0 || row[0] > kMaxTaps) return bad;
-    g.sched.count[r] = row[0];
-    for (int j = 0; j < row[0]; ++j) {
-      g.sched.tap[r][j] = row[1 + 2 * j];
-      g.sched.off[r][j] = row[2 + 2 * j];
-      offmin = offmin < row[2 + 2 * j] ? offmin : row[2 + 2 * j];
-      offmax = offmax > row[2 + 2 * j] ? offmax : row[2 + 2 * j];
-    }
-  }
-  if (offmin > offmax) offmin = offmax = 0;  // no live tap at all
-  g.offmin = offmin;
-  g.span = offmax - offmin;
+  if (!read_schedule(g, sched, s))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   dispatch_dtype(dtype, [&](auto e) {
@@ -359,4 +382,30 @@ extern "C" int tconv_fwd(const void* x, const void* w, void* out,
 
 extern "C" const char* tconv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Dynamic shared memory (bytes) that tconv_fwd asks for with the plan
+// (tile, resident) on an (oh, ow) output of a k x k, stride-s kernel with
+// schedule `sched` (as for tconv_fwd), or -1 for a dtype, schedule or plan
+// the kernel does not take.  kernels/tiling_policy.py is held to it.
+extern "C" int tconv_smem_bytes(int oh, int ow, int k, int s,
+                                const int* sched, int dtype, int tile,
+                                int resident) {
+  using namespace repro;
+  TconvGeo g;
+  g.oh = oh;
+  g.ow = ow;
+  g.k = k;
+  g.s = s;
+  if (!read_schedule(g, sched, s)) return -1;
+  int bytes = -1;
+  dispatch_dtype(dtype, [&](auto e) {
+    using E = decltype(e);
+    dispatch_tconv_tile(tile, [&](auto t) {
+      using T = decltype(t);
+      if (plan_tconv_geo<T, E>(g, resident))
+        bytes = TconvSmem::of<T, E>(g).total;
+    });
+  });
+  return bytes;
 }

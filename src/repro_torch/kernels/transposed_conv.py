@@ -51,6 +51,7 @@ from repro_torch.kernels.epilogue import (NO_EPILOGUE, EpilogueSpec,
                                           apply_reference, kernel_operands,
                                           operand_ptrs, pack_args,
                                           residual_code)
+from repro_torch.kernels.util import DTYPE_CODES
 
 #: the kernel's fixed schedule arrays and input channels staged at a time
 #: (csrc/transposed_conv.cu)
@@ -190,10 +191,23 @@ def tconv_plan(cin: int, cout: int, k: int,
                           resident=slab <= kconv.RESIDENT_BYTES, dtype=dtype)
 
 
-def launch_plan(x: torch.Tensor, w: torch.Tensor) -> kconv.ConvPlan:
-    """:func:`tconv_plan` of a launch: an input that is not aligned to the
-    plan's copy takes the widest copy its address allows."""
-    plan = tconv_plan(x.shape[-1], w.shape[-1], w.shape[0], x.dtype)
+def launch_plan(x: torch.Tensor, w: torch.Tensor, s: int = 2,
+                p_lo: int | None = None, p_hi: int | None = None,
+                spec: EpilogueSpec | None = None) -> kconv.ConvPlan:
+    """The plan of a launch: the tile and resident flag of the plan table
+    (``autotune.get_plan``: a tuned plan, else :func:`tconv_plan`'s), with
+    the widest copy the input's address allows.  The stride, pads
+    (default ``(k-1)//2`` and one more) and ``spec`` complete the table's
+    key."""
+    from repro_torch.kernels import autotune
+
+    k = w.shape[0]
+    p_lo = (k - 1) // 2 if p_lo is None else p_lo
+    p_hi = p_lo + 1 if p_hi is None else p_hi
+    plan = autotune.get_plan("tconv", tuple(x.shape), tuple(w.shape),
+                             stride=s, dtype=x.dtype, padding=p_lo,
+                             output_padding=p_hi - p_lo, epilogue=spec,
+                             device=x.device)
     return plan._replace(vec=kconv.copy_vec(x.shape[-1], x.dtype,
                                             x.data_ptr()))
 
@@ -272,13 +286,32 @@ def _tconv_fn():
         fn.restype = ctypes.c_int
         lib.tconv_error_string.argtypes = [ctypes.c_int]
         lib.tconv_error_string.restype = ctypes.c_char_p
+        lib.tconv_smem_bytes.argtypes = ([ctypes.c_int] * 4
+                                         + [ctypes.c_void_p]
+                                         + [ctypes.c_int] * 3)
+        lib.tconv_smem_bytes.restype = ctypes.c_int
     return lib, fn
 
 
+def kernel_smem_bytes(oh: int, ow: int, k: int, s: int, p_lo: int,
+                      plan: kconv.ConvPlan) -> int:
+    """The dynamic shared memory ``csrc/transposed_conv.cu`` asks for with
+    ``plan`` on an (oh, ow) output of a k x k, stride-``s`` conv with low
+    pad ``p_lo`` (``tconv_smem_bytes``), or -1 for a plan it refuses; needs
+    the built library, not a card."""
+    lib, _ = _tconv_fn()
+    sched = schedule_array(k, s, p_lo)
+    return lib.tconv_smem_bytes(oh, ow, k, s, sched,
+                                DTYPE_CODES[plan.dtype], plan.tile,
+                                int(plan.resident))
+
+
 def tconv_cuda(x: torch.Tensor, w: torch.Tensor, s: int, p_lo: int,
-               p_hi: int, spec: EpilogueSpec, eps: tuple) -> torch.Tensor:
+               p_hi: int, spec: EpilogueSpec, eps: tuple,
+               plan: kconv.ConvPlan | None = None) -> torch.Tensor:
     """Launch ``csrc/transposed_conv.cu`` on PyTorch's current stream, in
-    x's dtype, with :func:`launch_plan`'s variant."""
+    x's dtype, with :func:`launch_plan`'s variant (or ``plan``, as the
+    autotune sweep times each candidate)."""
     dt = kconv.require_cuda(x, w, "tconv_cuda")
     n, h, w_in, cin = x.shape
     k, _, _, cout = w.shape
@@ -286,7 +319,8 @@ def tconv_cuda(x: torch.Tensor, w: torch.Tensor, s: int, p_lo: int,
     sched = schedule_array(k, s, p_lo)
     out = torch.empty((n, oh, ow, cout), device=x.device, dtype=x.dtype)
     ops = kernel_operands(spec, eps, tuple(out.shape), x.device, x.dtype)
-    plan = launch_plan(x, w)
+    if plan is None:
+        plan = launch_plan(x, w, s, p_lo, p_hi, spec)
     lib, fn = _tconv_fn()
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
@@ -300,4 +334,5 @@ def tconv_cuda(x: torch.Tensor, w: torch.Tensor, s: int, p_lo: int,
 
 
 __all__ = ["parity_schedule", "transposed_conv2d", "tconv_plain",
-           "tconv_cuda", "tconv_plan", "launch_plan", "schedule_array"]
+           "tconv_cuda", "tconv_plan", "launch_plan", "schedule_array",
+           "kernel_smem_bytes"]

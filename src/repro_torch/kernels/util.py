@@ -1,6 +1,10 @@
-"""Shared helpers for the port's kernel package: dtype and device rules."""
+"""Shared helpers for the port's kernel package: dtype and device rules,
+the device kind that names calibration keys and plan tables, and the timer
+of the autotune sweep and the calibration capture."""
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -81,3 +85,67 @@ def check_device(what: str, *ts: torch.Tensor) -> None:
         raise NotImplementedError(
             f"{what}: the port's kernels are forward only (run under "
             f"torch.no_grad())")
+
+
+def device_kind(device=None) -> str:
+    """The device kind of a calibration key and of a plan table: the
+    card's name, sanitised (``NVIDIA H100 80GB HBM3`` ->
+    ``NVIDIA_H100_80GB_HBM3``), for a CUDA device, ``"cpu"`` for the CPU.  ``None`` is this host's device: the
+    current card when there is one, else the CPU."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    kind = torch.cuda.get_device_name(device)
+    return "".join(c if c.isalnum() else "_" for c in kind)
+
+
+def time_call(fn, *args, iters: int = 5, warmup: int = 1, device=None,
+              device_only: bool = False) -> float:
+    """Best-of-``iters`` time (seconds) of ``fn(*args)``, the port of
+    ``repro.kernels.util.time_call``: the single timer of the autotune
+    sweep and the calibration capture.
+
+    ``device`` is where ``fn`` runs (default: the device of the first tensor
+    in ``args``, else the CPU).  On a CUDA device each run is bracketed by
+    CUDA events and ends in ``torch.cuda.synchronize()`` inside the timed
+    region: PyTorch returns before the card is done, so a host clock around
+    the call alone would time the enqueue.  The events then span the host's
+    enqueue of the call and the device's work.  ``device_only=True`` first
+    holds the stream with a spin kernel while the host enqueues, so the
+    events bracket the device's work alone (a kernel's time, as the autotune
+    sweep wants it).  On the CPU each run is timed by the host clock.
+    ``warmup`` untimed runs come first (a kernel library's first load); the
+    estimator is the minimum, the stable one on a shared host.
+    """
+    if device is None:
+        device = next((a.device for a in args if isinstance(a, torch.Tensor)),
+                      torch.device("cpu"))
+    cuda = torch.device(device).type == "cuda"
+    for _ in range(max(warmup, 0)):
+        fn(*args)
+    if cuda:
+        torch.cuda.synchronize(device)
+    best = float("inf")
+    for _ in range(max(iters, 1)):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if device_only:
+                torch.cuda._sleep(_SPIN_CYCLES)
+            start.record()
+            fn(*args)
+            end.record()
+            torch.cuda.synchronize(device)
+            best = min(best, start.elapsed_time(end) * 1e-3)
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            best = min(best, time.perf_counter() - t0)
+    return best
+
+
+#: cycles of the spin kernel that holds the stream while the host enqueues a
+#: ``device_only`` run (about 1 ms at the H100's 1.98 GHz boost clock)
+_SPIN_CYCLES = 2_000_000

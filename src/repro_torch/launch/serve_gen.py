@@ -45,11 +45,12 @@ Where the port differs from the reference:
   ``params=`` takes the reference's trees (nested dicts of numpy arrays).
 * Results are numpy fp32 arrays; a bf16 lane's samples are widened
   exactly (numpy has no bf16).
-* Not ported yet (ROADMAP.md): ``mesh``/``spatial`` serving, calibration
-  capture (``calibration=`` takes any object with
-  ``predict_layers(layers, backend=, dtype=)`` and
-  ``predict_layers_split(layers, backend=)``), and the cycle model's
-  ``serve_report`` print of the CLI.
+* ``calibration=`` takes a :class:`repro_torch.core.calibrate.Calibration`
+  (or any object with ``predict_layers(layers, backend=, dtype=)`` and
+  ``predict_layers_split(layers, backend=)``); the CLI loads
+  ``calibrate.default_cache_path()`` when a capture left one there, and
+  prints the cycle model's ``serve_report`` after the drain.
+* Not ported yet (ROADMAP.md): ``mesh``/``spatial`` serving.
 
 CPU-scale usage (the CLI runs on CUDA unless ``--device cpu``):
 
@@ -69,7 +70,10 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
+from repro_torch.core import calibrate as cal
+from repro_torch.core import cycle_model as cm
 from repro_torch.core import gen_spec
+from repro_torch.core.cycle_model import np_percentile
 from repro_torch.core.decompose import BACKENDS
 from repro_torch.core.gen_spec import GEN_WORKLOADS, UNET_WIDTHS
 from repro_torch.distributed.fault_tolerance import (FailureInjector,
@@ -92,20 +96,6 @@ def init_noise(seed: int, shape: tuple[int, ...]) -> torch.Tensor:
     on any device."""
     g = torch.Generator().manual_seed(seed)
     return torch.randn(shape, generator=g, dtype=torch.float32)
-
-
-def np_percentile(values: list[float], p: float) -> float:
-    """Linear-interpolated percentile (the port's copy of
-    ``repro.core.cycle_model.np_percentile``)."""
-    xs = sorted(values)
-    if not xs:
-        return 0.0
-    if len(xs) == 1:
-        return xs[0]
-    pos = (len(xs) - 1) * p / 100.0
-    lo = int(pos)
-    hi = min(lo + 1, len(xs) - 1)
-    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
 
 
 # ---------------------------------------------------------------------------
@@ -1173,10 +1163,14 @@ def main(argv=None) -> None:
                     compute_dtype=None if ns.dtype == "fp32" else ns.dtype)
     if ns.smoke:
         kw.update(unet_widths=(8, 8), unet_hw=4, dcgan_nz=16, dcgan_ngf=4)
+    cache = cal.default_cache_path()
+    if cache.exists():          # calibrated admission estimates when a
+        kw["calibration"] = cal.Calibration.load(cache)  # capture left one
     step_list = [int(s) for s in ns.steps.split(",")]
     if ns.snapshot_dir and ckpt.latest_step(ns.snapshot_dir) is not None:
         server = GenServer.restore(ns.snapshot_dir, device=ns.device,
-                                   snapshot_every=ns.snapshot_every)
+                                   snapshot_every=ns.snapshot_every,
+                                   calibration=kw.get("calibration"))
         print(f"[serve_gen] restored tick {server._tick} from "
               f"{ns.snapshot_dir}; resuming the drain")
     else:
@@ -1215,12 +1209,43 @@ def main(argv=None) -> None:
         print(f"[serve_gen] image shape {shp}; "
               f"mean wait {st['mean_wait_ticks']:.1f} ticks "
               f"(max {st['max_wait_ticks']:.0f})")
+    print_serve_report(server, ns.workload, step_list, ns.requests,
+                       getattr(lane, "scan_steps", 1))
+
+
+def print_serve_report(server: "GenServer", workload: str,
+                       step_list: list[int], requests: int,
+                       scan_steps: int) -> dict:
+    """Print the cycle model's ``serve_report`` of a drain (the paper's
+    168-MAC array at 500 MHz, canonical widths: no time of the card) and,
+    with a calibration, its estimate of this host's time; returns the
+    report."""
+    rep = cm.serve_report(GEN_WORKLOADS[workload](), steps=max(step_list),
+                          scan_steps=scan_steps,
+                          steps_list=[step_list[i % len(step_list)]
+                                      for i in range(requests)],
+                          calibration=server.calibration,
+                          backend=server.backend)
+    print(f"[serve_gen] cycle model ({workload}, canonical widths, "
+          f"{max(step_list)} steps/sample, "
+          f"{rep['dispatches_per_image']:.0f} dispatches/image): "
+          f"{rep['images_per_s_ours']:.1f} img/s decomposed vs "
+          f"{rep['images_per_s_naive']:.1f} naive "
+          f"({rep['serve_speedup_vs_naive']:.2f}x); modeled drain "
+          f"p50 {rep['latency_p50_ms']:.1f} ms / "
+          f"p99 {rep['latency_p99_ms']:.1f} ms")
+    if "calibrated_us_per_image" in rep:
+        print(f"[serve_gen] calibrated host estimate: "
+              f"{rep['calibrated_us_per_image']:.0f} us/image "
+              f"({rep['calibrated_images_per_s']:.2f} img/s on this host, "
+              f"{server.backend})")
+    return rep
 
 
 __all__ = ["init_noise", "np_percentile", "SLOClass", "SLO_CLASSES",
            "DEFAULT_STARVATION_TICKS", "DEFAULT_SCAN_STEPS", "MAX_SCAN_STEPS",
            "choose_scan_steps", "GenRequest", "GenServer",
-           "reference_sample", "main"]
+           "reference_sample", "print_serve_report", "main"]
 
 
 if __name__ == "__main__":

@@ -79,6 +79,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.launch.train_recipes, "
             "repro_torch.launch.train_enet, repro_torch.launch.steps, "
             "repro_torch.launch.serve_gen, repro_torch.core.gen_spec, "
+            "repro_torch.core.enet_spec, repro_torch.core.espnet_spec, "
+            "repro_torch.core.cycle_model, repro_torch.core.calibrate, "
+            "repro_torch.kernels.tiling_policy, repro_torch.kernels.autotune, "
             "repro_torch.checkpoint, repro_torch.distributed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
