@@ -58,21 +58,24 @@ nvcc, then:
    dims 16 to 256, fp32, bf16 and mixed operand types), each through the
    variant its wrapper picks (bf16 ``wgmma`` on the tensor cores, else
    ``simt`` on the CUDA cores);
-11. drives the kernel entry points ``repro_torch.kernels.ops`` at the widths
-   of StableLM-2-1.6B (hf:stabilityai/stablelm-2-1_6b; d_model 2048, 32
+11. runs one layer of the port's transformer
+   (``repro_torch.models.transformer.apply_layer``) at the widths of
+   StableLM-2-1.6B (hf:stabilityai/stablelm-2-1_6b; d_model 2048, 32
    heads of 64, MHA, d_ff 5632) on one 4096-token prefill at batch 1, in
-   fp32 and in bf16: the q/k/v projections, causal attention, the output
-   projection and the gated MLP, with seeded random weights.  It checks
-   that the launch counters show every call went through a kernel, the
-   bf16 layer's on the ``wgmma`` variants and the fp32 layer's on
-   ``simt``, and holds each call against its plain version;
+   fp32 and in bf16, with seeded random weights: the q/k/v projections,
+   RoPE, causal attention, the output projection and the gated MLP.  It
+   checks that the launch counters show every product and the attention
+   went through a kernel (7 + 1), the bf16 layer's on the ``wgmma``
+   variants and the fp32 layer's on ``simt``, and holds each recorded call
+   against its plain version;
 12. times each of those calls: the kernel, its plain version and the library
    yardstick (``torch.matmul`` in the input dtype, TF32 off;
    ``F.scaled_dot_product_attention(is_causal=True)``);
 13. prints the ``{"kernels": [...]}`` line (all four kernels on their
    paths, the two conv kernels again on the ENet backward, both again
    in bf16 on the forward and the backward, both on each path of
-   phases 18-23, and on phase 24's tuned forwards) and, last,
+   phases 18-23, on phase 24's tuned forwards, and kernels 3 and 4 on
+   phase 25's served prefill and decode step) and, last,
    ``{"ok": true, "device": {...}}``;
 
 and, before those two lines, the bf16 slice:
@@ -235,6 +238,38 @@ e. tuning switched on (``$REPRO_TORCH_AUTOTUNE=1``) over an empty table,
    tuned table is not bitwise across batch sizes: a plan's summation order
    follows its tile).
 
+and last, phase 25 serves an LM through the port's
+``repro_torch.launch.serve.Server``: StableLM-2-1.6B at its published
+configuration (24 layers, d_model 2048, 32 heads of 64, d_ff 5632, vocab
+100352, bf16; nothing cut), weights drawn on the card from a seeded CUDA
+generator, batch 4, a 1024-token prompt drawn from ``SEED``, 64 generated
+tokens:
+
+a. the main path, counts 0 just before and read just after a prefill, a
+   decode step and ``Server.generate``: each serve step launches 24 x 7 +
+   1 matmuls and 24 attentions, every one ``"wgmma"``;
+b. every kernel call of one prefill and one decode step (position 1024),
+   recorded, against its plain version at phase 10's bf16 bar, with what
+   a zeroed output and one 2% off would read;
+c. the logits against ``backend="torch"`` (``torch.matmul``,
+   ``F.scaled_dot_product_attention``) on the same tokens through the
+   prefill and 8 teacher-forced decode steps: max |err| <= 5% of
+   max|torch| (DESIGN.md §12), greedy tokens equal wherever the torch
+   top-2 margin exceeds that bar;
+d. the parallel prefill against the ``slow=True`` token loop: the same
+   next token, caches within the reference test's 2e-2 bound;
+e. per backend: prefill wall ms (time to first token), decode ms a step
+   and tokens/s, the busy share of a prefill and of a decode step and the
+   device ms of their copies (``torch.profiler``), peak memory; per kernel
+   and shape, the device ms of one prefill and one decode step beside its
+   bound and the library call (the kernels line's ``matmul (StableLM-2-1.6B
+   served, batch 4: prefill)`` etc.);
+f. the same model in fp32, depth cut to 2 layers: ``"simt"`` launches,
+   logits against the plain path at the fp32 bar;
+g. GQA, qk-norm and head dim 128: Qwen3-32B at its published widths, depth
+   cut to 2 of 64 layers, one prefill and 4 decode steps with a-c's
+   gates.
+
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
 with TF32 off.  The full per-call results go to
@@ -322,14 +357,36 @@ TRAIN_LOSS_RTOL = 1e-4
 # ~1e-4 of its terms (PERF.md §6 has the readings it was set from: at most
 # 8.4e-4); still 10x under a 2% error
 GRAD_RTOL = 2e-3
-# StableLM-2-1.6B (src/repro/configs/stablelm_1_6b.py): one layer's kernel
-# calls on a 4096-token prefill at batch 1, its published context length
-LM_D, LM_HEADS, LM_FF, LM_SEQ = 2048, 32, 5632, 4096
-LM_HEAD_DIM = LM_D // LM_HEADS
+# StableLM-2-1.6B (the port's src/repro_torch/configs/stablelm_1_6b.py):
+# phase 11 runs one layer of the port's transformer on a 4096-token prefill
+# at batch 1, its published context length; these are its kernel calls
+LM_ARCH, LM_SEQ = "stablelm-1.6b", 4096
+LM_LAYER_CALLS = (("q projection", "matmul"), ("k projection", "matmul"),
+                  ("v projection", "matmul"),
+                  ("causal attention", "flash_attention"),
+                  ("o projection", "matmul"), ("mlp gate", "matmul"),
+                  ("mlp up", "matmul"), ("mlp down", "matmul"))
 LAUNCHES_PER_LM_LAYER = {"conv2d": 0, "transposed_conv2d": 0, "matmul": 7,
                          "flash_attention": 1}
 # the variant every matmul and attention launch of the layer takes, by dtype
 LM_VARIANT = {"torch.float32": "simt", "torch.bfloat16": "wgmma"}
+# phase 25: StableLM-2-1.6B served at its published configuration (bf16,
+# nothing cut) through repro_torch.launch.serve.Server: batch 4, a
+# 1024-token prompt drawn from SEED, 64 generated tokens (KV caches of 1,088
+# slots); the logits held to the torch backend's through the prefill and 8
+# teacher-forced decode steps
+LM_NAME = "StableLM-2-1.6B"
+SERVE_LM_BATCH, SERVE_LM_PROMPT, SERVE_LM_GEN = 4, 1024, 64
+SERVE_LM_FORCED = 8
+# parallel vs sequential prefill caches: |a - b| <= tol + tol |b|, the
+# reference's bf16 bound (tests/test_launch.py)
+PREFILL_CACHE_TOL = 2e-2
+# 25f: the same model in fp32, depth cut to 2 of 24 layers
+SERVE_LM_FP32_LAYERS = 2
+# 25g: GQA, qk-norm and head dim 128: Qwen3-32B (hf:Qwen/Qwen3-32B) at its
+# published widths, depth cut to 2 of 64 layers (5.1 GB of bf16 weights),
+# one prefill and 4 decode steps
+GQA_ARCH, GQA_NAME, GQA_LAYERS, GQA_DECODE = "qwen3-32b", "Qwen3-32B", 2, 4
 # phase 3's edge cases (and phase 14's, in bf16)
 DENSE_EDGES = [  # label, x shape, w shape, stride, pads
     ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
@@ -434,6 +491,15 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel's pallas_call)
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:82"),
 }
+
+
+def lm_step_launches(cfg) -> dict:
+    """The launches of one LM serve step, prefill or decode: 7 matmuls (q,
+    k, v, o and the three MLP products) and 1 attention a layer, and the LM
+    head's matmul."""
+    return {"conv2d": 0, "transposed_conv2d": 0,
+            "matmul": 7 * cfg.num_layers + 1,
+            "flash_attention": cfg.num_layers}
 
 
 def log(msg: str) -> None:
@@ -746,6 +812,8 @@ class Smoke:
         kernels_line["kernels"] += self.run_serving()
         log(f"phase 23: {time.perf_counter() - t23:.1f} s")
         kernels_line["kernels"] += self.run_tuning()
+        torch.cuda.empty_cache()
+        kernels_line["kernels"] += self.run_lm_serving()
         self.write_report(card)
         log(f"class maps: {tuple(y.argmax(-1).shape)}")
         log(card)
@@ -2844,63 +2912,77 @@ class Smoke:
                  for k in ("matmul", "flash_attention")}
         log(f"  all ok; worst max abs err {json.dumps(worst)}")
 
-    def lm_weights(self, dtype):
-        """Seeded random weights of one StableLM-2-1.6B layer (scaled by
-        fan-in^-1/2, so activations stay O(1)) and a prefill's input."""
+    def lm_layer_params(self, cfg):
+        """Seeded random weights of one layer of ``cfg`` in the port's
+        layer layout (projections scaled by fan-in^-1/2, so activations
+        stay O(1); RMSNorm gains drawn around 1) and a batch-1 prefill's
+        input of LM_SEQ tokens."""
         torch = self.torch
+        from repro_torch.kernels.util import canon_dtype
+
+        dtype = canon_dtype(cfg.dtype)
         g = torch.Generator().manual_seed(SEED + 4)
 
         def rand(fan_in, *shape):
             return (torch.randn(shape, generator=g) * fan_in ** -0.5).to(
                 self.dev, dtype)
 
-        d, ff = LM_D, LM_FF
-        return {"x": rand(1, LM_SEQ, d),
-                **{n: rand(d, d, d) for n in ("wq", "wk", "wv", "wo")},
-                "w_gate": rand(d, d, ff), "w_up": rand(d, d, ff),
-                "w_down": rand(ff, ff, d)}
+        def gain():
+            return (1 + 0.1 * torch.randn(cfg.d_model, generator=g)).to(
+                self.dev, dtype)
 
-    def lm_layer(self, p, record):
-        """One layer's kernel calls through ``repro_torch.kernels.ops``:
-        q/k/v projections, causal MHA over 32 heads of 64, the output
-        projection and the gated (SiLU) MLP.  ``record(label, name, args,
-        out)`` sees each call."""
-        torch = self.torch
-        from repro_torch.kernels import ops
+        d, ff = cfg.d_model, cfg.d_ff
+        qd, kvd = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+        layer = {"mixer": {"wq": rand(d, d, qd), "wk": rand(d, d, kvd),
+                           "wv": rand(d, d, kvd), "wo": rand(qd, qd, d)},
+                 "norm1": gain(), "norm2": gain(),
+                 "ffn": {"w_gate": rand(d, d, ff), "w_up": rand(d, d, ff),
+                         "w_down": rand(ff, ff, d)}}
+        return layer, rand(1, 1, LM_SEQ, d)
 
-        s, h, dh = LM_SEQ, LM_HEADS, LM_HEAD_DIM
+    @contextlib.contextmanager
+    def recording_lm(self, calls):
+        """Record every matmul and flash-attention launch as (name, args,
+        output): args as the launcher takes them (flash attention's with
+        its ``causal`` flag)."""
+        kmm, kfa = self.kmm, self.kfa
+        orig = (kmm.matmul_cuda, kfa.flash_attention_cuda)
 
-        def mm(label, a, b):
-            out = ops.matmul(a, b)
-            record(label, "matmul", (a, b), out)
-            return out
+        def rec(name, fn):
+            def wrapper(*args):
+                out = fn(*args)
+                calls.append((name, args, out))
+                return out
+            return wrapper
 
-        def heads(t):  # (S, D) -> (1, H, S, dh)
-            return t.view(1, s, h, dh).transpose(1, 2).contiguous()
-
-        x = p["x"]
-        q, k, v = (heads(mm(f"{n} projection", x, p[w]))
-                   for n, w in (("q", "wq"), ("k", "wk"), ("v", "wv")))
-        a = ops.attention(q, k, v, causal=True)
-        record("causal attention", "flash_attention", (q, k, v), a)
-        mm("o projection", a.transpose(1, 2).reshape(s, LM_D), p["wo"])
-        gate = mm("mlp gate", x, p["w_gate"])
-        up = mm("mlp up", x, p["w_up"])
-        mm("mlp down", torch.nn.functional.silu(gate) * up, p["w_down"])
+        kmm.matmul_cuda = rec("matmul", orig[0])
+        kfa.flash_attention_cuda = rec("flash_attention", orig[1])
+        try:
+            yield
+        finally:
+            kmm.matmul_cuda, kfa.flash_attention_cuda = orig
 
     def phase_lm_main(self):
         torch = self.torch
-        log(f"phase 11: kernels.ops at StableLM-2-1.6B width: d {LM_D}, "
-            f"{LM_HEADS} heads x {LM_HEAD_DIM}, d_ff {LM_FF}, batch 1, "
-            f"{LM_SEQ} tokens, one layer, fp32 and bf16")
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer
+
+        base = get_config(LM_ARCH)
+        log(f"phase 11: the port's StableLM-2-1.6B layer "
+            f"(transformer.apply_layer) at its published widths: d "
+            f"{base.d_model}, {base.num_heads} heads x {base.head_dim}, "
+            f"d_ff {base.d_ff}, batch 1, {LM_SEQ} tokens, fp32 and bf16")
         calls = []
         self.lm_launches = {"matmul": 0, "flash_attention": 0}
+        positions = torch.arange(LM_SEQ, device=self.dev)[None]
         for dtype in (torch.float32, torch.bfloat16):
-            p = self.lm_weights(dtype)
+            cfg = base.replace(dtype=str(dtype).removeprefix("torch."))
+            p, x = self.lm_layer_params(cfg)
             recorded = []
             self.reset_counts()
-            with torch.no_grad():
-                self.lm_layer(p, lambda *call: recorded.append(call))
+            with torch.no_grad(), self.recording_lm(recorded):
+                transformer.apply_layer(p, x, cfg, "attn", "dense",
+                                        positions)
             torch.cuda.synchronize()
             counts, variants = self.read_counts(), self.read_variants()
             log(f"  {dtype}: launches {counts}, by variant {variants}")
@@ -2914,15 +2996,19 @@ class Smoke:
             if variants != want:
                 raise RuntimeError(f"{dtype} launches by variant {variants} "
                                    f"!= {want}")
+            if [name for name, _, _ in recorded] != [
+                    name for _, name in LM_LAYER_CALLS]:
+                raise RuntimeError(f"layer calls {recorded} out of order")
             for name in self.lm_launches:
                 self.lm_launches[name] += counts[name]
-            for label, name, args, out in recorded:
+            for (label, _), (name, args, out) in zip(LM_LAYER_CALLS,
+                                                     recorded):
                 plain = self.lm_call(name, args)[1]
                 self.compare(f"{label} {dtype} "
-                             f"{[tuple(t.shape) for t in args]}",
+                             f"{[tuple(t.shape) for t in args[:3]]}",
                              name, out, plain())
                 calls.append((label, name, dtype, args))
-            del p, recorded
+            del p, x, recorded
         return calls
 
     def phase_lm_times(self, calls):
@@ -2973,18 +3059,20 @@ class Smoke:
                     2 * m * n * k,
                     (a.numel() + b.numel() + m * n) * a.element_size(),
                     f"({m}, {k}) @ ({k}, {n})", kmm.matmul_variant(a, b))
-        q, k, v = args
+        q, k, v, causal = args
         bsz, h, sq, dh = q.shape
         sk = k.shape[2]
-        # unmasked (q, k) pairs of the top-left causal mask
-        pairs = sum(min(i + 1, sk) for i in range(sq))
-        return (lambda: kfa.flash_attention_cuda(q, k, v, True),
-                lambda: kfa.attention_plain(q, k, v, causal=True),
+        # (q, k) pairs the top-left causal mask leaves (all of them without)
+        pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+                 else sq * sk)
+        return (lambda: kfa.flash_attention_cuda(q, k, v, causal),
+                lambda: kfa.attention_plain(q, k, v, causal=causal),
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=True),
+                    q, k, v, is_causal=causal),
                 4 * bsz * h * dh * pairs,
                 2 * (q.numel() + k.numel()) * q.element_size(),
-                f"q{tuple(q.shape)} k{tuple(k.shape)} causal",
+                f"q{tuple(q.shape)} k{tuple(k.shape)} "
+                + ("causal" if causal else "non-causal"),
                 kfa.attention_variant(q, k, v))
 
     def summarise_lm_calls(self, groups):
@@ -3708,6 +3796,484 @@ class Smoke:
         rep["fig10"] = {"layers": rows, "model_dilated_transposed": model_sub,
                         "measured_dilated_transposed": measured,
                         "model_speedup_vs_naive": full, "model_headline": head}
+
+    # -------------------------------------------------------------- phase 25
+    def run_lm_serving(self):
+        """Phase 25: StableLM-2-1.6B served through the port's ``Server``
+        at its published configuration; then the fp32 and GQA runs."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer
+
+        t25 = time.perf_counter()
+        cfg = get_config(LM_ARCH)
+        label = f"{LM_NAME} served, batch {SERVE_LM_BATCH}"
+        log(f"phase 25: serve {cfg.name} at its published configuration "
+            f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} "
+            f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+            f"{cfg.dtype}; nothing cut) through repro_torch.launch.serve."
+            f"Server: batch {SERVE_LM_BATCH}, a {SERVE_LM_PROMPT}-token "
+            f"prompt drawn from seed {SEED}, {SERVE_LM_GEN} generated tokens")
+        rep = self.report["lm_serve"] = {}
+        params = self.lm_params(cfg, SEED + 25, rep)
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (SERVE_LM_BATCH, SERVE_LM_PROMPT), dtype=np.int32)
+        servers = {b: serve.Server(cfg, max_len=SERVE_LM_PROMPT
+                                   + SERVE_LM_GEN, backend=b, params=params)
+                   for b in ("kernels", "torch")}
+        launches = self.lm_serve_main(cfg, servers["kernels"], prompts, rep)
+        groups = self.lm_serve_calls("25b", servers["kernels"], prompts,
+                                     label, "wgmma", rep)
+        self.lm_serve_logits(cfg, params, prompts, SERVE_LM_FORCED,
+                             "25c", rep)
+        self.lm_prefill_paths(servers["kernels"], prompts, rep)
+        entries = self.lm_serve_times(servers, prompts, groups, launches,
+                                      label, rep)
+        del servers, params, groups
+        torch.cuda.empty_cache()
+        self.lm_serve_fp32(prompts, rep)
+        self.lm_serve_gqa(rep)
+        rep["seconds"] = time.perf_counter() - t25
+        log(f"phase 25: {rep['seconds']:.1f} s")
+        return entries
+
+    def lm_params(self, cfg, seed, rep):
+        """``cfg``'s parameters drawn on the card from a seeded CUDA
+        generator; logs their count, size and draw time."""
+        torch = self.torch
+        from repro_torch.models import transformer
+
+        t0 = time.perf_counter()
+        params = transformer.init_params(
+            torch.Generator(self.dev).manual_seed(seed), cfg, self.dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        leaves = transformer.flatten_params(params).values()
+        n = sum(t.numel() for t in leaves)
+        gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+        log(f"  {cfg.name} ({cfg.num_layers} layers, {cfg.dtype}) weights: "
+            f"{n:,} parameters, {gb:.2f} GB, drawn on the card from seed "
+            f"{seed} in {ms:.1f} ms")
+        rep.setdefault("weights", {})[cfg.name] = {
+            "parameters": n, "gb": gb, "draw_ms": ms,
+            "layers": cfg.num_layers, "dtype": cfg.dtype}
+        return params
+
+    def check_lm_launches(self, what, want, variant):
+        """Read the counts and variants since the last reset; raise unless
+        they are ``want`` with every matmul and attention launch on
+        ``variant``."""
+        counts, variants = self.read_counts(), self.read_variants()
+        log(f"  {what}: launches {counts}; matmul by variant "
+            f"{variants['matmul']}, flash attention "
+            f"{variants['flash_attention']}")
+        if counts != want:
+            raise RuntimeError(f"{what}: launches {counts} != {want}")
+        for name in ("matmul", "flash_attention"):
+            if variants[name][variant] != want[name]:
+                raise RuntimeError(f"{what}: {name} launches {variants[name]}"
+                                   f" are not all {variant!r}")
+        return counts
+
+    def lm_serve_main(self, cfg, srv, prompts, rep):
+        """25a: the main path.  Counts 0 just before a prefill, a decode
+        step and ``Server.generate``, read just after each."""
+        torch = self.torch
+        log(f"phase 25a: the main path on backend=kernels: one prefill, one "
+            f"decode step, then Server.generate ({SERVE_LM_GEN} tokens); "
+            f"each a serve step of {cfg.num_layers} x 7 + 1 matmul and "
+            f"{cfg.num_layers} attention launches, all \"wgmma\"")
+        step = lm_step_launches(cfg)
+        launches = {}
+        self.reset_counts()
+        tok, caches, pos = srv.prefill(prompts)
+        torch.cuda.synchronize()
+        launches["prefill"] = self.check_lm_launches("prefill", step,
+                                                     "wgmma")
+        self.reset_counts()
+        with torch.no_grad():
+            srv.serve_step(srv.params, caches, {"token": tok,
+                                                "cache_pos": pos})
+        torch.cuda.synchronize()
+        launches["decode step"] = self.check_lm_launches(
+            f"decode step at position {pos}", step, "wgmma")
+        del caches
+        self.reset_counts()
+        out = srv.generate(prompts, SERVE_LM_GEN)
+        torch.cuda.synchronize()
+        self.check_lm_launches(
+            "generate", {k: v * SERVE_LM_GEN for k, v in step.items()},
+            "wgmma")
+        if out.shape != (SERVE_LM_BATCH, SERVE_LM_GEN) or not (
+                (out >= 0) & (out < cfg.vocab)).all():
+            raise RuntimeError(f"generated tokens {out.shape} out of range")
+        log(f"  generated {out.shape} token ids; first request's first 8: "
+            f"{out[0, :8].tolist()}")
+        rep["launches"] = launches
+        rep["generated"] = out.tolist()
+        return launches
+
+    def lm_serve_calls(self, phase, srv, prompts, label, variant, rep):
+        """25b: every kernel call of one prefill and one decode step at a
+        position > 0, recorded, against its plain version at phase 10's
+        bars (bf16: each element 2^-7 |plain| + 1e-4 x max(1, max|plain|)).
+        Returns one call's arguments and the call count per (prefill or
+        decode step, kernel, geometry)."""
+        torch = self.torch
+        log(f"phase {phase}: {label}: every kernel call of one prefill and "
+            f"one decode step vs its plain version")
+        calls = {"prefill": [], "decode step": []}
+        with torch.no_grad():
+            with self.recording_lm(calls["prefill"]):
+                tok, caches, pos = srv.prefill(prompts)
+            with self.recording_lm(calls["decode step"]):
+                srv.serve_step(srv.params, caches, {"token": tok,
+                                                    "cache_pos": pos})
+        torch.cuda.synchronize()
+        del caches
+        groups, caught = {}, []
+        for what, rec in calls.items():
+            checks = len(self.report["checks"])
+            for i, (name, args, out) in enumerate(rec):
+                entry = f"{name} ({label}: {what})"
+                kern_v = self.lm_call(name, args)
+                if kern_v[6] != variant:
+                    raise RuntimeError(f"{entry} call {i}: {kern_v[6]}")
+                want = kern_v[1]()
+                self.compare(f"{entry} call {i}", entry, out, want,
+                             quiet=True)
+                caught.append(self.sensitivity(out, want, 1.0, TOL))
+                grp = groups.setdefault((what, name, kern_v[5]), [args, 0])
+                grp[1] += 1
+                del want
+            rec.clear()
+            worst = max(c["err_over_bar"]
+                        for c in self.report["checks"][checks:])
+            log(f"  {what}: {i + 1} calls ok, worst error {worst:.3f} x "
+                f"its bar")
+        zero, off = (min(c[j] for c in caught) for j in range(2))
+        log(f"  a zeroed output would reach >= {zero:.3g} x its bar, one 2% "
+            f"off >= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError(f"{label}: a bar would miss a zeroed or a "
+                               f"2%-off kernel output")
+        rep.setdefault("calls", {})[label] = {
+            "checked": len(caught), "zeroed_over_bar": zero,
+            "off2_over_bar": off}
+        return groups
+
+    def forced_run(self, cfg, params, prompts, steps, backend, feed=None):
+        """Logits of a cached prefill of ``prompts`` and ``steps`` decode
+        steps on ``backend``; step i is fed ``feed[i]``, by default its own
+        greedy token.  Returns (logits, fed tokens)."""
+        torch = self.torch
+        from repro_torch.models import transformer
+
+        x = torch.as_tensor(prompts, dtype=torch.int32, device=self.dev)
+        caches = transformer.init_caches(cfg, x.shape[0], x.shape[1] + steps,
+                                         self.dev)
+        logits, fed, pos = [], [], 0
+        with torch.no_grad():
+            for i in range(steps + 1):
+                out, caches = transformer.decode_step(
+                    params, x, caches, pos, cfg, backend=backend)
+                logits.append(out)
+                pos += x.shape[1]
+                x = (feed[i] if feed is not None else
+                     out[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+                fed.append(x)
+        return logits, fed
+
+    def lm_serve_logits(self, cfg, params, prompts, steps, phase, rep):
+        """The kernels backend's logits against the torch backend's on the
+        same tokens (teacher forcing: the torch backend's greedy tokens fed
+        to both) through a prefill and ``steps`` decode steps: max |err| <=
+        5% of max |torch| (DESIGN.md §12's bf16 output bar), and the greedy
+        tokens equal wherever the torch top-2 margin exceeds that bar."""
+        torch = self.torch
+        log(f"phase {phase}: {cfg.name} logits, backend=kernels vs "
+            f"backend=torch, teacher-forced through the prefill and {steps} "
+            f"decode steps (bar {BF16_FWD_RTOL:.0%} of max|torch|)")
+        want, fed = self.forced_run(cfg, params, prompts, steps, "torch")
+        got, _ = self.forced_run(cfg, params, prompts, steps, "kernels",
+                                 feed=fed)
+        rows = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            g, w = g.float(), w.float()
+            top = w.abs().max().item()
+            bar = BF16_FWD_RTOL * top
+            err = (g - w).abs().max().item()
+            top2 = w.topk(2, dim=-1).values
+            gated = (top2[..., 0] - top2[..., 1]) > bar
+            agree = g.argmax(-1) == w.argmax(-1)
+            bad = int((gated & ~agree).sum())
+            what = "prefill" if i == 0 else f"decode step {i}"
+            row = {"step": what, "max_abs_err": err, "bar": bar,
+                   "err_over_bar": err / bar, "positions": agree.numel(),
+                   "agree": int(agree.sum()), "gated": int(gated.sum()),
+                   "gated_disagree": bad, "zeroed_over_bar": top / bar,
+                   "off2_over_bar": 0.02 * g.abs().max().item() / bar}
+            rows.append(row)
+            log(f"  {what}: max |err| {err:.4f} = {err / bar:.3f} x the bar "
+                f"({bar:.4f}); greedy tokens agree at {row['agree']} of "
+                f"{row['positions']}, {row['gated']} with a margin over the "
+                f"bar, {bad} of those differ; a zeroed output would read "
+                f"{row['zeroed_over_bar']:.3g} x, one 2% off "
+                f"{row['off2_over_bar']:.3g} x (a 5% bar passes a 2% error)")
+            if err > bar or bad or top / bar <= 1.0:
+                raise RuntimeError(f"{cfg.name} {what}: kernels logits off "
+                                   f"the torch backend's: {row}")
+            del g, w, top2
+        rep.setdefault("logits", {})[cfg.name] = rows
+        del got, want
+
+    def lm_prefill_paths(self, srv, prompts, rep):
+        """25d: the parallel prefill (one serve step) against the
+        ``slow=True`` token loop: the same next token, and caches within
+        the reference test's bf16 bound, |a - b| <= 2e-2 + 2e-2 |b|."""
+        torch = self.torch
+        log(f"phase 25d: parallel prefill vs the slow=True token loop "
+            f"({SERVE_LM_PROMPT} serve steps), backend=kernels")
+        tok_p, caches_p, _ = srv.prefill(prompts)
+        t0 = time.perf_counter()
+        tok_s, caches_s, _ = srv.prefill(prompts, slow=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        worst = zero = 0.0
+        equal = total = 0
+        for a, b in zip(caches_p, caches_s):
+            for k in ("k", "v"):
+                af, bf = a[k].float(), b[k].float()
+                bar = PREFILL_CACHE_TOL * (1 + bf.abs())
+                worst = max(worst, ((af - bf).abs() / bar).max().item())
+                zero = max(zero, (bf.abs() / bar).max().item())
+                equal += int((a[k] == b[k]).sum())
+                total += a[k].numel()
+                del af, bf, bar
+        same = torch.equal(tok_p, tok_s)
+        log(f"  loop {secs:.1f} s; next tokens equal: {same}; caches: worst "
+            f"{worst:.3f} x the bound, {equal / total:.4%} of entries "
+            f"bitwise equal; a zeroed cache would read {zero:.3g} x (the "
+            f"bound's relative part is 2%, so no 2%-off cache can fail it)")
+        rep["prefill_paths"] = {"loop_s": secs, "same_token": same,
+                                "cache_over_bound": worst,
+                                "bitwise_share": equal / total,
+                                "zeroed_over_bound": zero}
+        if not same or worst > 1.0 or zero <= 1.0:
+            raise RuntimeError(f"parallel vs sequential prefill: "
+                               f"{rep['prefill_paths']}")
+
+    def lm_serve_times(self, servers, prompts, groups, launches, label, rep):
+        """25e: per backend, prefill wall ms (time to first token), decode
+        ms a step and tokens/s, busy shares and the copies' device ms
+        (``torch.profiler``), peak memory; per kernel, the device ms of one
+        prefill and one decode step by shape beside bound and library."""
+        torch = self.torch
+        log(f"phase 25e: {label} times (wall: median of 5 prefills, of 3 "
+            f"loops of {SERVE_LM_GEN - 1} decode steps)")
+        times = rep["times"] = {}
+
+        def share(x):
+            return "not measured" if x is None else f"{x:.1%}"
+
+        for backend, srv in servers.items():
+            prefill_ms = self.wall_ms(lambda: srv.prefill(prompts), reps=5)
+            tok, caches, pos = srv.prefill(prompts)
+
+            def step(t=tok, p=pos):
+                return srv.serve_step(srv.params, caches,
+                                      {"token": t, "cache_pos": p})[0]
+
+            def decode_loop():
+                t = tok
+                for i in range(SERVE_LM_GEN - 1):
+                    t = step(t, pos + i)
+
+            with torch.no_grad():
+                loop_ms = self.wall_ms(decode_loop, reps=3)
+                step_ms = loop_ms / (SERVE_LM_GEN - 1)
+                prof = {"prefill": self.profile_device(
+                            lambda: srv.prefill(prompts),
+                            f"{backend} prefill", prefill_ms),
+                        "decode step": self.profile_device(
+                            step, f"{backend} decode step", step_ms)}
+            del caches
+            torch.cuda.reset_peak_memory_stats()
+            srv.generate(prompts, SERVE_LM_GEN)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            row = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+                   "tokens_per_s": SERVE_LM_BATCH * 1e3 / step_ms,
+                   "peak_gib": peak}
+            for what, p in prof.items():
+                key = what.replace(" ", "_")
+                row[f"{key}_busy"] = p.get("busy_share")
+                row[f"{key}_device_ms"] = p.get("device_ms")
+                row[f"{key}_copy_ms"] = sum(
+                    o["ms"] for o in p.get("top_ops", ())
+                    if o["name"] == "aten::copy_")
+                row[f"{key}_profile"] = p
+            times[backend] = row
+            log(f"  {backend}: prefill {prefill_ms:.3f} ms (time to first "
+                f"token), decode {step_ms:.3f} ms a step = "
+                f"{row['tokens_per_s']:.1f} tokens/s; busy: prefill "
+                f"{share(row['prefill_busy'])}, decode step "
+                f"{share(row['decode_step_busy'])}; aten::copy_ device ms: "
+                f"prefill "
+                f"{row['prefill_copy_ms']:.3f}, decode step "
+                f"{row['decode_step_copy_ms']:.3f}; peak memory "
+                f"{peak:.2f} GiB (weights included)")
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
+                "bytes_ms", "flops")
+        entries, rows = [], []
+        with torch.no_grad():
+            for what in ("prefill", "decode step"):
+                per = {n: dict.fromkeys(keys, 0.0)
+                       for n in ("matmul", "flash_attention")}
+                for (w, name, geo), (args, n) in groups.items():
+                    if w != what:
+                        continue
+                    kern, plain, lib, flops, nbytes, _, variant = \
+                        self.lm_call(name, args)
+                    peak_flops = (PEAK_FP32_FLOPS
+                                  if args[0].dtype == torch.float32
+                                  else PEAK_BF16_FLOPS)
+                    r = {"what": what, "kernel": name, "geometry": geo,
+                         "variant": variant, "calls": n, "flops": flops,
+                         "bytes": nbytes, "ms": self.device_ms(kern),
+                         "plain_ms": self.device_ms(plain, reps=3),
+                         "library_ms": self.device_ms(lib),
+                         "ops_ms": 1e3 * flops / peak_flops,
+                         "bytes_ms": 1e3 * nbytes / PEAK_BYTES_S}
+                    r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+                    r["tflops"] = flops / r["ms"] / 1e9
+                    rows.append(r)
+                    for k in keys:
+                        per[name][k] += n * r[k]
+                    log(f"  {what} {name} [{variant}] {geo} x{n}: "
+                        f"{r['ms']:.4f} ms a call, {r['tflops']:.1f} "
+                        f"TFLOP/s, bound {r['bound_ms']:.4f} ("
+                        + ("ops" if r["ops_ms"] >= r["bytes_ms"] else "bytes")
+                        + f"), {r['ms'] / r['bound_ms']:.1f} x bound; "
+                        f"library {r['library_ms']:.4f}; plain "
+                        f"{r['plain_ms']:.3f}")
+                for name, p in per.items():
+                    entry = f"{name} ({label}: {what})"
+                    log(f"  {entry}: {p['ms']:.3f} ms over "
+                        f"{launches[what][name]} launches, "
+                        f"{p['flops'] / p['ms'] / 1e9:.1f} TFLOP/s; bound "
+                        f"{p['bound_ms']:.3f} ms; library "
+                        f"{p['library_ms']:.3f} ms; plain "
+                        f"{p['plain_ms']:.3f} ms")
+                    entries.append(self.kernel_entry(
+                        name, entry, launches[what][name], p))
+        rep["shapes"] = rows
+        return entries
+
+    @contextlib.contextmanager
+    def plain_launchers(self):
+        """Stand each LM kernel's plain version in for its launcher: the
+        plain path of the same model, on the card."""
+        kmm, kfa = self.kmm, self.kfa
+        orig = (kmm.matmul_cuda, kfa.flash_attention_cuda)
+        kmm.matmul_cuda = kmm.matmul_plain
+        kfa.flash_attention_cuda = (
+            lambda q, k, v, causal: kfa.attention_plain(q, k, v,
+                                                        causal=causal))
+        try:
+            yield
+        finally:
+            kmm.matmul_cuda, kfa.flash_attention_cuda = orig
+
+    def lm_serve_fp32(self, prompts, rep):
+        """25f: the same model in fp32, depth cut to 2 layers: the
+        ``"simt"`` variants, logits against the plain path at the fp32
+        bar."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch import serve
+
+        cfg = get_config(LM_ARCH).replace(dtype="float32",
+                                          num_layers=SERVE_LM_FP32_LAYERS)
+        log(f"phase 25f: {cfg.name} in fp32, depth cut to "
+            f"{cfg.num_layers} layers, batch {SERVE_LM_BATCH}, "
+            f"{SERVE_LM_PROMPT}-token prompt: launches, \"simt\", logits vs "
+            f"the plain path (tol {TOL} x max(1, max|plain|))")
+        params = self.lm_params(cfg, SEED + 26, rep)
+        srv = serve.Server(cfg, max_len=SERVE_LM_PROMPT + SERVE_LM_FORCED
+                           + 1, params=params)
+        step = lm_step_launches(cfg)
+        self.reset_counts()
+        tok, caches, pos = srv.prefill(prompts)
+        torch.cuda.synchronize()
+        self.check_lm_launches("fp32 prefill", step, "simt")
+        self.reset_counts()
+        with torch.no_grad():
+            srv.serve_step(srv.params, caches, {"token": tok,
+                                                "cache_pos": pos})
+        torch.cuda.synchronize()
+        self.check_lm_launches("fp32 decode step", step, "simt")
+        del caches
+        with self.plain_launchers():
+            want, fed = self.forced_run(cfg, params, prompts,
+                                        SERVE_LM_FORCED, "kernels")
+        got, _ = self.forced_run(cfg, params, prompts, SERVE_LM_FORCED,
+                                 "kernels", feed=fed)
+        rows = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            what = "prefill" if i == 0 else f"decode step {i}"
+            err, _, tol = self.compare(f"fp32 {cfg.num_layers}-layer {what} "
+                                       f"logits vs the plain path",
+                                       "fp32 served logits", g, w)
+            rows.append({"step": what, "max_abs_err": err, "tol": tol,
+                         "zeroed_off2": self.sensitivity(g, w, 1.0, TOL)})
+        zero, off = (min(r["zeroed_off2"][j] for r in rows) for j in (0, 1))
+        log(f"  a zeroed output would reach >= {zero:.3g} x the bar, one "
+            f"2% off >= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError("fp32 served logits: a weak bar")
+        rep["fp32"] = rows
+        del got, want, params, srv
+        torch.cuda.empty_cache()
+
+    def lm_serve_gqa(self, rep):
+        """25g: GQA (64 query heads on 8 KV heads), qk-norm and head dim
+        128: Qwen3-32B at its published widths, depth cut, one prefill and
+        GQA_DECODE decode steps with 25a-c's gates."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch import serve
+
+        full = get_config(GQA_ARCH)
+        cfg = full.replace(num_layers=GQA_LAYERS)
+        log(f"phase 25g: {cfg.name} at its published widths (d "
+            f"{cfg.d_model}, {cfg.num_heads} heads on {cfg.kv_heads} KV "
+            f"heads x {cfg.head_dim}, qk-norm, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab}, {cfg.dtype}), depth cut from {full.num_layers} "
+            f"to {cfg.num_layers} layers, batch {SERVE_LM_BATCH}, "
+            f"{SERVE_LM_PROMPT}-token prompt, {GQA_DECODE} decode steps")
+        params = self.lm_params(cfg, SEED + 27, rep)
+        prompts = np.random.default_rng(SEED + 1).integers(
+            0, cfg.vocab, (SERVE_LM_BATCH, SERVE_LM_PROMPT), dtype=np.int32)
+        srv = serve.Server(cfg, max_len=SERVE_LM_PROMPT + GQA_DECODE + 1,
+                           params=params)
+        step = lm_step_launches(cfg)
+        self.reset_counts()
+        tok, caches, pos = srv.prefill(prompts)
+        torch.cuda.synchronize()
+        self.check_lm_launches(f"{cfg.name} prefill", step, "wgmma")
+        self.reset_counts()
+        with torch.no_grad():
+            srv.serve_step(srv.params, caches, {"token": tok,
+                                                "cache_pos": pos})
+        torch.cuda.synchronize()
+        self.check_lm_launches(f"{cfg.name} decode step", step, "wgmma")
+        del caches
+        self.lm_serve_calls("25g", srv, prompts, f"{GQA_NAME}, "
+                            f"{cfg.num_layers} layers", "wgmma", rep)
+        self.lm_serve_logits(cfg, params, prompts, GQA_DECODE, "25g", rep)
+        del params, srv
+        torch.cuda.empty_cache()
 
     # --------------------------------------------------- per-call helpers
     def geometry(self, name, args):

@@ -64,6 +64,15 @@ def _from_serializable(arr: np.ndarray, dtype_str: str):
     return arr
 
 
+def as_tensor(value) -> torch.Tensor:
+    """One leaf (a numpy array, an ``ml_dtypes`` bf16 array or a tensor) as
+    a CPU tensor of its dtype, bf16 carried through its ``uint16`` bits as
+    a checkpoint carries it."""
+    out = _from_serializable(*_host_array(value))
+    return out if isinstance(out, torch.Tensor) else torch.from_numpy(
+        np.array(out))
+
+
 class CheckpointFuture:
     """Handle to a background checkpoint write; ``join()`` blocks until it
     ends and re-raises any exception it hit, so a failed write surfaces at
@@ -195,5 +204,5 @@ def load_flat(directory: str, step: int) -> tuple[dict, dict | None]:
     return arrays, manifest.get("extra")
 
 
-__all__ = ["save_checkpoint", "all_steps", "latest_step", "load_flat",
-           "load_extra", "CheckpointFuture"]
+__all__ = ["as_tensor", "save_checkpoint", "all_steps", "latest_step",
+           "load_flat", "load_extra", "CheckpointFuture"]

@@ -1,0 +1,167 @@
+"""Batched LM serving: parallel prefill and greedy decode with KV caches.
+
+The port of ``repro.launch.serve``.  :class:`Server` holds parameters and
+serves fixed-size decode batches through one
+:func:`repro_torch.launch.steps.make_serve_step`, whose caches are written
+in place.  Prefill runs the whole prompt through that same step in ONE call
+(the KV cache takes all ``S`` prompt entries at once and attention masks
+causally within the chunk); ``slow=True`` / ``--slow-prefill`` keeps the
+token-by-token loop, which must give the same caches and next token.
+
+Under ``backend="kernels"`` (the default) every product runs the port's
+matmul kernel and every attention its flash-attention kernel; a StableLM
+serve step launches 24 x 7 + 1 matmuls and 24 attentions, prefill or
+decode.  ``backend="torch"`` runs ``torch.matmul`` and
+``F.scaled_dot_product_attention``, the library yardstick.  There is no
+mesh (ROADMAP.md, multi-device).  Parameters come from a seeded
+``torch.Generator`` (on the server's device by default, seed 0) or from
+``params=`` (e.g. :func:`repro_torch.models.transformer.load_jax_params`).
+
+On the card (StableLM-2-1.6B at its published widths, bf16)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
+      --batch 4 --prompt-len 1024 --gen-len 64
+
+On the CPU (the kernels' plain versions)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
+      --reduced --device cpu --batch 4 --prompt-len 16 --gen-len 16
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.kernels.util import resolve_device
+from repro_torch.launch.steps import make_serve_step
+from repro_torch.models import transformer
+from repro_torch.models.layers import check_backend
+
+
+def parallel_prefill_ok(cfg) -> bool:
+    """Whether one multi-token serve_step call can prefill ``cfg``.
+
+    Attention KV caches take a whole prompt chunk in one write with a
+    causal-within-chunk mask; recurrent-state mixers (mamba/xlstm) and
+    sliding-window ring buffers update one token at a time, so those
+    configs keep the sequential fallback.
+    """
+    return (not cfg.encoder_layers and cfg.window == 0
+            and all(k == "attn" for k in cfg.block_pattern))
+
+
+class Server:
+    """Holds params; serves decode batches of the prompts' batch size.
+
+    ``device``: ``None`` -> CUDA (raises without a card), ``"cpu"`` on
+    request.  ``generator`` draws the parameters when ``params`` is not
+    given."""
+
+    def __init__(self, cfg, *, max_len: int = 256,
+                 slow_prefill: bool = False, device=None,
+                 backend: str = "kernels",
+                 generator: torch.Generator | None = None,
+                 params: dict | None = None):
+        transformer.check_supported(cfg)
+        check_backend(backend)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.max_len = max_len
+        self.slow_prefill = slow_prefill
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(0)
+            params = transformer.init_params(generator, cfg, self.device)
+        self.params = params
+        self.serve_step = make_serve_step(cfg, backend)
+
+    def parallel_prefill_ok(self) -> bool:
+        """See the module-level :func:`parallel_prefill_ok`."""
+        return parallel_prefill_ok(self.cfg)
+
+    @torch.no_grad()
+    def prefill(self, tokens, *, slow: bool | None = None):
+        """Warm the cache with the prompt; returns (next_token, caches, pos).
+
+        Default: ONE serve_step call over the whole (B, S) prompt, the
+        parallel prefill forward.  ``slow=True`` (or ``slow_prefill``, or a
+        config the parallel path cannot serve) runs the token-by-token
+        decode loop instead; both paths produce the same caches and next
+        token.
+        """
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int32
+                                 ).to(self.device)
+        b, s = tokens.shape
+        if slow is None:
+            slow = self.slow_prefill or not self.parallel_prefill_ok()
+        elif not slow and not self.parallel_prefill_ok():
+            raise ValueError(
+                f"{self.cfg.name}: parallel prefill unsupported "
+                "(recurrent mixers / sliding window); use slow=True")
+        caches = transformer.init_caches(self.cfg, b, self.max_len,
+                                         self.device)
+        if not slow:
+            tok, caches = self.serve_step(
+                self.params, caches, {"token": tokens, "cache_pos": 0})
+            return tok, caches, s
+        tok = None
+        for t in range(s):
+            tok, caches = self.serve_step(
+                self.params, caches,
+                {"token": tokens[:, t:t + 1], "cache_pos": t})
+        return tok, caches, s
+
+    @torch.no_grad()
+    def generate(self, tokens, gen_len: int) -> np.ndarray:
+        """Prefill, then greedy decode: (B, gen_len) int32 token ids."""
+        tok, caches, pos = self.prefill(tokens)
+        out = [tok]
+        for t in range(pos, pos + gen_len - 1):
+            tok, caches = self.serve_step(self.params, caches,
+                                          {"token": tok, "cache_pos": t})
+            out.append(tok)
+        return torch.cat(out, dim=1).cpu().numpy()
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--slow-prefill", action="store_true",
+                    help="prefill token-by-token through the decode step "
+                         "instead of one parallel forward")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--backend", default="kernels",
+                    choices=("kernels", "torch"))
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and the prompts")
+    args = ap.parse_args(argv)
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    device = resolve_device(args.device)
+    server = Server(cfg, max_len=args.prompt_len + args.gen_len + 1,
+                    slow_prefill=args.slow_prefill, device=device,
+                    backend=args.backend,
+                    generator=torch.Generator(device).manual_seed(args.seed))
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
+                           dtype=np.int32)
+    t0 = time.perf_counter()
+    out = server.generate(prompts, args.gen_len)
+    dt = time.perf_counter() - t0
+    print(f"[serve] {cfg.name} on {device} ({args.backend}): generated "
+          f"{out.shape} tokens in {dt:.2f}s ({out.size / dt:.1f} tok/s incl. "
+          f"prefill)")
+    print(out[:, :8])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,13 @@
-"""Step-function builders of the generative serving path.
+"""Step-function builders of the serving paths.
 
-The port of the generative half of ``repro.launch.steps`` (its LM builders
-come with the LM port, ROADMAP.md):
+The port of ``repro.launch.steps``' serving builders (its train step comes
+with LM training, ROADMAP.md):
 
+* :func:`make_prefill_step` / :func:`make_serve_step` — LM prefill and
+  KV-cached greedy decode over :mod:`repro_torch.models.transformer`;
+  driven by :mod:`repro_torch.launch.serve`.  The reference's jitted serve
+  step donates its caches; here the step writes them in place and returns
+  them.
 * :func:`make_gen_step` — one deterministic DDIM step over the U-Net
   denoiser (timestep embedding + denoiser forward through the conv kernels
   + DDIM update).  Timesteps and activity are data, so one step serves a
@@ -12,9 +17,9 @@ come with the LM port, ROADMAP.md):
   they are a Python loop over the single step (a CUDA graph of the K-step
   tick is a later lever, ROADMAP.md).
 
-Both return a new image tensor and leave ``x`` as it was: where the
-reference donates ``x`` to the jitted step, the port keeps the functional
-form, and the serving lane rebinds its state to the result.
+The DDIM steps return a new image tensor and leave ``x`` as it was: where
+the reference donates ``x`` to the jitted step, the port keeps the
+functional form, and the serving lane rebinds its state to the result.
 """
 
 from __future__ import annotations
@@ -23,6 +28,37 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.util import canon_dtype
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+def make_prefill_step(cfg: ModelConfig, backend: str = "kernels"):
+    """``prefill_step(params, batch) -> logits`` (B, S, V): the cache-free
+    forward of ``batch["tokens"]`` (B, S)."""
+    transformer.check_supported(cfg)
+
+    def prefill_step(params, batch):
+        return transformer.forward(params, batch["tokens"], cfg,
+                                   backend=backend)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, backend: str = "kernels"):
+    """One cached step: ``serve_step(params, caches, batch) -> (next_token
+    (B, 1) int32, caches)`` for ``batch = {"token": (B, S), "cache_pos":
+    host int}``.  The next token is the greedy ``argmax`` of the last
+    position's logits, the first index on ties as JAX's ``argmax``."""
+    transformer.check_supported(cfg)
+
+    def serve_step(params, caches, batch):
+        logits, caches = transformer.decode_step(
+            params, batch["token"], caches, batch["cache_pos"], cfg,
+            backend=backend)
+        next_token = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        return next_token.to(torch.int32), caches
+
+    return serve_step
+
 
 #: training-noise schedule length the DDIM trajectories subsample
 DDIM_T_MAX = 1000
@@ -119,5 +155,6 @@ def make_gen_scan_step(scan_steps: int, *, t_max: int = DDIM_T_MAX,
     return gen_scan_step
 
 
-__all__ = ["DDIM_T_MAX", "ddim_alpha_bar", "ddim_timesteps",
-           "make_gen_step", "make_gen_scan_step"]
+__all__ = ["make_prefill_step", "make_serve_step", "DDIM_T_MAX",
+           "ddim_alpha_bar", "ddim_timesteps", "make_gen_step",
+           "make_gen_scan_step"]

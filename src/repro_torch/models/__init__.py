@@ -1,1 +1,3 @@
-"""Models of the port (ENet)."""
+"""Models of the port: the conv models (ENet, ESPNet, DCGAN, the U-Net
+decoder and denoiser, the Whisper frontend) and the dense LM path (config,
+layers, attention, transformer)."""

@@ -1,0 +1,159 @@
+"""Attention: MHA/GQA with RoPE, optional qk-norm and a KV cache (the port
+of ``repro.models.attention``).
+
+Head layout is merged (B, S, H, Dh), KV repeated to the full head count for
+GQA, as in the reference.  Under ``backend="kernels"`` the scores go through
+the port's flash-attention kernel (``kernels/flash_attention.py``), which
+takes contiguous (B, H, S, Dh) operands, no GQA and a top-left causal mask
+(query i sees keys j <= i).  The reference's cached mask is bottom-right,
+``slot <= cache_pos + i``; the two agree in exactly the two cases serving
+issues, and only those run on the kernel:
+
+* a chunk at ``cache_pos = 0`` (parallel prefill): causal over its S slots;
+* one token (decode) at any ``cache_pos``: non-causal over the live slots
+  ``0..cache_pos``.
+
+A chunk of more than one token at ``cache_pos > 0`` raises under
+``backend="kernels"``; it never goes to a plain path.  Under
+``backend="torch"`` every case runs ``F.scaled_dot_product_attention``
+over the same live cache prefix, with an explicit mask where the chunk
+needs one: the library yardstick.
+
+The KV cache is updated in place: where the reference's jitted serve step
+donates its caches and returns new ones, :func:`attention` writes the chunk
+into ``kv_cache`` and returns that same dict.  The kernel still copies the
+cache's live prefix (and, for GQA, its repeated heads) into contiguous
+(B, H, T, Dh) operands at every step.
+
+Sliding-window layers (``attn_local``) and the encoder-decoder's cross
+attention are not ported (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (check_backend, dense_init, linear,
+                                       rmsnorm, rmsnorm_init, rope)
+
+
+def _check_kind(kind: str) -> None:
+    if kind != "attn":
+        raise NotImplementedError(
+            f"attention kind {kind!r} is not ported: the port serves global "
+            f"attention only (attn_local: ROADMAP.md, queue 1)")
+
+
+def attn_init(generator, cfg: ModelConfig, dtype=torch.bfloat16,
+              device=None) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    p = {
+        "wq": dense_init(generator, d, cfg.num_heads * hd, dtype,
+                         device=device),
+        "wk": dense_init(generator, d, cfg.kv_heads * hd, dtype,
+                         device=device),
+        "wv": dense_init(generator, d, cfg.kv_heads * hd, dtype,
+                         device=device),
+        "wo": dense_init(generator, cfg.num_heads * hd, d, dtype,
+                         device=device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, dtype, device)
+        p["k_norm"] = rmsnorm_init(hd, dtype, device)
+    return p
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
+                  dtype=torch.bfloat16, device=None) -> dict:
+    _check_kind(kind)
+    shape = (batch, max_len, cfg.kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, KVH, T, Dh) -> (B, KVH*groups, T, Dh), each KV head's copies
+    adjacent (the reference's head order), contiguous in one copy."""
+    if groups == 1:
+        return k
+    b, kvh, t, hd = k.shape
+    return k[:, :, None].expand(b, kvh, groups, t, hd).reshape(
+        b, kvh * groups, t, hd)
+
+
+def _attend(q, k, v, *, causal: bool, offset: int, backend: str):
+    """q (B, H, S, Dh) over k/v (B, H, T, Dh): query i sees keys j <= i +
+    offset when ``causal``, every key otherwise.  ``offset`` is 0 or
+    ``T - S`` (a chunk written behind ``T - S`` cached slots)."""
+    s, t = q.shape[2], k.shape[2]
+    if backend == "kernels":
+        if causal and offset:
+            raise NotImplementedError(
+                f"the flash-attention kernel masks top-left: a {s}-token "
+                f"chunk behind {offset} cached slots needs the bottom-right "
+                f"mask (prefill at cache_pos 0, or decode one token)")
+        return kfa.flash_attention(q, k, v, causal=causal)
+    check_backend(backend)
+    if not causal:
+        return F.scaled_dot_product_attention(q, k, v)
+    if not offset:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    rows = torch.arange(s, device=q.device)[:, None] + offset
+    mask = torch.arange(t, device=q.device)[None, :] <= rows
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              kind: str = "attn", positions: torch.Tensor | None = None,
+              kv_cache: dict | None = None, cache_pos: int | None = None,
+              causal: bool = True, backend: str = "kernels"
+              ) -> tuple[torch.Tensor, dict | None]:
+    """Returns (output, kv_cache written in place or None).  x: (B, S, D).
+
+    ``cache_pos`` is a host integer: token i of the chunk sits at absolute
+    position ``cache_pos + i``.  Without a cache the causal mask is over
+    the chunk's own positions (increasing, as the reference's forward
+    passes them), which is the kernel's top-left mask."""
+    _check_kind(kind)
+    b, s, _ = x.shape
+    nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    groups = nh // kvh
+    start = 0 if cache_pos is None else int(cache_pos)
+    if positions is None:
+        positions = torch.arange(start, start + s, device=x.device
+                                 ).expand(b, s)
+
+    q = linear(x, p["wq"], backend).view(b, s, nh, hd)
+    k = linear(x, p["wk"], backend).view(b, s, kvh, hd)
+    v = linear(x, p["wv"], backend).view(b, s, kvh, hd)
+
+    if cfg.qk_norm and "q_norm" in p:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if cfg.rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+
+    offset, new_cache = 0, None
+    if kv_cache is not None:
+        end = start + s
+        if end > kv_cache["k"].shape[1]:
+            raise ValueError(f"cache of {kv_cache['k'].shape[1]} slots "
+                             f"cannot take positions {start}..{end - 1}")
+        kv_cache["k"][:, start:end] = k
+        kv_cache["v"][:, start:end] = v
+        k, v = kv_cache["k"][:, :end], kv_cache["v"][:, :end]
+        new_cache = kv_cache
+        # one token sees every live slot; a longer chunk is causal within
+        # itself, behind the ``start`` slots already cached
+        causal, offset = s > 1, start
+
+    qf = q.transpose(1, 2)                                # (B, H, S, Dh)
+    kf = _repeat_kv(k.transpose(1, 2), groups)            # (B, H, T, Dh)
+    vf = _repeat_kv(v.transpose(1, 2), groups)
+    out = _attend(qf, kf, vf, causal=causal, offset=offset, backend=backend)
+    out = out.transpose(1, 2).reshape(b, s, nh * hd)
+    return linear(out, p["wo"], backend), new_cache

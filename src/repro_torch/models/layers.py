@@ -1,0 +1,131 @@
+"""Shared building blocks of the port's language models (functional, dict
+params), the serving half of ``repro.models.layers``.
+
+Every module is an ``init(generator, ...) -> params`` / ``apply(params, x,
+...)`` pair on plain dicts of tensors, named as in the reference.  The
+initialisers draw from an explicit ``torch.Generator`` on the generator's
+own device (a CPU generator gives the same weights on every device; a CUDA
+one draws a 1.6B-parameter model in milliseconds) and put the result on
+``device``; ``device="meta"`` gives shapes and dtypes only.
+
+Every product goes through :func:`linear`: ``backend="kernels"`` calls the
+port's matmul kernel (``kernels/matmul.py``; its plain version for CPU
+tensors), ``backend="torch"`` calls ``torch.matmul``, the library
+yardstick.  The reference's sharding hook ``lc`` has no counterpart: the
+port has no mesh (ROADMAP.md, multi-device).  Its two cross-entropy
+functions belong to training and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import matmul as kmm
+
+BACKENDS = ("kernels", "torch")
+
+
+def check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; use one of "
+                         f"{BACKENDS}")
+
+
+def normal_init(generator: torch.Generator | None, shape, scale: float,
+                dtype: torch.dtype, device=None) -> torch.Tensor:
+    """``(N(0, 1) * scale).to(dtype)`` of ``shape``, drawn in fp32 on the
+    generator's device and put on ``device`` (default: the generator's).
+    On the meta device nothing is drawn and ``generator`` may be None."""
+    device = torch.device(device) if device is not None else generator.device
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    t = torch.randn(shape, generator=generator, device=generator.device,
+                    dtype=torch.float32)
+    return (t * scale).to(device=device, dtype=dtype)
+
+
+def dense_init(generator, d_in: int, d_out: int, dtype=torch.bfloat16,
+               scale: float | None = None, device=None) -> torch.Tensor:
+    scale = (d_in ** -0.5) if scale is None else scale
+    return normal_init(generator, (d_in, d_out), scale, dtype, device)
+
+
+def rmsnorm_init(d: int, dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """Normalise in fp32, cast to ``x.dtype``, then scale by ``g``.
+
+    The fp32 ``x * rsqrt(mean(x^2) + eps)`` is ``F.rms_norm``: on the card
+    one block reduces a row in the same order whatever the row count,
+    where ``torch.mean``'s reduction changes order with it (a row's sum in
+    a 4096-row prefill and in a 4-row decode call can differ in the last
+    bit).  So a token's activations do not depend on how many tokens share
+    the call, and the parallel prefill is the token loop bit for bit."""
+    xf = x.float()
+    return F.rms_norm(xf, (xf.shape[-1],), eps=eps).to(x.dtype) * g
+
+
+def layernorm_init(d: int, dtype=torch.bfloat16, device=None) -> dict:
+    return {"g": torch.ones((d,), dtype=dtype, device=device),
+            "b": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * p["g"] + p["b"]
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, Dh); positions: (..., S).
+
+    The angles are fp32; a bf16 ``x``'s halves are promoted to fp32 by the
+    products with cos and sin, and the result is cast back once."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., :, None].to(torch.float32) * freqs  # (..., S, half)
+    cos = torch.cos(ang)[..., :, None, :]                   # (..., S, 1, half)
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, backend: str = "kernels"
+           ) -> torch.Tensor:
+    """``x @ w`` for ``x`` (..., K) and ``w`` (K, N), in ``x.dtype``.
+
+    The leading axes are flattened to one M axis, the kernel's (M, K)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if backend == "kernels":
+        y = kmm.matmul(x2, w)
+    else:
+        check_backend(backend)
+        y = torch.matmul(x2, w)
+    return y.reshape(*lead, w.shape[1])
+
+
+# ------------------------------------------------------------------ MLP ---
+
+def mlp_init(generator, d: int, d_ff: int, dtype=torch.bfloat16,
+             device=None) -> dict:
+    return {
+        "w_gate": dense_init(generator, d, d_ff, dtype, device=device),
+        "w_up": dense_init(generator, d, d_ff, dtype, device=device),
+        "w_down": dense_init(generator, d_ff, d, dtype, device=device),
+    }
+
+
+def mlp(p: dict, x: torch.Tensor, backend: str = "kernels") -> torch.Tensor:
+    """SwiGLU feed-forward: ``silu(x @ w_gate) * (x @ w_up) @ w_down``."""
+    h = F.silu(linear(x, p["w_gate"], backend)) * linear(x, p["w_up"],
+                                                         backend)
+    return linear(h, p["w_down"], backend)

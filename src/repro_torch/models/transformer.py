@@ -1,0 +1,233 @@
+"""Decoder-only LM assembly, the dense path of ``repro.models.transformer``.
+
+The stack is ``repeat`` copies of ``cfg.block_pattern``; parameters are
+stacked on a leading ``repeat`` axis per pattern position, as in the
+reference, so a tree carries across name for name
+(:func:`load_jax_params`).  The reference's ``lax.scan`` over superblocks
+is a Python loop over ``repeat`` that indexes the stacks: a leading-axis
+slice is contiguous and keeps the 16-byte alignment the kernels' ``wgmma``
+variants need.
+
+Each layer = attention + dense SwiGLU FFN (or none when ``d_ff == 0``),
+both pre-norm residual.  Every product goes through
+:func:`~repro_torch.models.layers.linear` and the scores through the
+flash-attention kernel under ``backend="kernels"`` (a forward launches 7
+matmuls and 1 attention a layer, and 1 matmul for the LM head).  Mixer
+kinds ``attn_local``, ``mamba``, ``mlstm`` and ``slstm``, the MoE FFN and
+encoder-decoder configs raise ``NotImplementedError`` at construction
+(:func:`check_supported`; ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.ckpt import as_tensor
+from repro_torch.kernels.util import canon_dtype, resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (dense_init, linear, mlp, mlp_init,
+                                       normal_init, rmsnorm, rmsnorm_init)
+
+#: what each unported part of a config waits for (ROADMAP.md, queue 1)
+_UNPORTED = {
+    "attn_local": "sliding-window attention (attn_local)",
+    "mamba": "the Mamba mixer (mamba/xlstm)",
+    "mlstm": "the xLSTM mixers (mamba/xlstm)",
+    "slstm": "the xLSTM mixers (mamba/xlstm)",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port cannot run yet."""
+    for kind in cfg.block_pattern:
+        if kind != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: mixer {kind!r} is not ported; it waits for "
+                f"{_UNPORTED.get(kind, kind)} (ROADMAP.md, queue 1)")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE FFN is not ported (moe: ROADMAP.md, "
+            f"queue 1)")
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported (encdec: "
+            f"ROADMAP.md, queue 1)")
+
+
+def _ffn_kind(cfg: ModelConfig) -> str:
+    """``"dense"``, or ``"none"`` when ``d_ff == 0`` (MoE is refused)."""
+    return "dense" if cfg.d_ff > 0 else "none"
+
+
+def layer_init(generator, cfg: ModelConfig, dtype, device=None) -> dict:
+    """One attention layer's parameters (``check_supported`` has refused
+    every other mixer)."""
+    p = {
+        "mixer": attn_mod.attn_init(generator, cfg, dtype, device=device),
+        "norm1": rmsnorm_init(cfg.d_model, dtype, device),
+        "norm2": rmsnorm_init(cfg.d_model, dtype, device),
+    }
+    if _ffn_kind(cfg) == "dense":
+        p["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
+
+
+def _stack(trees: list) -> dict:
+    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
+                else torch.stack([t[k] for t in trees]))
+            for k, v in trees[0].items()}
+
+
+def init_params(generator: torch.Generator | None, cfg: ModelConfig,
+                device=None) -> dict:
+    """Parameters with per-pattern-position stacks of shape (repeat, ...),
+    in ``cfg.dtype``, drawn from ``generator`` on its device (see
+    :mod:`repro_torch.models.layers`) and put on ``device`` (``None`` ->
+    CUDA, raising without a card; ``"meta"`` for shapes only)."""
+    check_supported(cfg)
+    dtype = canon_dtype(cfg.dtype)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
+    params = {"embed": normal_init(generator, (cfg.vocab, cfg.d_model),
+                                   cfg.d_model ** -0.5, dtype, dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab,
+                                       dtype, device=dev)
+    params["blocks"] = [
+        _stack([layer_init(generator, cfg, dtype, dev)
+                for _ in range(cfg.repeat)])
+        for _ in cfg.block_pattern]
+    params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, dev)
+    return params
+
+
+def flatten_params(tree, prefix: str = "") -> dict:
+    """{dotted path: leaf} of a tree of dicts and lists
+    (``blocks.0.mixer.wq``)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    flat = {}
+    for k, v in items:
+        name = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, (dict, list, tuple)):
+            flat.update(flatten_params(v, name))
+        else:
+            flat[name] = v
+    return flat
+
+
+def load_jax_params(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """The reference's ``init_params(key, cfg)`` tree, as nested dicts and
+    lists of numpy arrays (bf16 leaves as ``ml_dtypes`` arrays, carried
+    through their bits), as the port's parameter tree on ``device``.
+
+    Every leaf must be present with the shape and dtype that
+    :func:`init_params` gives ``cfg``; anything missing, extra or
+    misshapen raises before a tensor is made."""
+    want = flatten_params(init_params(None, cfg, device="meta"))
+    got = {k: np.asarray(v) for k, v in flatten_params(tree).items()}
+    if set(got) != set(want):
+        raise KeyError(f"parameter trees differ: missing "
+                       f"{sorted(set(want) - set(got))}, extra "
+                       f"{sorted(set(got) - set(want))}")
+    for name, t in want.items():
+        dtype = "bfloat16" if "bfloat16" in str(got[name].dtype) else str(
+            got[name].dtype)
+        if (got[name].shape != tuple(t.shape)
+                or dtype != str(t.dtype).removeprefix("torch.")):
+            raise ValueError(f"{name}: {got[name].shape} {dtype} != "
+                             f"{tuple(t.shape)} {t.dtype}")
+    dev = resolve_device(device)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return as_tensor(node).to(dev)
+
+    return build(tree)
+
+
+def layer_params(params: dict, cfg: ModelConfig):
+    """Yield ``(pattern_idx, repeat_idx, kind, ffn_kind, layer)`` in stack
+    order, ``layer`` the per-layer views of the stacked parameters."""
+    def index(tree, r):
+        return {k: index(v, r) if isinstance(v, dict) else v[r]
+                for k, v in tree.items()}
+
+    for r in range(cfg.repeat):
+        for pi, kind in enumerate(cfg.block_pattern):
+            yield pi, r, kind, _ffn_kind(cfg), index(params["blocks"][pi], r)
+
+
+def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                ffn_kind: str, positions, cache=None, cache_pos=None,
+                backend: str = "kernels"):
+    """One (mixer + FFN) layer.  Returns (y, cache written in place)."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    mixed, new_cache = attn_mod.attention(
+        p["mixer"], h, cfg, kind=kind, positions=positions, kv_cache=cache,
+        cache_pos=cache_pos, backend=backend)
+    x = x + mixed
+    if ffn_kind == "dense":
+        x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps), backend)
+    return x, new_cache
+
+
+def lm_head(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T.to(canon_dtype(cfg.dtype))
+    return head
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            backend: str = "kernels") -> torch.Tensor:
+    """Prefill forward without a cache.  tokens (B, S) -> logits (B, S, V).
+
+    The reference's ``embeddings=`` (stub modality frontends) and
+    ``return_hidden=`` (the chunked CE of training) come with their
+    callers (ROADMAP.md, queue 1)."""
+    check_supported(cfg)
+    x = params["embed"][tokens].to(canon_dtype(cfg.dtype))
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for _, _, kind, fk, p in layer_params(params, cfg):
+        x, _ = apply_layer(p, x, cfg, kind, fk, positions, backend=backend)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return linear(x, lm_head(params, cfg), backend)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device=None) -> list:
+    """Per-pattern-position stacked KV caches with a leading (repeat,)
+    axis, zeros in ``cfg.dtype`` on ``device`` (``None`` -> CUDA)."""
+    check_supported(cfg)
+    dtype, dev = canon_dtype(cfg.dtype), resolve_device(device)
+    caches = []
+    for kind in cfg.block_pattern:
+        one = attn_mod.init_kv_cache(cfg, batch, max_len, kind, dtype,
+                                     "meta")
+        caches.append({k: torch.zeros((cfg.repeat,) + tuple(a.shape),
+                                      dtype=dtype, device=dev)
+                       for k, a in one.items()})
+    return caches
+
+
+def decode_step(params: dict, token: torch.Tensor, caches: list,
+                cache_pos: int, cfg: ModelConfig, backend: str = "kernels"
+                ) -> tuple[torch.Tensor, list]:
+    """One cached step.  token (B, S) at positions ``cache_pos ..
+    cache_pos + S - 1`` -> (logits (B, S, V), caches).  S = 1 decodes;
+    S > 1 at ``cache_pos = 0`` is the parallel prefill.  The caches are
+    written in place and returned."""
+    check_supported(cfg)
+    x = params["embed"][token].to(canon_dtype(cfg.dtype))
+    for pi, r, kind, fk, p in layer_params(params, cfg):
+        cache = {k: c[r] for k, c in caches[pi].items()}
+        x, _ = apply_layer(p, x, cfg, kind, fk, None, cache=cache,
+                           cache_pos=cache_pos, backend=backend)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return linear(x, lm_head(params, cfg), backend), caches

@@ -683,3 +683,50 @@ def test_strided_dilated_grads_match_torch_backend(cuda, d):
     assert launched["kernels"]["conv2d"] >= 1
     for got, want in zip(out["kernels"], out["torch"]):
         _close_grad(got, want)
+
+
+def test_lm_rows_do_not_depend_on_the_row_count(cuda):
+    """A token's activations through RMSNorm, the matmul kernel and the
+    attention kernel are bitwise the same in a 4 x 1024-token prefill call
+    and in a call of its 4 rows alone (decode), so the parallel prefill is
+    the token loop bit for bit (``chip_smoke.py`` phase 25d)."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn(4, 1024, 2048, generator=g, device=cuda).bfloat16()
+    gain = torch.ones(2048, device=cuda, dtype=torch.bfloat16)
+    w = (torch.randn(2048, 2048, generator=g, device=cuda)
+         * 2048 ** -0.5).bfloat16()
+    h = layers.rmsnorm(gain, x)
+    y = kmm.matmul_cuda(h.reshape(-1, 2048), w).view(4, 1024, 2048)
+    q, k, v = (t.view(4, 1024, 32, 64).transpose(1, 2).contiguous()
+               for t in (y, y.flip(1), y.roll(7, 1)))
+    att = kfa.flash_attention_cuda(q, k, v, True)
+    for t in (0, 1, 127, 128, 555, 1023):
+        ht = layers.rmsnorm(gain, x[:, t:t + 1].contiguous())
+        assert torch.equal(ht, h[:, t:t + 1])
+        yt = kmm.matmul_cuda(ht.reshape(4, 2048), w)
+        assert torch.equal(yt, y[:, t])
+        at = kfa.flash_attention_cuda(
+            q[:, :, t:t + 1].contiguous(), k[:, :, :t + 1].contiguous(),
+            v[:, :, :t + 1].contiguous(), False)
+        assert torch.equal(at, att[:, :, t:t + 1])
+
+
+def test_lm_parallel_prefill_is_the_token_loop(cuda):
+    """StableLM-2-1.6B's widths, two layers, bf16: one parallel prefill and
+    the ``slow=True`` loop give the same token and bitwise the same
+    caches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config("stablelm-1.6b").replace(num_layers=2)
+    srv = serve.Server(cfg, max_len=80, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (4, 72),
+                         generator=torch.Generator().manual_seed(1))
+    tok_p, caches_p, _ = srv.prefill(toks.numpy())
+    tok_s, caches_s, _ = srv.prefill(toks.numpy(), slow=True)
+    assert torch.equal(tok_p, tok_s)
+    for a, b in zip(caches_p, caches_s):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])

@@ -23,8 +23,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import transposed_conv as ktr
 from repro_torch.kernels.epilogue import NO_EPILOGUE
 from repro_torch.kernels.util import canon_dtype, resolve_device
+from repro_torch.configs import get_reduced
+from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import serve_gen
-from repro_torch.models import unet_decoder, whisper
+from repro_torch.models import transformer, unet_decoder, whisper
 from repro_torch.models.dcgan import DCGAN
 from repro_torch.models.enet import ENet
 from repro_torch.models.espnet import ESPNet
@@ -36,9 +38,13 @@ _FILES = sorted(_PORT.rglob("*.py")) + [_ROOT / "chip_smoke.py"]
 
 def test_walk_covers_every_package():
     packages = {p.parent.name for p in _FILES if p.name == "__init__.py"}
-    assert {"checkpoint", "core", "distributed", "kernels", "launch",
-            "models", "optim", "data"} <= packages
+    assert {"checkpoint", "configs", "core", "distributed", "kernels",
+            "launch", "models", "optim", "data"} <= packages
     assert _PORT / "launch" / "serve_gen.py" in _FILES
+    for mod in ("models/config.py", "models/layers.py",
+                "models/attention.py", "models/transformer.py",
+                "launch/serve.py", "configs/stablelm_1_6b.py"):
+        assert _PORT / mod in _FILES
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -82,7 +88,12 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.core.enet_spec, repro_torch.core.espnet_spec, "
             "repro_torch.core.cycle_model, repro_torch.core.calibrate, "
             "repro_torch.kernels.tiling_policy, repro_torch.kernels.autotune, "
-            "repro_torch.checkpoint, repro_torch.distributed; "
+            "repro_torch.checkpoint, repro_torch.distributed, "
+            "repro_torch.configs, repro_torch.models.config, "
+            "repro_torch.models.layers, repro_torch.models.attention, "
+            "repro_torch.models.transformer, repro_torch.launch.serve; "
+            "import repro_torch.configs as c; "
+            "[c.get_config(a) for a in c.ARCH_IDS]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(_ROOT / "src"))
@@ -112,6 +123,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                                      image_size=4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve()
+    lm = get_reduced("stablelm-1.6b")
+    for build in (lambda: lm_serve.Server(lm),
+                  lambda: lm_serve.Server(lm, device="cuda", generator=g),
+                  lambda: lm_serve.main(["--arch", "stablelm-1.6b",
+                                         "--reduced"]),
+                  lambda: transformer.init_params(g, lm),
+                  lambda: transformer.init_caches(lm, 1, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
