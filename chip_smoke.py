@@ -75,7 +75,8 @@ nvcc, then:
    paths, the two conv kernels again on the ENet backward, both again
    in bf16 on the forward and the backward, both on each path of
    phases 18-23, on phase 24's tuned forwards, and kernels 3 and 4 on
-   phase 25's served prefill and decode step) and, last,
+   phase 25's served prefill and decode step and on phase 26's train
+   step) and, last,
    ``{"ok": true, "device": {...}}``;
 
 and, before those two lines, the bf16 slice:
@@ -270,6 +271,44 @@ g. GQA, qk-norm and head dim 128: Qwen3-32B at its published widths, depth
    cut to 2 of 64 layers, one prefill and 4 decode steps with a-c's
    gates.
 
+and last, phase 26 trains it through ``repro_torch.launch.steps.
+make_train_step``: StableLM-2-1.6B at its published configuration, nothing
+cut, weights drawn on the card from a seeded CUDA generator, bf16 with fp32
+AdamW masters and moments, per-layer remat, sequence length 4096 (the
+reference's ``train_4k``), global batch 4 in 2 microbatches of 2,
+``LMDataPipeline(seed=SEED)`` batches, warmup 2 of 100 steps:
+
+a. the main path, counts 0 just before one step and read just after, by
+   part (forward, the remat recompute, backward: the counters read on
+   entry to and exit from the backward pass and each ``MatmulFn.backward``):
+   the kernel-3 and kernel-4 launches that ``lm_train_launches`` works out
+   (tested on the CPU: 24 x 7 + 8 head chunks a forward, again in the
+   recompute, twice that in the backward, 704 a microbatch; 48
+   attentions), every one ``"wgmma"``; no library conv or attention and no
+   plain version; the attention backward's own fp32 products (``bmm``,
+   ``baddbmm``) and the transposes counted apart;
+b. every kernel call of one microbatch's forward, recompute and backward
+   against its plain version as it is made, at phase 10's bf16 bar (the
+   backward's products without the max(1, .) floor), with what a zeroed
+   output and one 2% off would read; the calls by part are half of a's;
+c. step-0 loss, gradient norm and every gradient tensor against
+   ``backend="torch"`` (``torch.matmul``, SDPA): 5%, 10% and 10% relative
+   L2 (DESIGN.md §12), the worst tensor printed;
+d. three steps on both backends from one state on successive batches:
+   finite losses within 5%, fp32 masters, bf16 parameters, step 3;
+e. ``launch.train.train`` at the reduced configuration on the card with a
+   checkpoint every 2 steps and a failure injected at step 3: one
+   recovery, the final step, and the resumed run's last loss and state
+   equal to an uninterrupted run's bit for bit;
+f. per backend: step wall ms (median of 5 warm steps), tokens/s, 6ND
+   model FLOP/s against the bf16 peak, busy share and device ms by kernel
+   class (``torch.profiler``), peak memory; the kernels step's pieces
+   timed alone (the attention backward's recompute, the transposes,
+   AdamW); every distinct kernel-3 and kernel-4 shape of the step beside
+   its bound, plain version and library call: the kernels line's
+   ``matmul (StableLM-2-1.6B train step forward)``, ``... backward)`` and
+   ``flash_attention (StableLM-2-1.6B train step)``.
+
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
 with TF32 off.  The full per-call results go to
@@ -387,6 +426,17 @@ SERVE_LM_FP32_LAYERS = 2
 # published widths, depth cut to 2 of 64 layers (5.1 GB of bf16 weights),
 # one prefill and 4 decode steps
 GQA_ARCH, GQA_NAME, GQA_LAYERS, GQA_DECODE = "qwen3-32b", "Qwen3-32B", 2, 4
+# phase 26: StableLM-2-1.6B trained at its published configuration (bf16,
+# nothing cut) through make_train_step: seq 4096 (the reference's train_4k
+# length), global batch 4 in 2 microbatches of 2, fp32 AdamW masters and
+# moments, per-layer remat, LMDataPipeline(seed=SEED) batches, warmup 2 of
+# 100 steps; 3 steps a backend (26d) and the median of 5 warm ones (26f)
+TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_MICRO = 4, 4096, 2
+TRAIN_LM_WARMUP, TRAIN_LM_TOTAL = 2, 100
+TRAIN_LM_STEPS, TRAIN_LM_TIMED = 3, 5
+# 26e: the train loop at the reduced configuration: 4 steps of 4 x 1024
+# tokens, a checkpoint every 2 steps, a failure injected at step 3
+DRILL_LM_STEPS, DRILL_LM_EVERY, DRILL_LM_FAIL, DRILL_LM_SEQ = 4, 2, 3, 1024
 # phase 3's edge cases (and phase 14's, in bf16)
 DENSE_EDGES = [  # label, x shape, w shape, stride, pads
     ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
@@ -493,13 +543,44 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel's pallas_call)
 }
 
 
+def layer_products(cfg) -> int:
+    """A dense layer's products: q, k, v and o, and the MLP's three."""
+    return 4 + (3 if cfg.d_ff > 0 else 0)
+
+
 def lm_step_launches(cfg) -> dict:
-    """The launches of one LM serve step, prefill or decode: 7 matmuls (q,
-    k, v, o and the three MLP products) and 1 attention a layer, and the LM
-    head's matmul."""
+    """The launches of one LM serve step, prefill or decode: each layer's
+    products and 1 attention, and the LM head's matmul."""
     return {"conv2d": 0, "transposed_conv2d": 0,
-            "matmul": 7 * cfg.num_layers + 1,
+            "matmul": layer_products(cfg) * cfg.num_layers + 1,
             "flash_attention": cfg.num_layers}
+
+
+def lm_train_launches(cfg, seq_len: int, microbatches: int) -> dict:
+    """The kernel launches of one ``make_train_step`` step on
+    ``backend="kernels"``, by part: ``{"matmul": {"forward", "recompute",
+    "backward"}, "flash_attention": {...}}``.
+
+    Per microbatch: each layer's products and the LM head's, one per CE
+    chunk (``layers.ce_chunks``); under ``cfg.remat`` every layer runs
+    again in the backward, and a chunked head's products always do (each
+    chunk is checkpointed); the backward launches 2 products for each
+    forward one (dA and dB, every operand requires grad).  Attention runs
+    kernel 4 in the forward and in the recompute; its backward launches
+    no kernel."""
+    from repro_torch.models.layers import ce_chunks
+
+    layers = cfg.num_layers
+    body = layer_products(cfg) * layers
+    heads = ce_chunks(seq_len)
+    mm = {"forward": body + heads,
+          "recompute": (body if cfg.remat else 0) + (heads if heads > 1
+                                                      else 0),
+          "backward": 2 * (body + heads)}
+    fa = {"forward": layers, "recompute": layers if cfg.remat else 0,
+          "backward": 0}
+    return {"matmul": {k: v * microbatches for k, v in mm.items()},
+            "flash_attention": {k: v * microbatches for k, v in fa.items()}}
 
 
 def log(msg: str) -> None:
@@ -814,6 +895,8 @@ class Smoke:
         kernels_line["kernels"] += self.run_tuning()
         torch.cuda.empty_cache()
         kernels_line["kernels"] += self.run_lm_serving()
+        torch.cuda.empty_cache()
+        kernels_line["kernels"] += self.run_lm_training()
         self.write_report(card)
         log(f"class maps: {tuple(y.argmax(-1).shape)}")
         log(card)
@@ -1093,13 +1176,14 @@ class Smoke:
             f"{worst['bound_ms']:.4f})")
         return table
 
-    def profile_device(self, fn, what, wall_ms):
+    def profile_device(self, fn, what, wall_ms, classes=None):
         """Device time of one ``fn()`` (a ``what``) by kernel name and by
         the op that launched it (``torch.profiler``), and the device's busy
         share of its wall time measured without the profiler.  Busy time
         sums the device's own events (kernels, copies) only: an op's
         device time is its kernels' time again, so adding both counts it
-        twice."""
+        twice.  ``classes`` ({class: name substrings}, first match wins)
+        also sums every device event by class, the rest under "rest"."""
         torch = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -1137,7 +1221,17 @@ class Smoke:
         log("  device time by the op that launched it:")
         for ms, count, key in ops[:10]:
             log(f"    {ms:8.3f} ms  x{count:<5d} {key[:90]}")
+        by_class = None
+        if classes:
+            by_class = dict.fromkeys([*classes, "rest"], 0.0)
+            for ms, _, key in kernels:
+                cls = next((c for c, subs in classes.items()
+                            if any(sub in key for sub in subs)), "rest")
+                by_class[cls] += ms
+            log("  device ms by class: " + ", ".join(
+                f"{c} {ms:.3f}" for c, ms in by_class.items()))
         return {"device_ms": busy, "busy_share": busy / wall_ms,
+                "classes": by_class,
                 "top": [{"ms": ms, "count": c, "name": k}
                         for ms, c, k in kernels[:25]],
                 "top_ops": [{"ms": ms, "count": c, "name": k}
@@ -4274,6 +4368,644 @@ class Smoke:
         self.lm_serve_logits(cfg, params, prompts, GQA_DECODE, "25g", rep)
         del params, srv
         torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- phase 26
+    def run_lm_training(self):
+        """Phase 26: StableLM-2-1.6B trained on the card at its published
+        configuration through ``make_train_step``; the loop drill at the
+        reduced configuration."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.data import LMDataPipeline
+
+        t26 = time.perf_counter()
+        cfg = get_config(LM_ARCH)
+        label = f"{LM_NAME} train step"
+        log(f"phase 26: train {cfg.name} at its published configuration "
+            f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} "
+            f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+            f"{cfg.dtype}; nothing cut) through repro_torch.launch.steps."
+            f"make_train_step: seq {TRAIN_LM_SEQ}, global batch "
+            f"{TRAIN_LM_BATCH} in {TRAIN_LM_MICRO} microbatches, fp32 AdamW "
+            f"masters and moments, per-layer remat ({cfg.remat}), "
+            f"LMDataPipeline(seed={SEED}) batches, warmup "
+            f"{TRAIN_LM_WARMUP} of {TRAIN_LM_TOTAL} steps")
+        rep = self.report["lm_train"] = {}
+        params = self.lm_params(cfg, SEED + 28, rep)
+        pipe = LMDataPipeline(TRAIN_LM_BATCH, TRAIN_LM_SEQ, cfg.vocab,
+                              seed=SEED)
+        try:
+            batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.dev) for k, v in pipe.batch_at(i).items()}
+                for i in range(TRAIN_LM_STEPS)]
+        finally:
+            pipe.close()
+        launches = lm_train_launches(cfg, TRAIN_LM_SEQ, TRAIN_LM_MICRO)
+        parts = self.lm_train_main(cfg, params, batches[0], launches, label,
+                                   rep)
+        groups, samples = self.lm_train_calls(cfg, params, batches[0],
+                                              launches, label, rep)
+        self.lm_train_grads(cfg, params, batches[0], rep)
+        self.lm_train_steps(cfg, params, batches, rep)
+        self.lm_train_drill(rep)
+        entries = self.lm_train_times(cfg, params, batches, groups, samples,
+                                      parts, label, rep)
+        del params, batches, groups, samples
+        torch.cuda.empty_cache()
+        rep["seconds"] = time.perf_counter() - t26
+        log(f"phase 26: {rep['seconds']:.1f} s")
+        return entries
+
+    def train_fns(self, cfg, backend):
+        """(``make_train_step``, its optimizer state's init) on
+        ``backend`` at phase 26's schedule and microbatches."""
+        from repro_torch.launch import steps
+        from repro_torch.models import transformer
+        from repro_torch.optim import adamw_init
+
+        step = steps.make_train_step(
+            cfg, warmup=TRAIN_LM_WARMUP, total_steps=TRAIN_LM_TOTAL,
+            microbatches=TRAIN_LM_MICRO, backend=backend)
+        return step, lambda p: adamw_init(
+            transformer.flatten_params(p), memory_mode=cfg.opt_memory_mode)
+
+    @contextlib.contextmanager
+    def counting_calls(self, counts, targets):
+        """Count the calls of each ``(module, attribute)`` in ``targets``
+        made inside the block, by attribute name."""
+        orig = [getattr(mod, attr) for mod, attr in targets]
+
+        def wrap(attr, fn):
+            def wrapper(*args, **kw):
+                counts[attr] = counts.get(attr, 0) + 1
+                return fn(*args, **kw)
+            return wrapper
+
+        for (mod, attr), fn in zip(targets, orig):
+            setattr(mod, attr, wrap(attr, fn))
+        try:
+            yield
+        finally:
+            for (mod, attr), fn in zip(targets, orig):
+                setattr(mod, attr, fn)
+
+    @contextlib.contextmanager
+    def counting_parts(self, parts, read):
+        """Split the launches made inside the block by part, from the
+        counts ``read()`` gives (``{"matmul": n, "flash_attention": n}``)
+        on entry to and exit from the backward pass (the outermost
+        ``torch.autograd.grad``) and each forward and backward body of
+        ``MatmulFn`` and ``FlashAttentionFn``.  A launch is the innermost
+        body's: ``backward`` in a Function's backward body; ``recompute`` in
+        a forward body inside the backward pass (a checkpointed forward run
+        again, which a backward body's read of its saved tensors starts);
+        ``forward`` outside the backward pass.  Fills ``parts[name][part]``
+        when the block ends."""
+        torch = self.torch
+        kmm, kfa = self.kmm, self.kfa
+        start = read()
+        own = {p: dict.fromkeys(start, 0)
+               for p in ("forward", "recompute", "backward")}
+        # open bodies: [part, counts on entry, launches of nested bodies]
+        stack = []
+        orig = (torch.autograd.grad, kmm.MatmulFn.forward,
+                kmm.MatmulFn.backward, kfa.FlashAttentionFn.forward,
+                kfa.FlashAttentionFn.backward)
+
+        def body(kind, fn):
+            def wrapper(*args, **kw):
+                in_grad = any(f[0] != "forward" for f in stack)
+                part = ("backward" if kind == "backward" else "recompute"
+                        if kind == "grad" or in_grad else "forward")
+                stack.append([part, read(), dict.fromkeys(start, 0)])
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    part, entry, nested = stack.pop()
+                    for n, c in read().items():
+                        total = c - entry[n]
+                        own[part][n] += total - nested[n]
+                        if stack:
+                            stack[-1][2][n] += total
+            return wrapper
+
+        torch.autograd.grad = body("grad", orig[0])
+        kmm.MatmulFn.forward = staticmethod(body("forward", orig[1]))
+        kmm.MatmulFn.backward = staticmethod(body("backward", orig[2]))
+        kfa.FlashAttentionFn.forward = staticmethod(body("forward", orig[3]))
+        kfa.FlashAttentionFn.backward = staticmethod(
+            body("backward", orig[4]))
+        try:
+            yield
+        finally:
+            torch.autograd.grad = orig[0]
+            kmm.MatmulFn.forward = staticmethod(orig[1])
+            kmm.MatmulFn.backward = staticmethod(orig[2])
+            kfa.FlashAttentionFn.forward = staticmethod(orig[3])
+            kfa.FlashAttentionFn.backward = staticmethod(orig[4])
+        outside = {n: c - start[n] - sum(o[n] for o in own.values())
+                   for n, c in read().items()}
+        for n in start:
+            parts[n] = {"forward": own["forward"][n] + outside[n],
+                        "recompute": own["recompute"][n],
+                        "backward": own["backward"][n]}
+
+    def lm_train_main(self, cfg, params, batch, launches, label, rep):
+        """26a: the main path.  Counts 0 just before one train step on
+        ``backend="kernels"``, read just after, in all and by part
+        (``counting_parts``): the launches ``lm_train_launches`` works out
+        (tested on the CPU), every one ``"wgmma"``; no library conv or
+        attention, no plain version, no ``torch.matmul``; the attention
+        backward's own fp32 products (``attention_grads``: per query chunk
+        one ``bmm``, two ``baddbmm`` and two ``baddbmm_``) and the
+        transposes counted apart.  Returns the measured launches by part."""
+        torch = self.torch
+        F = torch.nn.functional
+        kmm, kfa = self.kmm, self.kfa
+        want = {"conv2d": 0, "transposed_conv2d": 0,
+                **{k: sum(v.values()) for k, v in launches.items()}}
+        chunks = (TRAIN_LM_SEQ // kfa.Q_CHUNK * cfg.num_layers
+                  * TRAIN_LM_MICRO)
+        log(f"phase 26a: {label} on backend=kernels, counts 0 just before "
+            f"and read just after one step; worked out "
+            f"(lm_train_launches): matmul {launches['matmul']}, flash "
+            f"attention {launches['flash_attention']}, all \"wgmma\"; the "
+            f"attention backward's products: {5 * chunks} ({chunks} query "
+            f"chunks: {TRAIN_LM_SEQ // kfa.Q_CHUNK} x {cfg.num_layers} "
+            f"layers x {TRAIN_LM_MICRO} microbatches, 5 each)")
+        step, opt_init = self.train_fns(cfg, "kernels")
+        opt = opt_init(params)
+        other, parts = {}, {}
+        targets = [(F, "conv2d"), (F, "conv_transpose2d"),
+                   (F, "scaled_dot_product_attention"),
+                   (kmm, "matmul_plain"), (kfa, "attention_plain"),
+                   (torch, "matmul"), (torch, "bmm"), (torch, "baddbmm"),
+                   (torch.Tensor, "baddbmm_")]
+        transposes = kmm.MatmulFn.transposes
+        self.reset_counts()
+        with self.counting_calls(other, targets), self.counting_parts(
+                parts, lambda: {n: self.counters[n].launches
+                                for n in launches}):
+            new_p, new_o, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+        counts = self.check_lm_launches("train step", want, "wgmma")
+        transposes = kmm.MatmulFn.transposes - transposes
+        other = {attr: other.get(attr, 0) for _, attr in targets}
+        log(f"  by part, measured: matmul {parts['matmul']}, flash "
+            f"attention {parts['flash_attention']}")
+        log(f"  other calls in the step: {other}; transposes copied: "
+            f"{transposes} (one a backward product)")
+        if parts != launches:
+            raise RuntimeError(f"train step launches by part {parts} != "
+                               f"{launches}")
+        want_other = {"conv2d": 0, "conv_transpose2d": 0,
+                      "scaled_dot_product_attention": 0, "matmul_plain": 0,
+                      "attention_plain": 0, "matmul": 0, "bmm": chunks,
+                      "baddbmm": 2 * chunks, "baddbmm_": 2 * chunks}
+        if other != want_other or transposes != launches["matmul"][
+                "backward"]:
+            raise RuntimeError(f"train step calls {other} (transposes "
+                               f"{transposes}) != {want_other}: a product "
+                               f"or an attention left the kernels")
+        loss = float(m["loss"])
+        log(f"  step 0: loss {loss:.4f}, grad_norm "
+            f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.3e}")
+        if not math.isfinite(loss) or int(new_o.step) != 1:
+            raise RuntimeError(f"train step: loss {loss}, step "
+                               f"{int(new_o.step)}")
+        rep["launches"] = {"counted": counts, "by_part": parts,
+                           "worked_out": launches, "other": other,
+                           "transposes": transposes}
+        del new_p, new_o, opt
+        return parts
+
+    def lm_train_calls(self, cfg, params, batch, launches, label, rep):
+        """26b: every kernel-3 and kernel-4 call of one microbatch's
+        forward and backward (the recompute included), each held against
+        its plain version as it is made at phase 10's bf16 bar (a product
+        of the backward, whose cotangents are small, without the max(1, .)
+        floor, as phases 6 and 14), with what a zeroed output and one 2%
+        off would read; the calls by part are ``launches`` (a step's, by
+        part) over the microbatches.  Returns one call's arguments and the
+        call count per (part, kernel, geometry), part ``forward``, ``recompute`` (a
+        forward run again inside the backward pass) or ``backward`` (dA
+        and dB); and one sample of the attention's inputs and the count of
+        every transposed shape."""
+        torch = self.torch
+        from repro_torch.launch import steps
+
+        kmm, kfa = self.kmm, self.kfa
+        rows = TRAIN_LM_BATCH // TRAIN_LM_MICRO
+        log(f"phase 26b: {label}: every kernel call of one microbatch's "
+            f"forward and backward ({rows} x {TRAIN_LM_SEQ} tokens) vs its "
+            f"plain version, checked as it is made (backward products: no "
+            f"max(1, .) floor)")
+        mb = {k: v[:rows] for k, v in batch.items()}
+        vg = steps.make_value_and_grad(cfg, backend="kernels")
+        groups, caught, samples = {}, {}, {"transposes": {}}
+        # the innermost Function body running (forward or backward) and
+        # how many torch.autograd.grad calls are open
+        state = {"stack": [], "grad": 0, "n": 0}
+        orig = (kmm.matmul_cuda, kfa.flash_attention_cuda,
+                kmm.MatmulFn.forward, kmm.MatmulFn.backward,
+                kfa.FlashAttentionFn.forward, torch.autograd.grad,
+                kmm._transposed)
+
+        def part():
+            if state["stack"][-1] == "backward":
+                return "backward"
+            return "recompute" if state["grad"] else "forward"
+
+        def check(name, args, out, plain):
+            where = part()
+            entry = (f"matmul ({label} "
+                     f"{'backward' if where == 'backward' else 'forward'})"
+                     if name == "matmul" else f"flash_attention ({label})")
+            floor = 0.0 if where == "backward" else 1.0
+            want = plain()
+            self.compare(f"{entry} call {state['n']} ({where})", entry, out,
+                         want, quiet=True, floor=floor)
+            caught.setdefault(where, []).append(
+                self.sensitivity(out, want, floor, TOL))
+            state["n"] += 1
+            geo = self.lm_call(name, args)[5]
+            grp = groups.setdefault((where, name, geo), [args, 0])
+            grp[1] += 1
+
+        def mm(a, b):
+            out = orig[0](a, b)
+            check("matmul", (a, b), out, lambda: kmm.matmul_plain(a, b))
+            return out
+
+        def fa(q, k, v, causal):
+            out = orig[1](q, k, v, causal)
+            samples.setdefault("attention", (q, k, v))
+            check("flash_attention", (q, k, v, causal), out,
+                  lambda: torch.cat([kfa.attention_plain(
+                      q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal)
+                      for i in range(q.shape[0])]))
+            return out
+
+        def inside(what, fn):
+            def wrapper(*args, **kw):
+                state["stack"].append(what)
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    state["stack"].pop()
+            return staticmethod(wrapper)
+
+        def grad(*args, **kw):
+            state["grad"] += 1
+            try:
+                return orig[5](*args, **kw)
+            finally:
+                state["grad"] -= 1
+
+        def transposed(t):
+            key = (tuple(t.shape), str(t.dtype))
+            samples["transposes"][key] = samples["transposes"].get(key, 0) + 1
+            return orig[6](t)
+
+        kmm.matmul_cuda, kfa.flash_attention_cuda = mm, fa
+        kmm.MatmulFn.forward = inside("forward", orig[2])
+        kmm.MatmulFn.backward = inside("backward", orig[3])
+        kfa.FlashAttentionFn.forward = inside("forward", orig[4])
+        torch.autograd.grad, kmm._transposed = grad, transposed
+        try:
+            loss, grads = vg(params, mb)
+            torch.cuda.synchronize()
+        finally:
+            kmm.matmul_cuda, kfa.flash_attention_cuda = orig[:2]
+            kmm.MatmulFn.forward = staticmethod(orig[2])
+            kmm.MatmulFn.backward = staticmethod(orig[3])
+            kfa.FlashAttentionFn.forward = staticmethod(orig[4])
+            torch.autograd.grad, kmm._transposed = orig[5:]
+        del grads
+        per_part = {}
+        for (where, name, _), (_, n) in groups.items():
+            per_part[(where, name)] = per_part.get((where, name), 0) + n
+        worst = {e: self.worst[e] for e in (f"matmul ({label} forward)",
+                                            f"matmul ({label} backward)",
+                                            f"flash_attention ({label})")}
+        reads = {w: [min(c[j] for c in cs) for j in range(2)]
+                 for w, cs in caught.items()}
+        log(f"  {state['n']} calls ok, loss {float(loss):.4f}; by part: "
+            + ", ".join(f"{w} {n} x {k}" for (w, k), n in per_part.items())
+            + f"; worst max abs err {json.dumps(worst)}")
+        for w, (zero, off) in reads.items():
+            log(f"  {w}: a zeroed output would reach >= {zero:.3g} x its "
+                f"bar, one 2% off >= {off:.3g} x")
+        want = {(w, k): n // TRAIN_LM_MICRO for k, by in launches.items()
+                for w, n in by.items() if n}
+        if per_part != want:
+            raise RuntimeError(f"{label}: one microbatch's calls by part "
+                               f"{per_part} != {want}")
+        if not all(zero > 1.0 and off > 1.0 for zero, off in reads.values()):
+            raise RuntimeError(f"{label}: a bar would miss a zeroed or a "
+                               f"2%-off kernel output: {reads}")
+        rep["calls"] = {"checked": state["n"], "zeroed_off2_over_bar": reads,
+                        "by_part": {f"{w} {k}": n
+                                    for (w, k), n in per_part.items()}}
+        return groups, samples
+
+    def lm_train_grads(self, cfg, params, batch, rep):
+        """26c: step-0 loss, gradient norm and gradients, kernels against
+        ``backend="torch"`` from one state and batch: loss within 5%,
+        gradient norm within 10%, each gradient tensor at 10% relative L2
+        (DESIGN.md §12)."""
+        from repro_torch.launch import steps
+        from repro_torch.optim import global_norm
+
+        log(f"phase 26c: step-0 gradients, backend=kernels vs backend=torch "
+            f"(loss {BF16_FWD_RTOL:.0%}, grad_norm {BF16_GRAD_RTOL:.0%}, "
+            f"each tensor {BF16_GRAD_RTOL:.0%} relative L2)")
+        out = {}
+        for backend in ("kernels", "torch"):
+            vg = steps.make_value_and_grad(cfg, microbatches=TRAIN_LM_MICRO,
+                                           backend=backend)
+            loss, grads = vg(params, batch)
+            out[backend] = (float(loss), float(global_norm(grads)), grads)
+        (lk, nk, gk), (lt, nt, gt) = out["kernels"], out["torch"]
+        rel = {k: ((gk[k].float() - gt[k].float()).norm()
+                   / gt[k].float().norm().clamp_min(1e-30)).item()
+               for k in gt}
+        worst = max(rel, key=rel.get)
+        log(f"  loss {lk:.5f} vs {lt:.5f} ({abs(lk - lt) / abs(lt):.2e}); "
+            f"grad_norm {nk:.5f} vs {nt:.5f} ({abs(nk - nt) / nt:.2e}); "
+            f"{len(rel)} gradient tensors, worst {worst} at relative L2 "
+            f"{rel[worst]:.3e} (median {statistics.median(rel.values()):.3e}"
+            f"); a zeroed gradient would read 1.0")
+        rep["grads"] = {"loss": [lk, lt], "grad_norm": [nk, nt],
+                        "worst": [worst, rel[worst]], "rel_l2": rel}
+        if not (abs(lk - lt) <= BF16_FWD_RTOL * abs(lt)
+                and abs(nk - nt) <= BF16_GRAD_RTOL * nt
+                and rel[worst] <= BF16_GRAD_RTOL):
+            raise RuntimeError(f"step-0 gradients off the torch backend's: "
+                               f"{rep['grads']['loss']}, "
+                               f"{rep['grads']['grad_norm']}, {worst} "
+                               f"{rel[worst]}")
+        del out, gk, gt
+
+    def lm_train_steps(self, cfg, params, batches, rep):
+        """26d: three steps on both backends from one state on successive
+        batches: losses finite and within 5% of each other, masters fp32,
+        parameters bf16, ``opt_state.step`` 3."""
+        torch = self.torch
+        from repro_torch.models import transformer
+
+        log(f"phase 26d: {TRAIN_LM_STEPS} make_train_step steps on both "
+            f"backends from one state on successive batches")
+        losses = {}
+        for backend in ("kernels", "torch"):
+            step, opt_init = self.train_fns(cfg, backend)
+            p, o = params, opt_init(params)
+            losses[backend] = []
+            for b in batches[:TRAIN_LM_STEPS]:
+                p, o, m = step(p, o, b)
+                losses[backend].append(float(m["loss"]))
+            dtypes = ({str(t.dtype) for t in
+                       transformer.flatten_params(p).values()},
+                      {str(t.dtype) for t in o.master.values()})
+            log(f"  {backend}: losses {losses[backend]}, parameters "
+                f"{dtypes[0]}, masters {dtypes[1]}, step {int(o.step)}")
+            if (dtypes != ({"torch.bfloat16"}, {"torch.float32"})
+                    or int(o.step) != TRAIN_LM_STEPS
+                    or not all(map(math.isfinite, losses[backend]))):
+                raise RuntimeError(f"{backend} steps: {losses[backend]}, "
+                                   f"{dtypes}, step {int(o.step)}")
+            del p, o, m
+            torch.cuda.empty_cache()
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernels"],
+                                                   losses["torch"])]
+        log(f"  kernels vs torch losses: relative {[f'{r:.2e}' for r in rel]}"
+            f" (bar {BF16_FWD_RTOL:.0%})")
+        rep["steps"] = {"losses": losses, "rel": rel}
+        if max(rel) > BF16_FWD_RTOL:
+            raise RuntimeError(f"train losses differ: {losses}")
+
+    def lm_train_drill(self, rep):
+        """26e: ``launch.train.train`` at the reduced configuration on the
+        card, a checkpoint every 2 steps: an uninterrupted run twice and a
+        run with a failure injected at step 3.  One recovery, the requested
+        final step, and the resumed run's last loss and final checkpoint
+        equal to the uninterrupted run's bit for bit (if two uninterrupted
+        runs differ, the step is not deterministic on the card: then held
+        to the bf16 bar)."""
+        torch = self.torch
+        from repro_torch.checkpoint import (flatten_tree, latest_step,
+                                            restore_checkpoint)
+        from repro_torch.configs import get_reduced
+        from repro_torch.distributed.fault_tolerance import FailureInjector
+        from repro_torch.launch import train
+
+        cfg = get_reduced(LM_ARCH)
+        root = os.path.join(ROOT, "chiprun_out", "lm_train_drill")
+        shutil.rmtree(root, ignore_errors=True)
+        log(f"phase 26e: the train loop at {cfg.name} on the card: "
+            f"{DRILL_LM_STEPS} steps of {TRAIN_LM_BATCH} x {DRILL_LM_SEQ} "
+            f"tokens in {TRAIN_LM_MICRO} microbatches, a checkpoint every "
+            f"{DRILL_LM_EVERY} steps, one failure injected at step "
+            f"{DRILL_LM_FAIL}")
+        kw = dict(steps=DRILL_LM_STEPS, global_batch=TRAIN_LM_BATCH,
+                  seq_len=DRILL_LM_SEQ, microbatches=TRAIN_LM_MICRO,
+                  ckpt_every=DRILL_LM_EVERY, device=self.dev,
+                  log_every=DRILL_LM_STEPS, seed=SEED)
+        runs, states = {}, {}
+        for name, inj in (("clean", None), ("again", None),
+                          ("failed", FailureInjector({DRILL_LM_FAIL}))):
+            d = os.path.join(root, name)
+            runs[name] = train.train(cfg, ckpt_dir=d, injector=inj, **kw)
+            states[name] = restore_checkpoint(
+                d, latest_step(d), train.init_state(cfg, None, "meta"))
+        shutil.rmtree(root, ignore_errors=True)
+
+        def same(a, b):
+            la, lb = (flatten_tree(states[x])[0] for x in (a, b))
+            return runs[a]["loss"] == runs[b]["loss"] and all(
+                torch.equal(x, y) for x, y in zip(la, lb))
+
+        hit, clean = runs["failed"], runs["clean"]
+        deterministic = same("clean", "again")
+        bitwise = same("failed", "clean")
+        log(f"  recoveries {hit['recoveries']}, final step "
+            f"{hit['final_step']}, stragglers {hit['stragglers']}; last loss "
+            f"{hit['loss']!r} resumed vs {clean['loss']!r} uninterrupted; "
+            f"final state bitwise: {bitwise}; two uninterrupted runs "
+            f"bitwise: {deterministic}")
+        rep["drill"] = {"runs": runs, "bitwise": bitwise,
+                        "deterministic": deterministic}
+        if hit["recoveries"] != 1 or hit["final_step"] != DRILL_LM_STEPS \
+                or clean["recoveries"] != 0:
+            raise RuntimeError(f"train loop drill: {runs}")
+        if not bitwise:
+            if deterministic:
+                raise RuntimeError("the resumed run is not the "
+                                   "uninterrupted run's, and the step is "
+                                   "deterministic")
+            rel = abs(hit["loss"] - clean["loss"]) / abs(clean["loss"])
+            log(f"  the step is not deterministic on the card; resumed vs "
+                f"uninterrupted loss at {rel:.2e} (bar {BF16_FWD_RTOL:.0%})")
+            if rel > BF16_FWD_RTOL:
+                raise RuntimeError(f"resumed loss off: {runs}")
+
+    def lm_train_times(self, cfg, params, batches, groups, samples,
+                       parts, label, rep):
+        """26f: per backend, step wall ms (median of TRAIN_LM_TIMED warm
+        steps), tokens/s, model FLOP/s (6 N D, the reference's roofline
+        count) against the bf16 peak, the busy share and device ms by
+        class (``torch.profiler``), peak memory; for the kernels backend
+        the pieces timed alone (the attention backward's recompute, the
+        transposes, the optimizer); and every distinct kernel-3 and
+        kernel-4 shape of the step: calls, ms, bound, plain and library.
+        Each kernels-line entry's launches are ``parts``, 26a's counts of
+        the main path's step by part."""
+        torch = self.torch
+        from repro_torch.models import transformer
+        from repro_torch.optim import adamw_update
+
+        kfa = self.kfa
+        tokens = TRAIN_LM_BATCH * TRAIN_LM_SEQ
+        flops = 6 * cfg.param_counts()["active"] * tokens
+        log(f"phase 26f: {label} times (wall: median of {TRAIN_LM_TIMED} "
+            f"warm steps; model FLOPs 6 N D = {flops:.4g} a step)")
+        classes = {"kernel 3": ("matmul_wgmma_kernel",),
+                   "kernel 4": ("flash_attention_wgmma_kernel",),
+                   "library GEMM": ("gemm", "xmma", "nvjet", "cutlass",
+                                    "Kernel2"),
+                   "library attention": ("flash", "fmha", "attention")}
+        times = rep["times"] = {}
+        for backend in ("kernels", "torch"):
+            step, opt_init = self.train_fns(cfg, backend)
+            p, o = params, opt_init(params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for i in range(2 + TRAIN_LM_TIMED):
+                t0 = time.perf_counter()
+                p, o, _ = step(p, o, batches[i % len(batches)])
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            wall = statistics.median(walls[2:])
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            prof = self.profile_device(
+                lambda: step(p, o, batches[0]), f"{backend} train step",
+                wall, classes)
+            row = {"wall_ms": wall, "walls_ms": walls,
+                   "tokens_per_s": tokens * 1e3 / wall,
+                   "model_tflops": flops / wall / 1e9,
+                   "mfu": flops / wall / 1e-3 / PEAK_BF16_FLOPS,
+                   "peak_gib": peak, "busy": prof.get("busy_share"),
+                   "device_ms": prof.get("device_ms"),
+                   "classes": prof.get("classes"),
+                   "copy_ms": sum(op["ms"] for op in prof.get("top_ops", ())
+                                  if op["name"] == "aten::copy_"),
+                   "profile": prof}
+            if backend == "kernels":
+                grads = {k: torch.full_like(t, 1e-3, dtype=torch.float32)
+                         for k, t in transformer.flatten_params(p).items()}
+                opt_prof = self.profile_device(
+                    lambda: adamw_update(grads, o, transformer.flatten_params(
+                        p), lr=1e-4), "optimizer (AdamW)", wall)
+                row["optimizer_ms"] = opt_prof.get("device_ms")
+                del grads
+            del p, o
+            torch.cuda.empty_cache()
+            times[backend] = row
+            busy = ("not measured" if row["busy"] is None
+                    else f"{row['busy']:.1%}")
+            log(f"  {backend}: step {wall:.3f} ms (warm steps "
+                f"{[round(w, 1) for w in walls[2:]]}), "
+                f"{row['tokens_per_s']:.1f} tokens/s, "
+                f"{row['model_tflops']:.1f} model TFLOP/s = "
+                f"{row['mfu']:.1%} of the bf16 peak; busy {busy}; "
+                f"aten::copy_ {row['copy_ms']:.3f} ms; peak memory "
+                f"{peak:.2f} GiB")
+        # pieces of the kernels step, each timed alone
+        q, k, v = samples["attention"]
+        g = torch.randn(q.shape, generator=torch.Generator(self.dev)
+                        .manual_seed(SEED), device=self.dev).to(q.dtype)
+        attn_calls = cfg.num_layers * TRAIN_LM_MICRO
+        recompute_ms = attn_calls * self.device_ms(
+            lambda: kfa.attention_grads(q, k, v, g), reps=2, rounds=3)
+        transpose_ms = 0.0
+        for (shape, dtype), n in samples["transposes"].items():
+            t = torch.randn(shape, device=self.dev).to(getattr(
+                torch, dtype.removeprefix("torch.")))
+            transpose_ms += TRAIN_LM_MICRO * n * self.device_ms(
+                lambda: t.t().contiguous())
+            del t
+        del g
+        rows, per = self.lm_train_shapes(groups, label)
+        k3f, k3b = (per[f"matmul ({label} {w})"]["ms"]
+                    for w in ("forward", "backward"))
+        k4 = per[f"flash_attention ({label})"]["ms"]
+        row = times["kernels"]
+        split = {"kernel 3 forward": k3f, "kernel 3 backward": k3b,
+                 "kernel 4": k4, "attention backward recompute":
+                 recompute_ms, "transposes": transpose_ms,
+                 "optimizer": row["optimizer_ms"]}
+        if row["device_ms"] is not None and None not in split.values():
+            split["rest"] = row["device_ms"] - sum(split.values())
+        row["split_ms"] = split
+        log("  kernels step device ms, each piece timed alone (kernel 3 and "
+            "4: per shape x calls): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in split.items() if v is not None)
+            + f" of {row['device_ms']} busy")
+        rep["shapes"] = rows
+        entries = []
+        for entry, p in per.items():
+            name = entry.split(" ")[0]
+            n = (parts[name]["forward"] + parts[name]["recompute"]
+                 if "backward" not in entry else parts[name]["backward"])
+            log(f"  {entry}: {p['ms']:.3f} ms over {n} launches, "
+                f"{p['flops'] / p['ms'] / 1e9:.1f} TFLOP/s; bound "
+                f"{p['bound_ms']:.3f} ms; library {p['library_ms']:.3f} ms; "
+                f"plain {p['plain_ms']:.3f} ms")
+            entries.append(self.kernel_entry(name, entry, n, p))
+        return entries
+
+    def lm_train_shapes(self, groups, label):
+        """Each distinct kernel-3 and kernel-4 shape of 26b's microbatch,
+        timed: kernel, plain and library device ms, bound; the sums per
+        step (calls x TRAIN_LM_MICRO) per kernels-line entry."""
+        torch = self.torch
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
+                "bytes_ms", "flops")
+        per = {e: dict.fromkeys(keys, 0.0) for e in (
+            f"matmul ({label} forward)", f"matmul ({label} backward)",
+            f"flash_attention ({label})")}
+        rows, timed = [], {}
+        with torch.no_grad():
+            for (part, name, geo), (args, n) in groups.items():
+                kern, plain, lib, flops, nbytes, _, variant = self.lm_call(
+                    name, args)
+                if (name, geo) not in timed:   # a recompute's shapes are
+                    timed[name, geo] = {        # its forward's
+                        "ms": self.device_ms(kern),
+                        "plain_ms": self.device_ms(plain, reps=3),
+                        "library_ms": self.device_ms(lib)}
+                calls = n * TRAIN_LM_MICRO
+                r = {"part": part, "kernel": name, "geometry": geo,
+                     "variant": variant, "calls": calls, "flops": flops,
+                     "bytes": nbytes, **timed[name, geo],
+                     "ops_ms": 1e3 * flops / PEAK_BF16_FLOPS,
+                     "bytes_ms": 1e3 * nbytes / PEAK_BYTES_S}
+                r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+                r["tflops"] = flops / r["ms"] / 1e9
+                rows.append(r)
+                entry = (f"flash_attention ({label})" if name != "matmul"
+                         else f"matmul ({label} "
+                         f"{'backward' if part == 'backward' else 'forward'})")
+                for k in keys:
+                    per[entry][k] += calls * r[k]
+                log(f"  {part} {name} [{variant}] {geo} x{calls}: "
+                    f"{r['ms']:.4f} ms a call, {r['tflops']:.1f} TFLOP/s, "
+                    f"bound {r['bound_ms']:.4f} ("
+                    + ("ops" if r["ops_ms"] >= r["bytes_ms"] else "bytes")
+                    + f"), {r['ms'] / r['bound_ms']:.2f} x bound; library "
+                    f"{r['library_ms']:.4f}; plain {r['plain_ms']:.3f}")
+        return rows, per
 
     # --------------------------------------------------- per-call helpers
     def geometry(self, name, args):

@@ -1,6 +1,7 @@
-"""Manifest-driven atomic checkpoints of flat ``{name: array}`` dicts.
+"""Manifest-driven atomic checkpoints of parameter trees and flat dicts.
 
-The port of ``repro.checkpoint.ckpt``'s layout and flat-dict transport.
+The port of ``repro.checkpoint.ckpt``'s layout, its tree form and its
+flat-dict transport.
 Layout per step::
 
     <dir>/step_000100/
@@ -19,8 +20,16 @@ as a CPU ``torch.bfloat16`` tensor (numpy has no bf16).
 Tensors are copied to the host before the call returns; only file IO is
 deferred.  ``extra=`` attaches a JSON payload (the serving layer's
 scheduler metadata, DESIGN.md §11).  One process writes ``host_000``; the
-reference's tree form (``restore_checkpoint``) and its multi-host shards
-are not ported yet (ROADMAP.md).
+reference's multi-host shards are not ported (ROADMAP.md, multi-device).
+
+A tree is nested dicts, lists, tuples and NamedTuples (an ``AdamWState``)
+of tensors or arrays; its leaves are written in JAX's flattening order
+(dict keys sorted, sequences in order, ``None`` an empty subtree), so
+:func:`restore_checkpoint` reads the reference's tree checkpoints and the
+reference reads the port's.  ``restore_checkpoint(directory, step,
+abstract_tree)`` rebuilds the structure of ``abstract_tree`` (tensors,
+meta tensors for shapes only) and raises when its leaf count or a leaf's
+shape differs from the manifest's, as the reference does.
 """
 
 from __future__ import annotations
@@ -99,32 +108,82 @@ class CheckpointFuture:
         return self._thread.is_alive()
 
 
-def save_checkpoint(directory: str, step: int, arrays: dict, *,
-                    keep: int = 3, background: bool = False,
-                    extra: dict | None = None) -> CheckpointFuture | None:
-    """Save a flat ``{name: array or tensor}`` dict as step ``step``.
+def flatten_tree(tree) -> tuple[list, str]:
+    """(leaves in JAX's flattening order, a description of the structure
+    in the manner of JAX's ``PyTreeDef``) of a tree of dicts, lists,
+    tuples and NamedTuples; ``None`` is an empty subtree."""
+    if tree is None:
+        return [], "None"
+    if isinstance(tree, dict):
+        parts, leaves = [], []
+        for k in sorted(tree):
+            sub, desc = flatten_tree(tree[k])
+            leaves += sub
+            parts.append(f"{k!r}: {desc}")
+        return leaves, "{" + ", ".join(parts) + "}"
+    if isinstance(tree, (list, tuple)):
+        parts, leaves = [], []
+        for v in tree:
+            sub, desc = flatten_tree(v)
+            leaves += sub
+            parts.append(desc)
+        if hasattr(tree, "_fields"):
+            return leaves, f"{type(tree).__name__}(" + ", ".join(
+                f"{f}={d}" for f, d in zip(tree._fields, parts)) + ")"
+        inner = ", ".join(parts)
+        return leaves, (f"[{inner}]" if isinstance(tree, list)
+                        else f"({inner})")
+    return [tree], "*"
 
-    Leaves are written in sorted key order (the reference's flattening of
-    a dict), and the manifest records that order so :func:`load_flat`
-    needs no template.  ``extra`` (JSON-serialisable) rides in the
-    manifest.  The newest ``keep`` committed steps survive.
+
+def _unflatten(like, leaves):
+    """The structure of ``like`` with its leaves taken in order from the
+    iterator ``leaves``."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        out = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        return {k: out[k] for k in like}
+    if isinstance(like, (list, tuple)):
+        items = [_unflatten(v, leaves) for v in like]
+        if hasattr(like, "_fields"):
+            return type(like)(*items)
+        return items if isinstance(like, list) else tuple(items)
+    return next(leaves)
+
+
+def _is_flat(tree) -> bool:
+    return isinstance(tree, dict) and all(
+        not isinstance(v, (dict, list, tuple)) and v is not None
+        for v in tree.values())
+
+
+def save_checkpoint(directory: str, step: int, tree, *, keep: int = 3,
+                    background: bool = False,
+                    extra: dict | None = None) -> CheckpointFuture | None:
+    """Save a tree (or a flat ``{name: array or tensor}`` dict) of tensors
+    and arrays as step ``step``.
+
+    Leaves are written in JAX's flattening order.  For a flat dict (one
+    leaf a key) the manifest also records the key order, so
+    :func:`load_flat` needs no template.  ``extra`` (JSON-serialisable)
+    rides in the manifest.  The newest ``keep`` committed steps survive.
     """
-    if not isinstance(arrays, dict) or any(
-            isinstance(v, (dict, list, tuple)) for v in arrays.values()):
-        raise TypeError("save_checkpoint takes a flat {name: array} dict "
-                        "(the tree form is not ported)")
-    keys = sorted(arrays)
-    leaves, dtypes = zip(*(_host_array(arrays[k]) for k in keys)) \
-        if keys else ((), ())
+    flat = _is_flat(tree)
+    leaves, treedef = flatten_tree(tree)
+    leaves, dtypes = zip(*(_host_array(a) for a in leaves)) \
+        if leaves else ((), ())
     manifest = {
         "step": step,
-        "treedef": "PyTreeDef({" + ", ".join(f"{k!r}: *" for k in keys)
-                   + "})",
+        "treedef": f"PyTreeDef({treedef})",
         "shapes": [list(a.shape) for a in leaves],
         "dtypes": list(dtypes),
         "process_count": 1,
-        "flat_keys": keys,
     }
+    if flat:
+        # a nested dict holding one leaf a top-level key must not qualify:
+        # its leaf order would not be the key list's
+        manifest["flat_keys"] = sorted(tree)
     if extra is not None:
         manifest["extra"] = extra
 
@@ -204,5 +263,38 @@ def load_flat(directory: str, step: int) -> tuple[dict, dict | None]:
     return arrays, manifest.get("extra")
 
 
-__all__ = ["as_tensor", "save_checkpoint", "all_steps", "latest_step",
-           "load_flat", "load_extra", "CheckpointFuture"]
+def restore_checkpoint(directory: str, step: int, abstract_tree,
+                       device=None):
+    """Restore step ``step`` into the structure of ``abstract_tree``.
+
+    Each leaf of ``abstract_tree`` (a tensor, possibly on the meta device)
+    gives the shape the stored leaf must have and the dtype it is cast to;
+    the restored leaves are tensors on ``device`` (default the CPU).  A
+    leaf count or a shape that differs from the manifest's raises
+    ``ValueError``.
+    """
+    manifest = _read_manifest(directory, step)
+    refs, _ = flatten_tree(abstract_tree)
+    if len(refs) != len(manifest["shapes"]):
+        raise ValueError(f"tree structure changed: the checkpoint at step "
+                         f"{step} holds {len(manifest['shapes'])} leaves, "
+                         f"the tree {len(refs)}")
+    path = os.path.join(directory, f"step_{step:06d}")
+    dev = torch.device("cpu" if device is None else device)
+    restored = []
+    with np.load(os.path.join(path, "host_000.npz")) as data:
+        for i, ref in enumerate(refs):
+            arr = _from_serializable(data[_key(i)], manifest["dtypes"][i])
+            if not isinstance(arr, torch.Tensor):
+                arr = torch.from_numpy(np.array(arr))
+            if tuple(arr.shape) != tuple(ref.shape):
+                raise ValueError(f"leaf {i}: checkpoint shape "
+                                 f"{tuple(arr.shape)} != model "
+                                 f"{tuple(ref.shape)}")
+            restored.append(arr.to(device=dev, dtype=ref.dtype))
+    return _unflatten(abstract_tree, iter(restored))
+
+
+__all__ = ["as_tensor", "flatten_tree", "save_checkpoint",
+           "restore_checkpoint", "all_steps", "latest_step", "load_flat",
+           "load_extra", "CheckpointFuture"]

@@ -1,5 +1,5 @@
 """Data pipelines of the port (``repro.data``)."""
 
-from repro_torch.data.pipeline import SegDataPipeline
+from repro_torch.data.pipeline import LMDataPipeline, SegDataPipeline
 
-__all__ = ["SegDataPipeline"]
+__all__ = ["LMDataPipeline", "SegDataPipeline"]

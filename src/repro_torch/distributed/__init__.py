@@ -2,7 +2,10 @@
 later (ROADMAP.md, multi-device)."""
 
 from repro_torch.distributed.fault_tolerance import (FailureInjector, Fault,
+                                                     Heartbeat,
+                                                     InjectedFault,
                                                      StragglerWatchdog,
                                                      failure_faults)
 
-__all__ = ["FailureInjector", "Fault", "StragglerWatchdog", "failure_faults"]
+__all__ = ["FailureInjector", "Fault", "Heartbeat", "InjectedFault",
+           "StragglerWatchdog", "failure_faults"]

@@ -1,8 +1,10 @@
-"""Fault tolerance: the straggler watchdog and the tick-level fault plane.
+"""Fault tolerance: heartbeats, the straggler watchdog and the tick-level
+fault plane.
 
-The port of ``repro.distributed.fault_tolerance`` (its ``Heartbeat`` comes
-with the port of ``launch/failover.py``).  :class:`FailureInjector` is the
-chaos plane of the serving loop (DESIGN.md §11): a list of :class:`Fault`
+The port of ``repro.distributed.fault_tolerance``.  :class:`Heartbeat` is
+the train loop's liveness marker, a JSON file per host replaced
+atomically.  :class:`FailureInjector` is the chaos plane of the serving
+and training loops (DESIGN.md §11): a list of :class:`Fault`
 descriptors, each scheduled at a tick (or armed on every tick), consumed by
 the loop at fixed points:
 
@@ -18,18 +20,71 @@ the loop at fixed points:
   the :class:`StragglerWatchdog` sees it.
 
 Injected ``kill`` and ``raise`` faults raise :class:`InjectedFault`, the
-only error the serving loop's retry/degrade ladder catches: a real failure
-of a kernel (one that does not build or launch) propagates and is never
-served by the plain path.
+only error the serving loop's retry/degrade ladder and the train loop's
+restore-and-resume catch: a real failure of a kernel (one that does not
+build or launch) propagates and is never served by the plain path nor
+restored in a loop.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import re
+import time
 from dataclasses import dataclass, field
+
+_HEART_RE = re.compile(r"heartbeat_(\d+)\.json(\.tmp)?")
 
 
 class InjectedFault(RuntimeError):
     """A failure raised by the fault plane (``kill`` and ``raise``)."""
+
+
+class Heartbeat:
+    """Periodic liveness marker; stale hearts mark dead hosts."""
+
+    def __init__(self, path: str, host_id: int = 0):
+        self.path = os.path.join(path, f"heartbeat_{host_id:03d}.json")
+        os.makedirs(path, exist_ok=True)
+
+    def beat(self, step: int) -> None:
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"step": step, "time": time.time()}, f)
+        os.replace(tmp, self.path)
+
+    @staticmethod
+    def dead_hosts(path: str, timeout_s: float) -> list[int]:
+        """Hosts without a fresh, readable heartbeat.
+
+        A host is alive only if it can prove it: a heartbeat that is
+        truncated, corrupt, unreadable or still a ``.tmp`` (a crash inside
+        the atomic-rename window) proves nothing, so that host is reported
+        dead rather than crashing the monitor, the component that must
+        outlive everyone else's failures."""
+        now = time.time()
+        if not os.path.isdir(path):
+            return []
+        seen: set[int] = set()
+        alive: set[int] = set()
+        for name in sorted(os.listdir(path)):
+            m = _HEART_RE.fullmatch(name)
+            if m is None:
+                continue
+            host = int(m.group(1))
+            seen.add(host)
+            if m.group(2):          # .tmp mid-rename: not a liveness proof
+                continue
+            try:
+                with open(os.path.join(path, name)) as f:
+                    hb = json.load(f)
+                fresh = now - float(hb["time"]) <= timeout_s
+            except (OSError, ValueError, KeyError, TypeError):
+                continue            # unreadable/corrupt: cannot prove alive
+            if fresh:
+                alive.add(host)
+        return sorted(seen - alive)
 
 
 @dataclass
@@ -151,4 +206,5 @@ def failure_faults(*, kill_at: int | None = None,
     return FailureInjector(faults=faults)
 
 
-__all__ = ["InjectedFault", "StragglerWatchdog", "Fault", "FailureInjector", "failure_faults"]
+__all__ = ["InjectedFault", "Heartbeat", "StragglerWatchdog", "Fault",
+           "FailureInjector", "failure_faults"]

@@ -44,6 +44,19 @@ PERF.md has its times at StableLM-2-1.6B's widths.
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``flash_attention.launches`` counts kernel launches and
 ``flash_attention.launches_by_variant`` splits them by variant.
+
+:class:`FlashAttentionFn` makes it differentiable (LM training): the
+forward is the kernel, and the backward differentiates the reference
+model's own training attention.  The reference has no backward of its
+Pallas kernel (``flash_attention.py:67`` has no ``custom_vjp``); its LM
+trains through plain ``jnp`` attention (``src/repro/models/attention.py:
+63-103``: fp32 scores times ``dh ** -0.5``, masked scores set to a finite
+negative, a softmax, the fp32 product with v, query chunks of
+``Q_CHUNK`` rows).  :func:`attention_grads` recomputes that one query
+chunk at a time and takes its gradients by autograd's own steps: it is the
+model's attention, like a product the JAX package leaves to XLA outside
+any Pallas kernel, not a plain version of kernel 4 standing in for it.  A hand-written backward
+kernel is a later lever (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -187,6 +200,86 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+#: query rows a chunk of the training attention (the reference's Q_CHUNK)
+Q_CHUNK = 512
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention under autograd: kernel 4 forward (saving q, k and v),
+    :func:`attention_grads` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*attention_grads(*ctx.saved_tensors, g, causal=ctx.causal),
+                None)
+
+
+def attention_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    g: torch.Tensor, *, causal: bool = True):
+    """(dq, dk, dv) of the reference's training attention at cotangent
+    ``g``, each in its operand's dtype.
+
+    The query axis is cut into chunks of ``Q_CHUNK`` rows when S > Q_CHUNK
+    and S % Q_CHUNK == 0 (else one chunk), as ``_chunked_causal`` cuts it.
+    Each chunk's probabilities are recomputed as the reference computes
+    them (fp32 scores times ``dh ** -0.5``, masked scores ``NEG_INF``, a
+    softmax), so one chunk's (B, H, rows, Sk) scores are live at a time,
+    as under the reference's per-chunk ``jax.checkpoint``.  The chunk is
+    then differentiated by hand, by the steps autograd takes through that
+    forward: the cotangent of the fp32 output is ``g`` upcast; dv += P^T
+    g; dP = g V^T; dS = softmax's backward (``torch._softmax_backward_
+    data``, autograd's own); dq = scale dS K and dk += scale dS^T Q.  The
+    forward's product with v is not needed.  The scale rides on the
+    products (``baddbmm``'s ``alpha``) and is not a pass of its own; the
+    mask is filled only where it falls, in the chunk's diagonal block, and
+    its cotangent needs no pass: a masked probability is exactly 0, so is
+    its dS.  Under the causal mask a chunk reads only the keys its last row
+    sees: the rest would take probability exactly 0 and add exactly 0 to
+    every sum.  The cotangents of k and v are summed over the chunks in
+    fp32 and cast once."""
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    scale = dh ** -0.5
+    tq = Q_CHUNK if sq % Q_CHUNK == 0 and sq > Q_CHUNK else sq
+    dq = torch.empty_like(q)
+    dk = torch.zeros((b * h, sk, dh), dtype=torch.float32, device=k.device)
+    dv = torch.zeros((b * h, sk, dh), dtype=torch.float32, device=v.device)
+    kf = k.float().reshape(b * h, sk, dh)
+    vf = v.float().reshape(b * h, sk, dh)
+    for r0 in range(0, sq, tq):
+        keys = min(r0 + tq, sk) if causal else sk
+        rows = min(tq, sq - r0)
+        qc = q[:, :, r0:r0 + rows].float().reshape(b * h, rows, dh)
+        gc = g[:, :, r0:r0 + rows].float().reshape(b * h, rows, dh)
+        kc, vc = kf[:, :keys], vf[:, :keys]
+        s = torch.baddbmm(qc.new_empty(()), qc, kc.transpose(1, 2), beta=0,
+                          alpha=scale)
+        if causal and keys > r0:
+            cols = torch.arange(r0, keys, device=q.device)
+            hide = torch.arange(r0, r0 + rows, device=q.device)[:, None] < cols
+            s[:, :, r0:].masked_fill_(hide, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        del s
+        dv[:, :keys].baddbmm_(p.transpose(1, 2), gc)
+        ds = torch._softmax_backward_data(
+            torch.bmm(gc, vc.transpose(1, 2)), p, -1, torch.float32)
+        del p
+        dq[:, :, r0:r0 + rows] = torch.baddbmm(
+            qc.new_empty(()), ds, kc, beta=0, alpha=scale).view(
+                b, h, rows, dh)
+        dk[:, :keys].baddbmm_(ds.transpose(1, 2), qc, alpha=scale)
+        del ds
+    return (dq, dk.view(k.shape).to(k.dtype),
+            dv.view(v.shape).to(v.dtype))
+
+
 __all__ = ["flash_attention", "attention_plain", "flash_attention_cuda",
-           "attention_variant", "NEG_INF", "MAX_HEAD_DIM", "VARIANTS",
+           "attention_variant", "FlashAttentionFn", "attention_grads",
+           "NEG_INF", "MAX_HEAD_DIM", "Q_CHUNK", "VARIANTS",
            "WGMMA_HEAD_DIMS"]

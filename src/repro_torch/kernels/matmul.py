@@ -28,6 +28,16 @@ PERF.md has the times at StableLM-2-1.6B's projection and MLP shapes.
 ``torch.matmul``), only for tensors on the CPU; for CUDA tensors it launches
 the kernel or raises.  ``matmul.launches`` counts kernel launches and
 ``matmul.launches_by_variant`` splits them by variant.
+
+:class:`MatmulFn` makes the product differentiable (LM training).  The
+reference's Pallas matmul has no VJP of its own: JAX differentiates the
+product it stands for, so ``dA = dC @ B^T`` and ``dB = A^T @ dC``.  The
+backward computes both through :func:`matmul`, so on the card they are
+kernel 3 again (bf16 operands with K and N multiples of 8 take
+``"wgmma"``), and on the CPU its plain version.  The kernel reads row-major
+operands only, so ``B^T`` and ``A^T`` are contiguous copies
+(``MatmulFn.transposes`` counts them; a kernel that reads a transposed
+operand in place is a later lever, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -116,5 +126,34 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class MatmulFn(torch.autograd.Function):
+    """``a @ b`` under autograd: the forward is :func:`matmul`, the backward
+    two more :func:`matmul` calls on contiguous transposes.  Each gradient
+    is in its operand's dtype, as the products' outputs are."""
+
+    transposes = 0
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = matmul(g, _transposed(b)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = matmul(_transposed(a), g).to(b.dtype)
+        return da, db
+
+
+def _transposed(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t.T``, counted in ``MatmulFn.transposes``."""
+    MatmulFn.transposes += 1
+    return t.t().contiguous()
+
+
 __all__ = ["matmul", "matmul_plain", "matmul_cuda", "matmul_variant",
-           "VARIANTS"]
+           "MatmulFn", "VARIANTS"]

@@ -83,8 +83,9 @@ def check_device(what: str, *ts: torch.Tensor) -> None:
                          f"{[str(t.device) for t in ts]}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
-            f"{what}: the port's kernels are forward only (run under "
-            f"torch.no_grad())")
+            f"{what}: the kernel wrapper is forward only (run under "
+            f"torch.no_grad(), or differentiate through its autograd "
+            f"Function)")
 
 
 def device_kind(device=None) -> str:

@@ -1,8 +1,10 @@
-"""Step-function builders of the serving paths.
+"""Step-function builders: one step function per execution context.
 
-The port of ``repro.launch.steps``' serving builders (its train step comes
-with LM training, ROADMAP.md):
+The port of ``repro.launch.steps``:
 
+* :func:`make_train_step` — the microbatched (gradient-accumulation) LM
+  train step (its loss and gradients: :func:`make_value_and_grad`);
+  driven by :mod:`repro_torch.launch.train`.
 * :func:`make_prefill_step` / :func:`make_serve_step` — LM prefill and
   KV-cached greedy decode over :mod:`repro_torch.models.transformer`;
   driven by :mod:`repro_torch.launch.serve`.  The reference's jitted serve
@@ -30,6 +32,105 @@ import torch
 from repro_torch.kernels.util import canon_dtype
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import check_backend, chunked_softmax_ce
+from repro_torch.optim import adamw_update, cosine_schedule
+
+
+def make_value_and_grad(cfg: ModelConfig, *, microbatches: int = 1,
+                        backend: str = "kernels"):
+    """``value_and_grad(params, batch) -> (loss, grads)`` of the train
+    step: the mean chunked-CE loss (a 0-d fp32 tensor) and the flat
+    gradients by ``flatten_params(params)``'s names, in the stacked layout.
+
+    The loss is the chunked CE over the final hidden states.  The
+    gradients are taken with ``torch.autograd.grad`` through per-layer
+    leaves (``transformer.unstack_blocks``).  With ``microbatches > 1`` the
+    batch's rows are cut into that many slices in order; their gradients
+    are summed, in bf16 when ``cfg.opt_memory_mode == "bf16"`` and in fp32
+    otherwise, as the reference's accumulator, each slice's per-layer
+    gradients added into their stack's slot, then divided by the count.
+    With one microbatch the gradients keep the parameters' dtype.
+    Encoder-decoder configs raise ``NotImplementedError`` (encdec:
+    ROADMAP.md, queue 1).
+    """
+    transformer.check_supported(cfg)
+    check_backend(backend)
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    acc_dtype = (torch.bfloat16 if cfg.opt_memory_mode == "bf16"
+                 else torch.float32)
+
+    def loss_and_grads(leaves, flat, mb):
+        hidden = transformer.forward(leaves, mb["tokens"], cfg,
+                                     backend=backend, return_hidden=True)
+        loss = chunked_softmax_ce(hidden, transformer.lm_head(leaves, cfg),
+                                  mb["labels"], mb["mask"], backend=backend)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        return loss.detach(), dict(zip(flat, grads))
+
+    def value_and_grad(params, batch):
+        leaves = transformer.unstack_blocks(params, cfg)
+        flat = transformer.flatten_params(leaves)
+        if microbatches == 1:
+            loss, g = loss_and_grads(leaves, flat, batch)
+            return loss, transformer.stack_grads(g)
+        rows = batch["tokens"].shape[0]
+        if rows % microbatches:
+            raise ValueError(f"batch of {rows} rows does not split into "
+                             f"{microbatches} microbatches")
+        size = rows // microbatches
+        grads = {k: torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
+                 for k, p in transformer.flatten_params(params).items()}
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=batch["mask"].device)
+        for i in range(microbatches):
+            mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            lmb, g = loss_and_grads(leaves, flat, mb)
+            for name, gi in g.items():
+                key, r = transformer.stacked_name(name)
+                slot = grads[key] if r is None else grads[key][r]
+                slot += gi.to(acc_dtype)
+            loss = loss + lmb
+            del g
+        for a in grads.values():
+            a.div_(microbatches)
+        return loss / microbatches, grads
+
+    return value_and_grad
+
+
+def make_train_step(cfg: ModelConfig, *, lr_peak: float = 3e-4,
+                    warmup: int = 2000, total_steps: int = 100_000,
+                    microbatches: int = 1, backend: str = "kernels"):
+    """Microbatched (gradient-accumulation) LM train step.
+
+    Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm", "lr"})``: ``params`` the stacked tree of
+    :func:`repro_torch.models.transformer.init_params`, ``opt_state`` an
+    ``AdamWState`` over ``flatten_params(params)`` (``adamw_init(flat,
+    memory_mode=cfg.opt_memory_mode)``), ``batch`` the ``tokens``,
+    ``labels`` (B, S) and ``mask`` (B, S) tensors on the parameters'
+    device.  The metrics are 0-d tensors.
+
+    Loss and gradients are :func:`make_value_and_grad`'s; ``lr`` is
+    ``cosine_schedule(opt_state.step, ...)``, and AdamW updates the flat
+    parameters (the returned tree holds new tensors; the arguments are
+    left as they were).
+    """
+    value_and_grad = make_value_and_grad(cfg, microbatches=microbatches,
+                                         backend=backend)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = value_and_grad(params, batch)
+        lr = cosine_schedule(opt_state.step, warmup, total_steps, lr_peak)
+        new_flat, new_opt, gnorm = adamw_update(
+            grads, opt_state, transformer.flatten_params(params), lr=lr)
+        new_params = transformer.unflatten_params(new_flat, params)
+        return new_params, new_opt, {"loss": loss, "grad_norm": gnorm,
+                                     "lr": lr}
+
+    return train_step
+
 
 def make_prefill_step(cfg: ModelConfig, backend: str = "kernels"):
     """``prefill_step(params, batch) -> logits`` (B, S, V): the cache-free
@@ -155,6 +256,7 @@ def make_gen_scan_step(scan_steps: int, *, t_max: int = DDIM_T_MAX,
     return gen_scan_step
 
 
-__all__ = ["make_prefill_step", "make_serve_step", "DDIM_T_MAX",
+__all__ = ["make_value_and_grad", "make_train_step", "make_prefill_step",
+           "make_serve_step", "DDIM_T_MAX",
            "ddim_alpha_bar", "ddim_timesteps", "make_gen_step",
            "make_gen_scan_step"]

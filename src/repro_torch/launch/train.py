@@ -1,0 +1,189 @@
+"""The LM train loop on one device: checkpoint/restart, failure recovery,
+the straggler watchdog and gradient accumulation.
+
+The port of ``repro.launch.train``.  The step is
+:func:`repro_torch.launch.steps.make_train_step`; the loop adds the
+operational shell: a background checkpoint every ``ckpt_every`` steps
+(joined before the next one), restore of the newest checkpoint at start
+and after a failure (the data stream seeks to the restored step), a
+heartbeat per step and the straggler watchdog.  A ``FailureInjector``'s
+``slow`` faults stall inside the timed window, so the watchdog sees them.
+
+One deliberate difference: the loop recovers only from the fault plane's
+``InjectedFault``, as ``GenServer`` does.  The reference catches any
+``RuntimeError``, which would turn a kernel that fails to build or launch
+into an endless restore; here that error propagates.  The port has no
+mesh (ROADMAP.md, multi-device): the loop runs on one device, CUDA unless
+the caller asks for the CPU.
+
+Usage (a killed run restarted with the same ``--ckpt-dir`` resumes where
+it died)::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
+      --reduced --steps 20 --batch 8 --seq 64 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
+      --steps 3 --batch 4 --seq 4096 --microbatches 2    # on the card
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                    save_checkpoint)
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.data import LMDataPipeline
+from repro_torch.distributed.fault_tolerance import (FailureInjector,
+                                                     Heartbeat,
+                                                     InjectedFault,
+                                                     StragglerWatchdog)
+from repro_torch.kernels.util import resolve_device
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import transformer
+from repro_torch.optim import adamw_init
+
+
+def init_state(cfg, generator: torch.Generator | None, device):
+    """(params, AdamW state over the flat parameters) of ``cfg`` drawn from
+    ``generator`` on ``device``; ``device="meta"`` gives the abstract state
+    (shapes and dtypes) that a restore fills."""
+    params = transformer.init_params(generator, cfg, device)
+    return params, adamw_init(transformer.flatten_params(params),
+                              memory_mode=cfg.opt_memory_mode)
+
+
+def train(cfg, *, steps: int, global_batch: int, seq_len: int,
+          microbatches: int = 1, ckpt_dir: str | None = None,
+          ckpt_every: int = 10, injector: FailureInjector | None = None,
+          log_every: int = 1, backend: str = "kernels", device=None,
+          seed: int = 0) -> dict:
+    """Train ``cfg`` for ``steps`` steps on ``LMDataPipeline(global_batch,
+    seq_len, cfg.vocab, seed)`` batches; returns the last step's metrics
+    (floats) with ``stragglers``, ``recoveries`` and ``final_step``.
+
+    Weights are drawn from a generator seeded with ``seed`` on ``device``
+    (``None``: CUDA).  With ``ckpt_dir`` the loop resumes from its newest
+    checkpoint, saves every ``ckpt_every`` steps, beats its heart there
+    and restores after an ``InjectedFault``; without one such a fault
+    propagates."""
+    dev = resolve_device(device)
+    transformer.check_supported(cfg)
+    step_fn = make_train_step(cfg, warmup=max(2, steps // 10),
+                              total_steps=steps, microbatches=microbatches,
+                              backend=backend)
+    abstract = init_state(cfg, None, "meta")
+
+    def fresh():
+        return init_state(cfg, torch.Generator(dev).manual_seed(seed), dev)
+
+    def restore(s):
+        return restore_checkpoint(ckpt_dir, s, abstract, device=dev)
+
+    pipe = LMDataPipeline(global_batch, seq_len, cfg.vocab, seed=seed)
+    watchdog = StragglerWatchdog()
+    heart = Heartbeat(ckpt_dir) if ckpt_dir else None
+
+    start = 0
+    if ckpt_dir and (s := latest_step(ckpt_dir)) is not None:
+        params, opt_state = restore(s)
+        start = s
+        pipe.seek(start)
+        print(f"[train] restored checkpoint at step {s}", flush=True)
+    else:
+        params, opt_state = fresh()
+
+    ckpt_thread = None
+    metrics = {}
+    step = start
+    recoveries = 0
+    try:
+        while step < steps:
+            try:
+                got_step, np_batch = next(pipe)
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in np_batch.items()}
+                if injector is not None:
+                    injector.maybe_fail(got_step)
+                t0 = time.time()
+                if injector is not None:
+                    # slow faults stall inside the timed window, so the
+                    # watchdog sees exactly the injected straggler
+                    stall = injector.sleep_faults(got_step)
+                    if stall > 0:
+                        time.sleep(stall)
+                params, opt_state, metrics = step_fn(params, opt_state,
+                                                     batch)
+                metrics = {k: float(v) for k, v in metrics.items()}
+                dt = time.time() - t0
+                slow = watchdog.observe(got_step, dt)
+                if heart is not None:
+                    heart.beat(got_step)
+                step = got_step + 1
+                if got_step % log_every == 0:
+                    print(f"[train] step={got_step} "
+                          f"loss={metrics['loss']:.4f} "
+                          f"gnorm={metrics['grad_norm']:.3f} "
+                          f"dt={dt * 1e3:.0f}ms"
+                          f"{' STRAGGLER' if slow else ''}", flush=True)
+                if ckpt_dir and step % ckpt_every == 0:
+                    if ckpt_thread is not None:
+                        ckpt_thread.join()
+                    ckpt_thread = save_checkpoint(
+                        ckpt_dir, step, (params, opt_state), background=True)
+            except InjectedFault as e:
+                # node failure: restore the newest checkpoint and resume
+                print(f"[train] FAILURE: {e}; recovering", flush=True)
+                if not ckpt_dir:
+                    raise
+                recoveries += 1
+                if ckpt_thread is not None:
+                    # join() re-raises a failed background save: a
+                    # recovery must not restore a step that never landed
+                    ckpt_thread.join()
+                    ckpt_thread = None
+                s = latest_step(ckpt_dir)
+                if s is None:
+                    params, opt_state = fresh()
+                    step = 0
+                else:
+                    params, opt_state = restore(s)
+                    step = s
+                pipe.seek(step)
+        if ckpt_thread is not None:
+            ckpt_thread.join()
+    finally:
+        pipe.close()
+    metrics["stragglers"] = len(watchdog.flagged)
+    metrics["recoveries"] = recoveries
+    metrics["final_step"] = step
+    return metrics
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--backend", default="kernels",
+                    choices=("kernels", "torch"))
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    out = train(cfg, steps=args.steps, global_batch=args.batch,
+                seq_len=args.seq, microbatches=args.microbatches,
+                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                backend=args.backend, device=args.device)
+    print(f"[train] done: {out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -14,7 +14,11 @@ issues, and only those run on the kernel:
   ``0..cache_pos``.
 
 A chunk of more than one token at ``cache_pos > 0`` raises under
-``backend="kernels"``; it never goes to a plain path.  Under
+``backend="kernels"``; it never goes to a plain path.  Under autograd
+(training) the kernel runs inside ``kernels.flash_attention.
+FlashAttentionFn``, whose backward differentiates the reference model's
+own query-chunked fp32 attention; serving (``torch.no_grad()``) calls the
+kernel's wrapper directly.  Under
 ``backend="torch"`` every case runs ``F.scaled_dot_product_attention``
 over the same live cache prefix, with an explicit mask where the chunk
 needs one: the library yardstick.
@@ -95,6 +99,9 @@ def _attend(q, k, v, *, causal: bool, offset: int, backend: str):
                 f"the flash-attention kernel masks top-left: a {s}-token "
                 f"chunk behind {offset} cached slots needs the bottom-right "
                 f"mask (prefill at cache_pos 0, or decode one token)")
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return kfa.FlashAttentionFn.apply(q, k, v, causal)
         return kfa.flash_attention(q, k, v, causal=causal)
     check_backend(backend)
     if not causal:

@@ -1,5 +1,5 @@
 """Shared building blocks of the port's language models (functional, dict
-params), the serving half of ``repro.models.layers``.
+params), the port of ``repro.models.layers``.
 
 Every module is an ``init(generator, ...) -> params`` / ``apply(params, x,
 ...)`` pair on plain dicts of tensors, named as in the reference.  The
@@ -11,15 +11,22 @@ one draws a 1.6B-parameter model in milliseconds) and put the result on
 Every product goes through :func:`linear`: ``backend="kernels"`` calls the
 port's matmul kernel (``kernels/matmul.py``; its plain version for CPU
 tensors), ``backend="torch"`` calls ``torch.matmul``, the library
-yardstick.  The reference's sharding hook ``lc`` has no counterpart: the
-port has no mesh (ROADMAP.md, multi-device).  Its two cross-entropy
-functions belong to training and are not ported yet.
+yardstick.  Under autograd (grad mode on and an operand that requires
+grad) the kernels backend goes through ``kernels.matmul.MatmulFn``, whose
+backward is kernel 3 again; otherwise (serving, ``torch.no_grad()``) it
+calls the kernel's wrapper directly.  The reference's sharding hook ``lc``
+has no counterpart: the port has no mesh (ROADMAP.md, multi-device).
+
+The two cross-entropy functions of training close the module:
+:func:`softmax_cross_entropy` on full logits and :func:`chunked_softmax_ce`,
+which never materialises the (B, S, V) logits.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import matmul as kmm
 
@@ -75,10 +82,14 @@ def layernorm_init(d: int, dtype=torch.bfloat16, device=None) -> dict:
 
 
 def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalise in fp32, cast to ``x.dtype``, then ``* g + b``.
+
+    The fp32 ``(x - mean) * rsqrt(var + eps)`` is ``F.layer_norm``, for
+    :func:`rmsnorm`'s reason: a row is reduced in the same order whatever
+    the row count, where ``torch.mean``/``torch.var`` change order with it."""
     xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * p["g"] + p["b"]
+    return (F.layer_norm(xf, (xf.shape[-1],), eps=eps).to(x.dtype) * p["g"]
+            + p["b"])
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
@@ -106,7 +117,10 @@ def linear(x: torch.Tensor, w: torch.Tensor, backend: str = "kernels"
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if backend == "kernels":
-        y = kmm.matmul(x2, w)
+        if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+            y = kmm.MatmulFn.apply(x2, w)
+        else:
+            y = kmm.matmul(x2, w)
     else:
         check_backend(backend)
         y = torch.matmul(x2, w)
@@ -129,3 +143,60 @@ def mlp(p: dict, x: torch.Tensor, backend: str = "kernels") -> torch.Tensor:
     h = F.silu(linear(x, p["w_gate"], backend)) * linear(x, p["w_up"],
                                                          backend)
     return linear(h, p["w_down"], backend)
+
+
+# -------------------------------------------------------- cross entropy ---
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross entropy in fp32; with ``mask``, the mean over the
+    masked-in tokens (at least one)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def ce_chunks(s: int, chunk: int = 512) -> int:
+    """The number of head products :func:`chunked_softmax_ce` makes for a
+    sequence of ``s`` tokens: ``s // chunk`` checkpointed chunks, or 1 (the
+    full logits, not checkpointed) when ``s <= chunk`` or ``s`` is not a
+    multiple of ``chunk``, the reference's rule."""
+    return 1 if s % chunk != 0 or s <= chunk else s // chunk
+
+
+def chunked_softmax_ce(hidden: torch.Tensor, head: torch.Tensor,
+                       labels: torch.Tensor, mask: torch.Tensor,
+                       chunk: int = 512, backend: str = "kernels"
+                       ) -> torch.Tensor:
+    """Cross entropy without ever materialising the full (B, S, V) logits.
+
+    The sequence is cut into chunks of ``chunk`` tokens, taken in order;
+    each chunk's head product (:func:`linear`, kernel 3) and fp32 logits
+    are recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant, in place of the reference's ``jax.checkpoint``), so one
+    chunk's logits are live at a time.  As in the reference, a sequence of
+    at most ``chunk`` tokens, or not a multiple of it, takes the full
+    logits."""
+    s = hidden.shape[1]
+    if ce_chunks(s, chunk) == 1:
+        return softmax_cross_entropy(linear(hidden, head, backend), labels,
+                                     mask)
+
+    def body(h, lab, m):
+        logits = linear(h, head, backend).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+        return torch.sum((logz - gold) * m)
+
+    nll = msum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        m = mask[:, c0:c0 + chunk]
+        nll = nll + checkpoint(body, hidden[:, c0:c0 + chunk],
+                               labels[:, c0:c0 + chunk], m,
+                               use_reentrant=False, preserve_rng_state=False)
+        msum = msum + torch.sum(m)
+    return nll / torch.clamp(msum, min=1.0)

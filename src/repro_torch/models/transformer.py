@@ -8,6 +8,16 @@ is a Python loop over ``repeat`` that indexes the stacks: a leading-axis
 slice is contiguous and keeps the 16-byte alignment the kernels' ``wgmma``
 variants need.
 
+For training, :func:`unstack_blocks` gives each layer leaves of its own
+(views of the stacks that require grad), and ``blocks[pi]`` may then be a
+list of per-layer dicts: indexing one stacked leaf per layer would make
+autograd build a full-size zero gradient in each ``select``'s backward
+and add them up.  :func:`stack_grads` puts the per-layer gradients back
+into the stacked layout.  ``cfg.remat`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant): only the layer boundaries are
+kept and each layer is recomputed in the backward, the reference's
+``nothing_saveable`` policy.
+
 Each layer = attention + dense SwiGLU FFN (or none when ``d_ff == 0``),
 both pre-norm residual.  Every product goes through
 :func:`~repro_torch.models.layers.linear` and the scores through the
@@ -22,6 +32,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.ckpt import as_tensor
 from repro_torch.kernels.util import canon_dtype, resolve_device
@@ -150,16 +161,80 @@ def load_jax_params(tree: dict, cfg: ModelConfig, device=None) -> dict:
     return build(tree)
 
 
+def _index(tree: dict, r: int) -> dict:
+    return {k: _index(v, r) if isinstance(v, dict) else v[r]
+            for k, v in tree.items()}
+
+
 def layer_params(params: dict, cfg: ModelConfig):
     """Yield ``(pattern_idx, repeat_idx, kind, ffn_kind, layer)`` in stack
-    order, ``layer`` the per-layer views of the stacked parameters."""
-    def index(tree, r):
-        return {k: index(v, r) if isinstance(v, dict) else v[r]
-                for k, v in tree.items()}
-
+    order, ``layer`` the per-layer views of the stacked parameters (or the
+    per-layer dict itself where ``blocks[pattern_idx]`` is a list, as
+    :func:`unstack_blocks` gives)."""
     for r in range(cfg.repeat):
         for pi, kind in enumerate(cfg.block_pattern):
-            yield pi, r, kind, _ffn_kind(cfg), index(params["blocks"][pi], r)
+            block = params["blocks"][pi]
+            layer = block[r] if isinstance(block, list) else _index(block, r)
+            yield pi, r, kind, _ffn_kind(cfg), layer
+
+
+def unstack_blocks(params: dict, cfg: ModelConfig) -> dict:
+    """The parameter tree with every leaf a fresh autograd leaf that
+    shares its storage (``detach().requires_grad_()``), and each
+    ``blocks[pi]`` a list of ``repeat`` per-layer dicts of views of the
+    stacks, so each layer's gradient is a tensor of its own."""
+    def leaf(t):
+        return t.detach().requires_grad_()
+
+    def leaves(tree):
+        return {k: leaves(v) if isinstance(v, dict) else leaf(v)
+                for k, v in tree.items()}
+
+    out = {k: leaf(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = [[leaves(_index(block, r)) for r in range(cfg.repeat)]
+                     for block in params["blocks"]]
+    return out
+
+
+def stacked_name(name: str) -> tuple[str, int | None]:
+    """``(stacked name, repeat index)`` of a flat name of an
+    :func:`unstack_blocks` tree: ``blocks.0.3.mixer.wq`` ->
+    ``("blocks.0.mixer.wq", 3)``; a leaf outside the blocks keeps its name
+    and has no index."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return name, None
+    return ".".join(parts[:2] + parts[3:]), int(parts[2])
+
+
+def stack_grads(grads: dict) -> dict:
+    """Flat ``{name: gradient}`` in the stacked layout (the names of
+    ``flatten_params(params)``) from the flat gradients of an
+    :func:`unstack_blocks` tree, each stack built once."""
+    out, stacks = {}, {}
+    for name, g in grads.items():
+        key, r = stacked_name(name)
+        if r is None:
+            out[key] = g
+        else:
+            stacks.setdefault(key, {})[r] = g
+    for key, per in stacks.items():
+        out[key] = torch.stack([per[r] for r in range(len(per))])
+    return out
+
+
+def unflatten_params(flat: dict, like, prefix: str = ""):
+    """The tree of ``like`` (dicts and lists) with its leaves taken from
+    ``flat`` by :func:`flatten_params`' names."""
+    if isinstance(like, dict):
+        return {k: unflatten_params(flat, v, f"{prefix}.{k}" if prefix
+                                    else str(k))
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return [unflatten_params(flat, v, f"{prefix}.{i}" if prefix
+                                 else str(i))
+                for i, v in enumerate(like)]
+    return flat[prefix]
 
 
 def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
@@ -184,19 +259,35 @@ def lm_head(params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            backend: str = "kernels") -> torch.Tensor:
-    """Prefill forward without a cache.  tokens (B, S) -> logits (B, S, V).
+            backend: str = "kernels", return_hidden: bool = False
+            ) -> torch.Tensor:
+    """Training/prefill forward without a cache.  tokens (B, S) -> logits
+    (B, S, V), or the final-normed hidden states (B, S, D) with
+    ``return_hidden`` (training's chunked CE applies the head).
 
-    The reference's ``embeddings=`` (stub modality frontends) and
-    ``return_hidden=`` (the chunked CE of training) come with their
-    callers (ROADMAP.md, queue 1)."""
+    With ``cfg.remat`` and grad mode on, each layer runs under a
+    non-reentrant ``torch.utils.checkpoint``.  The reference's
+    ``embeddings=`` (stub modality frontends) comes with its caller
+    (ROADMAP.md, queue 1)."""
     check_supported(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"{cfg.name}: remat_policy {cfg.remat_policy!r} is not ported "
+            f"(only 'nothing': each layer recomputed whole)")
     x = params["embed"][tokens].to(canon_dtype(cfg.dtype))
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     for _, _, kind, fk, p in layer_params(params, cfg):
-        x, _ = apply_layer(p, x, cfg, kind, fk, positions, backend=backend)
+        def layer(x, p=p, kind=kind, fk=fk):
+            return apply_layer(p, x, cfg, kind, fk, positions,
+                               backend=backend)[0]
+
+        x = (checkpoint(layer, x, use_reentrant=False,
+                        preserve_rng_state=False) if remat else layer(x))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if return_hidden:
+        return x
     return linear(x, lm_head(params, cfg), backend)
 
 

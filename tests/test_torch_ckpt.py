@@ -1,4 +1,5 @@
-"""The port's flat-dict checkpoints against ``repro.checkpoint``.
+"""The port's flat-dict checkpoints against ``repro.checkpoint`` (the tree
+form is tested in ``tests/test_torch_lm_train.py``).
 
 ``repro_torch.checkpoint`` writes the reference's manifest+COMMITTED
 layout: a round trip keeps every array (bf16 as bf16), ``keep=`` bounds the
@@ -91,8 +92,14 @@ def test_background_write_and_its_failure(tmp_path):
 
 
 def test_rejects_trees_and_unflat_checkpoints(tmp_path):
-    with pytest.raises(TypeError, match="flat"):
-        tckpt.save_checkpoint(str(tmp_path), 1, {"a": {"b": np.zeros(1)}})
+    """``load_flat`` refuses a tree checkpoint, the port's (a nested dict
+    is written in the tree form, with no key list) and the reference's."""
+    d = str(tmp_path / "port")
+    tckpt.save_checkpoint(d, 1, {"a": {"b": np.zeros(1)}})
+    assert "flat_keys" not in json.load(open(os.path.join(
+        d, "step_000001", "manifest.json")))
+    with pytest.raises(ValueError, match="flat"):
+        tckpt.load_flat(d, 1)
     d = str(tmp_path / "tree")
     jckpt.save_checkpoint(d, 1, {"a": {"b": np.zeros(1)}})
     with pytest.raises(ValueError, match="flat"):

@@ -26,6 +26,9 @@ Functions against ``backend="torch"`` autograd, per tensor
 ``max |err| <= 1e-4 * max(1, max |ref|)``.
 """
 
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -730,3 +733,65 @@ def test_lm_parallel_prefill_is_the_token_loop(cuda):
     assert torch.equal(tok_p, tok_s)
     for a, b in zip(caches_p, caches_s):
         assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+
+
+def test_layernorm_rows_do_not_depend_on_the_row_count(cuda):
+    """``F.layer_norm`` reduces a row in one order: a 4 x 1024-row call and
+    its rows alone agree bit for bit on the card."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(cuda).manual_seed(1)
+    x = (3 * torch.randn(4, 1024, 2048, generator=g, device=cuda)
+         + 1).bfloat16()
+    p = {"g": torch.randn(2048, generator=g, device=cuda).bfloat16(),
+         "b": torch.randn(2048, generator=g, device=cuda).bfloat16()}
+    full = layers.layernorm(p, x)
+    for t in (0, 1, 555, 1023):
+        assert torch.equal(layers.layernorm(p, x[:, t:t + 1].contiguous()),
+                           full[:, t:t + 1])
+
+
+def test_lm_train_step_launch_counts(cuda):
+    """StableLM-2-1.6B's widths, two layers, bf16, remat on, seq 1024 in 2
+    microbatches: one ``make_train_step`` step launches
+    ``chip_smoke.lm_train_launches`` matmuls and attentions, every one
+    ``"wgmma"``, and its loss and gradient norm are within 5% and 10% of
+    the torch backend's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config("stablelm-1.6b").replace(num_layers=2)
+    params = transformer.init_params(
+        torch.Generator(cuda).manual_seed(0), cfg, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 1025),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": torch.ones(2, 1024, device=cuda)}
+    metrics = {}
+    for backend in ("torch", "kernels"):
+        step = steps.make_train_step(cfg, warmup=2, total_steps=10,
+                                     microbatches=2, backend=backend)
+        opt = adamw_init(transformer.flatten_params(params))
+        for w in (kmm.matmul, kfa.flash_attention):
+            w.launches = 0
+            w.launches_by_variant = dict.fromkeys(w.launches_by_variant, 0)
+        _, new_opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        metrics[backend] = {k: float(v) for k, v in m.items()}
+        assert int(new_opt.step) == 1
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    want = {k: sum(v.values())
+            for k, v in chip_smoke.lm_train_launches(cfg, 1024, 2).items()}
+    assert kmm.matmul.launches == want["matmul"]
+    assert kmm.matmul.launches_by_variant["wgmma"] == want["matmul"]
+    assert kfa.flash_attention.launches == want["flash_attention"]
+    assert (kfa.flash_attention.launches_by_variant["wgmma"]
+            == want["flash_attention"])
+    got, ref = metrics["kernels"], metrics["torch"]
+    assert abs(got["loss"] - ref["loss"]) <= 0.05 * ref["loss"]
+    assert abs(got["grad_norm"] - ref["grad_norm"]) <= 0.1 * ref["grad_norm"]

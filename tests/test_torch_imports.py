@@ -25,6 +25,7 @@ from repro_torch.kernels.epilogue import NO_EPILOGUE
 from repro_torch.kernels.util import canon_dtype, resolve_device
 from repro_torch.configs import get_reduced
 from repro_torch.launch import serve as lm_serve
+from repro_torch.launch import train as lm_train
 from repro_torch.launch import serve_gen
 from repro_torch.models import transformer, unet_decoder, whisper
 from repro_torch.models.dcgan import DCGAN
@@ -43,7 +44,8 @@ def test_walk_covers_every_package():
     assert _PORT / "launch" / "serve_gen.py" in _FILES
     for mod in ("models/config.py", "models/layers.py",
                 "models/attention.py", "models/transformer.py",
-                "launch/serve.py", "configs/stablelm_1_6b.py"):
+                "launch/serve.py", "configs/stablelm_1_6b.py",
+                "launch/train.py", "data/pipeline.py"):
         assert _PORT / mod in _FILES
 
 
@@ -91,7 +93,10 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.checkpoint, repro_torch.distributed, "
             "repro_torch.configs, repro_torch.models.config, "
             "repro_torch.models.layers, repro_torch.models.attention, "
-            "repro_torch.models.transformer, repro_torch.launch.serve; "
+            "repro_torch.models.transformer, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.data.pipeline, "
+            "repro_torch.checkpoint.ckpt, "
+            "repro_torch.distributed.fault_tolerance; "
             "import repro_torch.configs as c; "
             "[c.get_config(a) for a in c.ARCH_IDS]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -129,7 +134,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                   lambda: lm_serve.main(["--arch", "stablelm-1.6b",
                                          "--reduced"]),
                   lambda: transformer.init_params(g, lm),
-                  lambda: transformer.init_caches(lm, 1, 8)):
+                  lambda: transformer.init_caches(lm, 1, 8),
+                  lambda: lm_train.train(lm, steps=1, global_batch=1,
+                                         seq_len=4),
+                  lambda: lm_train.main(["--arch", "stablelm-1.6b",
+                                         "--reduced", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     assert resolve_device("cpu") == torch.device("cpu")

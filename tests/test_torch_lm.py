@@ -162,6 +162,19 @@ def test_rmsnorm_rows_do_not_depend_on_the_row_count():
                            full[:, t:t + 1])
 
 
+def test_layernorm_rows_do_not_depend_on_the_row_count():
+    """A row's LayerNorm is the same in a many-row call and alone
+    (``F.layer_norm``; on the card too: ``tests/test_torch_cuda.py``)."""
+    (x, g, b) = _arrays(13, (4, 64, 256), (256,), (256,))
+    x = torch.from_numpy(x * 3 + 1).bfloat16()
+    p = {"g": torch.from_numpy(g).bfloat16(),
+         "b": torch.from_numpy(b).bfloat16()}
+    full = layers.layernorm(p, x)
+    for t in (0, 17, 63):
+        assert torch.equal(layers.layernorm(p, x[:, t:t + 1].contiguous()),
+                           full[:, t:t + 1])
+
+
 def test_linear_flattens_and_checks_backend():
     a, w = torch.randn(2, 3, 8), torch.randn(8, 5)
     assert torch.allclose(layers.linear(a, w), a @ w, atol=1e-6)
