@@ -75,8 +75,8 @@ nvcc, then:
    paths, the two conv kernels again on the ENet backward, both again
    in bf16 on the forward and the backward, both on each path of
    phases 18-23, on phase 24's tuned forwards, and kernels 3 and 4 on
-   phase 25's served prefill and decode step and on phase 26's train
-   step) and, last,
+   phase 25's served prefill and decode step, on phase 26's train
+   step, and kernels 1, 3 and 4 on phase 27's whisper-small) and, last,
    ``{"ok": true, "device": {...}}``;
 
 and, before those two lines, the bf16 slice:
@@ -309,6 +309,40 @@ f. per backend: step wall ms (median of 5 warm steps), tokens/s, 6ND
    ``matmul (StableLM-2-1.6B train step forward)``, ``... backward)`` and
    ``flash_attention (StableLM-2-1.6B train step)``.
 
+and last, phase 27 runs whisper-small's encoder-decoder
+(``repro_torch.models.encdec``) at its published configuration (12 + 12
+layers, d_model 768, 12 heads of 64, d_ff 3072, vocab 51865, encoder_ctx
+1500, bf16; nothing cut), weights drawn on the card from a seeded CUDA
+generator:
+
+a. the frontend on kernel 1 (fp32) turns batch 8 seeded (3000, 80)
+   log-mels into (8, 1500, 768) frames: 2 conv2d launches, each call
+   against its plain version, the frames against ``backend="torch"``; then
+   ``Server`` with ``backend="kernels"``, counts 0 just before and read
+   just after an encode (12 x 7 matmuls, 12 attentions), the 4-token
+   prompt loop, a decode step (12 x 11 + 1 and 24: self and cross
+   attention) and ``Server.generate(frames=)`` (224 tokens, caches of 448
+   slots), every launch ``"wgmma"`` but the LM head's (N = 51865 is no
+   multiple of 8: ``"simt"``);
+b. every kernel call of an encode and of a decode step against its plain
+   version at phase 10's bar; the encoder output and the logits of the
+   prompt loop and 8 teacher-forced decode steps against
+   ``backend="torch"`` within 5% of max|torch|; per backend encode ms,
+   decode ms a step, tokens/s, busy shares, peak memory, and every kernel
+   shape beside its bound and library call (the kernels line's ``conv2d
+   (Whisper frontend, batch 8)``, ``matmul (whisper-small served, batch
+   8: encode)`` etc.);
+c. ``make_train_step`` at decoder sequence 448, global batch 16 in 2
+   microbatches, seeded fp32 frames, fp32 AdamW, remat: phase 26's a-d
+   and f (launches by part: 217 / 216 / 434 matmuls and 36 / 36 / 0
+   attentions a microbatch, the head's 3 products ``"simt"``; the losses
+   of 3 steps a backend within 0.1%), with tokens/s and frames/s;
+d. 26e's loop drill at the reduced configuration, zero frames fed;
+e. the same model in fp32 at depth 2 + 2: an encode and each serve step
+   on the ``"simt"`` variants, the encoder output and the logits of the
+   prompt loop and 4 decode steps against ``backend="torch"`` at 1e-4 x
+   max(1, max|torch|).
+
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
 with TF32 off.  The full per-call results go to
@@ -437,6 +471,26 @@ TRAIN_LM_STEPS, TRAIN_LM_TIMED = 3, 5
 # 26e: the train loop at the reduced configuration: 4 steps of 4 x 1024
 # tokens, a checkpoint every 2 steps, a failure injected at step 3
 DRILL_LM_STEPS, DRILL_LM_EVERY, DRILL_LM_FAIL, DRILL_LM_SEQ = 4, 2, 3, 1024
+# phase 27: whisper-small (src/repro_torch/configs/whisper_small.py) at its
+# published configuration (12 + 12 layers, d_model 768, 12 heads of 64, d_ff
+# 3072, vocab 51865, encoder_ctx 1500, bf16; nothing cut).  27b serves batch
+# 8 clips of 30 s, each a seeded (3000, 80) log-mel that the frontend (kernel
+# 1, fp32) turns into 1500 frames: a 4-token prompt (Whisper's
+# start-of-transcript, language, task and no-timestamps slots, drawn from
+# SEED), 224 greedy tokens (Whisper's default sample length), caches of 448
+# slots (the published text context); the logits held to the torch
+# backend's through the encoder output, the prompt loop and 8 teacher-forced
+# decode steps; decode ms from a loop of 32 steps
+WH_ARCH = "whisper-small"
+WH_BATCH, WH_PROMPT, WH_GEN, WH_CTX = 8, 4, 224, 448
+WH_FORCED, WH_LOOP = 8, 32
+# 27c: decoder sequence 448, global batch 16 in 2 microbatches, seeded fp32
+# frames, LMDataPipeline(seed=SEED) tokens, phase 26's schedule; losses of 3
+# steps a backend within 0.1% of each other
+WH_TRAIN_BATCH, WH_TRAIN_SEQ, WH_TRAIN_MICRO = 16, 448, 2
+WH_LOSS_RTOL = 1e-3
+# 27e: fp32 at depth 2 + 2 (of 12 + 12), the prompt loop and 4 decode steps
+WH_FP32_LAYERS, WH_FP32_DECODE = 2, 4
 # phase 3's edge cases (and phase 14's, in bf16)
 DENSE_EDGES = [  # label, x shape, w shape, stride, pads
     ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
@@ -548,12 +602,30 @@ def layer_products(cfg) -> int:
     return 4 + (3 if cfg.d_ff > 0 else 0)
 
 
-def lm_step_launches(cfg) -> dict:
-    """The launches of one LM serve step, prefill or decode: each layer's
-    products and 1 attention, and the LM head's matmul."""
+def decoder_launches(cfg) -> tuple[int, int]:
+    """(products, attentions) of the decoder layers: a decoder-only
+    layer's products and 1 attention; an encoder-decoder's decoder layer
+    adds its cross attention's 4 products and 1 attention."""
+    cross = 1 if cfg.encoder_layers else 0
+    return ((layer_products(cfg) + 4 * cross) * cfg.num_layers,
+            (1 + cross) * cfg.num_layers)
+
+
+def encode_launches(cfg) -> dict:
+    """The launches of an encoder-decoder's ``encode``: each bidirectional
+    layer's products and 1 attention."""
     return {"conv2d": 0, "transposed_conv2d": 0,
-            "matmul": layer_products(cfg) * cfg.num_layers + 1,
-            "flash_attention": cfg.num_layers}
+            "matmul": layer_products(cfg) * cfg.encoder_layers,
+            "flash_attention": cfg.encoder_layers}
+
+
+def lm_step_launches(cfg) -> dict:
+    """The launches of one LM serve step, prefill or decode: each decoder
+    layer's products and attentions (``decoder_launches``), and the LM
+    head's matmul."""
+    products, attentions = decoder_launches(cfg)
+    return {"conv2d": 0, "transposed_conv2d": 0, "matmul": products + 1,
+            "flash_attention": attentions}
 
 
 def lm_train_launches(cfg, seq_len: int, microbatches: int) -> dict:
@@ -561,23 +633,27 @@ def lm_train_launches(cfg, seq_len: int, microbatches: int) -> dict:
     ``backend="kernels"``, by part: ``{"matmul": {"forward", "recompute",
     "backward"}, "flash_attention": {...}}``.
 
-    Per microbatch: each layer's products and the LM head's, one per CE
-    chunk (``layers.ce_chunks``); under ``cfg.remat`` every layer runs
-    again in the backward, and a chunked head's products always do (each
-    chunk is checkpointed); the backward launches 2 products for each
-    forward one (dA and dB, every operand requires grad).  Attention runs
-    kernel 4 in the forward and in the recompute; its backward launches
-    no kernel."""
+    Per microbatch: each layer's products (an encoder-decoder's encoder
+    layers and decoder layers) and the LM head's, one per CE chunk
+    (``layers.ce_chunks``; an encoder-decoder takes the full logits, one
+    product not checkpointed); under ``cfg.remat`` every layer runs again
+    in the backward, and a chunked head's products always do (each chunk
+    is checkpointed); the backward launches 2 products for each forward
+    one (dA and dB, every operand requires grad).  Attention runs kernel 4
+    in the forward and in the recompute; its backward launches no
+    kernel."""
     from repro_torch.models.layers import ce_chunks
 
-    layers = cfg.num_layers
-    body = layer_products(cfg) * layers
-    heads = ce_chunks(seq_len)
+    body, attn = decoder_launches(cfg)
+    if cfg.encoder_layers:
+        enc = encode_launches(cfg)
+        body, attn = body + enc["matmul"], attn + enc["flash_attention"]
+    heads = 1 if cfg.encoder_layers else ce_chunks(seq_len)
     mm = {"forward": body + heads,
           "recompute": (body if cfg.remat else 0) + (heads if heads > 1
                                                       else 0),
           "backward": 2 * (body + heads)}
-    fa = {"forward": layers, "recompute": layers if cfg.remat else 0,
+    fa = {"forward": attn, "recompute": attn if cfg.remat else 0,
           "backward": 0}
     return {"matmul": {k: v * microbatches for k, v in mm.items()},
             "flash_attention": {k: v * microbatches for k, v in fa.items()}}
@@ -897,6 +973,8 @@ class Smoke:
         kernels_line["kernels"] += self.run_lm_serving()
         torch.cuda.empty_cache()
         kernels_line["kernels"] += self.run_lm_training()
+        torch.cuda.empty_cache()
+        kernels_line["kernels"] += self.run_whisper()
         self.write_report(card)
         log(f"class maps: {tuple(y.argmax(-1).shape)}")
         log(card)
@@ -3936,10 +4014,11 @@ class Smoke:
         """``cfg``'s parameters drawn on the card from a seeded CUDA
         generator; logs their count, size and draw time."""
         torch = self.torch
+        from repro_torch.launch.steps import _model_fns
         from repro_torch.models import transformer
 
         t0 = time.perf_counter()
-        params = transformer.init_params(
+        params = _model_fns(cfg).init_params(
             torch.Generator(self.dev).manual_seed(seed), cfg, self.dev)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
@@ -3954,20 +4033,21 @@ class Smoke:
             "layers": cfg.num_layers, "dtype": cfg.dtype}
         return params
 
-    def check_lm_launches(self, what, want, variant):
+    def check_lm_launches(self, what, want, variant, simt=0):
         """Read the counts and variants since the last reset; raise unless
-        they are ``want`` with every matmul and attention launch on
-        ``variant``."""
+        they are ``want`` with every attention launch on ``variant`` and
+        every matmul launch but ``simt`` of them (whisper's odd-N head)."""
         counts, variants = self.read_counts(), self.read_variants()
         log(f"  {what}: launches {counts}; matmul by variant "
             f"{variants['matmul']}, flash attention "
             f"{variants['flash_attention']}")
         if counts != want:
             raise RuntimeError(f"{what}: launches {counts} != {want}")
-        for name in ("matmul", "flash_attention"):
-            if variants[name][variant] != want[name]:
+        for name, off in (("matmul", simt), ("flash_attention", 0)):
+            if variants[name][variant] != want[name] - off:
                 raise RuntimeError(f"{what}: {name} launches {variants[name]}"
-                                   f" are not all {variant!r}")
+                                   f" are not {want[name] - off} "
+                                   f"{variant!r}")
         return counts
 
     def lm_serve_main(self, cfg, srv, prompts, rep):
@@ -4008,31 +4088,45 @@ class Smoke:
         rep["generated"] = out.tolist()
         return launches
 
-    def lm_serve_calls(self, phase, srv, prompts, label, variant, rep):
+    def lm_serve_calls(self, phase, srv, prompts, label, variant, rep,
+                       runs=None):
         """25b: every kernel call of one prefill and one decode step at a
-        position > 0, recorded, against its plain version at phase 10's
-        bars (bf16: each element 2^-7 |plain| + 1e-4 x max(1, max|plain|)).
-        Returns one call's arguments and the call count per (prefill or
-        decode step, kernel, geometry)."""
+        position > 0 (or of each of ``runs``, {what: fn}), recorded,
+        against its plain version at phase 10's bars (bf16: each element
+        2^-7 |plain| + 1e-4 x max(1, max|plain|)); each call on
+        ``variant``, or on ``variant(name, args)`` where that is a
+        function.  Returns one call's arguments and the call count per
+        (what, kernel, geometry)."""
         torch = self.torch
-        log(f"phase {phase}: {label}: every kernel call of one prefill and "
-            f"one decode step vs its plain version")
-        calls = {"prefill": [], "decode step": []}
-        with torch.no_grad():
-            with self.recording_lm(calls["prefill"]):
-                tok, caches, pos = srv.prefill(prompts)
-            with self.recording_lm(calls["decode step"]):
+        if runs is None:
+            state = {}
+
+            def prefill():
+                state["out"] = srv.prefill(prompts)
+
+            def decode():
+                tok, caches, pos = state.pop("out")
                 srv.serve_step(srv.params, caches, {"token": tok,
                                                     "cache_pos": pos})
+
+            runs = {"prefill": prefill, "decode step": decode}
+        log(f"phase {phase}: {label}: every kernel call of "
+            + " and ".join(f"one {what}" for what in runs)
+            + " vs its plain version")
+        calls = {what: [] for what in runs}
+        with torch.no_grad():
+            for what, fn in runs.items():
+                with self.recording_lm(calls[what]):
+                    fn()
         torch.cuda.synchronize()
-        del caches
+        expect = variant if callable(variant) else (lambda n, a: variant)
         groups, caught = {}, []
         for what, rec in calls.items():
             checks = len(self.report["checks"])
             for i, (name, args, out) in enumerate(rec):
                 entry = f"{name} ({label}: {what})"
                 kern_v = self.lm_call(name, args)
-                if kern_v[6] != variant:
+                if kern_v[6] != expect(name, args):
                     raise RuntimeError(f"{entry} call {i}: {kern_v[6]}")
                 want = kern_v[1]()
                 self.compare(f"{entry} call {i}", entry, out, want,
@@ -4079,19 +4173,21 @@ class Smoke:
                 fed.append(x)
         return logits, fed
 
-    def lm_serve_logits(self, cfg, params, prompts, steps, phase, rep):
+    def lm_serve_logits(self, cfg, params, prompts, steps, phase, rep,
+                        run=None, names=None):
         """The kernels backend's logits against the torch backend's on the
         same tokens (teacher forcing: the torch backend's greedy tokens fed
-        to both) through a prefill and ``steps`` decode steps: max |err| <=
+        to both) through a prefill and ``steps`` decode steps (``run``,
+        :meth:`forced_run` by default; ``names`` its steps): max |err| <=
         5% of max |torch| (DESIGN.md §12's bf16 output bar), and the greedy
         tokens equal wherever the torch top-2 margin exceeds that bar."""
         torch = self.torch
+        run = run or self.forced_run
         log(f"phase {phase}: {cfg.name} logits, backend=kernels vs "
             f"backend=torch, teacher-forced through the prefill and {steps} "
             f"decode steps (bar {BF16_FWD_RTOL:.0%} of max|torch|)")
-        want, fed = self.forced_run(cfg, params, prompts, steps, "torch")
-        got, _ = self.forced_run(cfg, params, prompts, steps, "kernels",
-                                 feed=fed)
+        want, fed = run(cfg, params, prompts, steps, "torch")
+        got, _ = run(cfg, params, prompts, steps, "kernels", feed=fed)
         rows = []
         for i, (g, w) in enumerate(zip(got, want)):
             g, w = g.float(), w.float()
@@ -4102,7 +4198,8 @@ class Smoke:
             gated = (top2[..., 0] - top2[..., 1]) > bar
             agree = g.argmax(-1) == w.argmax(-1)
             bad = int((gated & ~agree).sum())
-            what = "prefill" if i == 0 else f"decode step {i}"
+            what = (names[i] if names else
+                    "prefill" if i == 0 else f"decode step {i}")
             row = {"step": what, "max_abs_err": err, "bar": bar,
                    "err_over_bar": err / bar, "positions": agree.numel(),
                    "agree": int(agree.sum()), "gated": int(gated.sum()),
@@ -4217,11 +4314,19 @@ class Smoke:
                 f"{row['prefill_copy_ms']:.3f}, decode step "
                 f"{row['decode_step_copy_ms']:.3f}; peak memory "
                 f"{peak:.2f} GiB (weights included)")
+        return self.serve_shapes(groups, launches, label, rep)
+
+    def serve_shapes(self, groups, launches, label, rep):
+        """Per kernel and shape of ``groups`` (:meth:`lm_serve_calls`), the
+        device ms of one call beside its bound, library call and plain
+        version, and per (what, kernel) the sums: the kernels line's
+        entries, with ``launches[what]``'s counts."""
+        torch = self.torch
         keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
                 "bytes_ms", "flops")
         entries, rows = [], []
         with torch.no_grad():
-            for what in ("prefill", "decode step"):
+            for what in dict.fromkeys(w for w, _, _ in groups):
                 per = {n: dict.fromkeys(keys, 0.0)
                        for n in ("matmul", "flash_attention")}
                 for (w, name, geo), (args, n) in groups.items():
@@ -4416,16 +4521,16 @@ class Smoke:
         log(f"phase 26: {rep['seconds']:.1f} s")
         return entries
 
-    def train_fns(self, cfg, backend):
+    def train_fns(self, cfg, backend, micro=TRAIN_LM_MICRO):
         """(``make_train_step``, its optimizer state's init) on
-        ``backend`` at phase 26's schedule and microbatches."""
+        ``backend`` at phase 26's schedule, in ``micro`` microbatches."""
         from repro_torch.launch import steps
         from repro_torch.models import transformer
         from repro_torch.optim import adamw_init
 
         step = steps.make_train_step(
             cfg, warmup=TRAIN_LM_WARMUP, total_steps=TRAIN_LM_TOTAL,
-            microbatches=TRAIN_LM_MICRO, backend=backend)
+            microbatches=micro, backend=backend)
         return step, lambda p: adamw_init(
             transformer.flatten_params(p), memory_mode=cfg.opt_memory_mode)
 
@@ -4510,30 +4615,34 @@ class Smoke:
                         "recompute": own["recompute"][n],
                         "backward": own["backward"][n]}
 
-    def lm_train_main(self, cfg, params, batch, launches, label, rep):
+    def lm_train_main(self, cfg, params, batch, launches, label, rep, *,
+                      phase="26a", micro=TRAIN_LM_MICRO, chunks=None,
+                      simt=0):
         """26a: the main path.  Counts 0 just before one train step on
         ``backend="kernels"``, read just after, in all and by part
         (``counting_parts``): the launches ``lm_train_launches`` works out
-        (tested on the CPU), every one ``"wgmma"``; no library conv or
-        attention, no plain version, no ``torch.matmul``; the attention
-        backward's own fp32 products (``attention_grads``: per query chunk
-        one ``bmm``, two ``baddbmm`` and two ``baddbmm_``) and the
-        transposes counted apart.  Returns the measured launches by part."""
+        (tested on the CPU), every one ``"wgmma"`` but ``simt`` matmuls; no
+        library conv or attention, no plain version, no ``torch.matmul``;
+        the attention backward's own fp32 products (``attention_grads``:
+        per query chunk one ``bmm``, two ``baddbmm`` and two ``baddbmm_``;
+        ``chunks`` of them, by default phase 26's) and the transposes
+        counted apart.  Returns the measured launches by part."""
         torch = self.torch
         F = torch.nn.functional
         kmm, kfa = self.kmm, self.kfa
         want = {"conv2d": 0, "transposed_conv2d": 0,
                 **{k: sum(v.values()) for k, v in launches.items()}}
-        chunks = (TRAIN_LM_SEQ // kfa.Q_CHUNK * cfg.num_layers
-                  * TRAIN_LM_MICRO)
-        log(f"phase 26a: {label} on backend=kernels, counts 0 just before "
-            f"and read just after one step; worked out "
+        if chunks is None:
+            chunks = (TRAIN_LM_SEQ // kfa.Q_CHUNK * cfg.num_layers
+                      * TRAIN_LM_MICRO)
+        log(f"phase {phase}: {label} on backend=kernels, counts 0 just "
+            f"before and read just after one step; worked out "
             f"(lm_train_launches): matmul {launches['matmul']}, flash "
-            f"attention {launches['flash_attention']}, all \"wgmma\"; the "
-            f"attention backward's products: {5 * chunks} ({chunks} query "
-            f"chunks: {TRAIN_LM_SEQ // kfa.Q_CHUNK} x {cfg.num_layers} "
-            f"layers x {TRAIN_LM_MICRO} microbatches, 5 each)")
-        step, opt_init = self.train_fns(cfg, "kernels")
+            f"attention {launches['flash_attention']}, all \"wgmma\" but "
+            f"{simt} \"simt\" matmuls; the attention backward's products: "
+            f"{5 * chunks} ({chunks} query chunks over {micro} "
+            f"microbatches, 5 each)")
+        step, opt_init = self.train_fns(cfg, "kernels", micro)
         opt = opt_init(params)
         other, parts = {}, {}
         targets = [(F, "conv2d"), (F, "conv_transpose2d"),
@@ -4548,7 +4657,7 @@ class Smoke:
                                 for n in launches}):
             new_p, new_o, m = step(params, opt, batch)
             torch.cuda.synchronize()
-        counts = self.check_lm_launches("train step", want, "wgmma")
+        counts = self.check_lm_launches("train step", want, "wgmma", simt)
         transposes = kmm.MatmulFn.transposes - transposes
         other = {attr: other.get(attr, 0) for _, attr in targets}
         log(f"  by part, measured: matmul {parts['matmul']}, flash "
@@ -4579,7 +4688,8 @@ class Smoke:
         del new_p, new_o, opt
         return parts
 
-    def lm_train_calls(self, cfg, params, batch, launches, label, rep):
+    def lm_train_calls(self, cfg, params, batch, launches, label, rep, *,
+                       phase="26b", micro=TRAIN_LM_MICRO):
         """26b: every kernel-3 and kernel-4 call of one microbatch's
         forward and backward (the recompute included), each held against
         its plain version as it is made at phase 10's bf16 bar (a product
@@ -4589,20 +4699,22 @@ class Smoke:
         part) over the microbatches.  Returns one call's arguments and the
         call count per (part, kernel, geometry), part ``forward``, ``recompute`` (a
         forward run again inside the backward pass) or ``backward`` (dA
-        and dB); and one sample of the attention's inputs and the count of
-        every transposed shape."""
+        and dB); and one sample of the attention's inputs per attention
+        geometry with its call count, and the count of every transposed
+        shape."""
         torch = self.torch
         from repro_torch.launch import steps
 
         kmm, kfa = self.kmm, self.kfa
-        rows = TRAIN_LM_BATCH // TRAIN_LM_MICRO
-        log(f"phase 26b: {label}: every kernel call of one microbatch's "
-            f"forward and backward ({rows} x {TRAIN_LM_SEQ} tokens) vs its "
-            f"plain version, checked as it is made (backward products: no "
-            f"max(1, .) floor)")
+        rows = batch["tokens"].shape[0] // micro
+        log(f"phase {phase}: {label}: every kernel call of one microbatch's "
+            f"forward and backward ({rows} x {batch['tokens'].shape[1]} "
+            f"tokens) vs its plain version, checked as it is made (backward "
+            f"products: no max(1, .) floor)")
         mb = {k: v[:rows] for k, v in batch.items()}
         vg = steps.make_value_and_grad(cfg, backend="kernels")
-        groups, caught, samples = {}, {}, {"transposes": {}}
+        groups, caught = {}, {}
+        samples = {"transposes": {}, "attention": {}}
         # the innermost Function body running (forward or backward) and
         # how many torch.autograd.grad calls are open
         state = {"stack": [], "grad": 0, "n": 0}
@@ -4639,7 +4751,10 @@ class Smoke:
 
         def fa(q, k, v, causal):
             out = orig[1](q, k, v, causal)
-            samples.setdefault("attention", (q, k, v))
+            if part() == "forward":
+                geo = self.lm_call("flash_attention", (q, k, v, causal))[5]
+                samples["attention"].setdefault(geo, [(q, k, v, causal), 0])
+                samples["attention"][geo][1] += 1
             check("flash_attention", (q, k, v, causal), out,
                   lambda: torch.cat([kfa.attention_plain(
                       q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal)
@@ -4696,7 +4811,7 @@ class Smoke:
         for w, (zero, off) in reads.items():
             log(f"  {w}: a zeroed output would reach >= {zero:.3g} x its "
                 f"bar, one 2% off >= {off:.3g} x")
-        want = {(w, k): n // TRAIN_LM_MICRO for k, by in launches.items()
+        want = {(w, k): n // micro for k, by in launches.items()
                 for w, n in by.items() if n}
         if per_part != want:
             raise RuntimeError(f"{label}: one microbatch's calls by part "
@@ -4709,7 +4824,8 @@ class Smoke:
                                     for (w, k), n in per_part.items()}}
         return groups, samples
 
-    def lm_train_grads(self, cfg, params, batch, rep):
+    def lm_train_grads(self, cfg, params, batch, rep, *, phase="26c",
+                       micro=TRAIN_LM_MICRO):
         """26c: step-0 loss, gradient norm and gradients, kernels against
         ``backend="torch"`` from one state and batch: loss within 5%,
         gradient norm within 10%, each gradient tensor at 10% relative L2
@@ -4717,12 +4833,13 @@ class Smoke:
         from repro_torch.launch import steps
         from repro_torch.optim import global_norm
 
-        log(f"phase 26c: step-0 gradients, backend=kernels vs backend=torch "
+        log(f"phase {phase}: step-0 gradients, backend=kernels vs "
+            f"backend=torch "
             f"(loss {BF16_FWD_RTOL:.0%}, grad_norm {BF16_GRAD_RTOL:.0%}, "
             f"each tensor {BF16_GRAD_RTOL:.0%} relative L2)")
         out = {}
         for backend in ("kernels", "torch"):
-            vg = steps.make_value_and_grad(cfg, microbatches=TRAIN_LM_MICRO,
+            vg = steps.make_value_and_grad(cfg, microbatches=micro,
                                            backend=backend)
             loss, grads = vg(params, batch)
             out[backend] = (float(loss), float(global_norm(grads)), grads)
@@ -4747,18 +4864,19 @@ class Smoke:
                                f"{rel[worst]}")
         del out, gk, gt
 
-    def lm_train_steps(self, cfg, params, batches, rep):
+    def lm_train_steps(self, cfg, params, batches, rep, *, phase="26d",
+                       micro=TRAIN_LM_MICRO, rtol=BF16_FWD_RTOL):
         """26d: three steps on both backends from one state on successive
-        batches: losses finite and within 5% of each other, masters fp32,
-        parameters bf16, ``opt_state.step`` 3."""
+        batches: losses finite and within ``rtol`` (5%) of each other,
+        masters fp32, parameters bf16, ``opt_state.step`` 3."""
         torch = self.torch
         from repro_torch.models import transformer
 
-        log(f"phase 26d: {TRAIN_LM_STEPS} make_train_step steps on both "
+        log(f"phase {phase}: {TRAIN_LM_STEPS} make_train_step steps on both "
             f"backends from one state on successive batches")
         losses = {}
         for backend in ("kernels", "torch"):
-            step, opt_init = self.train_fns(cfg, backend)
+            step, opt_init = self.train_fns(cfg, backend, micro)
             p, o = params, opt_init(params)
             losses[backend] = []
             for b in batches[:TRAIN_LM_STEPS]:
@@ -4779,12 +4897,12 @@ class Smoke:
         rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernels"],
                                                    losses["torch"])]
         log(f"  kernels vs torch losses: relative {[f'{r:.2e}' for r in rel]}"
-            f" (bar {BF16_FWD_RTOL:.0%})")
+            f" (bar {rtol:.1%})")
         rep["steps"] = {"losses": losses, "rel": rel}
-        if max(rel) > BF16_FWD_RTOL:
+        if max(rel) > rtol:
             raise RuntimeError(f"train losses differ: {losses}")
 
-    def lm_train_drill(self, rep):
+    def lm_train_drill(self, rep, arch=LM_ARCH, phase="26e"):
         """26e: ``launch.train.train`` at the reduced configuration on the
         card, a checkpoint every 2 steps: an uninterrupted run twice and a
         run with a failure injected at step 3.  One recovery, the requested
@@ -4799,10 +4917,10 @@ class Smoke:
         from repro_torch.distributed.fault_tolerance import FailureInjector
         from repro_torch.launch import train
 
-        cfg = get_reduced(LM_ARCH)
-        root = os.path.join(ROOT, "chiprun_out", "lm_train_drill")
+        cfg = get_reduced(arch)
+        root = os.path.join(ROOT, "chiprun_out", f"train_drill_{arch}")
         shutil.rmtree(root, ignore_errors=True)
-        log(f"phase 26e: the train loop at {cfg.name} on the card: "
+        log(f"phase {phase}: the train loop at {cfg.name} on the card: "
             f"{DRILL_LM_STEPS} steps of {TRAIN_LM_BATCH} x {DRILL_LM_SEQ} "
             f"tokens in {TRAIN_LM_MICRO} microbatches, a checkpoint every "
             f"{DRILL_LM_EVERY} steps, one failure injected at step "
@@ -4850,33 +4968,47 @@ class Smoke:
                 raise RuntimeError(f"resumed loss off: {runs}")
 
     def lm_train_times(self, cfg, params, batches, groups, samples,
-                       parts, label, rep):
+                       parts, label, rep, *, phase="26f",
+                       micro=TRAIN_LM_MICRO):
         """26f: per backend, step wall ms (median of TRAIN_LM_TIMED warm
-        steps), tokens/s, model FLOP/s (6 N D, the reference's roofline
-        count) against the bf16 peak, the busy share and device ms by
-        class (``torch.profiler``), peak memory; for the kernels backend
-        the pieces timed alone (the attention backward's recompute, the
+        steps), tokens/s (and an encoder-decoder's frames/s), model FLOP/s
+        (6 N D, the reference's roofline count; an encoder-decoder's
+        encoder parameters times its frames, the rest times the tokens)
+        against the bf16 peak, the busy share and device ms by class
+        (``torch.profiler``), peak memory; for the kernels backend the
+        pieces timed alone (the attention backward's recompute, the
         transposes, the optimizer); and every distinct kernel-3 and
         kernel-4 shape of the step: calls, ms, bound, plain and library.
-        Each kernels-line entry's launches are ``parts``, 26a's counts of
-        the main path's step by part."""
+        Each kernels-line entry's launches are ``parts``, the main path's
+        counts of a step by part."""
         torch = self.torch
         from repro_torch.models import transformer
         from repro_torch.optim import adamw_update
 
         kfa = self.kfa
-        tokens = TRAIN_LM_BATCH * TRAIN_LM_SEQ
+        tokens = batches[0]["tokens"].numel()
         flops = 6 * cfg.param_counts()["active"] * tokens
-        log(f"phase 26f: {label} times (wall: median of {TRAIN_LM_TIMED} "
-            f"warm steps; model FLOPs 6 N D = {flops:.4g} a step)")
-        classes = {"kernel 3": ("matmul_wgmma_kernel",),
-                   "kernel 4": ("flash_attention_wgmma_kernel",),
+        frames = 0
+        if cfg.encoder_layers:
+            frames = batches[0]["frames"].shape[0] * batches[0][
+                "frames"].shape[1]
+            d, hd = cfg.d_model, cfg.head_dim
+            n_enc = cfg.encoder_layers * (
+                2 * d * (cfg.num_heads + cfg.kv_heads) * hd
+                + 3 * d * cfg.d_ff)
+            flops += 6 * n_enc * (frames - tokens)
+        log(f"phase {phase}: {label} times (wall: median of "
+            f"{TRAIN_LM_TIMED} warm steps; model FLOPs 6 N D = "
+            f"{flops:.4g} a step)")
+        classes = {"kernel 3": ("matmul_wgmma_kernel", "matmul_kernel"),
+                   "kernel 4": ("flash_attention_wgmma_kernel",
+                                "flash_attention_kernel"),
                    "library GEMM": ("gemm", "xmma", "nvjet", "cutlass",
                                     "Kernel2"),
                    "library attention": ("flash", "fmha", "attention")}
         times = rep["times"] = {}
         for backend in ("kernels", "torch"):
-            step, opt_init = self.train_fns(cfg, backend)
+            step, opt_init = self.train_fns(cfg, backend, micro)
             p, o = params, opt_init(params)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4893,6 +5025,7 @@ class Smoke:
                 wall, classes)
             row = {"wall_ms": wall, "walls_ms": walls,
                    "tokens_per_s": tokens * 1e3 / wall,
+                   "frames_per_s": frames * 1e3 / wall,
                    "model_tflops": flops / wall / 1e9,
                    "mfu": flops / wall / 1e-3 / PEAK_BF16_FLOPS,
                    "peak_gib": peak, "busy": prof.get("busy_share"),
@@ -4917,26 +5050,32 @@ class Smoke:
             log(f"  {backend}: step {wall:.3f} ms (warm steps "
                 f"{[round(w, 1) for w in walls[2:]]}), "
                 f"{row['tokens_per_s']:.1f} tokens/s, "
-                f"{row['model_tflops']:.1f} model TFLOP/s = "
+                + (f"{row['frames_per_s']:.1f} frames/s, " if frames else "")
+                + f"{row['model_tflops']:.1f} model TFLOP/s = "
                 f"{row['mfu']:.1%} of the bf16 peak; busy {busy}; "
                 f"aten::copy_ {row['copy_ms']:.3f} ms; peak memory "
                 f"{peak:.2f} GiB")
-        # pieces of the kernels step, each timed alone
-        q, k, v = samples["attention"]
-        g = torch.randn(q.shape, generator=torch.Generator(self.dev)
-                        .manual_seed(SEED), device=self.dev).to(q.dtype)
-        attn_calls = cfg.num_layers * TRAIN_LM_MICRO
-        recompute_ms = attn_calls * self.device_ms(
-            lambda: kfa.attention_grads(q, k, v, g), reps=2, rounds=3)
+        # pieces of the kernels step, each timed alone: the attention
+        # backward's recompute per attention geometry x its calls a step
+        recompute = {}
+        for geo, ((q, k, v, causal), n) in samples["attention"].items():
+            g = torch.randn(q.shape, generator=torch.Generator(self.dev)
+                            .manual_seed(SEED), device=self.dev).to(q.dtype)
+            recompute[geo] = micro * n * self.device_ms(
+                lambda: kfa.attention_grads(q, k, v, g, causal=causal),
+                reps=2, rounds=3)
+            log(f"  attention backward recompute {geo} x{micro * n}: "
+                f"{recompute[geo]:.3f} ms a step")
+            del g
+        recompute_ms = sum(recompute.values())
         transpose_ms = 0.0
         for (shape, dtype), n in samples["transposes"].items():
             t = torch.randn(shape, device=self.dev).to(getattr(
                 torch, dtype.removeprefix("torch.")))
-            transpose_ms += TRAIN_LM_MICRO * n * self.device_ms(
+            transpose_ms += micro * n * self.device_ms(
                 lambda: t.t().contiguous())
             del t
-        del g
-        rows, per = self.lm_train_shapes(groups, label)
+        rows, per = self.lm_train_shapes(groups, label, micro)
         k3f, k3b = (per[f"matmul ({label} {w})"]["ms"]
                     for w in ("forward", "backward"))
         k4 = per[f"flash_attention ({label})"]["ms"]
@@ -4948,6 +5087,7 @@ class Smoke:
         if row["device_ms"] is not None and None not in split.values():
             split["rest"] = row["device_ms"] - sum(split.values())
         row["split_ms"] = split
+        row["recompute_ms_by_geometry"] = recompute
         log("  kernels step device ms, each piece timed alone (kernel 3 and "
             "4: per shape x calls): " + ", ".join(
                 f"{k} {v:.3f}" for k, v in split.items() if v is not None)
@@ -4965,10 +5105,10 @@ class Smoke:
             entries.append(self.kernel_entry(name, entry, n, p))
         return entries
 
-    def lm_train_shapes(self, groups, label):
+    def lm_train_shapes(self, groups, label, micro=TRAIN_LM_MICRO):
         """Each distinct kernel-3 and kernel-4 shape of 26b's microbatch,
         timed: kernel, plain and library device ms, bound; the sums per
-        step (calls x TRAIN_LM_MICRO) per kernels-line entry."""
+        step (calls x ``micro``) per kernels-line entry."""
         torch = self.torch
         keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
                 "bytes_ms", "flops")
@@ -4985,7 +5125,7 @@ class Smoke:
                         "ms": self.device_ms(kern),
                         "plain_ms": self.device_ms(plain, reps=3),
                         "library_ms": self.device_ms(lib)}
-                calls = n * TRAIN_LM_MICRO
+                calls = n * micro
                 r = {"part": part, "kernel": name, "geometry": geo,
                      "variant": variant, "calls": calls, "flops": flops,
                      "bytes": nbytes, **timed[name, geo],
@@ -5006,6 +5146,400 @@ class Smoke:
                     + f"), {r['ms'] / r['bound_ms']:.2f} x bound; library "
                     f"{r['library_ms']:.4f}; plain {r['plain_ms']:.3f}")
         return rows, per
+
+    # -------------------------------------------------------------- phase 27
+    def run_whisper(self):
+        """Phase 27: whisper-small served (its frames from the frontend on
+        kernel 1) and trained on the card at its published configuration,
+        the loop drill at the reduced one and an fp32 run at depth 2 + 2
+        (module docstring, 27a-e).  Returns its entries of the kernels
+        line."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch import serve
+
+        t27 = time.perf_counter()
+        cfg = get_config(WH_ARCH)
+        log(f"phase 27: {cfg.name} at its published configuration "
+            f"({cfg.encoder_layers} + {cfg.num_layers} layers, d "
+            f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}, encoder_ctx {cfg.encoder_ctx}, "
+            f"{cfg.dtype}; nothing cut)")
+        rep = self.report["whisper"] = {}
+        params = self.lm_params(cfg, SEED + 29, rep)
+        frames, entries = self.wh_frontend(rep)
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (WH_BATCH, WH_PROMPT), dtype=np.int32)
+        servers = {b: serve.Server(cfg, max_len=WH_CTX, backend=b,
+                                   params=params)
+                   for b in ("kernels", "torch")}
+        label = f"{cfg.name} served, batch {WH_BATCH}"
+        srv = servers["kernels"]
+        launches = self.wh_serve_main(cfg, srv, prompts, frames, rep)
+        with torch.no_grad():
+            enc_out = srv.encode(frames)
+            tok, caches, pos = srv.prefill(prompts, enc_out=enc_out)
+        runs = {"encode": lambda: srv.encode(frames),
+                "decode step": lambda: srv.serve_step(
+                    srv.params, caches, {"token": tok, "cache_pos": pos,
+                                         "enc_out": enc_out})}
+        groups = self.lm_serve_calls("27b", srv, prompts, label,
+                                     self.wh_variant(cfg), rep, runs=runs)
+        del runs, caches, enc_out, srv
+        self.wh_serve_logits(cfg, params, prompts, frames, rep)
+        entries += self.wh_serve_times(cfg, servers, prompts, frames, groups,
+                                       launches, label, rep)
+        del servers, groups
+        torch.cuda.empty_cache()
+        entries += self.wh_train(cfg, params, rep)
+        del params
+        torch.cuda.empty_cache()
+        self.lm_train_drill(rep, WH_ARCH, "27d")
+        self.wh_fp32(prompts, frames, rep)
+        rep["seconds"] = time.perf_counter() - t27
+        log(f"phase 27: {rep['seconds']:.1f} s")
+        return entries
+
+    @staticmethod
+    def wh_variant(cfg):
+        """The variant of each whisper call: ``"simt"`` for the LM head's
+        products (N or K is the odd vocab, which TMA cannot tile),
+        ``"wgmma"`` for every other bf16 product and attention."""
+        return lambda name, args: (
+            "simt" if name == "matmul" and cfg.vocab in args[1].shape
+            else "wgmma")
+
+    def wh_frontend(self, rep):
+        """27a-b: the frontend (kernel 1, fp32) turns batch WH_BATCH seeded
+        (3000, 80) log-mels into the (WH_BATCH, 1500, 768) frames of phase
+        27.  Counts 0 just before, read just after: 2 conv2d launches; each
+        call against its plain version at phase 3's bar; the frames
+        against ``backend="torch"`` (cuDNN, TF32 off) at 1e-4 x max(1,
+        max|ref|); each call timed beside its bound and library call.
+        Returns the frames and the frontend's kernels-line entry."""
+        torch = self.torch
+        from repro_torch.models import whisper as wh
+
+        label = f"conv2d (Whisper frontend, batch {WH_BATCH})"
+        log(f"phase 27a: the whisper-small frontend on kernel 1 (fp32): "
+            f"{WH_BATCH} seeded ({wh.N_FRAMES}, {wh.N_MELS}) log-mels -> "
+            f"({WH_BATCH}, {(wh.N_FRAMES + 1) // 2}, {wh.D_MODEL}) frames")
+        fparams = wh.init_frontend_params(
+            torch.Generator().manual_seed(SEED + 27), device=self.dev)
+        mel = torch.from_numpy(np.random.default_rng(SEED + 27)
+                               .standard_normal((WH_BATCH, wh.N_FRAMES,
+                                                 wh.N_MELS),
+                                                dtype=np.float32)).to(self.dev)
+        calls = []
+        self.reset_counts()
+        with torch.no_grad(), self.recording(calls):
+            frames = wh.frontend(fparams, mel)
+        torch.cuda.synchronize()
+        counts = self.read_counts()
+        want = {"conv2d": 2, "transposed_conv2d": 0, "matmul": 0,
+                "flash_attention": 0}
+        log(f"  frontend launches {counts}")
+        if counts != want or frames.shape != (
+                WH_BATCH, (wh.N_FRAMES + 1) // 2, wh.D_MODEL):
+            raise RuntimeError(f"frontend: launches {counts} != {want}, "
+                               f"frames {tuple(frames.shape)}")
+        for i, (name, args) in enumerate(calls):
+            kern, plain, _ = self.kernels[name]
+            self.compare(f"{label} call {i}", label, kern(*args),
+                         plain(*args))
+        with torch.no_grad():
+            ref = wh.frontend(fparams, mel, backend="torch")
+        self.compare("Whisper frontend frames vs backend=torch",
+                     "Whisper frontend frames", frames, ref)
+        rows, per = self.time_calls(calls)
+        p = per["conv2d"]
+        log(f"  {label}: {p['ms']:.3f} ms over 2 launches, "
+            f"{p['flops'] / p['ms'] / 1e9:.1f} TFLOP/s; bound "
+            f"{p['bound_ms']:.3f} ms; plain {p['plain_ms']:.3f} ms; library "
+            f"{p['library_ms']:.3f} ms")
+        rep["frontend"] = {"launches": counts, "calls": rows, "sums": p}
+        del mel, ref, calls, fparams
+        return frames, [self.kernel_entry("conv2d", label, 2, p)]
+
+    def wh_serve_main(self, cfg, srv, prompts, frames, rep):
+        """27a: the served path.  Counts 0 just before and read just after
+        an encode, the prompt loop, one decode step and ``Server.generate``
+        (``encode_launches``, ``lm_step_launches`` a step, as counted on
+        the CPU): every launch ``"wgmma"`` but the LM head's ``"simt"``
+        matmul a step.  Returns the encode's and a decode step's
+        launches."""
+        torch = self.torch
+        enc, step = encode_launches(cfg), lm_step_launches(cfg)
+        log(f"phase 27a: the served path on backend=kernels: an encode "
+            f"({enc['matmul']} matmul, {enc['flash_attention']} attention "
+            f"launches), the {WH_PROMPT}-token prompt loop and a decode step "
+            f"({step['matmul']} and {step['flash_attention']} a step, the "
+            f"head \"simt\"), then Server.generate ({WH_GEN} tokens)")
+        launches = {}
+        with torch.no_grad():
+            self.reset_counts()
+            enc_out = srv.encode(frames)
+            torch.cuda.synchronize()
+            launches["encode"] = self.check_lm_launches("encode", enc,
+                                                        "wgmma")
+            self.reset_counts()
+            tok, caches, pos = srv.prefill(prompts, enc_out=enc_out)
+            torch.cuda.synchronize()
+            self.check_lm_launches(
+                f"prompt loop ({WH_PROMPT} serve steps)",
+                {k: v * WH_PROMPT for k, v in step.items()}, "wgmma",
+                simt=WH_PROMPT)
+            self.reset_counts()
+            srv.serve_step(srv.params, caches, {"token": tok,
+                                                "cache_pos": pos,
+                                                "enc_out": enc_out})
+            torch.cuda.synchronize()
+            launches["decode step"] = self.check_lm_launches(
+                f"decode step at position {pos}", step, "wgmma", simt=1)
+        del caches, enc_out
+        n = WH_PROMPT + WH_GEN - 1
+        self.reset_counts()
+        out = srv.generate(prompts, WH_GEN, frames=frames)
+        torch.cuda.synchronize()
+        self.check_lm_launches(
+            f"generate (an encode and {n} serve steps)",
+            {k: enc[k] + n * v for k, v in step.items()}, "wgmma", simt=n)
+        if out.shape != (WH_BATCH, WH_GEN) or not (
+                (out >= 0) & (out < cfg.vocab)).all():
+            raise RuntimeError(f"generated tokens {out.shape} out of range")
+        log(f"  generated {out.shape} token ids; first clip's first 8: "
+            f"{out[0, :8].tolist()}")
+        rep["launches"] = launches
+        rep["generated"] = out.tolist()
+        return launches
+
+    def wh_forced_run(self, frames, cfg, params, prompts, steps, backend,
+                      feed=None):
+        """Logits of an encode of ``frames``, the prompt's token loop and
+        ``steps`` decode steps on ``backend``; after the prompt, step i is
+        fed ``feed[i]``, by default its own greedy token.  Returns
+        (logits, fed tokens)."""
+        torch = self.torch
+        from repro_torch.models import encdec
+
+        x = torch.as_tensor(prompts, dtype=torch.int32, device=self.dev)
+        n = x.shape[1]
+        logits, fed = [], []
+        with torch.no_grad():
+            enc = encdec.encode(params, frames, cfg, backend)
+            caches = encdec.init_caches(cfg, x.shape[0], n + steps,
+                                        self.dev)
+            tok = x[:, :1]
+            for i in range(n + steps):
+                out, caches = encdec.decode_step(params, tok, enc, caches, i,
+                                                 cfg, backend)
+                logits.append(out)
+                tok = (x[:, i + 1:i + 2] if i + 1 < n else
+                       feed[i] if feed is not None else
+                       out[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+                fed.append(tok)
+        return logits, fed
+
+    def wh_serve_logits(self, cfg, params, prompts, frames, rep):
+        """27b: the encoder output, then the logits of the prompt loop and
+        WH_FORCED teacher-forced decode steps, backend=kernels against
+        backend=torch: max |err| <= 5% of max |torch| (DESIGN.md §12)."""
+        torch = self.torch
+        from repro_torch.models import encdec
+
+        with torch.no_grad():
+            got, want = (encdec.encode(params, frames, cfg, b)
+                         for b in ("kernels", "torch"))
+        top = want.float().abs().max().item()
+        bar = BF16_FWD_RTOL * top
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"phase 27b: encoder output, kernels vs torch: max |err| "
+            f"{err:.4f} = {err / bar:.3f} x the bar ({bar:.4f}); a zeroed "
+            f"output would read {top / bar:.3g} x")
+        rep["enc_out"] = {"max_abs_err": err, "bar": bar}
+        if err > bar:
+            raise RuntimeError(f"encoder output off the torch backend's: "
+                               f"{err} > {bar}")
+        del got, want
+        names = ([f"prompt step {i}" for i in range(WH_PROMPT)]
+                 + [f"decode step {i}" for i in range(1, WH_FORCED + 1)])
+        self.lm_serve_logits(cfg, params, prompts, WH_FORCED, "27b", rep,
+                             run=lambda *a, **kw: self.wh_forced_run(
+                                 frames, *a, **kw), names=names)
+
+    def wh_serve_times(self, cfg, servers, prompts, frames, groups, launches,
+                       label, rep):
+        """27b: per backend, encode ms (median of 5), decode ms a step (a
+        WH_LOOP-step loop, median of 3) and tokens/s, ``Server.generate``'s
+        wall and tokens/s (its encode and prompt loop included), the busy
+        share of an encode and of a decode step (``torch.profiler``), peak
+        memory; per kernel and shape, the device ms of one encode and one
+        decode step beside bound and library (``serve_shapes``)."""
+        torch = self.torch
+        log(f"phase 27b: {label} times")
+        times = rep["times"] = {}
+        for backend, srv in servers.items():
+            with torch.no_grad():
+                encode_ms = self.wall_ms(lambda: srv.encode(frames), reps=5)
+                enc = srv.encode(frames)
+                tok, caches, pos = srv.prefill(prompts, enc_out=enc)
+
+                def step(t=tok, p=pos):
+                    return srv.serve_step(srv.params, caches,
+                                          {"token": t, "cache_pos": p,
+                                           "enc_out": enc})[0]
+
+                def decode_loop():
+                    t = tok
+                    for i in range(WH_LOOP):
+                        t = step(t, pos + i)
+
+                step_ms = self.wall_ms(decode_loop, reps=3) / WH_LOOP
+                prof = {"encode": self.profile_device(
+                            lambda: srv.encode(frames), f"{backend} encode",
+                            encode_ms),
+                        "decode step": self.profile_device(
+                            step, f"{backend} decode step", step_ms)}
+            del caches, enc
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = srv.generate(prompts, WH_GEN, frames=frames)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            row = {"encode_ms": encode_ms, "decode_step_ms": step_ms,
+                   "tokens_per_s": WH_BATCH * 1e3 / step_ms,
+                   "generate_s": gen_s,
+                   "generate_tokens_per_s": out.size / gen_s,
+                   "peak_gib": peak}
+            for what, p in prof.items():
+                key = what.replace(" ", "_")
+                row[f"{key}_busy"] = p.get("busy_share")
+                row[f"{key}_device_ms"] = p.get("device_ms")
+                row[f"{key}_profile"] = p
+            times[backend] = row
+            busy = {w: ("not measured" if row[f"{w}_busy"] is None
+                        else f"{row[f'{w}_busy']:.1%}")
+                    for w in ("encode", "decode_step")}
+            log(f"  {backend}: encode {encode_ms:.3f} ms, decode "
+                f"{step_ms:.3f} ms a step = {row['tokens_per_s']:.1f} "
+                f"tokens/s; generate {WH_GEN} tokens x {WH_BATCH} in "
+                f"{gen_s:.3f} s = {row['generate_tokens_per_s']:.1f} "
+                f"tokens/s (encode and prompt included); busy: encode "
+                f"{busy['encode']}, decode step {busy['decode_step']}; peak "
+                f"memory {peak:.2f} GiB (weights included)")
+        return self.serve_shapes(groups, launches, label, rep)
+
+    def wh_train(self, cfg, params, rep):
+        """27c: ``make_train_step`` at full width (decoder sequence
+        WH_TRAIN_SEQ, global batch WH_TRAIN_BATCH in WH_TRAIN_MICRO
+        microbatches, seeded fp32 frames): phase 26's a-d and f, with the
+        head's 3 products a microbatch on ``"simt"``, every attention one
+        query chunk of the backward's recompute, and the losses of the
+        three steps within WH_LOSS_RTOL.  Returns its kernels-line
+        entries."""
+        torch = self.torch
+        from repro_torch.data import LMDataPipeline
+
+        label = f"{cfg.name} train step"
+        micro = WH_TRAIN_MICRO
+        log(f"phase 27c: train {cfg.name} through make_train_step: decoder "
+            f"seq {WH_TRAIN_SEQ}, global batch {WH_TRAIN_BATCH} in {micro} "
+            f"microbatches, seeded fp32 frames ({WH_TRAIN_BATCH}, "
+            f"{cfg.encoder_ctx}, {cfg.d_model}), LMDataPipeline(seed={SEED})"
+            f" tokens, fp32 AdamW, remat ({cfg.remat})")
+        g = torch.Generator(self.dev).manual_seed(SEED + 30)
+        pipe = LMDataPipeline(WH_TRAIN_BATCH, WH_TRAIN_SEQ, cfg.vocab,
+                              seed=SEED)
+        try:
+            batches = []
+            for i in range(TRAIN_LM_STEPS):
+                b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.dev)
+                     for k, v in pipe.batch_at(i).items()}
+                b["frames"] = torch.randn(
+                    (WH_TRAIN_BATCH, cfg.encoder_ctx, cfg.d_model),
+                    generator=g, device=self.dev)
+                batches.append(b)
+        finally:
+            pipe.close()
+        launches = lm_train_launches(cfg, WH_TRAIN_SEQ, micro)
+        # 1500 and 448 query rows are no multiple of Q_CHUNK: one chunk an
+        # attention (encoder, decoder self and cross) a microbatch
+        chunks = (cfg.encoder_layers + 2 * cfg.num_layers) * micro
+        kw = dict(phase="27c", micro=micro)
+        parts = self.lm_train_main(cfg, params, batches[0], launches, label,
+                                   rep, chunks=chunks, simt=3 * micro, **kw)
+        groups, samples = self.lm_train_calls(cfg, params, batches[0],
+                                              launches, label, rep, **kw)
+        variant = self.wh_variant(cfg)
+        wrong = [(w, n, geo) for (w, n, geo), (args, _) in groups.items()
+                 if self.lm_call(n, args)[6] != variant(n, args)]
+        if wrong:
+            raise RuntimeError(f"{label}: calls off their variant: {wrong}")
+        self.lm_train_grads(cfg, params, batches[0], rep, **kw)
+        self.lm_train_steps(cfg, params, batches, rep, rtol=WH_LOSS_RTOL,
+                            **kw)
+        entries = self.lm_train_times(cfg, params, batches, groups, samples,
+                                      parts, label, rep, **kw)
+        del batches, groups, samples
+        return entries
+
+    def wh_fp32(self, prompts, frames, rep):
+        """27e: whisper-small in fp32, depth cut to 2 + 2 layers: an encode
+        and each serve step on the ``"simt"`` variants, and the encoder
+        output and the logits of the prompt loop and WH_FP32_DECODE decode
+        steps against backend=torch (TF32 off) at 1e-4 x max(1,
+        max|torch|)."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import encdec
+
+        full = get_config(WH_ARCH)
+        cfg = full.replace(dtype="float32", num_layers=WH_FP32_LAYERS,
+                           encoder_layers=WH_FP32_LAYERS)
+        log(f"phase 27e: {cfg.name} in fp32, depth cut to "
+            f"{cfg.encoder_layers} + {cfg.num_layers} of "
+            f"{full.encoder_layers} + {full.num_layers} layers: launches, "
+            f"\"simt\", encoder output and logits vs backend=torch (tol "
+            f"{TOL} x max(1, max|torch|))")
+        params = self.lm_params(cfg, SEED + 31, rep)
+        with torch.no_grad():
+            self.reset_counts()
+            enc = encdec.encode(params, frames, cfg)
+            torch.cuda.synchronize()
+            self.check_lm_launches("fp32 encode", encode_launches(cfg),
+                                   "simt")
+            caches = encdec.init_caches(cfg, WH_BATCH, 2, self.dev)
+            x = torch.as_tensor(prompts[:, :1], device=self.dev)
+            self.reset_counts()
+            encdec.decode_step(params, x, enc, caches, 0, cfg)
+            torch.cuda.synchronize()
+            self.check_lm_launches("fp32 decode step",
+                                   lm_step_launches(cfg), "simt")
+            ref = encdec.encode(params, frames, cfg, "torch")
+        rows = [self.compare("fp32 encoder output vs backend=torch",
+                             "fp32 whisper logits", enc, ref)]
+        del enc, ref, caches
+        want, fed = self.wh_forced_run(frames, cfg, params, prompts,
+                                       WH_FP32_DECODE, "torch")
+        got, _ = self.wh_forced_run(frames, cfg, params, prompts,
+                                    WH_FP32_DECODE, "kernels", feed=fed)
+        caught = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            what = (f"prompt step {i}" if i < WH_PROMPT
+                    else f"decode step {i - WH_PROMPT + 1}")
+            rows.append(self.compare(f"fp32 {what} logits vs backend=torch",
+                                     "fp32 whisper logits", g, w))
+            caught.append(self.sensitivity(g, w, 1.0, TOL))
+        zero, off = (min(c[j] for c in caught) for j in (0, 1))
+        log(f"  a zeroed output would reach >= {zero:.3g} x the bar, one "
+            f"2% off >= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError("fp32 whisper logits: a weak bar")
+        rep["fp32"] = {"checks": rows, "zeroed_over_bar": zero,
+                       "off2_over_bar": off}
+        del got, want, params
 
     # --------------------------------------------------- per-call helpers
     def geometry(self, name, args):

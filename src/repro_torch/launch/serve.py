@@ -8,24 +8,38 @@ in place.  Prefill runs the whole prompt through that same step in ONE call
 causally within the chunk); ``slow=True`` / ``--slow-prefill`` keeps the
 token-by-token loop, which must give the same caches and next token.
 
-Under ``backend="kernels"`` (the default) every product runs the port's
-matmul kernel and every attention its flash-attention kernel; a StableLM
-serve step launches 24 x 7 + 1 matmuls and 24 attentions, prefill or
-decode.  ``backend="torch"`` runs ``torch.matmul`` and
-``F.scaled_dot_product_attention``, the library yardstick.  There is no
-mesh (ROADMAP.md, multi-device).  Parameters come from a seeded
-``torch.Generator`` (on the server's device by default, seed 0) or from
-``params=`` (e.g. :func:`repro_torch.models.transformer.load_jax_params`).
+An encoder-decoder (whisper-small) is served as the reference's tests
+drive it: the prompt's ``frames`` are encoded once, the caches come from
+``encdec.init_caches``, the prompt takes the token loop
+(:func:`parallel_prefill_ok` is false, as in the reference) and every
+serve step's batch carries ``enc_out``.  The reference's ``Server`` builds
+batches of ``token`` and ``cache_pos`` only, which its enc-dec serve step
+cannot read (ROADMAP.md §3).
 
-On the card (StableLM-2-1.6B at its published widths, bf16)::
+Under ``backend="kernels"`` (the default) every product runs the port's
+matmul kernel and every attention its flash-attention kernel: a StableLM
+serve step launches 24 x 7 + 1 matmuls and 24 attentions, prefill or
+decode; a whisper-small encode 12 x 7 and 12, and each of its serve steps
+12 x 11 + 1 and 24 (self and cross attention).  ``backend="torch"`` runs
+``torch.matmul`` and ``F.scaled_dot_product_attention``, the library
+yardstick.  There is no mesh (ROADMAP.md, multi-device).  Parameters come
+from a seeded ``torch.Generator`` (on the server's device by default,
+seed 0) or from ``params=`` (e.g. the model's ``load_jax_params``).
+
+On the card (StableLM-2-1.6B, whisper-small at their published widths,
+bf16)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --batch 4 --prompt-len 1024 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+      --batch 8 --prompt-len 4 --gen-len 224
 
 On the CPU (the kernels' plain versions)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --reduced --device cpu --batch 4 --prompt-len 16 --gen-len 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+      --reduced --device cpu --batch 2 --prompt-len 4 --gen-len 8
 """
 
 from __future__ import annotations
@@ -38,8 +52,8 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.kernels.util import resolve_device
-from repro_torch.launch.steps import make_serve_step
-from repro_torch.models import transformer
+from repro_torch.launch.steps import _model_fns, make_serve_step
+from repro_torch.models import encdec
 from repro_torch.models.layers import check_backend
 
 
@@ -67,16 +81,17 @@ class Server:
                  backend: str = "kernels",
                  generator: torch.Generator | None = None,
                  params: dict | None = None):
-        transformer.check_supported(cfg)
+        self.mod = _model_fns(cfg)
         check_backend(backend)
         self.cfg = cfg
+        self.backend = backend
         self.device = resolve_device(device)
         self.max_len = max_len
         self.slow_prefill = slow_prefill
         if params is None:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
-            params = transformer.init_params(generator, cfg, self.device)
+            params = self.mod.init_params(generator, cfg, self.device)
         self.params = params
         self.serve_step = make_serve_step(cfg, backend)
 
@@ -85,15 +100,44 @@ class Server:
         return parallel_prefill_ok(self.cfg)
 
     @torch.no_grad()
-    def prefill(self, tokens, *, slow: bool | None = None):
+    def encode(self, frames) -> torch.Tensor:
+        """An encoder-decoder's encoder output (B, T, D) of ``frames`` (B,
+        T, D), a tensor or an array, on the server's device."""
+        if not self.cfg.encoder_layers:
+            raise ValueError(f"{self.cfg.name} is decoder-only: it takes no "
+                             f"frames")
+        frames = torch.as_tensor(frames, device=self.device)
+        return encdec.encode(self.params, frames, self.cfg, self.backend)
+
+    def _extra(self, frames, enc_out) -> dict:
+        """The serve steps' extra batch entries: ``enc_out`` for an
+        encoder-decoder (from ``frames`` unless given), none otherwise."""
+        if not self.cfg.encoder_layers:
+            if frames is not None or enc_out is not None:
+                raise ValueError(f"{self.cfg.name} is decoder-only: it "
+                                 f"takes no frames")
+            return {}
+        if enc_out is None:
+            if frames is None:
+                raise ValueError(f"{self.cfg.name} is an encoder-decoder: "
+                                 f"pass frames")
+            enc_out = self.encode(frames)
+        return {"enc_out": enc_out}
+
+    @torch.no_grad()
+    def prefill(self, tokens, *, frames=None, enc_out=None,
+                slow: bool | None = None):
         """Warm the cache with the prompt; returns (next_token, caches, pos).
 
         Default: ONE serve_step call over the whole (B, S) prompt, the
         parallel prefill forward.  ``slow=True`` (or ``slow_prefill``, or a
         config the parallel path cannot serve) runs the token-by-token
         decode loop instead; both paths produce the same caches and next
-        token.
+        token.  An encoder-decoder needs ``frames`` (encoded once here) or
+        their :meth:`encode` output ``enc_out``, which its later serve
+        steps take too; a decoder-only config refuses both.
         """
+        extra = self._extra(frames, enc_out)
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int32
                                  ).to(self.device)
         b, s = tokens.shape
@@ -102,28 +146,32 @@ class Server:
         elif not slow and not self.parallel_prefill_ok():
             raise ValueError(
                 f"{self.cfg.name}: parallel prefill unsupported "
-                "(recurrent mixers / sliding window); use slow=True")
-        caches = transformer.init_caches(self.cfg, b, self.max_len,
-                                         self.device)
+                "(recurrent mixers / sliding window / encoder-decoder); "
+                "use slow=True")
+        caches = self.mod.init_caches(self.cfg, b, self.max_len,
+                                      self.device)
         if not slow:
             tok, caches = self.serve_step(
-                self.params, caches, {"token": tokens, "cache_pos": 0})
+                self.params, caches,
+                {"token": tokens, "cache_pos": 0, **extra})
             return tok, caches, s
         tok = None
         for t in range(s):
             tok, caches = self.serve_step(
                 self.params, caches,
-                {"token": tokens[:, t:t + 1], "cache_pos": t})
+                {"token": tokens[:, t:t + 1], "cache_pos": t, **extra})
         return tok, caches, s
 
     @torch.no_grad()
-    def generate(self, tokens, gen_len: int) -> np.ndarray:
-        """Prefill, then greedy decode: (B, gen_len) int32 token ids."""
-        tok, caches, pos = self.prefill(tokens)
+    def generate(self, tokens, gen_len: int, *, frames=None) -> np.ndarray:
+        """Prefill, then greedy decode: (B, gen_len) int32 token ids.  An
+        encoder-decoder needs the prompts' ``frames`` (B, T, D)."""
+        extra = self._extra(frames, None)
+        tok, caches, pos = self.prefill(tokens, **extra)
         out = [tok]
         for t in range(pos, pos + gen_len - 1):
-            tok, caches = self.serve_step(self.params, caches,
-                                          {"token": tok, "cache_pos": t})
+            tok, caches = self.serve_step(
+                self.params, caches, {"token": tok, "cache_pos": t, **extra})
             out.append(tok)
         return torch.cat(out, dim=1).cpu().numpy()
 
@@ -154,8 +202,11 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                            dtype=np.int32)
+    frames = (rng.standard_normal((args.batch, cfg.encoder_ctx,
+                                   cfg.d_model), dtype=np.float32)
+              if cfg.encoder_layers else None)
     t0 = time.perf_counter()
-    out = server.generate(prompts, args.gen_len)
+    out = server.generate(prompts, args.gen_len, frames=frames)
     dt = time.perf_counter() - t0
     print(f"[serve] {cfg.name} on {device} ({args.backend}): generated "
           f"{out.shape} tokens in {dt:.2f}s ({out.size / dt:.1f} tok/s incl. "

@@ -6,10 +6,9 @@ The port of ``repro.launch.steps``:
   train step (its loss and gradients: :func:`make_value_and_grad`);
   driven by :mod:`repro_torch.launch.train`.
 * :func:`make_prefill_step` / :func:`make_serve_step` — LM prefill and
-  KV-cached greedy decode over :mod:`repro_torch.models.transformer`;
-  driven by :mod:`repro_torch.launch.serve`.  The reference's jitted serve
-  step donates its caches; here the step writes them in place and returns
-  them.
+  KV-cached greedy decode; driven by :mod:`repro_torch.launch.serve`.  The
+  reference's jitted serve step donates its caches; here the step writes
+  them in place and returns them.
 * :func:`make_gen_step` — one deterministic DDIM step over the U-Net
   denoiser (timestep embedding + denoiser forward through the conv kernels
   + DDIM update).  Timesteps and activity are data, so one step serves a
@@ -18,6 +17,12 @@ The port of ``repro.launch.steps``:
   reference fuses them with ``lax.scan``; PyTorch runs eagerly, so here
   they are a Python loop over the single step (a CUDA graph of the K-step
   tick is a later lever, ROADMAP.md).
+
+The LM builders take the model module from the config
+(:func:`_model_fns`): :mod:`repro_torch.models.encdec` for an
+encoder-decoder (whisper-small), whose batches carry ``frames`` (train,
+prefill) or ``enc_out`` (serve), else :mod:`repro_torch.models.
+transformer`.
 
 The DDIM steps return a new image tensor and leave ``x`` as it was: where
 the reference donates ``x`` to the jitted step, the port keeps the
@@ -30,50 +35,68 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.util import canon_dtype
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import check_backend, chunked_softmax_ce
+from repro_torch.models.layers import (check_backend, chunked_softmax_ce,
+                                       softmax_cross_entropy)
 from repro_torch.optim import adamw_update, cosine_schedule
+
+
+def _model_fns(cfg: ModelConfig):
+    """The model module of ``cfg``: ``encdec`` for an encoder-decoder,
+    else ``transformer`` (which refuses what it cannot run yet)."""
+    if cfg.encoder_layers:
+        return encdec
+    transformer.check_supported(cfg)
+    return transformer
 
 
 def make_value_and_grad(cfg: ModelConfig, *, microbatches: int = 1,
                         backend: str = "kernels"):
     """``value_and_grad(params, batch) -> (loss, grads)`` of the train
-    step: the mean chunked-CE loss (a 0-d fp32 tensor) and the flat
-    gradients by ``flatten_params(params)``'s names, in the stacked layout.
+    step: the mean CE loss (a 0-d fp32 tensor) and the flat gradients by
+    ``flatten_params(params)``'s names, in the stacked layout.
 
-    The loss is the chunked CE over the final hidden states.  The
-    gradients are taken with ``torch.autograd.grad`` through per-layer
-    leaves (``transformer.unstack_blocks``).  With ``microbatches > 1`` the
-    batch's rows are cut into that many slices in order; their gradients
-    are summed, in bf16 when ``cfg.opt_memory_mode == "bf16"`` and in fp32
-    otherwise, as the reference's accumulator, each slice's per-layer
-    gradients added into their stack's slot, then divided by the count.
-    With one microbatch the gradients keep the parameters' dtype.
-    Encoder-decoder configs raise ``NotImplementedError`` (encdec:
-    ROADMAP.md, queue 1).
+    A decoder-only model's loss is the chunked CE over the final hidden
+    states; an encoder-decoder's is ``softmax_cross_entropy`` over the
+    full logits of ``encdec.forward(tokens, frames)``, as the reference's.
+    The gradients are taken with ``torch.autograd.grad`` through per-layer
+    leaves (the model's ``unstack_blocks``).  With ``microbatches > 1`` the
+    batch's rows (``frames`` with the rest) are cut into that many slices
+    in order; their gradients are summed, in bf16 when
+    ``cfg.opt_memory_mode == "bf16"`` and in fp32 otherwise, as the
+    reference's accumulator, each slice's per-layer gradients added into
+    their stack's slot, then divided by the count.  With one microbatch
+    the gradients keep the parameters' dtype.
     """
-    transformer.check_supported(cfg)
+    mod = _model_fns(cfg)
     check_backend(backend)
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     acc_dtype = (torch.bfloat16 if cfg.opt_memory_mode == "bf16"
                  else torch.float32)
 
-    def loss_and_grads(leaves, flat, mb):
+    def loss_fn(leaves, mb):
+        if cfg.encoder_layers:
+            logits = encdec.forward(leaves, mb["tokens"], mb["frames"], cfg,
+                                    backend=backend)
+            return softmax_cross_entropy(logits, mb["labels"], mb["mask"])
         hidden = transformer.forward(leaves, mb["tokens"], cfg,
                                      backend=backend, return_hidden=True)
-        loss = chunked_softmax_ce(hidden, transformer.lm_head(leaves, cfg),
+        return chunked_softmax_ce(hidden, transformer.lm_head(leaves, cfg),
                                   mb["labels"], mb["mask"], backend=backend)
+
+    def loss_and_grads(leaves, flat, mb):
+        loss = loss_fn(leaves, mb)
         grads = torch.autograd.grad(loss, list(flat.values()))
         return loss.detach(), dict(zip(flat, grads))
 
     def value_and_grad(params, batch):
-        leaves = transformer.unstack_blocks(params, cfg)
+        leaves = mod.unstack_blocks(params, cfg)
         flat = transformer.flatten_params(leaves)
         if microbatches == 1:
             loss, g = loss_and_grads(leaves, flat, batch)
-            return loss, transformer.stack_grads(g)
+            return loss, mod.stack_grads(g)
         rows = batch["tokens"].shape[0]
         if rows % microbatches:
             raise ValueError(f"batch of {rows} rows does not split into "
@@ -87,7 +110,7 @@ def make_value_and_grad(cfg: ModelConfig, *, microbatches: int = 1,
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
             lmb, g = loss_and_grads(leaves, flat, mb)
             for name, gi in g.items():
-                key, r = transformer.stacked_name(name)
+                key, r = mod.stacked_name(name)
                 slot = grads[key] if r is None else grads[key][r]
                 slot += gi.to(acc_dtype)
             loss = loss + lmb
@@ -105,12 +128,13 @@ def make_train_step(cfg: ModelConfig, *, lr_peak: float = 3e-4,
     """Microbatched (gradient-accumulation) LM train step.
 
     Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm", "lr"})``: ``params`` the stacked tree of
-    :func:`repro_torch.models.transformer.init_params`, ``opt_state`` an
-    ``AdamWState`` over ``flatten_params(params)`` (``adamw_init(flat,
+    {"loss", "grad_norm", "lr"})``: ``params`` the stacked tree of the
+    model's ``init_params``, ``opt_state`` an ``AdamWState`` over
+    ``flatten_params(params)`` (``adamw_init(flat,
     memory_mode=cfg.opt_memory_mode)``), ``batch`` the ``tokens``,
     ``labels`` (B, S) and ``mask`` (B, S) tensors on the parameters'
-    device.  The metrics are 0-d tensors.
+    device, and for an encoder-decoder ``frames`` (B, encoder_ctx,
+    d_model).  The metrics are 0-d tensors.
 
     Loss and gradients are :func:`make_value_and_grad`'s; ``lr`` is
     ``cosine_schedule(opt_state.step, ...)``, and AdamW updates the flat
@@ -134,10 +158,14 @@ def make_train_step(cfg: ModelConfig, *, lr_peak: float = 3e-4,
 
 def make_prefill_step(cfg: ModelConfig, backend: str = "kernels"):
     """``prefill_step(params, batch) -> logits`` (B, S, V): the cache-free
-    forward of ``batch["tokens"]`` (B, S)."""
-    transformer.check_supported(cfg)
+    forward of ``batch["tokens"]`` (B, S), over ``batch["frames"]`` for an
+    encoder-decoder."""
+    _model_fns(cfg)
 
     def prefill_step(params, batch):
+        if cfg.encoder_layers:
+            return encdec.forward(params, batch["tokens"], batch["frames"],
+                                  cfg, backend=backend)
         return transformer.forward(params, batch["tokens"], cfg,
                                    backend=backend)
 
@@ -147,14 +175,21 @@ def make_prefill_step(cfg: ModelConfig, backend: str = "kernels"):
 def make_serve_step(cfg: ModelConfig, backend: str = "kernels"):
     """One cached step: ``serve_step(params, caches, batch) -> (next_token
     (B, 1) int32, caches)`` for ``batch = {"token": (B, S), "cache_pos":
-    host int}``.  The next token is the greedy ``argmax`` of the last
-    position's logits, the first index on ties as JAX's ``argmax``."""
-    transformer.check_supported(cfg)
+    host int}``, and for an encoder-decoder ``"enc_out"`` (B, T, D), the
+    encoder output its cross attention reads.  The next token is the
+    greedy ``argmax`` of the last position's logits, the first index on
+    ties as JAX's ``argmax``."""
+    _model_fns(cfg)
 
     def serve_step(params, caches, batch):
-        logits, caches = transformer.decode_step(
-            params, batch["token"], caches, batch["cache_pos"], cfg,
-            backend=backend)
+        if cfg.encoder_layers:
+            logits, caches = encdec.decode_step(
+                params, batch["token"], batch["enc_out"], caches,
+                batch["cache_pos"], cfg, backend=backend)
+        else:
+            logits, caches = transformer.decode_step(
+                params, batch["token"], caches, batch["cache_pos"], cfg,
+                backend=backend)
         next_token = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
         return next_token.to(torch.int32), caches
 

@@ -14,7 +14,9 @@ One deliberate difference: the loop recovers only from the fault plane's
 ``RuntimeError``, which would turn a kernel that fails to build or launch
 into an endless restore; here that error propagates.  The port has no
 mesh (ROADMAP.md, multi-device): the loop runs on one device, CUDA unless
-the caller asks for the CPU.
+the caller asks for the CPU.  An encoder-decoder config (whisper-small) is
+fed zero ``frames`` (global_batch, encoder_ctx, d_model) fp32 with every
+batch, as the reference's loop feeds them.
 
 Usage (a killed run restarted with the same ``--ckpt-dir`` resumes where
 it died)::
@@ -23,6 +25,10 @@ it died)::
       --reduced --steps 20 --batch 8 --seq 64 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
       --steps 3 --batch 4 --seq 4096 --microbatches 2    # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
+      --reduced --steps 4 --batch 4 --seq 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
+      --steps 3 --batch 16 --seq 448 --microbatches 2    # on the card
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from repro_torch.distributed.fault_tolerance import (FailureInjector,
                                                      InjectedFault,
                                                      StragglerWatchdog)
 from repro_torch.kernels.util import resolve_device
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import _model_fns, make_train_step
 from repro_torch.models import transformer
 from repro_torch.optim import adamw_init
 
@@ -50,7 +56,7 @@ def init_state(cfg, generator: torch.Generator | None, device):
     """(params, AdamW state over the flat parameters) of ``cfg`` drawn from
     ``generator`` on ``device``; ``device="meta"`` gives the abstract state
     (shapes and dtypes) that a restore fills."""
-    params = transformer.init_params(generator, cfg, device)
+    params = _model_fns(cfg).init_params(generator, cfg, device)
     return params, adamw_init(transformer.flatten_params(params),
                               memory_mode=cfg.opt_memory_mode)
 
@@ -61,8 +67,9 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
           log_every: int = 1, backend: str = "kernels", device=None,
           seed: int = 0) -> dict:
     """Train ``cfg`` for ``steps`` steps on ``LMDataPipeline(global_batch,
-    seq_len, cfg.vocab, seed)`` batches; returns the last step's metrics
-    (floats) with ``stragglers``, ``recoveries`` and ``final_step``.
+    seq_len, cfg.vocab, seed)`` batches (with zero frames for an
+    encoder-decoder); returns the last step's metrics (floats) with
+    ``stragglers``, ``recoveries`` and ``final_step``.
 
     Weights are drawn from a generator seeded with ``seed`` on ``device``
     (``None``: CUDA).  With ``ckpt_dir`` the loop resumes from its newest
@@ -70,7 +77,6 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
     and restores after an ``InjectedFault``; without one such a fault
     propagates."""
     dev = resolve_device(device)
-    transformer.check_supported(cfg)
     step_fn = make_train_step(cfg, warmup=max(2, steps // 10),
                               total_steps=steps, microbatches=microbatches,
                               backend=backend)
@@ -82,6 +88,9 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
     def restore(s):
         return restore_checkpoint(ckpt_dir, s, abstract, device=dev)
 
+    frames = (torch.zeros((global_batch, cfg.encoder_ctx, cfg.d_model),
+                          dtype=torch.float32, device=dev)
+              if cfg.encoder_layers else None)
     pipe = LMDataPipeline(global_batch, seq_len, cfg.vocab, seed=seed)
     watchdog = StragglerWatchdog()
     heart = Heartbeat(ckpt_dir) if ckpt_dir else None
@@ -105,6 +114,8 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
                 got_step, np_batch = next(pipe)
                 batch = {k: torch.from_numpy(v).to(dev)
                          for k, v in np_batch.items()}
+                if frames is not None:
+                    batch["frames"] = frames
                 if injector is not None:
                     injector.maybe_fail(got_step)
                 t0 = time.time()

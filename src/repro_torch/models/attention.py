@@ -29,8 +29,12 @@ into ``kv_cache`` and returns that same dict.  The kernel still copies the
 cache's live prefix (and, for GQA, its repeated heads) into contiguous
 (B, H, T, Dh) operands at every step.
 
-Sliding-window layers (``attn_local``) and the encoder-decoder's cross
-attention are not ported (ROADMAP.md, queue 1).
+Cross attention (``xa=``, the encoder-decoder's, :mod:`repro_torch.models.
+encdec`) takes k and v from ``xa``, applies no RoPE, neither writes nor
+reads a cache, and is non-causal over all of ``xa``'s frames: the kernel's
+non-causal case, which agrees with the reference's mask for any Sq and Sk.
+Sliding-window layers (``attn_local``) are not ported (ROADMAP.md, queue
+1).
 """
 
 from __future__ import annotations
@@ -52,7 +56,8 @@ def _check_kind(kind: str) -> None:
 
 
 def attn_init(generator, cfg: ModelConfig, dtype=torch.bfloat16,
-              device=None) -> dict:
+              device=None, cross: bool = False) -> dict:
+    """q, k, v and o projections; qk-norm gains unless ``cross``."""
     d, hd = cfg.d_model, cfg.head_dim
     p = {
         "wq": dense_init(generator, d, cfg.num_heads * hd, dtype,
@@ -64,7 +69,7 @@ def attn_init(generator, cfg: ModelConfig, dtype=torch.bfloat16,
         "wo": dense_init(generator, cfg.num_heads * hd, d, dtype,
                          device=device),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = rmsnorm_init(hd, dtype, device)
         p["k_norm"] = rmsnorm_init(hd, dtype, device)
     return p
@@ -116,14 +121,17 @@ def _attend(q, k, v, *, causal: bool, offset: int, backend: str):
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
               kind: str = "attn", positions: torch.Tensor | None = None,
               kv_cache: dict | None = None, cache_pos: int | None = None,
-              causal: bool = True, backend: str = "kernels"
+              causal: bool = True, backend: str = "kernels",
+              xa: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, dict | None]:
     """Returns (output, kv_cache written in place or None).  x: (B, S, D).
 
     ``cache_pos`` is a host integer: token i of the chunk sits at absolute
     position ``cache_pos + i``.  Without a cache the causal mask is over
     the chunk's own positions (increasing, as the reference's forward
-    passes them), which is the kernel's top-left mask."""
+    passes them), which is the kernel's top-left mask.  With ``xa`` (B,
+    Sk, D), cross attention: k and v from ``xa``, no RoPE, no cache, no
+    mask."""
     _check_kind(kind)
     b, s, _ = x.shape
     nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
@@ -133,19 +141,23 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         positions = torch.arange(start, start + s, device=x.device
                                  ).expand(b, s)
 
+    kv_src = x if xa is None else xa
+    sk = kv_src.shape[1]
     q = linear(x, p["wq"], backend).view(b, s, nh, hd)
-    k = linear(x, p["wk"], backend).view(b, s, kvh, hd)
-    v = linear(x, p["wv"], backend).view(b, s, kvh, hd)
+    k = linear(kv_src, p["wk"], backend).view(b, sk, kvh, hd)
+    v = linear(kv_src, p["wv"], backend).view(b, sk, kvh, hd)
 
     if cfg.qk_norm and "q_norm" in p:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    if cfg.rope:
+    if xa is None and cfg.rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
     offset, new_cache = 0, None
-    if kv_cache is not None:
+    if xa is not None:
+        causal = False
+    elif kv_cache is not None:
         end = start + s
         if end > kv_cache["k"].shape[1]:
             raise ValueError(f"cache of {kv_cache['k'].shape[1]} slots "

@@ -23,9 +23,10 @@ both pre-norm residual.  Every product goes through
 :func:`~repro_torch.models.layers.linear` and the scores through the
 flash-attention kernel under ``backend="kernels"`` (a forward launches 7
 matmuls and 1 attention a layer, and 1 matmul for the LM head).  Mixer
-kinds ``attn_local``, ``mamba``, ``mlstm`` and ``slstm``, the MoE FFN and
-encoder-decoder configs raise ``NotImplementedError`` at construction
-(:func:`check_supported`; ROADMAP.md, queue 1).
+kinds ``attn_local``, ``mamba``, ``mlstm`` and ``slstm`` and the MoE FFN
+raise ``NotImplementedError`` at construction (:func:`check_supported`;
+ROADMAP.md, queue 1).  Encoder-decoder configs are
+:mod:`repro_torch.models.encdec`'s, and this module refuses them too.
 """
 
 from __future__ import annotations
@@ -63,8 +64,8 @@ def check_supported(cfg: ModelConfig) -> None:
             f"queue 1)")
     if cfg.encoder_layers:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported (encdec: "
-            f"ROADMAP.md, queue 1)")
+            f"{cfg.name}: an encoder-decoder config is not a decoder-only "
+            f"model; use repro_torch.models.encdec")
 
 
 def _ffn_kind(cfg: ModelConfig) -> str:
@@ -85,8 +86,9 @@ def layer_init(generator, cfg: ModelConfig, dtype, device=None) -> dict:
     return p
 
 
-def _stack(trees: list) -> dict:
-    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
+def stack_layers(trees: list) -> dict:
+    """Per-layer trees stacked leaf by leaf on a new leading axis."""
+    return {k: (stack_layers([t[k] for t in trees]) if isinstance(v, dict)
                 else torch.stack([t[k] for t in trees]))
             for k, v in trees[0].items()}
 
@@ -107,7 +109,7 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab,
                                        dtype, device=dev)
     params["blocks"] = [
-        _stack([layer_init(generator, cfg, dtype, dev)
+        stack_layers([layer_init(generator, cfg, dtype, dev)
                 for _ in range(cfg.repeat)])
         for _ in cfg.block_pattern]
     params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, dev)
@@ -136,7 +138,14 @@ def load_jax_params(tree: dict, cfg: ModelConfig, device=None) -> dict:
     Every leaf must be present with the shape and dtype that
     :func:`init_params` gives ``cfg``; anything missing, extra or
     misshapen raises before a tensor is made."""
-    want = flatten_params(init_params(None, cfg, device="meta"))
+    return load_tree(tree, init_params(None, cfg, device="meta"), device)
+
+
+def load_tree(tree: dict, like: dict, device=None) -> dict:
+    """``tree`` (nested dicts and lists of numpy arrays) as tensors on
+    ``device``, after checking it leaf for leaf against ``like``, a tree of
+    meta tensors: the shared body of the models' ``load_jax_params``."""
+    want = flatten_params(like)
     got = {k: np.asarray(v) for k, v in flatten_params(tree).items()}
     if set(got) != set(want):
         raise KeyError(f"parameter trees differ: missing "
@@ -166,6 +175,12 @@ def _index(tree: dict, r: int) -> dict:
             for k, v in tree.items()}
 
 
+def layer_at(block, r: int) -> dict:
+    """Layer ``r`` of a stack: the per-layer dict where ``block`` is a list
+    (:func:`unstack_blocks`), else views of the stacked leaves."""
+    return block[r] if isinstance(block, list) else _index(block, r)
+
+
 def layer_params(params: dict, cfg: ModelConfig):
     """Yield ``(pattern_idx, repeat_idx, kind, ffn_kind, layer)`` in stack
     order, ``layer`` the per-layer views of the stacked parameters (or the
@@ -173,9 +188,8 @@ def layer_params(params: dict, cfg: ModelConfig):
     :func:`unstack_blocks` gives)."""
     for r in range(cfg.repeat):
         for pi, kind in enumerate(cfg.block_pattern):
-            block = params["blocks"][pi]
-            layer = block[r] if isinstance(block, list) else _index(block, r)
-            yield pi, r, kind, _ffn_kind(cfg), layer
+            yield (pi, r, kind, _ffn_kind(cfg),
+                   layer_at(params["blocks"][pi], r))
 
 
 def unstack_blocks(params: dict, cfg: ModelConfig) -> dict:
@@ -183,17 +197,17 @@ def unstack_blocks(params: dict, cfg: ModelConfig) -> dict:
     shares its storage (``detach().requires_grad_()``), and each
     ``blocks[pi]`` a list of ``repeat`` per-layer dicts of views of the
     stacks, so each layer's gradient is a tensor of its own."""
-    def leaf(t):
-        return t.detach().requires_grad_()
-
-    def leaves(tree):
-        return {k: leaves(v) if isinstance(v, dict) else leaf(v)
-                for k, v in tree.items()}
-
-    out = {k: leaf(v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = [[leaves(_index(block, r)) for r in range(cfg.repeat)]
+    out = leaf_tree({k: v for k, v in params.items() if k != "blocks"})
+    out["blocks"] = [[leaf_tree(_index(block, r)) for r in range(cfg.repeat)]
                      for block in params["blocks"]]
     return out
+
+
+def leaf_tree(tree: dict) -> dict:
+    """``tree`` with every leaf a fresh autograd leaf sharing its storage
+    (``detach().requires_grad_()``)."""
+    return {k: leaf_tree(v) if isinstance(v, dict)
+            else v.detach().requires_grad_() for k, v in tree.items()}
 
 
 def stacked_name(name: str) -> tuple[str, int | None]:
@@ -207,13 +221,15 @@ def stacked_name(name: str) -> tuple[str, int | None]:
     return ".".join(parts[:2] + parts[3:]), int(parts[2])
 
 
-def stack_grads(grads: dict) -> dict:
+def stack_grads(grads: dict, name_of=stacked_name) -> dict:
     """Flat ``{name: gradient}`` in the stacked layout (the names of
     ``flatten_params(params)``) from the flat gradients of an
-    :func:`unstack_blocks` tree, each stack built once."""
+    :func:`unstack_blocks` tree, each stack built once.  ``name_of`` maps
+    a per-layer name to its stacked name and index (the encoder-decoder
+    passes its own)."""
     out, stacks = {}, {}
     for name, g in grads.items():
-        key, r = stacked_name(name)
+        key, r = name_of(name)
         if r is None:
             out[key] = g
         else:

@@ -795,3 +795,76 @@ def test_lm_train_step_launch_counts(cuda):
     got, ref = metrics["kernels"], metrics["torch"]
     assert abs(got["loss"] - ref["loss"]) <= 0.05 * ref["loss"]
     assert abs(got["grad_norm"] - ref["grad_norm"]) <= 0.1 * ref["grad_norm"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("sq", [1, 448, 1500])
+def test_flash_attention_at_whisper_encoder_length(cuda, sq, dtype):
+    """Sk = 1500 = 11 x 128 + 92, so the ``wgmma`` form's last K/V tile is
+    partial; non-causal, as whisper-small's encoder (Sq 1500), its cross
+    attention in training (Sq 448) and at decode (Sq 1) call it."""
+    g = torch.Generator().manual_seed(sq)
+    q = torch.randn((2, 12, sq, 64), generator=g).to(cuda, dtype)
+    k, v = (torch.randn((2, 12, 1500, 64), generator=g).to(cuda, dtype)
+            for _ in range(2))
+    variant = kfa.attention_variant(q, k, v)
+    assert variant == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    got = kfa.flash_attention_cuda(q, k, v, False)
+    torch.cuda.synchronize()
+    _close(got, kfa.attention_plain(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("what", ["forward", "dA", "dB"])
+def test_matmul_on_the_whisper_head(cuda, what):
+    """whisper-small's LM head, (M, 768) @ (768, 51865) in bf16 at M = 8 x
+    448 (a training microbatch), and its backward products dA = dC B^T and
+    dB = A^T dC: N or K is the odd vocab, so each takes ``"simt"``."""
+    g = torch.Generator().manual_seed(7)
+    m, d, vocab = 8 * 448, 768, 51865
+    shapes = {"forward": ((m, d), (d, vocab)), "dA": ((m, vocab), (vocab, d)),
+              "dB": ((d, m), (m, vocab))}[what]
+    a, b = (torch.randn(s, generator=g).to(cuda, torch.bfloat16)
+            for s in shapes)
+    assert kmm.matmul_variant(a, b) == "simt"
+    got = kmm.matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    _close(got, kmm.matmul_plain(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_reduced_encode_and_decode_match_the_cpu(cuda, dtype):
+    """The reduced whisper-small config: an encode and three decode steps
+    on the card (the kernels) against the same on the CPU (their plain
+    versions), fp32 at 1e-4 x max(1, max|cpu|) and bf16 within 5% of
+    max|cpu|."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import encdec, transformer
+
+    cfg = get_reduced("whisper-small").replace(dtype=dtype)
+    params = encdec.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    flat = transformer.flatten_params(params)
+    on = {"cpu": params, "cuda": transformer.unflatten_params(
+        {k: t.to(cuda) for k, t in flat.items()}, params)}
+    g = torch.Generator().manual_seed(1)
+    frames = torch.randn((2, cfg.encoder_ctx, cfg.d_model), generator=g)
+    toks = torch.randint(0, cfg.vocab, (2, 3), generator=g,
+                         dtype=torch.int32)
+    out = {}
+    n0 = kmm.matmul.launches
+    with torch.no_grad():
+        for dev, p in on.items():
+            enc = encdec.encode(p, frames.to(dev), cfg)
+            caches = encdec.init_caches(cfg, 2, 4, device=dev)
+            logits = [enc]
+            for i in range(3):
+                lg, caches = encdec.decode_step(p, toks[:, i:i + 1].to(dev),
+                                                enc, caches, i, cfg)
+                logits.append(lg)
+            out[dev] = [t.float().cpu() for t in logits]
+    torch.cuda.synchronize()
+    assert kmm.matmul.launches - n0 == 14 + 3 * 23
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert bool(torch.isfinite(got).all())
+        top = want.abs().max().item()
+        bar = 1e-4 * max(1.0, top) if dtype == "float32" else 0.05 * top
+        assert (got - want).abs().max().item() <= bar

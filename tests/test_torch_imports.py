@@ -27,7 +27,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import train as lm_train
 from repro_torch.launch import serve_gen
-from repro_torch.models import transformer, unet_decoder, whisper
+from repro_torch.models import encdec, transformer, unet_decoder, whisper
 from repro_torch.models.dcgan import DCGAN
 from repro_torch.models.enet import ENet
 from repro_torch.models.espnet import ESPNet
@@ -44,6 +44,7 @@ def test_walk_covers_every_package():
     assert _PORT / "launch" / "serve_gen.py" in _FILES
     for mod in ("models/config.py", "models/layers.py",
                 "models/attention.py", "models/transformer.py",
+                "models/encdec.py",
                 "launch/serve.py", "configs/stablelm_1_6b.py",
                 "launch/train.py", "data/pipeline.py"):
         assert _PORT / mod in _FILES
@@ -93,7 +94,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.checkpoint, repro_torch.distributed, "
             "repro_torch.configs, repro_torch.models.config, "
             "repro_torch.models.layers, repro_torch.models.attention, "
-            "repro_torch.models.transformer, repro_torch.launch.serve, "
+            "repro_torch.models.transformer, repro_torch.models.encdec, "
+            "repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.data.pipeline, "
             "repro_torch.checkpoint.ckpt, "
             "repro_torch.distributed.fault_tolerance; "
@@ -129,7 +131,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve()
     lm = get_reduced("stablelm-1.6b")
-    for build in (lambda: lm_serve.Server(lm),
+    wh = get_reduced("whisper-small")
+    for build in (lambda: encdec.init_params(g, wh),
+                  lambda: encdec.init_caches(wh, 1, 8),
+                  lambda: lm_serve.Server(wh, generator=g),
+                  lambda: lm_serve.main(["--arch", "whisper-small",
+                                         "--reduced"]),
+                  lambda: lm_train.train(wh, steps=1, global_batch=1,
+                                         seq_len=4),
+                  lambda: lm_serve.Server(lm),
                   lambda: lm_serve.Server(lm, device="cuda", generator=g),
                   lambda: lm_serve.main(["--arch", "stablelm-1.6b",
                                          "--reduced"]),

@@ -41,8 +41,10 @@ _LOGIT_BAR = {"fp32": 1e-4, "bf16": 5e-2}
 _CFG_DTYPE = {"fp32": "float32", "bf16": "bfloat16"}
 _SERVED = ("stablelm-1.6b", "qwen3-32b", "deepseek-coder-33b",
            "chameleon-34b")
-_UNPORTED = ("qwen3-moe-30b-a3b", "llama4-scout-17b-a16e", "whisper-small",
+_UNPORTED = ("qwen3-moe-30b-a3b", "llama4-scout-17b-a16e",
              "jamba-1.5-large-398b", "gemma3-12b", "xlstm-1.3b")
+# served and trained by repro_torch.models.encdec (tests/test_torch_encdec.py)
+_ENCDEC = ("whisper-small",)
 
 
 @pytest.fixture(autouse=True)
@@ -479,15 +481,28 @@ def test_parallel_prefill_gating():
                 is ok)
 
 
-@pytest.mark.parametrize("arch", _UNPORTED)
+@pytest.mark.parametrize("arch", _UNPORTED + _ENCDEC)
 def test_unported_configs_raise_at_construction(arch):
+    """Unported configs raise in every entry point.  An encoder-decoder is
+    refused by the decoder-only module, which names its own, while the
+    steps and ``Server`` accept it."""
     cfg = configs.get_reduced(arch)
     g = torch.Generator().manual_seed(0)
-    for build in (lambda: serve.Server(cfg, device="cpu", generator=g),
-                  lambda: transformer.init_params(g, cfg, device="cpu"),
-                  lambda: transformer.init_caches(cfg, 1, 8, device="cpu"),
-                  lambda: steps.make_serve_step(cfg),
-                  lambda: steps.make_prefill_step(cfg)):
+    decoder_only = (lambda: transformer.init_params(g, cfg, device="cpu"),
+                    lambda: transformer.init_caches(cfg, 1, 8,
+                                                    device="cpu"))
+    generic = (lambda: serve.Server(cfg, device="cpu", generator=g),
+               lambda: steps.make_serve_step(cfg),
+               lambda: steps.make_prefill_step(cfg))
+    if arch in _ENCDEC:
+        for build in decoder_only:
+            with pytest.raises(NotImplementedError,
+                               match="repro_torch.models.encdec"):
+                build()
+        for build in generic:
+            assert build() is not None
+        return
+    for build in decoder_only + generic:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build()
 

@@ -512,15 +512,28 @@ def test_full_stablelm_step_launch_count():
 
 
 def test_train_step_refuses_encdec_and_odd_microbatches():
-    with pytest.raises(NotImplementedError, match="encdec"):
-        steps.make_train_step(configs.get_reduced("whisper-small"))
+    """An encoder-decoder config is accepted (its step is held to the
+    reference in ``tests/test_torch_encdec.py``); a batch that does not
+    split into the microbatches is refused, decoder-only or not."""
+    from repro_torch.models import encdec
+
+    wcfg = configs.get_reduced("whisper-small")
+    wparams = encdec.init_params(torch.Generator().manual_seed(0), wcfg,
+                                 device="cpu")
+    wbatch = _torch_batch(dict(
+        _batch(wcfg.vocab, 4, 8),
+        frames=np.zeros((4, wcfg.encoder_ctx, wcfg.d_model), np.float32)))
+    _, opt, m = steps.make_train_step(wcfg)(
+        wparams, adamw_init(transformer.flatten_params(wparams)), wbatch)
+    assert int(opt.step) == 1 and np.isfinite(float(m["loss"]))
     cfg = configs.get_reduced("stablelm-1.6b")
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
                                      device="cpu")
-    step = steps.make_train_step(cfg, microbatches=3)
-    with pytest.raises(ValueError, match="microbatches"):
-        step(params, adamw_init(transformer.flatten_params(params)),
-             _torch_batch(_batch(cfg.vocab, 4, 8)))
+    for c, p, b in ((cfg, params, _torch_batch(_batch(cfg.vocab, 4, 8))),
+                    (wcfg, wparams, wbatch)):
+        step = steps.make_train_step(c, microbatches=3)
+        with pytest.raises(ValueError, match="microbatches"):
+            step(p, adamw_init(transformer.flatten_params(p)), b)
 
 
 # ------------------------------------------------------- serving path ---
