@@ -76,7 +76,8 @@ nvcc, then:
    in bf16 on the forward and the backward, both on each path of
    phases 18-23, on phase 24's tuned forwards, and kernels 3 and 4 on
    phase 25's served prefill and decode step, on phase 26's train
-   step, and kernels 1, 3 and 4 on phase 27's whisper-small) and, last,
+   step, kernels 1, 3 and 4 on phase 27's whisper-small, and kernels 3
+   and 4 on phase 28's Gemma-3-12B served and trained) and, last,
    ``{"ok": true, "device": {...}}``;
 
 and, before those two lines, the bf16 slice:
@@ -240,15 +241,15 @@ e. tuning switched on (``$REPRO_TORCH_AUTOTUNE=1``) over an empty table,
    follows its tile).
 
 and last, phase 25 serves an LM through the port's
-``repro_torch.launch.serve.Server``: StableLM-2-1.6B at its published
-configuration (24 layers, d_model 2048, 32 heads of 64, d_ff 5632, vocab
-100352, bf16; nothing cut), weights drawn on the card from a seeded CUDA
-generator, batch 4, a 1024-token prompt drawn from ``SEED``, 64 generated
-tokens:
+``repro_torch.launch.serve.Server``: StableLM-2-1.6B at its published widths
+(d_model 2048, 32 heads of 64, d_ff 5632, vocab 100352, bf16), depth cut to
+12 of its 24 layers (b-e; the script's time), weights drawn on the card from
+a seeded CUDA generator, batch 4, a 1024-token prompt drawn from ``SEED``,
+64 generated tokens:
 
 a. the main path, counts 0 just before and read just after a prefill, a
-   decode step and ``Server.generate``: each serve step launches 24 x 7 +
-   1 matmuls and 24 attentions, every one ``"wgmma"``;
+   decode step and ``Server.generate``: each serve step launches 12 x 7 +
+   1 matmuls and 12 attentions, every one ``"wgmma"``;
 b. every kernel call of one prefill and one decode step (position 1024),
    recorded, against its plain version at phase 10's bf16 bar, with what
    a zeroed output and one 2% off would read;
@@ -310,17 +311,17 @@ f. per backend: step wall ms (median of 5 warm steps), tokens/s, 6ND
    ``flash_attention (StableLM-2-1.6B train step)``.
 
 and last, phase 27 runs whisper-small's encoder-decoder
-(``repro_torch.models.encdec``) at its published configuration (12 + 12
-layers, d_model 768, 12 heads of 64, d_ff 3072, vocab 51865, encoder_ctx
-1500, bf16; nothing cut), weights drawn on the card from a seeded CUDA
-generator:
+(``repro_torch.models.encdec``) at its published widths (d_model 768, 12
+heads of 64, d_ff 3072, vocab 51865, encoder_ctx 1500, bf16), depth cut
+from 12 + 12 to 6 + 6 layers (the script's time), weights drawn on the card
+from a seeded CUDA generator:
 
 a. the frontend on kernel 1 (fp32) turns batch 8 seeded (3000, 80)
    log-mels into (8, 1500, 768) frames: 2 conv2d launches, each call
    against its plain version, the frames against ``backend="torch"``; then
    ``Server`` with ``backend="kernels"``, counts 0 just before and read
-   just after an encode (12 x 7 matmuls, 12 attentions), the 4-token
-   prompt loop, a decode step (12 x 11 + 1 and 24: self and cross
+   just after an encode (6 x 7 matmuls, 6 attentions), the 4-token
+   prompt loop, a decode step (6 x 11 + 1 and 12: self and cross
    attention) and ``Server.generate(frames=)`` (224 tokens, caches of 448
    slots), every launch ``"wgmma"`` but the LM head's (N = 51865 is no
    multiple of 8: ``"simt"``);
@@ -334,7 +335,7 @@ b. every kernel call of an encode and of a decode step against its plain
    8: encode)`` etc.);
 c. ``make_train_step`` at decoder sequence 448, global batch 16 in 2
    microbatches, seeded fp32 frames, fp32 AdamW, remat: phase 26's a-d
-   and f (launches by part: 217 / 216 / 434 matmuls and 36 / 36 / 0
+   and f (launches by part: 109 / 108 / 218 matmuls and 18 / 18 / 0
    attentions a microbatch, the head's 3 products ``"simt"``; the losses
    of 3 steps a backend within 0.1%), with tokens/s and frames/s;
 d. 26e's loop drill at the reduced configuration, zero frames fed;
@@ -342,6 +343,49 @@ e. the same model in fp32 at depth 2 + 2: an encode and each serve step
    on the ``"simt"`` variants, the encoder output and the logits of the
    prompt loop and 4 decode steps against ``backend="torch"`` at 1e-4 x
    max(1, max|torch|).
+
+and last, phase 28 runs Gemma-3-12B's sliding-window attention
+(``attn_local``) at its published configuration (48 layers, d_model 3840, 16
+heads on 8 KV heads of 256, d_ff 15360, vocab 262144 tied, window 1024, 5
+local : 1 global, qk-norm, bf16; nothing cut), weights drawn on the card from
+a seeded CUDA generator:
+
+a. kernel 4 with a window against its plain version at phase 10's bf16 bar:
+   ``"simt"`` at Gemma's dh 256 (1 x 16 heads x 4096, window 1024, and the
+   causal call without one), ``"wgmma"`` at dh 128 and 64 with windows 1024,
+   100 (no tile multiple) and 1, and at 700 rows with window 200 (rows whose
+   band begins mid-tile or past their q tile's first kv tile); one windowed
+   launch counted for each band; a zeroed output and one 2% off shown to
+   fail; the 4096-row calls timed beside their bound and SDPA with the same
+   mask (windowed over causal, against the work's ratio);
+b. ``make_prefill_step`` over batch 1 x 4096 tokens, counts 0 just before
+   and read just after: 48 x 7 + 1 matmuls (``"wgmma"``, the tied
+   262144-wide head included) and 48 attentions (``"simt"``), 40 of them
+   windowed; the logits against ``backend="torch"`` (SDPA with the band)
+   within 5% of max|torch|, in chunks of rows; ``Server`` at batch 4: a
+   16-token prompt through the token loop, a decode step and
+   ``Server.generate`` (16 tokens), as many launches a serve step and none
+   windowed (the rings hold only the band); every kernel call of the prefill
+   and of a decode step against its plain version as it is made; 8
+   teacher-forced steps against the torch backend; per backend prefill ms,
+   decode ms a step, tokens/s, busy shares and peak memory, and each kernel
+   shape beside its bound and library call (the kernels line's ``matmul
+   (Gemma-3-12B served: prefill)`` etc.);
+c. the rings past their wrap at one pattern period (6 layers, full widths):
+   batch 2, a 1040-token prompt through the token loop, then 8
+   teacher-forced steps at positions 1040-1047 (1024-slot rings, wrapped by
+   24), each step's logits against the torch backend's cache-free forward of
+   the same tokens at b's bar;
+d. training at one pattern period: seq 4096, global batch 2 in 2
+   microbatches, phase 26's schedule.  A full step's peak is reckoned first
+   (32 bytes a parameter with fp32 AdamW, and the update's temporaries over
+   the embedding); where it exceeds the card, the step's loss and gradients
+   (``make_value_and_grad``) stand in for it: 26a's gates by part (20 of the
+   24 attentions windowed), 26b's calls, 26c's loss, gradient norm and every
+   gradient against the torch backend, then ``FlashAttentionFn`` at Gemma's
+   attention shape against SDPA's autograd with the band in place of 26d's
+   steps, and 26f's times of the loss and gradients;
+e. the kernels line's entries of b and d.
 
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
@@ -443,12 +487,17 @@ LAUNCHES_PER_LM_LAYER = {"conv2d": 0, "transposed_conv2d": 0, "matmul": 7,
                          "flash_attention": 1}
 # the variant every matmul and attention launch of the layer takes, by dtype
 LM_VARIANT = {"torch.float32": "simt", "torch.bfloat16": "wgmma"}
-# phase 25: StableLM-2-1.6B served at its published configuration (bf16,
-# nothing cut) through repro_torch.launch.serve.Server: batch 4, a
-# 1024-token prompt drawn from SEED, 64 generated tokens (KV caches of 1,088
-# slots); the logits held to the torch backend's through the prefill and 8
-# teacher-forced decode steps
+# LM logits are held to the torch backend's this many rows at a time in fp32
+# (a 4096-token Gemma prefill's logits are 2 GB in bf16)
+LOGIT_CHUNK = 512
+# phase 25: StableLM-2-1.6B served at its published widths (bf16), depth cut
+# from 24 to SERVE_LM_LAYERS layers (to keep the whole script within its
+# time), through repro_torch.launch.serve.Server: batch 4,
+# a 1024-token prompt drawn from SEED, 64 generated tokens (KV caches of
+# 1,088 slots); the logits held to the torch backend's through the prefill
+# and 8 teacher-forced decode steps
 LM_NAME = "StableLM-2-1.6B"
+SERVE_LM_LAYERS = 12
 SERVE_LM_BATCH, SERVE_LM_PROMPT, SERVE_LM_GEN = 4, 1024, 64
 SERVE_LM_FORCED = 8
 # parallel vs sequential prefill caches: |a - b| <= tol + tol |b|, the
@@ -472,8 +521,10 @@ TRAIN_LM_STEPS, TRAIN_LM_TIMED = 3, 5
 # tokens, a checkpoint every 2 steps, a failure injected at step 3
 DRILL_LM_STEPS, DRILL_LM_EVERY, DRILL_LM_FAIL, DRILL_LM_SEQ = 4, 2, 3, 1024
 # phase 27: whisper-small (src/repro_torch/configs/whisper_small.py) at its
-# published configuration (12 + 12 layers, d_model 768, 12 heads of 64, d_ff
-# 3072, vocab 51865, encoder_ctx 1500, bf16; nothing cut).  27b serves batch
+# published widths (d_model 768, 12 heads of 64, d_ff 3072, vocab 51865,
+# encoder_ctx 1500, bf16), depth cut from 12 + 12 to WH_LAYERS + WH_LAYERS
+# layers (to keep the whole script within its time).
+# 27b serves batch
 # 8 clips of 30 s, each a seeded (3000, 80) log-mel that the frontend (kernel
 # 1, fp32) turns into 1500 frames: a 4-token prompt (Whisper's
 # start-of-transcript, language, task and no-timestamps slots, drawn from
@@ -482,6 +533,7 @@ DRILL_LM_STEPS, DRILL_LM_EVERY, DRILL_LM_FAIL, DRILL_LM_SEQ = 4, 2, 3, 1024
 # backend's through the encoder output, the prompt loop and 8 teacher-forced
 # decode steps; decode ms from a loop of 32 steps
 WH_ARCH = "whisper-small"
+WH_LAYERS = 6
 WH_BATCH, WH_PROMPT, WH_GEN, WH_CTX = 8, 4, 224, 448
 WH_FORCED, WH_LOOP = 8, 32
 # 27c: decoder sequence 448, global batch 16 in 2 microbatches, seeded fp32
@@ -491,6 +543,35 @@ WH_TRAIN_BATCH, WH_TRAIN_SEQ, WH_TRAIN_MICRO = 16, 448, 2
 WH_LOSS_RTOL = 1e-3
 # 27e: fp32 at depth 2 + 2 (of 12 + 12), the prompt loop and 4 decode steps
 WH_FP32_LAYERS, WH_FP32_DECODE = 2, 4
+# phase 28: Gemma-3-12B (src/repro_torch/configs/gemma3_12b.py) at its
+# published configuration (48 layers, d_model 3840, 16 heads on 8 KV heads of
+# 256, d_ff 15360, vocab 262144 tied, window 1024, 5 local : 1 global,
+# qk-norm, bf16; nothing cut), weights drawn on the card from a seeded CUDA
+# generator.  28a: kernel 4's band against its plain version, (q shape,
+# window) in bf16: simt at Gemma's dh 256, wgmma at dh 128 and 64 with
+# windows of 1024, 100 (no tile multiple) and 1, and at 700 rows with window
+# 200, where the rows of a q tile begin their band mid-tile or past its first
+# kv tile
+GM_ARCH, GM_NAME = "gemma3-12b", "Gemma-3-12B"
+GM_BANDS = [((1, 16, 4096, 256), 1024), ((1, 16, 4096, 256), 0),
+            *[((1, 16, 4096, dh), w) for dh in (128, 64)
+              for w in (1024, 100, 1, 0)],
+            ((2, 4, 700, 128), 200), ((2, 4, 700, 64), 200)]
+# 28b: make_prefill_step over batch 1 x 4096 tokens (the cache-free forward,
+# 40 windowed attentions); Server.generate at batch 4, a 16-token prompt
+# through the token loop (parallel_prefill_ok is false for a windowed
+# config), 16 generated tokens, 8 teacher-forced steps held to the torch
+# backend
+GM_SEQ = 4096
+GM_BATCH, GM_PROMPT, GM_GEN, GM_FORCED = 4, 16, 16, 8
+# 28c: one pattern period (6 layers, full widths): batch 2, a 1040-token
+# prompt through the token loop, then 8 teacher-forced steps (positions up to
+# 1047: the 1024-slot rings wrap by 24), held to the torch backend's
+# cache-free forward
+GM_RING_BATCH, GM_RING_PROMPT, GM_RING_FORCED = 2, 1040, 8
+# 28d: training at one pattern period: seq 4096, global batch 2 in 2
+# microbatches, phase 26's schedule; 3 warm runs timed
+GM_TRAIN_BATCH, GM_TRAIN_MICRO, GM_TRAIN_TIMED = 2, 2, 3
 # phase 3's edge cases (and phase 14's, in bf16)
 DENSE_EDGES = [  # label, x shape, w shape, stride, pads
     ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
@@ -626,6 +707,15 @@ def lm_step_launches(cfg) -> dict:
     products, attentions = decoder_launches(cfg)
     return {"conv2d": 0, "transposed_conv2d": 0, "matmul": products + 1,
             "flash_attention": attentions}
+
+
+def windowed_launches(cfg) -> int:
+    """The attention launches of a cache-free forward (``make_prefill_step``,
+    training) that take a band: one a sliding-window layer.  A decode step
+    takes none (the ring holds only the band)."""
+    if not cfg.window:
+        return 0
+    return cfg.repeat * sum(k == "attn_local" for k in cfg.block_pattern)
 
 
 def lm_train_launches(cfg, seq_len: int, microbatches: int) -> dict:
@@ -895,6 +985,7 @@ class Smoke:
             by_variant = getattr(wrapper, "launches_by_variant", {})
             for variant in by_variant:
                 by_variant[variant] = 0
+        self.counters["flash_attention"].launches_windowed = 0
 
     def read_counts(self):
         return {name: w.launches for name, w in self.counters.items()}
@@ -930,6 +1021,7 @@ class Smoke:
         t0 = time.perf_counter()
         libs = self.build.build()
         log(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
+        self.report["phase_seconds"] = {"2 (build)": time.perf_counter() - t0}
         self.report["resources"] = {}
         for name in libs:
             for fn, use in self.build.resource_usage(name).items():
@@ -937,44 +1029,45 @@ class Smoke:
                 log(f"  {fn}: {use.get('registers')} registers, "
                     f"{use.get('spill_stores')} B spill stores, "
                     f"{use.get('spill_loads')} B spill loads (ptxas)")
+        timed = self.timed
         model, x = self.make_model()
-        calls = self.phase_kernels(model, x)
-        y = self.phase_main(model, x)
-        kernels_line, times = self.phase_times(model, x, calls)
+        calls = timed("3", self.phase_kernels, model, x)
+        y = timed("4", self.phase_main, model, x)
+        kernels_line, times = timed("5", self.phase_times, model, x, calls)
         self.report.update(times)
         params = {n: p.detach().clone() for n, p in model.named_parameters()}
         del model, x, calls
         torch.cuda.empty_cache()
 
         batch = self.seg_batch(0)
-        bwd_calls, taps = self.phase_backward_kernels(params, batch)
-        self.phase_backward_edges()
-        steps = self.phase_train(params, batch)
-        kernels_line["kernels"] += self.phase_train_times(steps, batch,
-                                                          bwd_calls, taps)
+        bwd_calls, taps = timed("6", self.phase_backward_kernels, params,
+                                batch)
+        timed("7", self.phase_backward_edges)
+        steps = timed("8", self.phase_train, params, batch)
+        kernels_line["kernels"] += timed("9", self.phase_train_times, steps,
+                                         batch, bwd_calls, taps)
         fp32_train = {b: {k: run[k] for k in ("losses", "grad_norms")}
                       for b, run in steps.items()}
         del params, batch, bwd_calls, taps, steps
         torch.cuda.empty_cache()
 
-        self.phase_lm_kernels()
-        lm_calls = self.phase_lm_main()
-        kernels_line["kernels"] += self.phase_lm_times(lm_calls)
+        timed("10", self.phase_lm_kernels)
+        lm_calls = timed("11", self.phase_lm_main)
+        kernels_line["kernels"] += timed("12", self.phase_lm_times, lm_calls)
         del lm_calls
         torch.cuda.empty_cache()
 
-        kernels_line["kernels"] += self.run_bf16(fp32_train)
-        kernels_line["kernels"] += self.run_models()
-        t23 = time.perf_counter()
-        kernels_line["kernels"] += self.run_serving()
-        log(f"phase 23: {time.perf_counter() - t23:.1f} s")
-        kernels_line["kernels"] += self.run_tuning()
-        torch.cuda.empty_cache()
-        kernels_line["kernels"] += self.run_lm_serving()
-        torch.cuda.empty_cache()
-        kernels_line["kernels"] += self.run_lm_training()
-        torch.cuda.empty_cache()
-        kernels_line["kernels"] += self.run_whisper()
+        kernels_line["kernels"] += timed("14-17", self.run_bf16, fp32_train)
+        kernels_line["kernels"] += timed("18-22", self.run_models)
+        for phase, run in (("23", self.run_serving), ("24", self.run_tuning),
+                           ("25", self.run_lm_serving),
+                           ("26", self.run_lm_training),
+                           ("27", self.run_whisper), ("28", self.run_gemma)):
+            kernels_line["kernels"] += timed(phase, run)
+            torch.cuda.empty_cache()
+        log("seconds by phase: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in self.report["phase_seconds"].items())
+            + f"; in all {time.perf_counter() - t0:.1f} s")
         self.write_report(card)
         log(f"class maps: {tuple(y.argmax(-1).shape)}")
         log(card)
@@ -983,6 +1076,15 @@ class Smoke:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+
+    def timed(self, phase, fn, *args):
+        """``fn(*args)``, its seconds logged and kept under phase
+        ``phase``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs = self.report["phase_seconds"][phase] = time.perf_counter() - t0
+        log(f"phase {phase}: {secs:.1f} s")
+        return out
 
     def write_report(self, card):
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3231,20 +3333,32 @@ class Smoke:
                     2 * m * n * k,
                     (a.numel() + b.numel() + m * n) * a.element_size(),
                     f"({m}, {k}) @ ({k}, {n})", kmm.matmul_variant(a, b))
-        q, k, v, causal = args
+        q, k, v, causal, *rest = args
+        window = rest[0] if rest else 0
         bsz, h, sq, dh = q.shape
         sk = k.shape[2]
-        # (q, k) pairs the top-left causal mask leaves (all of them without)
-        pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
-                 else sq * sk)
-        return (lambda: kfa.flash_attention_cuda(q, k, v, causal),
-                lambda: kfa.attention_plain(q, k, v, causal=causal),
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal),
-                4 * bsz * h * dh * pairs,
+        # (q, k) pairs the top-left causal mask (and a band) leaves, all of
+        # them without
+        rows = np.arange(sq)
+        pairs = (int((np.minimum(rows + 1, sk) - (
+            np.maximum(rows - window + 1, 0) if window else 0)).sum())
+                 if causal else sq * sk)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if window:   # the library's call with the same band, as a mask
+            r = torch.arange(sq, device=q.device)[:, None]
+            c = torch.arange(sk, device=q.device)[None, :]
+            band = (c <= r) & (c > r - window)
+            lib = lambda: sdpa(q, k, v, attn_mask=band)  # noqa: E731
+        else:
+            lib = lambda: sdpa(q, k, v, is_causal=causal)  # noqa: E731
+        return (lambda: kfa.flash_attention_cuda(q, k, v, causal, window),
+                lambda: kfa.attention_plain(q, k, v, causal=causal,
+                                            window=window),
+                lib, 4 * bsz * h * dh * pairs,
                 2 * (q.numel() + k.numel()) * q.element_size(),
                 f"q{tuple(q.shape)} k{tuple(k.shape)} "
-                + ("causal" if causal else "non-causal"),
+                + ((f"window {window}" if window else "causal") if causal
+                   else "non-causal"),
                 kfa.attention_variant(q, k, v))
 
     def summarise_lm_calls(self, groups):
@@ -3302,7 +3416,6 @@ class Smoke:
         """Phase 24: the plan table, the calibration and the cycle model on
         the card (module docstring, 24a-d).  Returns its entries of the
         kernels line."""
-        t24 = time.perf_counter()
         rep = self.report["tuning"] = {}
         forwards = self.tune_forwards()
         geos = self.tune_geometries(forwards)
@@ -3313,7 +3426,6 @@ class Smoke:
         self.phase_calibration(geos, rep)
         self.phase_fig10(rep)
         self.phase_on_miss(rep)
-        log(f"phase 24: {time.perf_counter() - t24:.1f} s")
         return entries
 
     def gate24(self, ok, what):
@@ -3978,13 +4090,15 @@ class Smoke:
         from repro_torch.launch import serve
         from repro_torch.models import transformer
 
-        t25 = time.perf_counter()
-        cfg = get_config(LM_ARCH)
-        label = f"{LM_NAME} served, batch {SERVE_LM_BATCH}"
-        log(f"phase 25: serve {cfg.name} at its published configuration "
-            f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} "
-            f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
-            f"{cfg.dtype}; nothing cut) through repro_torch.launch.serve."
+        full = get_config(LM_ARCH)
+        cfg = full.replace(num_layers=SERVE_LM_LAYERS)
+        label = (f"{LM_NAME} ({cfg.num_layers} layers) served, batch "
+                 f"{SERVE_LM_BATCH}")
+        log(f"phase 25: serve {cfg.name} at its published widths (d "
+            f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}), depth cut from "
+            f"{full.num_layers} to {cfg.num_layers} layers, through "
+            f"repro_torch.launch.serve."
             f"Server: batch {SERVE_LM_BATCH}, a {SERVE_LM_PROMPT}-token "
             f"prompt drawn from seed {SEED}, {SERVE_LM_GEN} generated tokens")
         rep = self.report["lm_serve"] = {}
@@ -4006,8 +4120,6 @@ class Smoke:
         torch.cuda.empty_cache()
         self.lm_serve_fp32(prompts, rep)
         self.lm_serve_gqa(rep)
-        rep["seconds"] = time.perf_counter() - t25
-        log(f"phase 25: {rep['seconds']:.1f} s")
         return entries
 
     def lm_params(self, cfg, seed, rep):
@@ -4033,21 +4145,28 @@ class Smoke:
             "layers": cfg.num_layers, "dtype": cfg.dtype}
         return params
 
-    def check_lm_launches(self, what, want, variant, simt=0):
+    def check_lm_launches(self, what, want, variant, simt=0, *,
+                          attn_variant=None, windowed=0):
         """Read the counts and variants since the last reset; raise unless
-        they are ``want`` with every attention launch on ``variant`` and
-        every matmul launch but ``simt`` of them (whisper's odd-N head)."""
+        they are ``want`` with every attention launch on ``attn_variant``
+        (by default ``variant``), ``windowed`` of them with a band, and
+        every matmul launch but ``simt`` of them (whisper's odd-N head) on
+        ``variant``."""
         counts, variants = self.read_counts(), self.read_variants()
+        banded = self.counters["flash_attention"].launches_windowed
         log(f"  {what}: launches {counts}; matmul by variant "
             f"{variants['matmul']}, flash attention "
-            f"{variants['flash_attention']}")
+            f"{variants['flash_attention']}, {banded} with a window")
         if counts != want:
             raise RuntimeError(f"{what}: launches {counts} != {want}")
-        for name, off in (("matmul", simt), ("flash_attention", 0)):
-            if variants[name][variant] != want[name] - off:
+        for name, off, v in (("matmul", simt, variant),
+                             ("flash_attention", 0, attn_variant or variant)):
+            if variants[name][v] != want[name] - off:
                 raise RuntimeError(f"{what}: {name} launches {variants[name]}"
-                                   f" are not {want[name] - off} "
-                                   f"{variant!r}")
+                                   f" are not {want[name] - off} {v!r}")
+        if banded != windowed:
+            raise RuntimeError(f"{what}: {banded} windowed attention "
+                               f"launches, not {windowed}")
         return counts
 
     def lm_serve_main(self, cfg, srv, prompts, rep):
@@ -4181,43 +4300,57 @@ class Smoke:
         :meth:`forced_run` by default; ``names`` its steps): max |err| <=
         5% of max |torch| (DESIGN.md §12's bf16 output bar), and the greedy
         tokens equal wherever the torch top-2 margin exceeds that bar."""
-        torch = self.torch
         run = run or self.forced_run
         log(f"phase {phase}: {cfg.name} logits, backend=kernels vs "
             f"backend=torch, teacher-forced through the prefill and {steps} "
             f"decode steps (bar {BF16_FWD_RTOL:.0%} of max|torch|)")
         want, fed = run(cfg, params, prompts, steps, "torch")
         got, _ = run(cfg, params, prompts, steps, "kernels", feed=fed)
-        rows = []
-        for i, (g, w) in enumerate(zip(got, want)):
-            g, w = g.float(), w.float()
-            top = w.abs().max().item()
-            bar = BF16_FWD_RTOL * top
-            err = (g - w).abs().max().item()
-            top2 = w.topk(2, dim=-1).values
-            gated = (top2[..., 0] - top2[..., 1]) > bar
-            agree = g.argmax(-1) == w.argmax(-1)
-            bad = int((gated & ~agree).sum())
-            what = (names[i] if names else
-                    "prefill" if i == 0 else f"decode step {i}")
-            row = {"step": what, "max_abs_err": err, "bar": bar,
-                   "err_over_bar": err / bar, "positions": agree.numel(),
-                   "agree": int(agree.sum()), "gated": int(gated.sum()),
-                   "gated_disagree": bad, "zeroed_over_bar": top / bar,
-                   "off2_over_bar": 0.02 * g.abs().max().item() / bar}
-            rows.append(row)
-            log(f"  {what}: max |err| {err:.4f} = {err / bar:.3f} x the bar "
-                f"({bar:.4f}); greedy tokens agree at {row['agree']} of "
-                f"{row['positions']}, {row['gated']} with a margin over the "
-                f"bar, {bad} of those differ; a zeroed output would read "
-                f"{row['zeroed_over_bar']:.3g} x, one 2% off "
-                f"{row['off2_over_bar']:.3g} x (a 5% bar passes a 2% error)")
-            if err > bar or bad or top / bar <= 1.0:
-                raise RuntimeError(f"{cfg.name} {what}: kernels logits off "
-                                   f"the torch backend's: {row}")
-            del g, w, top2
+        rows = [self.logits_reading(
+            f"{cfg.name} " + (names[i] if names else "prefill" if i == 0
+                              else f"decode step {i}"),
+            g.reshape(-1, g.shape[-1]), w.reshape(-1, w.shape[-1]))
+            for i, (g, w) in enumerate(zip(got, want))]
         rep.setdefault("logits", {})[cfg.name] = rows
         del got, want
+
+    def logits_reading(self, what, got, want):
+        """Logits (rows, V) of the kernels backend against the torch
+        backend's, ``LOGIT_CHUNK`` rows at a time in fp32 (no fp32 copy of the
+        whole): max |err| <= 5% of max|torch| (DESIGN.md §12), and the
+        greedy tokens equal wherever the torch top-2 margin exceeds that
+        bar (a 5% bar passes a 2% error).  Returns the reading."""
+        spans = [(i, i + LOGIT_CHUNK)
+                 for i in range(0, want.shape[0], LOGIT_CHUNK)]
+        top = max(want[a:b].float().abs().max().item() for a, b in spans)
+        bar = BF16_FWD_RTOL * top
+        err = gtop = 0.0
+        agree = gated = bad = 0
+        for a, b in spans:
+            g, w = got[a:b].float(), want[a:b].float()
+            err = max(err, (g - w).abs().max().item())
+            gtop = max(gtop, g.abs().max().item())
+            top2 = w.topk(2, dim=-1).values
+            gate = (top2[:, 0] - top2[:, 1]) > bar
+            same = g.argmax(-1) == w.argmax(-1)
+            agree += int(same.sum())
+            gated += int(gate.sum())
+            bad += int((gate & ~same).sum())
+            del g, w, top2
+        row = {"what": what, "max_abs_err": err, "bar": bar,
+               "err_over_bar": err / bar, "positions": want.shape[0],
+               "agree": agree, "gated": gated, "gated_disagree": bad,
+               "zeroed_over_bar": top / bar,
+               "off2_over_bar": 0.02 * gtop / bar}
+        log(f"  {what}: max |err| {err:.4f} = {err / bar:.3f} x the bar "
+            f"({bar:.4f}); greedy tokens agree at {agree} of "
+            f"{want.shape[0]}, {gated} with a margin over the bar, {bad} of "
+            f"those differ; a zeroed output would read {top / bar:.3g} x, "
+            f"one 2% off {row['off2_over_bar']:.3g} x")
+        if err > bar or bad or top / bar <= 1.0:
+            raise RuntimeError(f"{what}: kernels logits off the torch "
+                               f"backend's: {row}")
+        return row
 
     def lm_prefill_paths(self, srv, prompts, rep):
         """25d: the parallel prefill (one serve step) against the
@@ -4377,8 +4510,8 @@ class Smoke:
         orig = (kmm.matmul_cuda, kfa.flash_attention_cuda)
         kmm.matmul_cuda = kmm.matmul_plain
         kfa.flash_attention_cuda = (
-            lambda q, k, v, causal: kfa.attention_plain(q, k, v,
-                                                        causal=causal))
+            lambda q, k, v, causal, window=0: kfa.attention_plain(
+                q, k, v, causal=causal, window=window))
         try:
             yield
         finally:
@@ -4483,7 +4616,6 @@ class Smoke:
         from repro_torch.configs import get_config
         from repro_torch.data import LMDataPipeline
 
-        t26 = time.perf_counter()
         cfg = get_config(LM_ARCH)
         label = f"{LM_NAME} train step"
         log(f"phase 26: train {cfg.name} at its published configuration "
@@ -4517,8 +4649,6 @@ class Smoke:
                                       parts, label, rep)
         del params, batches, groups, samples
         torch.cuda.empty_cache()
-        rep["seconds"] = time.perf_counter() - t26
-        log(f"phase 26: {rep['seconds']:.1f} s")
         return entries
 
     def train_fns(self, cfg, backend, micro=TRAIN_LM_MICRO):
@@ -4617,16 +4747,21 @@ class Smoke:
 
     def lm_train_main(self, cfg, params, batch, launches, label, rep, *,
                       phase="26a", micro=TRAIN_LM_MICRO, chunks=None,
-                      simt=0):
+                      simt=0, attn_variant=None, windowed=0,
+                      grads_only=False):
         """26a: the main path.  Counts 0 just before one train step on
-        ``backend="kernels"``, read just after, in all and by part
-        (``counting_parts``): the launches ``lm_train_launches`` works out
-        (tested on the CPU), every one ``"wgmma"`` but ``simt`` matmuls; no
-        library conv or attention, no plain version, no ``torch.matmul``;
-        the attention backward's own fp32 products (``attention_grads``:
-        per query chunk one ``bmm``, two ``baddbmm`` and two ``baddbmm_``;
-        ``chunks`` of them, by default phase 26's) and the transposes
-        counted apart.  Returns the measured launches by part."""
+        ``backend="kernels"`` (with ``grads_only``, its loss and gradients,
+        ``make_value_and_grad``, which launch every kernel the step does),
+        read just after, in all and by part (``counting_parts``): the
+        launches ``lm_train_launches`` works out (tested on the CPU), every
+        one ``"wgmma"`` but ``simt`` matmuls, the attentions on
+        ``attn_variant`` (``"wgmma"`` by default), ``windowed`` of them with
+        a band; no library conv or attention, no plain version, no
+        ``torch.matmul``; the attention backward's own fp32 products
+        (``attention_grads``: per query chunk one ``bmm``, two ``baddbmm``
+        and two ``baddbmm_``; ``chunks`` of them, by default phase 26's)
+        and the transposes counted apart.  Returns the measured launches by
+        part."""
         torch = self.torch
         F = torch.nn.functional
         kmm, kfa = self.kmm, self.kfa
@@ -4642,8 +4777,13 @@ class Smoke:
             f"{simt} \"simt\" matmuls; the attention backward's products: "
             f"{5 * chunks} ({chunks} query chunks over {micro} "
             f"microbatches, 5 each)")
-        step, opt_init = self.train_fns(cfg, "kernels", micro)
-        opt = opt_init(params)
+        if grads_only:
+            from repro_torch.launch import steps
+            vg = steps.make_value_and_grad(cfg, microbatches=micro,
+                                           backend="kernels")
+        else:
+            step, opt_init = self.train_fns(cfg, "kernels", micro)
+            opt = opt_init(params)
         other, parts = {}, {}
         targets = [(F, "conv2d"), (F, "conv_transpose2d"),
                    (F, "scaled_dot_product_attention"),
@@ -4655,9 +4795,16 @@ class Smoke:
         with self.counting_calls(other, targets), self.counting_parts(
                 parts, lambda: {n: self.counters[n].launches
                                 for n in launches}):
-            new_p, new_o, m = step(params, opt, batch)
+            if grads_only:
+                loss, grads = vg(params, batch)
+                m, new_o = {"loss": loss}, None
+                del grads
+            else:
+                new_p, new_o, m = step(params, opt, batch)
             torch.cuda.synchronize()
-        counts = self.check_lm_launches("train step", want, "wgmma", simt)
+        counts = self.check_lm_launches(
+            "loss and gradients" if grads_only else "train step", want,
+            "wgmma", simt, attn_variant=attn_variant, windowed=windowed)
         transposes = kmm.MatmulFn.transposes - transposes
         other = {attr: other.get(attr, 0) for _, attr in targets}
         log(f"  by part, measured: matmul {parts['matmul']}, flash "
@@ -4677,15 +4824,18 @@ class Smoke:
                                f"{transposes}) != {want_other}: a product "
                                f"or an attention left the kernels")
         loss = float(m["loss"])
-        log(f"  step 0: loss {loss:.4f}, grad_norm "
-            f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.3e}")
-        if not math.isfinite(loss) or int(new_o.step) != 1:
+        if grads_only:
+            log(f"  step 0: loss {loss:.4f}")
+        else:
+            log(f"  step 0: loss {loss:.4f}, grad_norm "
+                f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.3e}")
+        if not math.isfinite(loss) or (new_o is not None
+                                       and int(new_o.step) != 1):
             raise RuntimeError(f"train step: loss {loss}, step "
-                               f"{int(new_o.step)}")
+                               f"{None if new_o is None else int(new_o.step)}")
         rep["launches"] = {"counted": counts, "by_part": parts,
                            "worked_out": launches, "other": other,
                            "transposes": transposes}
-        del new_p, new_o, opt
         return parts
 
     def lm_train_calls(self, cfg, params, batch, launches, label, rep, *,
@@ -4749,16 +4899,17 @@ class Smoke:
             check("matmul", (a, b), out, lambda: kmm.matmul_plain(a, b))
             return out
 
-        def fa(q, k, v, causal):
-            out = orig[1](q, k, v, causal)
+        def fa(q, k, v, causal, window=0):
+            out = orig[1](q, k, v, causal, window)
+            args = (q, k, v, causal, window)
             if part() == "forward":
-                geo = self.lm_call("flash_attention", (q, k, v, causal))[5]
-                samples["attention"].setdefault(geo, [(q, k, v, causal), 0])
+                geo = self.lm_call("flash_attention", args)[5]
+                samples["attention"].setdefault(geo, [args, 0])
                 samples["attention"][geo][1] += 1
-            check("flash_attention", (q, k, v, causal), out,
+            check("flash_attention", args, out,
                   lambda: torch.cat([kfa.attention_plain(
-                      q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal)
-                      for i in range(q.shape[0])]))
+                      q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal,
+                      window=window) for i in range(q.shape[0])]))
             return out
 
         def inside(what, fn):
@@ -4969,9 +5120,12 @@ class Smoke:
 
     def lm_train_times(self, cfg, params, batches, groups, samples,
                        parts, label, rep, *, phase="26f",
-                       micro=TRAIN_LM_MICRO):
-        """26f: per backend, step wall ms (median of TRAIN_LM_TIMED warm
-        steps), tokens/s (and an encoder-decoder's frames/s), model FLOP/s
+                       micro=TRAIN_LM_MICRO, timed=TRAIN_LM_TIMED,
+                       grads_only=False):
+        """26f: per backend, step wall ms (median of ``timed`` warm steps;
+        with ``grads_only`` the step's loss and gradients alone,
+        ``make_value_and_grad``, and no optimizer), tokens/s (and an
+        encoder-decoder's frames/s), model FLOP/s
         (6 N D, the reference's roofline count; an encoder-decoder's
         encoder parameters times its frames, the rest times the tokens)
         against the bf16 peak, the busy share and device ms by class
@@ -4982,10 +5136,12 @@ class Smoke:
         Each kernels-line entry's launches are ``parts``, the main path's
         counts of a step by part."""
         torch = self.torch
+        from repro_torch.launch import steps
         from repro_torch.models import transformer
         from repro_torch.optim import adamw_update
 
         kfa = self.kfa
+        what = "loss and gradients" if grads_only else "step"
         tokens = batches[0]["tokens"].numel()
         flops = 6 * cfg.param_counts()["active"] * tokens
         frames = 0
@@ -4997,9 +5153,8 @@ class Smoke:
                 2 * d * (cfg.num_heads + cfg.kv_heads) * hd
                 + 3 * d * cfg.d_ff)
             flops += 6 * n_enc * (frames - tokens)
-        log(f"phase {phase}: {label} times (wall: median of "
-            f"{TRAIN_LM_TIMED} warm steps; model FLOPs 6 N D = "
-            f"{flops:.4g} a step)")
+        log(f"phase {phase}: {label} times (wall: median of {timed} warm "
+            f"runs of the {what}; model FLOPs 6 N D = {flops:.4g} a step)")
         classes = {"kernel 3": ("matmul_wgmma_kernel", "matmul_kernel"),
                    "kernel 4": ("flash_attention_wgmma_kernel",
                                 "flash_attention_kernel"),
@@ -5008,21 +5163,33 @@ class Smoke:
                    "library attention": ("flash", "fmha", "attention")}
         times = rep["times"] = {}
         for backend in ("kernels", "torch"):
-            step, opt_init = self.train_fns(cfg, backend, micro)
-            p, o = params, opt_init(params)
+            if grads_only:
+                vg = steps.make_value_and_grad(cfg, microbatches=micro,
+                                               backend=backend)
+                state = [params, None]
+
+                def run(b, vg=vg):
+                    vg(params, b)
+            else:
+                step, opt_init = self.train_fns(cfg, backend, micro)
+                state = [params, opt_init(params)]
+
+                def run(b, step=step, state=state):
+                    state[:] = step(*state, b)[:2]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             walls = []
-            for i in range(2 + TRAIN_LM_TIMED):
+            for i in range(2 + timed):
                 t0 = time.perf_counter()
-                p, o, _ = step(p, o, batches[i % len(batches)])
+                run(batches[i % len(batches)])
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
             wall = statistics.median(walls[2:])
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             prof = self.profile_device(
-                lambda: step(p, o, batches[0]), f"{backend} train step",
+                lambda: run(batches[0]), f"{backend} train {what}",
                 wall, classes)
+            p, o = state
             row = {"wall_ms": wall, "walls_ms": walls,
                    "tokens_per_s": tokens * 1e3 / wall,
                    "frames_per_s": frames * 1e3 / wall,
@@ -5034,7 +5201,7 @@ class Smoke:
                    "copy_ms": sum(op["ms"] for op in prof.get("top_ops", ())
                                   if op["name"] == "aten::copy_"),
                    "profile": prof}
-            if backend == "kernels":
+            if backend == "kernels" and not grads_only:
                 grads = {k: torch.full_like(t, 1e-3, dtype=torch.float32)
                          for k, t in transformer.flatten_params(p).items()}
                 opt_prof = self.profile_device(
@@ -5042,12 +5209,12 @@ class Smoke:
                         p), lr=1e-4), "optimizer (AdamW)", wall)
                 row["optimizer_ms"] = opt_prof.get("device_ms")
                 del grads
-            del p, o
+            del p, o, state
             torch.cuda.empty_cache()
             times[backend] = row
             busy = ("not measured" if row["busy"] is None
                     else f"{row['busy']:.1%}")
-            log(f"  {backend}: step {wall:.3f} ms (warm steps "
+            log(f"  {backend}: {what} {wall:.3f} ms (warm runs "
                 f"{[round(w, 1) for w in walls[2:]]}), "
                 f"{row['tokens_per_s']:.1f} tokens/s, "
                 + (f"{row['frames_per_s']:.1f} frames/s, " if frames else "")
@@ -5058,11 +5225,13 @@ class Smoke:
         # pieces of the kernels step, each timed alone: the attention
         # backward's recompute per attention geometry x its calls a step
         recompute = {}
-        for geo, ((q, k, v, causal), n) in samples["attention"].items():
+        for geo, ((q, k, v, causal, window), n) in samples[
+                "attention"].items():
             g = torch.randn(q.shape, generator=torch.Generator(self.dev)
                             .manual_seed(SEED), device=self.dev).to(q.dtype)
             recompute[geo] = micro * n * self.device_ms(
-                lambda: kfa.attention_grads(q, k, v, g, causal=causal),
+                lambda: kfa.attention_grads(q, k, v, g, causal=causal,
+                                            window=window),
                 reps=2, rounds=3)
             log(f"  attention backward recompute {geo} x{micro * n}: "
                 f"{recompute[geo]:.3f} ms a step")
@@ -5082,14 +5251,15 @@ class Smoke:
         row = times["kernels"]
         split = {"kernel 3 forward": k3f, "kernel 3 backward": k3b,
                  "kernel 4": k4, "attention backward recompute":
-                 recompute_ms, "transposes": transpose_ms,
-                 "optimizer": row["optimizer_ms"]}
+                 recompute_ms, "transposes": transpose_ms}
+        if not grads_only:
+            split["optimizer"] = row["optimizer_ms"]
         if row["device_ms"] is not None and None not in split.values():
             split["rest"] = row["device_ms"] - sum(split.values())
         row["split_ms"] = split
         row["recompute_ms_by_geometry"] = recompute
-        log("  kernels step device ms, each piece timed alone (kernel 3 and "
-            "4: per shape x calls): " + ", ".join(
+        log(f"  kernels {what} device ms, each piece timed alone (kernel 3 "
+            f"and 4: per shape x calls): " + ", ".join(
                 f"{k} {v:.3f}" for k, v in split.items() if v is not None)
             + f" of {row['device_ms']} busy")
         rep["shapes"] = rows
@@ -5158,13 +5328,14 @@ class Smoke:
         from repro_torch.configs import get_config
         from repro_torch.launch import serve
 
-        t27 = time.perf_counter()
-        cfg = get_config(WH_ARCH)
-        log(f"phase 27: {cfg.name} at its published configuration "
-            f"({cfg.encoder_layers} + {cfg.num_layers} layers, d "
+        full = get_config(WH_ARCH)
+        cfg = full.replace(num_layers=WH_LAYERS, encoder_layers=WH_LAYERS)
+        log(f"phase 27: {cfg.name} at its published widths (d "
             f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, d_ff "
             f"{cfg.d_ff}, vocab {cfg.vocab}, encoder_ctx {cfg.encoder_ctx}, "
-            f"{cfg.dtype}; nothing cut)")
+            f"{cfg.dtype}), depth cut from {full.encoder_layers} + "
+            f"{full.num_layers} to {cfg.encoder_layers} + {cfg.num_layers} "
+            f"layers")
         rep = self.report["whisper"] = {}
         params = self.lm_params(cfg, SEED + 29, rep)
         frames, entries = self.wh_frontend(rep)
@@ -5173,7 +5344,8 @@ class Smoke:
         servers = {b: serve.Server(cfg, max_len=WH_CTX, backend=b,
                                    params=params)
                    for b in ("kernels", "torch")}
-        label = f"{cfg.name} served, batch {WH_BATCH}"
+        label = (f"{cfg.name} ({cfg.encoder_layers} + {cfg.num_layers} "
+                 f"layers) served, batch {WH_BATCH}")
         srv = servers["kernels"]
         launches = self.wh_serve_main(cfg, srv, prompts, frames, rep)
         with torch.no_grad():
@@ -5196,8 +5368,6 @@ class Smoke:
         torch.cuda.empty_cache()
         self.lm_train_drill(rep, WH_ARCH, "27d")
         self.wh_fp32(prompts, frames, rep)
-        rep["seconds"] = time.perf_counter() - t27
-        log(f"phase 27: {rep['seconds']:.1f} s")
         return entries
 
     @staticmethod
@@ -5442,7 +5612,8 @@ class Smoke:
         torch = self.torch
         from repro_torch.data import LMDataPipeline
 
-        label = f"{cfg.name} train step"
+        label = (f"{cfg.name} ({cfg.encoder_layers} + {cfg.num_layers} "
+                 f"layers) train step")
         micro = WH_TRAIN_MICRO
         log(f"phase 27c: train {cfg.name} through make_train_step: decoder "
             f"seq {WH_TRAIN_SEQ}, global batch {WH_TRAIN_BATCH} in {micro} "
@@ -5540,6 +5711,479 @@ class Smoke:
         rep["fp32"] = {"checks": rows, "zeroed_over_bar": zero,
                        "off2_over_bar": off}
         del got, want, params
+
+    # -------------------------------------------------------------- phase 28
+    def run_gemma(self):
+        """Phase 28: Gemma-3-12B's sliding-window attention on the card
+        (module docstring, 28a-e).  Returns its entries of the kernels
+        line."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+
+        cfg = get_config(GM_ARCH)
+        log(f"phase 28: {cfg.name} at its published configuration "
+            f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} "
+            f"heads on {cfg.kv_heads} KV heads x {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab} tied, window {cfg.window}, "
+            f"pattern {'/'.join(cfg.block_pattern)}, qk-norm, {cfg.dtype}; "
+            f"nothing cut)")
+        rep = self.report["gemma"] = {}
+        self.gm_band(rep)
+        params = self.lm_params(cfg, SEED + 32, rep)
+        entries = self.gm_serve(cfg, params, rep)
+        del params
+        torch.cuda.empty_cache()
+        period = cfg.replace(num_layers=len(cfg.block_pattern))
+        params = self.lm_params(period, SEED + 33, rep)
+        self.gm_ring(period, params, rep)
+        entries += self.gm_train(period, params, rep)
+        del params
+        torch.cuda.empty_cache()
+        return entries
+
+    def gm_band(self, rep):
+        """28a: kernel 4 with a window against its plain version at phase
+        10's bf16 bar, each ``GM_BANDS`` case on the variant its head dim
+        takes, one windowed launch counted for each band, with what a
+        zeroed output and one 2% off would read; then each 4096-row case
+        timed (kernel, plain, SDPA with the same mask) beside its bound."""
+        torch = self.torch
+        kfa = self.kfa
+        log("phase 28a: kernel 4's band vs its plain version (bf16; each "
+            "element 2^-7 |plain| + 1e-4 x max(1, max|plain|))")
+        g = torch.Generator().manual_seed(SEED + 28)
+        caught, rows = [], []
+        for qs, window in GM_BANDS:
+            q, k, v = (torch.randn(qs, generator=g).to(self.dev,
+                                                        torch.bfloat16)
+                       for _ in range(3))
+            kern, plain, lib, flops, nbytes, geo, variant = self.lm_call(
+                "flash_attention", (q, k, v, True, window))
+            want_v = "wgmma" if qs[3] in kfa.WGMMA_HEAD_DIMS else "simt"
+            banded = self.counters["flash_attention"].launches_windowed
+            out = kern()
+            torch.cuda.synchronize()
+            banded = self.counters["flash_attention"].launches_windowed - banded
+            if variant != want_v or banded != int(window > 0):
+                raise RuntimeError(f"attention {geo}: variant {variant}, "
+                                   f"{banded} windowed launches")
+            want = plain()
+            self.compare(f"attention {geo} [{variant}]",
+                         "flash_attention (band)", out, want)
+            caught.append(self.sensitivity(out, want, 1.0, TOL))
+            del out, want
+            if qs[2] != GM_SEQ:
+                continue
+            r = {"geometry": geo, "variant": variant, "window": window,
+                 "dh": qs[3],
+                 "flops": flops, "bytes": nbytes,
+                 "ms": self.device_ms(kern),
+                 "plain_ms": self.device_ms(plain, reps=3),
+                 "library_ms": self.device_ms(lib),
+                 "ops_ms": 1e3 * flops / PEAK_BF16_FLOPS,
+                 "bytes_ms": 1e3 * nbytes / PEAK_BYTES_S}
+            r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+            rows.append(r)
+            log(f"    {r['ms']:.3f} ms, {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+                f"bound {r['bound_ms']:.3f} ms; SDPA with the same mask "
+                f"{r['library_ms']:.3f} ms; plain {r['plain_ms']:.3f} ms")
+        zero, off = (min(c[j] for c in caught) for j in range(2))
+        log(f"  a zeroed output would reach >= {zero:.3g} x its bar, one 2% "
+            f"off >= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError("28a: a bar would miss a zeroed or a 2%-off "
+                               "kernel output")
+        for dh in sorted({r["dh"] for r in rows}):
+            same = [r for r in rows if r["dh"] == dh]
+            causal = next(r for r in same if not r["window"])
+            for r in same:
+                if r["window"]:
+                    log(f"  dh {dh} [{r['variant']}] window "
+                        f"{r['window']} / causal: kernel "
+                        f"{r['ms'] / causal['ms']:.3f}, work "
+                        f"{r['flops'] / causal['flops']:.3f}, SDPA "
+                        f"{r['library_ms'] / causal['library_ms']:.3f}")
+        rep["band"] = {"timed": rows, "zeroed_over_bar": zero,
+                       "off2_over_bar": off}
+
+    def gm_calls(self, runs, label, rep):
+        """Every kernel-3 and kernel-4 call of each of ``runs`` ({what:
+        fn}) held against its plain version as it is made, at phase 10's
+        bf16 bar, each matmul on ``"wgmma"`` and each attention (dh 256)
+        on ``"simt"``, with what a zeroed output and one 2% off would read.
+        No call's output is kept (a 48-layer prefill's would fill the
+        card).  Returns one call's arguments and the call count per (what,
+        kernel, geometry), as :meth:`lm_serve_calls`."""
+        torch = self.torch
+        kmm, kfa = self.kmm, self.kfa
+        log(f"phase 28b: {label}: every kernel call of "
+            + " and ".join(f"one {what}" for what in runs)
+            + " vs its plain version, checked as it is made")
+        orig = (kmm.matmul_cuda, kfa.flash_attention_cuda)
+        groups, caught, state = {}, [], {"what": None, "n": 0}
+
+        def checked(name, fn):
+            def wrapper(*args):
+                out = fn(*args)
+                kern_v = self.lm_call(name, args)
+                entry = f"{name} ({label}: {state['what']})"
+                want_v = "wgmma" if name == "matmul" else "simt"
+                if kern_v[6] != want_v:
+                    raise RuntimeError(f"{entry} call {state['n']}: "
+                                       f"{kern_v[6]}, not {want_v}")
+                want = kern_v[1]()
+                self.compare(f"{entry} call {state['n']}", entry, out, want,
+                             quiet=True)
+                caught.append(self.sensitivity(out, want, 1.0, TOL))
+                del want
+                grp = groups.setdefault((state["what"], name, kern_v[5]),
+                                        [args, 0])
+                grp[1] += 1
+                state["n"] += 1
+                return out
+            return wrapper
+
+        kmm.matmul_cuda = checked("matmul", orig[0])
+        kfa.flash_attention_cuda = checked("flash_attention", orig[1])
+        try:
+            with torch.no_grad():
+                for what, fn in runs.items():
+                    state["what"], state["n"] = what, 0
+                    checks = len(self.report["checks"])
+                    fn()
+                    torch.cuda.synchronize()
+                    worst = max(c["err_over_bar"]
+                                for c in self.report["checks"][checks:])
+                    log(f"  {what}: {state['n']} calls ok, worst error "
+                        f"{worst:.3f} x its bar")
+        finally:
+            kmm.matmul_cuda, kfa.flash_attention_cuda = orig
+        zero, off = (min(c[j] for c in caught) for j in range(2))
+        log(f"  a zeroed output would reach >= {zero:.3g} x its bar, one 2% "
+            f"off >= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError(f"{label}: a bar would miss a zeroed or a "
+                               f"2%-off kernel output")
+        rep.setdefault("calls", {})[label] = {
+            "checked": len(caught), "zeroed_over_bar": zero,
+            "off2_over_bar": off}
+        return groups
+
+    def gm_serve(self, cfg, params, rep):
+        """28b: the main path, counts 0 just before and read just after a
+        ``make_prefill_step`` over 1 x GM_SEQ tokens (each layer's 7
+        matmuls and 1 attention and the head: every matmul ``"wgmma"``,
+        every attention ``"simt"``, the 40 local layers' with the window),
+        the prompt loop, a decode step and ``Server.generate`` (no window:
+        the rings hold only the band); the prefill's logits against the
+        torch backend's; every kernel call of the prefill and of a decode
+        step against its plain version; 8 teacher-forced steps against the
+        torch backend; times.  Returns the kernels line's entries."""
+        torch = self.torch
+        from repro_torch.launch import serve, steps
+
+        label = f"{GM_NAME} served"
+        step = lm_step_launches(cfg)
+        banded = windowed_launches(cfg)
+        log(f"phase 28b: {label}: make_prefill_step over 1 x {GM_SEQ} tokens "
+            f"({step['matmul']} matmul and {step['flash_attention']} "
+            f"attention launches, {banded} with the window; matmuls "
+            f"\"wgmma\", attention \"simt\" at dh {cfg.head_dim}), then "
+            f"Server.generate: batch {GM_BATCH}, a {GM_PROMPT}-token prompt "
+            f"through the token loop, {GM_GEN} tokens")
+        x = torch.as_tensor(np.random.default_rng(SEED + 28).integers(
+            0, cfg.vocab, (1, GM_SEQ), dtype=np.int32), device=self.dev)
+        prompts = np.random.default_rng(SEED + 29).integers(
+            0, cfg.vocab, (GM_BATCH, GM_PROMPT), dtype=np.int32)
+        prefill = {b: steps.make_prefill_step(cfg, b)
+                   for b in ("kernels", "torch")}
+        servers = {b: serve.Server(cfg, max_len=GM_PROMPT + GM_GEN,
+                                   backend=b, params=params)
+                   for b in ("kernels", "torch")}
+        srv = servers["kernels"]
+        launches = {}
+        with torch.no_grad():
+            self.reset_counts()
+            logits = prefill["kernels"](params, {"tokens": x})
+            torch.cuda.synchronize()
+            launches["prefill"] = self.check_lm_launches(
+                f"prefill (1 x {GM_SEQ})", step, "wgmma",
+                attn_variant="simt", windowed=banded)
+            ref = prefill["torch"](params, {"tokens": x})
+        rep["prefill_logits"] = self.logits_reading(
+            f"prefill logits (1 x {GM_SEQ} x {cfg.vocab}), kernels vs torch",
+            logits[0], ref[0])
+        del logits, ref
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            self.reset_counts()
+            tok, caches, pos = srv.prefill(prompts)
+            torch.cuda.synchronize()
+            self.check_lm_launches(
+                f"prompt loop ({GM_PROMPT} serve steps)",
+                {k: v * GM_PROMPT for k, v in step.items()}, "wgmma",
+                attn_variant="simt")
+            self.reset_counts()
+            srv.serve_step(srv.params, caches, {"token": tok,
+                                                "cache_pos": pos})
+            torch.cuda.synchronize()
+            launches["decode step"] = self.check_lm_launches(
+                f"decode step at position {pos}", step, "wgmma",
+                attn_variant="simt")
+        n = GM_PROMPT + GM_GEN - 1
+        self.reset_counts()
+        out = srv.generate(prompts, GM_GEN)
+        torch.cuda.synchronize()
+        self.check_lm_launches(f"generate ({n} serve steps)",
+                               {k: v * n for k, v in step.items()}, "wgmma",
+                               attn_variant="simt")
+        if out.shape != (GM_BATCH, GM_GEN) or not (
+                (out >= 0) & (out < cfg.vocab)).all():
+            raise RuntimeError(f"generated tokens {out.shape} out of range")
+        log(f"  generated {out.shape} token ids; first request's first 8: "
+            f"{out[0, :8].tolist()}")
+        rep["launches"] = launches
+        rep["generated"] = out.tolist()
+        groups = self.gm_calls(
+            {"prefill": lambda: prefill["kernels"](params, {"tokens": x}),
+             "decode step": lambda: srv.serve_step(
+                 srv.params, caches, {"token": tok, "cache_pos": pos})},
+            label, rep)
+        del caches
+        self.lm_serve_logits(cfg, params, prompts, GM_FORCED, "28b", rep)
+        return self.gm_serve_times(cfg, params, servers, prefill, x, prompts,
+                                   groups, launches, label, rep)
+
+    def gm_serve_times(self, cfg, params, servers, prefill, x, prompts,
+                       groups, launches, label, rep):
+        """28b: per backend, the prefill's wall ms (``make_prefill_step``
+        over 1 x GM_SEQ, median of 3), decode ms a step (a loop of
+        GM_GEN - 1 steps after the prompt loop, median of 3) and tokens/s,
+        the busy share of each (``torch.profiler``), peak memory over
+        ``Server.generate``; per kernel and shape, the device ms of one
+        prefill and one decode step beside bound and library
+        (``serve_shapes``: kernel 4's windowed and causal launches beside
+        SDPA with the same mask)."""
+        torch = self.torch
+        log(f"phase 28b: {label} times")
+        times = rep["times"] = {}
+        for backend, srv in servers.items():
+            with torch.no_grad():
+                prefill_ms = self.wall_ms(
+                    lambda: prefill[backend](params, {"tokens": x}), reps=3)
+                tok, caches, pos = srv.prefill(prompts)
+
+                def step(t=tok, p=pos):
+                    return srv.serve_step(srv.params, caches,
+                                          {"token": t, "cache_pos": p})[0]
+
+                def decode_loop():
+                    t = tok
+                    for i in range(GM_GEN - 1):
+                        t = step(t, pos + i)
+
+                step_ms = self.wall_ms(decode_loop, reps=3) / (GM_GEN - 1)
+                prof = {"prefill": self.profile_device(
+                            lambda: prefill[backend](params, {"tokens": x}),
+                            f"{backend} prefill", prefill_ms),
+                        "decode step": self.profile_device(
+                            step, f"{backend} decode step", step_ms)}
+            del caches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            srv.generate(prompts, GM_GEN)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            row = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+                   "prefill_tokens_per_s": GM_SEQ * 1e3 / prefill_ms,
+                   "tokens_per_s": GM_BATCH * 1e3 / step_ms,
+                   "peak_gib": peak}
+            for what, p in prof.items():
+                key = what.replace(" ", "_")
+                row[f"{key}_busy"] = p.get("busy_share")
+                row[f"{key}_device_ms"] = p.get("device_ms")
+                row[f"{key}_profile"] = p
+            times[backend] = row
+            busy = {w: ("not measured" if row[f"{w}_busy"] is None
+                        else f"{row[f'{w}_busy']:.1%}")
+                    for w in ("prefill", "decode_step")}
+            log(f"  {backend}: prefill {prefill_ms:.3f} ms "
+                f"({row['prefill_tokens_per_s']:.1f} tokens/s), decode "
+                f"{step_ms:.3f} ms a step = {row['tokens_per_s']:.1f} "
+                f"tokens/s; busy: prefill {busy['prefill']}, decode step "
+                f"{busy['decode_step']}; peak memory {peak:.2f} GiB "
+                f"(weights included)")
+        return self.serve_shapes(groups, launches, label, rep)
+
+    def gm_ring(self, cfg, params, rep):
+        """28c: the rings past their wrap at one pattern period: the prompt
+        through ``Server``'s token loop (counts 0 just before, read just
+        after: every launch on its variant, none windowed), then
+        GM_RING_FORCED teacher-forced decode steps, each one's logits
+        against the torch backend's cache-free forward of the same tokens
+        (SDPA with the band) at 28b's bar."""
+        torch = self.torch
+        from repro_torch.launch import serve, steps
+        from repro_torch.models import transformer
+
+        n = GM_RING_PROMPT + GM_RING_FORCED
+        size = min(n, cfg.window)
+        log(f"phase 28c: the rings past their wrap at one pattern period "
+            f"({cfg.num_layers} layers, full widths): batch "
+            f"{GM_RING_BATCH}, a {GM_RING_PROMPT}-token prompt through the "
+            f"token loop, then {GM_RING_FORCED} teacher-forced steps "
+            f"(positions up to {n - 1}: rings of {size} slots, wrapped by "
+            f"{n - size}); decode logits vs backend=torch's cache-free "
+            f"forward (SDPA with the band)")
+        drawn = np.random.default_rng(SEED + 30).integers(
+            0, cfg.vocab, (GM_RING_BATCH, n), dtype=np.int32)
+        toks = torch.as_tensor(drawn, device=self.dev)
+        srv = serve.Server(cfg, max_len=n, params=params)
+        step = lm_step_launches(cfg)
+        self.reset_counts()
+        t0 = time.perf_counter()
+        _, caches, pos = srv.prefill(drawn[:, :GM_RING_PROMPT])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        self.check_lm_launches(
+            f"prompt loop ({GM_RING_PROMPT} serve steps, {secs:.1f} s)",
+            {k: v * GM_RING_PROMPT for k, v in step.items()}, "wgmma",
+            attn_variant="simt")
+        rings = {tuple(c["k"].shape) for c, kind in zip(
+            caches, cfg.block_pattern) if kind == "attn_local"}
+        if rings != {(cfg.repeat, GM_RING_BATCH, size, cfg.kv_heads,
+                      cfg.head_dim)}:
+            raise RuntimeError(f"ring caches {rings}, not of {size} slots")
+        got = []
+        with torch.no_grad():
+            for p in range(pos, n):
+                lg, caches = transformer.decode_step(
+                    params, toks[:, p:p + 1], caches, p, cfg)
+                got.append(lg[:, 0])
+            want = steps.make_prefill_step(cfg, "torch")(params,
+                                                         {"tokens": toks})
+        rows = [self.logits_reading(f"position {p} (slot {p % size})", g,
+                               want[:, p])
+                for p, g in zip(range(pos, n), got)]
+        rep["ring"] = {"prompt_loop_s": secs, "positions": rows}
+        del got, want, caches, srv
+
+    def gm_train(self, cfg, params, rep):
+        """28d: training at one pattern period (module docstring).
+        Returns the kernels line's entries."""
+        torch = self.torch
+        from repro_torch.data import LMDataPipeline
+        from repro_torch.models import transformer
+
+        label = f"{GM_NAME} ({cfg.num_layers} layers) train step"
+        micro = GM_TRAIN_MICRO
+        n_par = sum(t.numel() for t in
+                    transformer.flatten_params(params).values())
+        embed = params["embed"].numel()
+        # the full step's peak as reckoned before any run: bf16 parameters
+        # (2 N bytes), fp32 masters and moments (12 N), the fp32 gradient
+        # accumulator (4 N), the functional AdamW's new state (12 N) and
+        # parameters (2 N) live at once, and its fp32 temporaries over the
+        # largest leaf, the embedding (the gradient, both moments and their
+        # bias-corrected copies: 5 x 4 bytes an entry)
+        reckon = 32 * n_par + 20 * embed
+        total = torch.cuda.get_device_properties(self.dev).total_memory
+        fits = reckon < total
+        log(f"phase 28d: train {cfg.name} through make_train_step at "
+            f"{cfg.num_layers} layers (one pattern period, full widths): "
+            f"seq {GM_SEQ}, global batch {GM_TRAIN_BATCH} in {micro} "
+            f"microbatches, fp32 AdamW, remat ({cfg.remat}); {n_par:,} "
+            f"parameters: a full step's reckoned peak {reckon / 2 ** 30:.1f} "
+            f"GiB (32 bytes a parameter, the update's temporaries over the "
+            f"{embed:,}-entry embedding 20 bytes an entry) against the "
+            f"card's {total / 2 ** 30:.1f} GiB: "
+            + ("the step is run" if fits else "the step's loss and "
+               "gradients are run and held, its AdamW update is not (the "
+               "functional update's second state)"))
+        rep["reckoned_peak_gib"] = reckon / 2 ** 30
+        rep["full_step_run"] = fits
+        pipe = LMDataPipeline(GM_TRAIN_BATCH, GM_SEQ, cfg.vocab, seed=SEED)
+        try:
+            batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.dev) for k, v in pipe.batch_at(i).items()}
+                for i in range(TRAIN_LM_STEPS)]
+        finally:
+            pipe.close()
+        launches = lm_train_launches(cfg, GM_SEQ, micro)
+        banded = windowed_launches(cfg) * micro * (2 if cfg.remat else 1)
+        kw = dict(phase="28d", micro=micro)
+        parts = self.lm_train_main(
+            cfg, params, batches[0], launches, label, rep,
+            chunks=GM_SEQ // self.kfa.Q_CHUNK * cfg.num_layers * micro,
+            attn_variant="simt", windowed=banded, grads_only=not fits, **kw)
+        groups, samples = self.lm_train_calls(cfg, params, batches[0],
+                                              launches, label, rep, **kw)
+        wrong = [(w, n, geo) for (w, n, geo), (args, _) in groups.items()
+                 if self.lm_call(n, args)[6] != (
+                     "wgmma" if n == "matmul" else "simt")]
+        if wrong:
+            raise RuntimeError(f"{label}: calls off their variant: {wrong}")
+        self.lm_train_grads(cfg, params, batches[0], rep, **kw)
+        if fits:
+            self.lm_train_steps(cfg, params, batches, rep, **kw)
+        else:
+            self.gm_attention_fn(cfg, rep)
+        torch.cuda.empty_cache()
+        entries = self.lm_train_times(cfg, params, batches, groups, samples,
+                                      parts, label, rep,
+                                      timed=GM_TRAIN_TIMED,
+                                      grads_only=not fits, **kw)
+        del batches, groups, samples
+        return entries
+
+    def gm_attention_fn(self, cfg, rep):
+        """28d, in the full step's place: ``FlashAttentionFn`` (kernel 4's
+        band forward, ``attention_grads`` backward) at Gemma's attention
+        shape (batch 1, GM_SEQ, window) against SDPA's autograd with the
+        same band: the output within 5% of max|SDPA|, each gradient at 10%
+        relative L2; both timed forward and backward."""
+        torch = self.torch
+        kfa = self.kfa
+        F = torch.nn.functional
+        shape = (1, cfg.num_heads, GM_SEQ, cfg.head_dim)
+        log(f"phase 28d: FlashAttentionFn at {shape}, window {cfg.window}, "
+            f"forward and backward, vs SDPA's autograd with the band")
+        g = torch.Generator(self.dev).manual_seed(SEED + 34)
+        q, k, v, cot = (torch.randn(shape, generator=g, device=self.dev).to(
+            torch.bfloat16) for _ in range(4))
+        r = torch.arange(GM_SEQ, device=self.dev)[:, None]
+        c = torch.arange(GM_SEQ, device=self.dev)[None, :]
+        band = (c <= r) & (c > r - cfg.window)
+
+        def run(fn):
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = fn(*ins)
+            return (out.detach(), *torch.autograd.grad(out, ins, cot))
+
+        def ours():
+            return run(lambda a, b, d: kfa.FlashAttentionFn.apply(
+                a, b, d, True, cfg.window))
+
+        def lib():
+            return run(lambda a, b, d: F.scaled_dot_product_attention(
+                a, b, d, attn_mask=band))
+
+        got, want = ours(), lib()
+        top = want[0].float().abs().max().item()
+        err = (got[0].float() - want[0].float()).abs().max().item()
+        rel = [((a.float() - b.float()).norm()
+                / b.float().norm().clamp_min(1e-30)).item()
+               for a, b in zip(got[1:], want[1:])]
+        row = {"out_err_over_bar": err / (BF16_FWD_RTOL * top),
+               "grad_rel_l2": rel, "ms": self.device_ms(ours, reps=3),
+               "library_ms": self.device_ms(lib, reps=3)}
+        log(f"  output {row['out_err_over_bar']:.3f} x its bar; dq, dk, dv "
+            f"relative L2 {[f'{x:.3e}' for x in rel]} (bar "
+            f"{BF16_GRAD_RTOL:.0%}); forward and backward {row['ms']:.3f} "
+            f"ms, SDPA's {row['library_ms']:.3f} ms")
+        rep["attention_fn"] = row
+        if row["out_err_over_bar"] > 1.0 or max(rel) > BF16_GRAD_RTOL:
+            raise RuntimeError(f"FlashAttentionFn vs SDPA: {row}")
+        del got, want
 
     # --------------------------------------------------- per-call helpers
     def geometry(self, name, args):

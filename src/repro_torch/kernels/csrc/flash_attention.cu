@@ -10,14 +10,22 @@
 // Both variants keep the reference kernel's semantics to the letter: scores
 // are fp32 q.k scaled by dh^-1/2 (the caller passes the fp32 scale), the
 // causal mask is top-left (q_pos >= k_pos) and keys >= Sk are masked, with
-// the finite -1e30 (so a masked entry's exp is exactly 0 once a row has seen
-// key 0, which every row does in kv tile 0; the wgmma variant masks the raw
-// score with -inf, which gives the same zeros and the same running max), the
-// denominator l is summed from the fp32 probabilities, and the output is
-// acc / max(l, 1e-30) cast to q's type.  With the causal mask, kv tiles
-// wholly above the diagonal are skipped (they would add exactly 0), and the
-// q tiles that see the most keys are scheduled first.  The Python wrapper
-// picks the variant and passes its code (kSimt, kWgmma):
+// the finite -1e30, the denominator l is summed from the fp32
+// probabilities, and the output is acc / max(l, 1e-30) cast to q's type.
+// A causal call may also take a window w > 0 (the sliding-window layers of
+// the reference model, whose _chunked_causal masks k_pos <= q_pos - w too):
+// then a key is masked when k_pos > q_pos or q_pos - k_pos >= w, a band of
+// w keys a row.  With the causal mask, kv tiles wholly above the diagonal
+// are skipped, and under a band the tiles wholly below the first row's
+// window as well (both would add exactly 0): a block walks only the tiles
+// from the one holding q0 - w + 1 to the one holding its last row.  The
+// q tiles that see the most keys are scheduled first.  A row whose first
+// tiles hold none of its keys is exact in both variants: the running max
+// starts at the finite -1e30, so simt takes p = exp(0) on those masked
+// keys and wgmma p = 2^-inf = 0 (it masks the raw score with -inf), and
+// the first tile holding a key of the row rescales what came before by
+// alpha = exp(-1e30 - m) = 0.  The Python wrapper picks the variant and
+// passes its code (kSimt, kWgmma):
 //
 // * wgmma (q, k and v bf16, dh 64 or 128, 16-byte aligned bases): the
 //   tensor cores.  A block of three warpgroups owns 128 query rows: one
@@ -30,7 +38,8 @@
 //   dh / 16 deep.  The online softmax runs on the S accumulator in
 //   registers: a row's 128 scores sit in the 4 threads of a quad, so its
 //   max and sum are two shuffles; the scale folds into one FFMA before
-//   each ex2, and only tiles on the diagonal or past Sk are masked.
+//   each ex2, and only tiles on the diagonal, past Sk or across a band's
+//   lower edge are masked.
 //   O += P V takes P from the accumulator registers as the A fragment
 //   (whose layout is the accumulator's) and V (keys x dh, MN-major) by the
 //   transposed-B form.  P is split in two bf16 terms, P_hi = bf16(P) and
@@ -124,7 +133,7 @@ __global__ void __launch_bounds__(kFaThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            int64_t sq, int64_t sk, int dh, int n_qtiles,
-                           float scale, int causal) {
+                           float scale, int causal, int64_t window) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + kFaBQ * (dh + 1);
@@ -154,14 +163,17 @@ __global__ void __launch_bounds__(kFaThreads)
   }
 
   // keys any row of this tile can see: all of them, or under the causal
-  // mask those up to the tile's last real row
-  int64_t kv_end = sk;
+  // mask those up to the tile's last real row, and under a band those from
+  // the first row's first key, rounded down to a whole kv tile
+  int64_t kv_begin = 0, kv_end = sk;
   if (causal) {
     const int64_t last_row = (q0 + kFaBQ < sq ? q0 + kFaBQ : sq) - 1;
     if (last_row + 1 < kv_end) kv_end = last_row + 1;
+    if (window > 0 && q0 - window + 1 > 0)
+      kv_begin = (q0 - window + 1) / kFaBK * kFaBK;
   }
 
-  for (int64_t k0 = 0; k0 < kv_end; k0 += kFaBK) {
+  for (int64_t k0 = kv_begin; k0 < kv_end; k0 += kFaBK) {
     __syncthreads();  // the previous tile's K, V and P are no longer read
     stage_rows(Ks, kb, k0, kFaBK, sk, dh, dh + 1);
     stage_rows(Vs, vb, k0, kFaBK, sk, dh, dh);
@@ -194,7 +206,8 @@ __global__ void __launch_bounds__(kFaThreads)
       for (int j = 0; j < kFaKeys; ++j) {
         const int64_t k_pos = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
-        if (causal && q_pos < k_pos) x = kFaNegInf;
+        if (causal && (q_pos < k_pos || (window > 0 && q_pos - k_pos >= window)))
+          x = kFaNegInf;
         if (k_pos >= sk) x = kFaNegInf;
         s[i][j] = x;
         mx = fmaxf(mx, x);
@@ -248,7 +261,7 @@ __global__ void __launch_bounds__(kFaThreads)
 template <class T, int NC>
 int launch_flash(const void* q, const void* k, const void* v, void* out,
                  long long bh, long long sq, long long sk, int dh, float scale,
-                 int causal, cudaStream_t st) {
+                 int causal, long long window, cudaStream_t st) {
   const long long n_qtiles = (sq + kFaBQ - 1) / kFaBQ;
   const long long blocks = bh * n_qtiles;
   if (n_qtiles > 0x7fffffffLL || blocks > 0x7fffffffLL)
@@ -262,7 +275,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
   kernel<<<static_cast<unsigned>(blocks), kFaThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, sk, dh,
-      static_cast<int>(n_qtiles), scale, causal);
+      static_cast<int>(n_qtiles), scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -310,7 +323,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                                  const __grid_constant__ CUtensorMap tm_k,
                                  const __grid_constant__ CUtensorMap tm_v,
                                  __nv_bfloat16* __restrict__ out, int n_bh,
-                                 int sq, int sk, float scale, int causal) {
+                                 int sq, int sk, float scale, int causal,
+                                 int window) {
   using namespace sm90;
   constexpr int kChunks = DH / 64;  // 64-wide head-dim boxes per tile
   constexpr uint32_t kTile = kChunks * kTcBox;
@@ -331,9 +345,15 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                  static_cast<int>(blockIdx.x / n_bh);
   const int bh = static_cast<int>(blockIdx.x % n_bh);
   const int q0 = qt * kTcBQ;
-  int kv_end = sk;
-  if (causal) kv_end = min(sk, min(q0 + kTcBQ, sq));
-  const int n_kv = (kv_end + kTcBK - 1) / kTcBK;
+  // the kv tiles from the one holding the first row's first key (under a
+  // band) to the one holding the last row's last (under the causal mask)
+  int kv_begin = 0, kv_end = sk;
+  if (causal) {
+    kv_end = min(sk, min(q0 + kTcBQ, sq));
+    if (window > 0 && q0 - window + 1 > 0)
+      kv_begin = (q0 - window + 1) / kTcBK * kTcBK;
+  }
+  const int n_kv = (kv_end + kTcBK - 1) / kTcBK - kv_begin / kTcBK;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -361,12 +381,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
         for (int c = 0; c < kChunks; ++c)
           tma_load_3d(ks(s) + c * kTcBox, &tm_k, full_k(s), 64 * c,
-                      it * kTcBK, bh);
+                      kv_begin + it * kTcBK, bh);
         mbar_arrive_expect_tx(full_v(s), kTile);
 #pragma unroll
         for (int c = 0; c < kChunks; ++c)
           tma_load_3d(vs(s) + c * kTcBox, &tm_v, full_v(s), 64 * c,
-                      it * kTcBK, bh);
+                      kv_begin + it * kTcBK, bh);
       }
     }
   } else {  // consumers: rows 64 (wg - 1) .. of the q tile
@@ -388,7 +408,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int it = 0; it < n_kv; ++it) {
       const int s = it & 1;
       const uint32_t phase = (it >> 1) & 1;
-      const int k0 = it * kTcBK;
+      const int k0 = kv_begin + it * kTcBK;
 
       // S = Q K^T, fp32 (each bf16 x bf16 product is exact in fp32)
       mbar_wait(full_k(s), phase);
@@ -405,17 +425,26 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       wgmma_wait<0>();
       fence_regs(sc);
 
-      // Mask the raw scores, on tiles that reach past the diagonal or Sk
-      // only.  A masked score is -inf here where the reference has -1e30:
-      // both give p = 0 exactly and the same running max once a row has
-      // seen key 0, which every row does in kv tile 0.
-      const bool mask = (causal && k0 + kTcBK - 1 > q0 + cw * 64) ||
-                        k0 + kTcBK > sk;
+      // Mask the raw scores, on tiles that reach past the diagonal or Sk,
+      // or below the window of this warpgroup's last row, only.  A masked
+      // score is -inf here where the reference has -1e30: both give p = 0
+      // exactly and the same running max once a row has seen one of its
+      // keys.  A row none of whose keys is in the tiles so far (a band
+      // starting mid-tile, or past it) keeps m at its finite start -1e30:
+      // its p = 2^(-inf) = 0 and alpha = 2^0 = 1 there, never -inf - -inf;
+      // its first key then sets m and alpha = 2^(-1e30 log2 e) = 0.
+      const int row_lo = q0 + cw * 64;
+      const bool mask = (causal && k0 + kTcBK - 1 > row_lo) ||
+                        k0 + kTcBK > sk ||
+                        (window > 0 && k0 <= row_lo + 63 - window);
       if (mask) {
 #pragma unroll
         for (int i = 0; i < kTcBK / 2; ++i) {
           const int k_pos = k0 + 8 * (i >> 2) + c0 + (i & 1);
-          if (k_pos >= sk || (causal && r0 + 8 * ((i >> 1) & 1) < k_pos))
+          const int row = r0 + 8 * ((i >> 1) & 1);
+          if (k_pos >= sk ||
+              (causal && (row < k_pos ||
+                          (window > 0 && row - k_pos >= window))))
             sc[i] = -INFINITY;
         }
       }
@@ -514,7 +543,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 template <int DH>
 int launch_flash_wgmma(const void* q, const void* k, const void* v, void* out,
                        long long bh, long long sq, long long sk, float scale,
-                       int causal, cudaStream_t st) {
+                       int causal, long long window, cudaStream_t st) {
   const long long n_qtiles = (sq + kTcBQ - 1) / kTcBQ;
   const long long blocks = bh * n_qtiles;
   if (bh > 0x7fffffffLL || sq > 0x7fffffffLL || sk > 0x7fffffffLL ||
@@ -544,7 +573,7 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* out,
   kernel<<<static_cast<unsigned>(blocks), kTcThreads, smem, st>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out),
       static_cast<int>(bh), static_cast<int>(sq), static_cast<int>(sk),
-      scale, causal);
+      scale, causal, static_cast<int>(window < sq ? window : sq));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -552,25 +581,29 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* out,
 
 // q: (bh, sq, dh), k and v: (bh, sk, dh), out: (bh, sq, dh), all of dtype
 // code `dtype`, contiguous.  bh, sq and sk must be positive, 1 <= dh <= 256.
-// `variant` is kSimt or kWgmma; kWgmma takes bf16 with dh 64 or 128 and
-// 16-byte aligned bases, and returns cudaErrorInvalidValue otherwise.
+// `window` is 0 (no band) or, with `causal` and sq <= sk (so that every row
+// keeps its own key), the band's width.  `variant` is kSimt or kWgmma;
+// kWgmma takes bf16 with dh 64 or 128 and 16-byte aligned bases, and
+// returns cudaErrorInvalidValue otherwise.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, long long bh,
                                    long long sq, long long sk, int dh,
-                                   float scale, int causal, int dtype,
-                                   int variant, void* stream) {
+                                   float scale, int causal, long long window,
+                                   int dtype, int variant, void* stream) {
   using namespace repro;
   if (bh <= 0 || sq <= 0 || sk <= 0 || dh < 1 || dh > kFaMaxDh)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (window < 0 || (window > 0 && (!causal || sq > sk)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (variant == kWgmma) {
     if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
     if (dh == 64)
       return launch_flash_wgmma<64>(q, k, v, out, bh, sq, sk, scale, causal,
-                                    st);
+                                    window, st);
     if (dh == 128)
       return launch_flash_wgmma<128>(q, k, v, out, bh, sq, sk, scale, causal,
-                                     st);
+                                     window, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (variant != kSimt) return static_cast<int>(cudaErrorInvalidValue);
@@ -579,7 +612,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     using T = decltype(tag);
     auto launch = [&](auto nc) {
       return launch_flash<T, decltype(nc)::value>(q, k, v, out, bh, sq, sk,
-                                                  dh, scale, causal, st);
+                                                  dh, scale, causal, window,
+                                                  st);
     };
     if (dh <= 16)
       code = launch(std::integral_constant<int, 1>{});

@@ -26,13 +26,21 @@ yardstick.  There is no mesh (ROADMAP.md, multi-device).  Parameters come
 from a seeded ``torch.Generator`` (on the server's device by default,
 seed 0) or from ``params=`` (e.g. the model's ``load_jax_params``).
 
-On the card (StableLM-2-1.6B, whisper-small at their published widths,
-bf16)::
+A sliding-window config (Gemma-3-12B) prefills through the token loop, as
+the reference's: its local layers' caches are rings of ``window`` slots
+that take one token a step (:mod:`repro_torch.models.attention`).  Its
+cache-free prefill, ``make_prefill_step``, is where kernel 4 takes the
+window.
+
+On the card (StableLM-2-1.6B, whisper-small, Gemma-3-12B at their
+published widths, bf16)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --batch 4 --prompt-len 1024 --gen-len 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
       --batch 8 --prompt-len 4 --gen-len 224
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
+      --batch 4 --prompt-len 16 --gen-len 16
 
 On the CPU (the kernels' plain versions)::
 
@@ -40,6 +48,8 @@ On the CPU (the kernels' plain versions)::
       --reduced --device cpu --batch 4 --prompt-len 16 --gen-len 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
       --reduced --device cpu --batch 2 --prompt-len 4 --gen-len 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
+      --reduced --device cpu --batch 2 --prompt-len 8 --gen-len 40
 """
 
 from __future__ import annotations

@@ -29,6 +29,12 @@ it died)::
       --reduced --steps 4 --batch 4 --seq 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
       --steps 3 --batch 16 --seq 448 --microbatches 2    # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-12b \\
+      --reduced --steps 4 --batch 4 --seq 64 --microbatches 2 --device cpu
+
+Gemma-3-12B's 48 layers take 11.8 B parameters, whose bf16 weights, fp32
+masters and moments and gradients exceed one card; ``chip_smoke.py`` phase
+28d trains it at one pattern period (6 layers, full widths) on the card.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Attention: MHA/GQA with RoPE, optional qk-norm and a KV cache (the port
-of ``repro.models.attention``).
+"""Attention: MHA/GQA with RoPE, optional qk-norm, a sliding window and a
+KV cache (the port of ``repro.models.attention``).
 
 Head layout is merged (B, S, H, Dh), KV repeated to the full head count for
 GQA, as in the reference.  Under ``backend="kernels"`` the scores go through
@@ -33,8 +33,23 @@ Cross attention (``xa=``, the encoder-decoder's, :mod:`repro_torch.models.
 encdec`) takes k and v from ``xa``, applies no RoPE, neither writes nor
 reads a cache, and is non-causal over all of ``xa``'s frames: the kernel's
 non-causal case, which agrees with the reference's mask for any Sq and Sk.
-Sliding-window layers (``attn_local``) are not ported (ROADMAP.md, queue
-1).
+
+Sliding-window layers (``kind="attn_local"`` with ``cfg.window``, Gemma-3's
+local layers) take the reference's two paths:
+
+* without a cache (training, ``make_prefill_step``) the causal mask is the
+  band ``k_pos > q_pos - window``: the kernel's ``window`` under
+  ``"kernels"`` (kernel 4 skips the kv tiles outside the band), an explicit
+  boolean band mask to SDPA under ``"torch"``;
+* with a cache, a ring of ``min(max_len, window)`` slots
+  (:func:`init_kv_cache`): one token is written at slot ``cache_pos %
+  size`` and attends, non-causal, over the live slots ``[:min(cache_pos +
+  1, size)]``.  After the ring wraps its slots are not in position order;
+  that is harmless because RoPE is applied before the write and the step
+  is non-causal.  A chunk of more than one token runs only at ``cache_pos
+  = 0`` and within the ring (causal within the chunk, the kernel's
+  top-left case); anything else raises, where the reference's
+  ``dynamic_update_slice`` would clamp the write (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -49,10 +64,17 @@ from repro_torch.models.layers import (check_backend, dense_init, linear,
 
 
 def _check_kind(kind: str) -> None:
-    if kind != "attn":
+    if kind not in ("attn", "attn_local"):
         raise NotImplementedError(
             f"attention kind {kind!r} is not ported: the port serves global "
-            f"attention only (attn_local: ROADMAP.md, queue 1)")
+            f"and sliding-window attention (ROADMAP.md, queue 1)")
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    """The band of a ``kind`` layer: ``cfg.window`` for ``attn_local``, 0
+    (none) otherwise, as the reference's ``kind == "attn_local" and
+    cfg.window``."""
+    return cfg.window if kind == "attn_local" else 0
 
 
 def attn_init(generator, cfg: ModelConfig, dtype=torch.bfloat16,
@@ -77,10 +99,41 @@ def attn_init(generator, cfg: ModelConfig, dtype=torch.bfloat16,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
                   dtype=torch.bfloat16, device=None) -> dict:
+    """Zero k and v of (batch, slots, kv_heads, head_dim): ``max_len``
+    slots, or a sliding-window layer's ring of ``min(max_len, window)``."""
     _check_kind(kind)
-    shape = (batch, max_len, cfg.kv_heads, cfg.head_dim)
+    window = _window(cfg, kind)
+    size = min(max_len, window) if window else max_len
+    shape = (batch, size, cfg.kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _ring_write(cache: dict, k: torch.Tensor, v: torch.Tensor, start: int):
+    """Write a sliding-window layer's k and v (B, S, KVH, Dh) at positions
+    ``start ..`` into its ring in place; return the live slots' k and v.
+
+    One token goes to slot ``start % size`` and the live slots are
+    ``[:min(start + 1, size)]``.  A chunk of S > 1 tokens is taken only at
+    ``start = 0`` with S <= size (slots ``[:S]``): the reference writes any
+    other chunk with ``dynamic_update_slice``, which clamps the start so
+    that it fits the ring and so overwrites the wrong slots."""
+    size, s = cache["k"].shape[1], k.shape[1]
+    if s == 1:
+        slot, live = start % size, min(start + 1, size)
+    elif start:
+        raise NotImplementedError(
+            f"a {s}-token chunk at cache_pos {start} of a sliding-window "
+            f"ring: only one token, or a chunk at cache_pos 0, is written "
+            f"(the reference would clamp the write)")
+    elif s > size:
+        raise ValueError(f"a ring of {size} slots cannot take a {s}-token "
+                         f"chunk")
+    else:
+        slot, live = 0, s
+    cache["k"][:, slot:slot + s] = k
+    cache["v"][:, slot:slot + s] = v
+    return cache["k"][:, :live], cache["v"][:, :live]
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
@@ -93,9 +146,11 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
         b, kvh * groups, t, hd)
 
 
-def _attend(q, k, v, *, causal: bool, offset: int, backend: str):
+def _attend(q, k, v, *, causal: bool, offset: int, backend: str,
+            window: int = 0):
     """q (B, H, S, Dh) over k/v (B, H, T, Dh): query i sees keys j <= i +
-    offset when ``causal``, every key otherwise.  ``offset`` is 0 or
+    offset when ``causal``, every key otherwise, and with ``window`` > 0
+    (causal, ``offset`` 0) only keys j > i - window.  ``offset`` is 0 or
     ``T - S`` (a chunk written behind ``T - S`` cached slots)."""
     s, t = q.shape[2], k.shape[2]
     if backend == "kernels":
@@ -106,15 +161,19 @@ def _attend(q, k, v, *, causal: bool, offset: int, backend: str):
                 f"mask (prefill at cache_pos 0, or decode one token)")
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            return kfa.FlashAttentionFn.apply(q, k, v, causal)
-        return kfa.flash_attention(q, k, v, causal=causal)
+            return kfa.FlashAttentionFn.apply(q, k, v, causal, window)
+        return kfa.flash_attention(q, k, v, causal=causal, window=window)
     check_backend(backend)
+    kfa.check_window(s, t, causal, window)
     if not causal:
         return F.scaled_dot_product_attention(q, k, v)
-    if not offset:
+    if not offset and not window:
         return F.scaled_dot_product_attention(q, k, v, is_causal=True)
     rows = torch.arange(s, device=q.device)[:, None] + offset
-    mask = torch.arange(t, device=q.device)[None, :] <= rows
+    cols = torch.arange(t, device=q.device)[None, :]
+    mask = cols <= rows
+    if window:
+        mask &= cols > rows - window
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
@@ -136,6 +195,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     groups = nh // kvh
+    window = _window(cfg, kind)
     start = 0 if cache_pos is None else int(cache_pos)
     if positions is None:
         positions = torch.arange(start, start + s, device=x.device
@@ -156,7 +216,13 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     offset, new_cache = 0, None
     if xa is not None:
-        causal = False
+        causal, window = False, 0
+    elif kv_cache is not None and window:
+        k, v = _ring_write(kv_cache, k, v, start)
+        new_cache = kv_cache
+        # the ring holds only the band: one token sees every live slot, a
+        # chunk at 0 is causal within itself
+        causal, window = s > 1, 0
     elif kv_cache is not None:
         end = start + s
         if end > kv_cache["k"].shape[1]:
@@ -173,6 +239,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     qf = q.transpose(1, 2)                                # (B, H, S, Dh)
     kf = _repeat_kv(k.transpose(1, 2), groups)            # (B, H, T, Dh)
     vf = _repeat_kv(v.transpose(1, 2), groups)
-    out = _attend(qf, kf, vf, causal=causal, offset=offset, backend=backend)
+    out = _attend(qf, kf, vf, causal=causal, offset=offset, backend=backend,
+                  window=window if causal else 0)
     out = out.transpose(1, 2).reshape(b, s, nh * hd)
     return linear(out, p["wo"], backend), new_cache

@@ -18,15 +18,19 @@ into the stacked layout.  ``cfg.remat`` checkpoints each layer
 kept and each layer is recomputed in the backward, the reference's
 ``nothing_saveable`` policy.
 
-Each layer = attention + dense SwiGLU FFN (or none when ``d_ff == 0``),
-both pre-norm residual.  Every product goes through
+Each layer = attention (global ``attn``, or ``attn_local``: a sliding
+window, Gemma-3's local layers) + dense SwiGLU FFN (or none when ``d_ff ==
+0``), both pre-norm residual.  Every product goes through
 :func:`~repro_torch.models.layers.linear` and the scores through the
 flash-attention kernel under ``backend="kernels"`` (a forward launches 7
-matmuls and 1 attention a layer, and 1 matmul for the LM head).  Mixer
-kinds ``attn_local``, ``mamba``, ``mlstm`` and ``slstm`` and the MoE FFN
-raise ``NotImplementedError`` at construction (:func:`check_supported`;
-ROADMAP.md, queue 1).  Encoder-decoder configs are
-:mod:`repro_torch.models.encdec`'s, and this module refuses them too.
+matmuls and 1 attention a layer, and 1 matmul for the LM head); a local
+layer's cache-free attention is the kernel's windowed band, its cached
+attention a ring of ``window`` slots (:mod:`repro_torch.models.
+attention`), each pattern position's caches sized by its kind
+(:func:`init_caches`).  Mixer kinds ``mamba``, ``mlstm`` and ``slstm`` and
+the MoE FFN raise ``NotImplementedError`` at construction
+(:func:`check_supported`; ROADMAP.md, queue 1).  Encoder-decoder configs
+are :mod:`repro_torch.models.encdec`'s, and this module refuses them too.
 """
 
 from __future__ import annotations
@@ -44,7 +48,6 @@ from repro_torch.models.layers import (dense_init, linear, mlp, mlp_init,
 
 #: what each unported part of a config waits for (ROADMAP.md, queue 1)
 _UNPORTED = {
-    "attn_local": "sliding-window attention (attn_local)",
     "mamba": "the Mamba mixer (mamba/xlstm)",
     "mlstm": "the xLSTM mixers (mamba/xlstm)",
     "slstm": "the xLSTM mixers (mamba/xlstm)",
@@ -54,7 +57,7 @@ _UNPORTED = {
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot run yet."""
     for kind in cfg.block_pattern:
-        if kind != "attn":
+        if kind not in ("attn", "attn_local"):
             raise NotImplementedError(
                 f"{cfg.name}: mixer {kind!r} is not ported; it waits for "
                 f"{_UNPORTED.get(kind, kind)} (ROADMAP.md, queue 1)")
@@ -74,8 +77,8 @@ def _ffn_kind(cfg: ModelConfig) -> str:
 
 
 def layer_init(generator, cfg: ModelConfig, dtype, device=None) -> dict:
-    """One attention layer's parameters (``check_supported`` has refused
-    every other mixer)."""
+    """One attention layer's parameters, global or sliding-window alike
+    (``check_supported`` has refused every other mixer)."""
     p = {
         "mixer": attn_mod.attn_init(generator, cfg, dtype, device=device),
         "norm1": rmsnorm_init(cfg.d_model, dtype, device),
@@ -310,7 +313,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device=None) -> list:
     """Per-pattern-position stacked KV caches with a leading (repeat,)
-    axis, zeros in ``cfg.dtype`` on ``device`` (``None`` -> CUDA)."""
+    axis, zeros in ``cfg.dtype`` on ``device`` (``None`` -> CUDA): a global
+    layer's of ``max_len`` slots, a sliding-window layer's ring of
+    ``min(max_len, cfg.window)``."""
     check_supported(cfg)
     dtype, dev = canon_dtype(cfg.dtype), resolve_device(device)
     caches = []

@@ -868,3 +868,93 @@ def test_whisper_reduced_encode_and_decode_match_the_cpu(cuda, dtype):
         top = want.abs().max().item()
         bar = 1e-4 * max(1.0, top) if dtype == "float32" else 0.05 * top
         assert (got - want).abs().max().item() <= bar
+
+
+# (q shape, window): simt at Gemma-3's dh 256 and at dh 16; wgmma at dh 64
+# and 128 with windows of whole tiles, not a tile multiple (100), and 1.
+# At S >= 384 and window 100 or 1 some rows of a q tile find none of their
+# keys in its first kv tile (the band begins mid-tile or past it), the
+# case where the wgmma form must not make -inf - -inf
+_WINDOWED = [((1, 2, 700, 256), 1024), ((1, 2, 700, 256), 100),
+             ((1, 2, 700, 256), 1), ((2, 3, 300, 16), 37),
+             *[((1, 2, 1100, dh), w) for dh in (64, 128)
+               for w in (1024, 256, 100, 1)]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("qs,window", _WINDOWED)
+def test_flash_attention_band_matches_plain(cuda, qs, window, dtype):
+    g = torch.Generator().manual_seed(qs[2] + window)
+    q, k, v = (torch.randn(qs, generator=g).to(cuda, dtype)
+               for _ in range(3))
+    variant = kfa.attention_variant(q, k, v)
+    assert variant == ("wgmma" if dtype == torch.bfloat16
+                       and qs[3] in (64, 128) else "simt")
+    w0 = kfa.flash_attention.launches_windowed
+    got = kfa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches_windowed == w0 + 1
+    _close(got, kfa.attention_plain(q, k, v, window=window))
+    if window >= qs[2]:
+        assert torch.equal(got, kfa.flash_attention_cuda(q, k, v, True))
+
+
+def test_flash_attention_band_with_fewer_queries_than_keys(cuda):
+    """Sq < Sk under the top-left mask: every row keeps its own key."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((1, 2, 300, 128), generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((1, 2, 700, 128), generator=g).to(
+        cuda, torch.bfloat16) for _ in range(2))
+    got = kfa.flash_attention_cuda(q, k, v, True, 100)
+    torch.cuda.synchronize()
+    _close(got, kfa.attention_plain(q, k, v, window=100))
+
+
+def test_flash_attention_band_refuses_what_it_cannot_mask(cuda):
+    q = torch.randn((1, 2, 64, 64), device=cuda).bfloat16()
+    k = q[:, :, :32].contiguous()
+    with pytest.raises(ValueError, match="window"):
+        kfa.flash_attention_cuda(q, q, q, False, 16)
+    with pytest.raises(ValueError, match="window"):
+        kfa.flash_attention_cuda(q, k, k, True, 16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head_dim", [16, 64, 256])
+def test_gemma_reduced_ring_decode_matches_the_cpu(cuda, dtype, head_dim):
+    """The reduced Gemma-3 config (window 16; head dim 16 and 256 on
+    ``simt``, 64 on ``wgmma`` in bf16): the cache-free forward of 48
+    tokens (5 of 6 attentions windowed) and a 48-step token loop past the
+    rings' wrap on the card (the kernels) against the same on the CPU
+    (their plain versions): fp32 at 1e-4 x max(1, max|cpu|), bf16 within
+    5% of max|cpu|."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer
+
+    cfg = get_reduced("gemma3-12b").replace(dtype=dtype, head_dim=head_dim)
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
+                                     "cpu")
+    flat = transformer.flatten_params(params)
+    on = {"cpu": params, "cuda": transformer.unflatten_params(
+        {k: t.to(cuda) for k, t in flat.items()}, params)}
+    toks = torch.randint(0, cfg.vocab, (2, 48),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    out = {}
+    w0 = kfa.flash_attention.launches_windowed
+    with torch.no_grad():
+        for dev, p in on.items():
+            logits = [transformer.forward(p, toks.to(dev), cfg)]
+            caches = transformer.init_caches(cfg, 2, 48, device=dev)
+            for t in range(48):
+                lg, caches = transformer.decode_step(
+                    p, toks[:, t:t + 1].to(dev), caches, t, cfg)
+                logits.append(lg)
+            out[dev] = [t.float().cpu() for t in logits]
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches_windowed - w0 == 5
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert bool(torch.isfinite(got).all())
+        top = want.abs().max().item()
+        bar = 1e-4 * max(1.0, top) if dtype == "float32" else 0.05 * top
+        assert (got - want).abs().max().item() <= bar

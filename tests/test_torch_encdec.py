@@ -71,9 +71,9 @@ def plain_counts(monkeypatch):
         counts["matmul"] += 1
         return mm(a, b)
 
-    def count_fa(q, k, v, *, causal=True):
+    def count_fa(q, k, v, *, causal=True, window=0):
         counts["flash_attention"] += 1
-        return fa(q, k, v, causal=causal)
+        return fa(q, k, v, causal=causal, window=window)
 
     monkeypatch.setattr(kmm, "matmul_plain", count_mm)
     monkeypatch.setattr(kfa, "attention_plain", count_fa)
