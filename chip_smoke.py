@@ -76,9 +76,10 @@ nvcc, then:
    in bf16 on the forward and the backward, both on each path of
    phases 18-23, on phase 24's tuned forwards, and kernels 3 and 4 on
    phase 25's served prefill and decode step, on phase 26's train
-   step, kernels 1, 3 and 4 on phase 27's whisper-small, and kernels 3
-   and 4 on phase 28's Gemma-3-12B served and trained) and, last,
-   ``{"ok": true, "device": {...}}``;
+   step, kernels 1, 3 and 4 on phase 27's whisper-small, kernels 3
+   and 4 on phase 28's Gemma-3-12B served and trained, and kernel 3, its
+   batched form and kernel 4 on phase 29's Qwen3-MoE-30B-A3B and
+   Llama-4-Scout served) and, last, ``{"ok": true, "device": {...}}``;
 
 and, before those two lines, the bf16 slice:
 
@@ -273,8 +274,9 @@ g. GQA, qk-norm and head dim 128: Qwen3-32B at its published widths, depth
    gates.
 
 and last, phase 26 trains it through ``repro_torch.launch.steps.
-make_train_step``: StableLM-2-1.6B at its published configuration, nothing
-cut, weights drawn on the card from a seeded CUDA generator, bf16 with fp32
+make_train_step``: StableLM-2-1.6B at its published widths, depth cut to 12
+of its 24 layers (the script's time), weights drawn on the card from a
+seeded CUDA generator, bf16 with fp32
 AdamW masters and moments, per-layer remat, sequence length 4096 (the
 reference's ``train_4k``), global batch 4 in 2 microbatches of 2,
 ``LMDataPipeline(seed=SEED)`` batches, warmup 2 of 100 steps:
@@ -283,8 +285,8 @@ a. the main path, counts 0 just before one step and read just after, by
    part (forward, the remat recompute, backward: the counters read on
    entry to and exit from the backward pass and each ``MatmulFn.backward``):
    the kernel-3 and kernel-4 launches that ``lm_train_launches`` works out
-   (tested on the CPU: 24 x 7 + 8 head chunks a forward, again in the
-   recompute, twice that in the backward, 704 a microbatch; 48
+   (tested on the CPU: 12 x 7 + 8 head chunks a forward, again in the
+   recompute, twice that in the backward, 368 a microbatch; 24
    attentions), every one ``"wgmma"``; no library conv or attention and no
    plain version; the attention backward's own fp32 products (``bmm``,
    ``baddbmm``) and the transposes counted apart;
@@ -313,15 +315,15 @@ f. per backend: step wall ms (median of 5 warm steps), tokens/s, 6ND
 and last, phase 27 runs whisper-small's encoder-decoder
 (``repro_torch.models.encdec``) at its published widths (d_model 768, 12
 heads of 64, d_ff 3072, vocab 51865, encoder_ctx 1500, bf16), depth cut
-from 12 + 12 to 6 + 6 layers (the script's time), weights drawn on the card
+from 12 + 12 to 2 + 2 layers (the script's time), weights drawn on the card
 from a seeded CUDA generator:
 
 a. the frontend on kernel 1 (fp32) turns batch 8 seeded (3000, 80)
    log-mels into (8, 1500, 768) frames: 2 conv2d launches, each call
    against its plain version, the frames against ``backend="torch"``; then
    ``Server`` with ``backend="kernels"``, counts 0 just before and read
-   just after an encode (6 x 7 matmuls, 6 attentions), the 4-token
-   prompt loop, a decode step (6 x 11 + 1 and 12: self and cross
+   just after an encode (2 x 7 matmuls, 2 attentions), the 4-token
+   prompt loop, a decode step (2 x 11 + 1 and 4: self and cross
    attention) and ``Server.generate(frames=)`` (224 tokens, caches of 448
    slots), every launch ``"wgmma"`` but the LM head's (N = 51865 is no
    multiple of 8: ``"simt"``);
@@ -335,7 +337,7 @@ b. every kernel call of an encode and of a decode step against its plain
    8: encode)`` etc.);
 c. ``make_train_step`` at decoder sequence 448, global batch 16 in 2
    microbatches, seeded fp32 frames, fp32 AdamW, remat: phase 26's a-d
-   and f (launches by part: 109 / 108 / 218 matmuls and 18 / 18 / 0
+   and f (launches by part: 37 / 36 / 74 matmuls and 6 / 6 / 0
    attentions a microbatch, the head's 3 products ``"simt"``; the losses
    of 3 steps a backend within 0.1%), with tokens/s and frames/s;
 d. 26e's loop drill at the reduced configuration, zero frames fed;
@@ -345,10 +347,10 @@ e. the same model in fp32 at depth 2 + 2: an encode and each serve step
    max(1, max|torch|).
 
 and last, phase 28 runs Gemma-3-12B's sliding-window attention
-(``attn_local``) at its published configuration (48 layers, d_model 3840, 16
-heads on 8 KV heads of 256, d_ff 15360, vocab 262144 tied, window 1024, 5
-local : 1 global, qk-norm, bf16; nothing cut), weights drawn on the card from
-a seeded CUDA generator:
+(``attn_local``) at its published widths (d_model 3840, 16 heads on 8 KV
+heads of 256, d_ff 15360, vocab 262144 tied, window 1024, 5 local : 1
+global, qk-norm, bf16), served at 12 of its 48 layers (b; the script's
+time), weights drawn on the card from a seeded CUDA generator:
 
 a. kernel 4 with a window against its plain version at phase 10's bf16 bar:
    ``"simt"`` at Gemma's dh 256 (1 x 16 heads x 4096, window 1024, and the
@@ -359,8 +361,8 @@ a. kernel 4 with a window against its plain version at phase 10's bf16 bar:
    fail; the 4096-row calls timed beside their bound and SDPA with the same
    mask (windowed over causal, against the work's ratio);
 b. ``make_prefill_step`` over batch 1 x 4096 tokens, counts 0 just before
-   and read just after: 48 x 7 + 1 matmuls (``"wgmma"``, the tied
-   262144-wide head included) and 48 attentions (``"simt"``), 40 of them
+   and read just after: 12 x 7 + 1 matmuls (``"wgmma"``, the tied
+   262144-wide head included) and 12 attentions (``"simt"``), 10 of them
    windowed; the logits against ``backend="torch"`` (SDPA with the band)
    within 5% of max|torch|, in chunks of rows; ``Server`` at batch 4: a
    16-token prompt through the token loop, a decode step and
@@ -386,6 +388,47 @@ d. training at one pattern period: seq 4096, global batch 2 in 2
    attention shape against SDPA's autograd with the band in place of 26d's
    steps, and 26f's times of the loss and gradients;
 e. the kernels line's entries of b and d.
+
+and last, phase 29 runs the MoE FFN (``repro_torch.models.moe``: top-k
+routing, grouped capacity dispatch, a shared expert), whose experts' three
+products a layer take kernel 3's batched form (``matmul_batched``, the
+experts on the grid's z axis), weights drawn on the card from a seeded CUDA
+generator:
+
+a. the batched form against its plain version (fp32 ``torch.bmm``) at
+   phase 10's bars, ``"wgmma"`` in bf16 and ``"simt"`` in fp32, at
+   Qwen3-MoE's expert shapes at a 1 x 4096 prefill's 320 capacity rows and
+   at decode's 1 ((128, 320, 2048) @ (128, 2048, 768), (128, 320, 768) @
+   (128, 768, 2048), the same at M = 1) and Llama-4-Scout's (16, 320, 5120)
+   @ (16, 5120, 8192), and one K = 36 case that takes ``"simt"`` in bf16;
+   one batched launch counted for each; a zeroed output and one 2% off
+   shown to fail; each timed beside its bound and ``torch.bmm``;
+b. Qwen3-MoE-30B-A3B at its published configuration (48 layers, d_model
+   2048, 32 heads on 4 KV heads of 128, 128 experts top-8 of 768, vocab
+   151936, bf16; nothing cut): ``make_prefill_step`` over 1 x 4096 tokens,
+   counts 0 just before and read just after: 48 x (4 + 1) + 1 two-dimensional
+   matmuls (the 48 fp32 routers on ``"simt"``, the rest ``"wgmma"``), 48 x 3
+   batched and 48 attentions; every layer's routes recorded on both
+   backends (``moe.route``), the (token, layer, slot) routes that differ
+   counted and their share printed; the logits of both backends each on its
+   own routes read (not gated: a swapped route is a jump no arithmetic bar
+   covers), then held within 5% of max|torch| in chunks of rows against the
+   torch backend run on the kernels run's routes (``route(experts=)``);
+   ``Server`` at batch 4: a 16-token prompt in one parallel prefill, a
+   decode step and ``Server.generate`` (16 tokens), as many launches a
+   serve step; every kernel call of the prefill and of a decode step
+   against its plain version as it is made; 8 teacher-forced steps held the
+   same way (tokens and routes of the kernels run fed to the torch one);
+   per backend prefill ms, decode ms a step, tokens/s, busy shares and peak
+   memory, and each kernel shape beside its bound and library call;
+c. Llama-4-Scout at its published widths (d_model 5120, 40 heads on 8 KV
+   heads of 128, 16 experts top-1 of 8192 and a shared expert of 8192, vocab
+   202048), depth cut to 4 of its 48 layers (107.8 B parameters need three
+   cards): b's gates, a 1 x 4096 prefill through ``Server`` and 8
+   teacher-forced steps at batch 1, 4 x (4 + 1 + 3) + 1 two-dimensional and
+   4 x 3 batched launches;
+d. the kernels line's entries of b and c: kernel 3 (``matmul``), its
+   batched form (``matmul_batched``) and kernel 4.
 
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
@@ -509,11 +552,13 @@ SERVE_LM_FP32_LAYERS = 2
 # published widths, depth cut to 2 of 64 layers (5.1 GB of bf16 weights),
 # one prefill and 4 decode steps
 GQA_ARCH, GQA_NAME, GQA_LAYERS, GQA_DECODE = "qwen3-32b", "Qwen3-32B", 2, 4
-# phase 26: StableLM-2-1.6B trained at its published configuration (bf16,
-# nothing cut) through make_train_step: seq 4096 (the reference's train_4k
+# phase 26: StableLM-2-1.6B trained at its published widths (bf16), depth cut
+# from 24 to TRAIN_LM_LAYERS layers (to keep the whole script within its
+# time), through make_train_step: seq 4096 (the reference's train_4k
 # length), global batch 4 in 2 microbatches of 2, fp32 AdamW masters and
 # moments, per-layer remat, LMDataPipeline(seed=SEED) batches, warmup 2 of
 # 100 steps; 3 steps a backend (26d) and the median of 5 warm ones (26f)
+TRAIN_LM_LAYERS = 12
 TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_MICRO = 4, 4096, 2
 TRAIN_LM_WARMUP, TRAIN_LM_TOTAL = 2, 100
 TRAIN_LM_STEPS, TRAIN_LM_TIMED = 3, 5
@@ -533,7 +578,7 @@ DRILL_LM_STEPS, DRILL_LM_EVERY, DRILL_LM_FAIL, DRILL_LM_SEQ = 4, 2, 3, 1024
 # backend's through the encoder output, the prompt loop and 8 teacher-forced
 # decode steps; decode ms from a loop of 32 steps
 WH_ARCH = "whisper-small"
-WH_LAYERS = 6
+WH_LAYERS = 2
 WH_BATCH, WH_PROMPT, WH_GEN, WH_CTX = 8, 4, 224, 448
 WH_FORCED, WH_LOOP = 8, 32
 # 27c: decoder sequence 448, global batch 16 in 2 microbatches, seeded fp32
@@ -544,21 +589,21 @@ WH_LOSS_RTOL = 1e-3
 # 27e: fp32 at depth 2 + 2 (of 12 + 12), the prompt loop and 4 decode steps
 WH_FP32_LAYERS, WH_FP32_DECODE = 2, 4
 # phase 28: Gemma-3-12B (src/repro_torch/configs/gemma3_12b.py) at its
-# published configuration (48 layers, d_model 3840, 16 heads on 8 KV heads of
-# 256, d_ff 15360, vocab 262144 tied, window 1024, 5 local : 1 global,
-# qk-norm, bf16; nothing cut), weights drawn on the card from a seeded CUDA
-# generator.  28a: kernel 4's band against its plain version, (q shape,
+# published widths (d_model 3840, 16 heads on 8 KV heads of 256, d_ff 15360,
+# vocab 262144 tied, window 1024, 5 local : 1 global, qk-norm, bf16), served
+# at GM_LAYERS of its 48 layers (to keep the whole script within its time),
+# weights drawn on the card from a seeded CUDA generator.  28a: kernel 4's band against its plain version, (q shape,
 # window) in bf16: simt at Gemma's dh 256, wgmma at dh 128 and 64 with
 # windows of 1024, 100 (no tile multiple) and 1, and at 700 rows with window
 # 200, where the rows of a q tile begin their band mid-tile or past its first
 # kv tile
-GM_ARCH, GM_NAME = "gemma3-12b", "Gemma-3-12B"
+GM_ARCH, GM_NAME, GM_LAYERS = "gemma3-12b", "Gemma-3-12B", 12
 GM_BANDS = [((1, 16, 4096, 256), 1024), ((1, 16, 4096, 256), 0),
             *[((1, 16, 4096, dh), w) for dh in (128, 64)
               for w in (1024, 100, 1, 0)],
             ((2, 4, 700, 128), 200), ((2, 4, 700, 64), 200)]
 # 28b: make_prefill_step over batch 1 x 4096 tokens (the cache-free forward,
-# 40 windowed attentions); Server.generate at batch 4, a 16-token prompt
+# 10 windowed attentions at 12 layers); Server.generate at batch 4, a 16-token prompt
 # through the token loop (parallel_prefill_ok is false for a windowed
 # config), 16 generated tokens, 8 teacher-forced steps held to the torch
 # backend
@@ -572,6 +617,32 @@ GM_RING_BATCH, GM_RING_PROMPT, GM_RING_FORCED = 2, 1040, 8
 # 28d: training at one pattern period: seq 4096, global batch 2 in 2
 # microbatches, phase 26's schedule; 3 warm runs timed
 GM_TRAIN_BATCH, GM_TRAIN_MICRO, GM_TRAIN_TIMED = 2, 2, 3
+# phase 29: the MoE FFN (src/repro_torch/models/moe.py).  29a: kernel 3's
+# batched form against its plain version, (E, M, K, N) in bf16 ("wgmma") and
+# fp32 ("simt"): Qwen3-MoE's expert products at a 1 x 4096 prefill's 320
+# capacity rows (8 groups of 512 tokens, 40 slots an expert) and at a
+# batch-4 decode's 1, Llama-4-Scout's at E = 16; and one case whose K = 36
+# takes "simt" in bf16
+MOE_BATCHED = [(128, 320, 2048, 768), (128, 320, 768, 2048),
+               (128, 1, 2048, 768), (128, 1, 768, 2048),
+               (16, 320, 5120, 8192)]
+MOE_UNALIGNED = (16, 40, 36, 40)
+# 29b: Qwen3-MoE-30B-A3B (src/repro_torch/configs/qwen3_moe_30b_a3b.py) at
+# its published configuration (48 layers, d_model 2048, 32 heads on 4 KV
+# heads of 128, 128 experts top-8 of 768, vocab 151936, bf16; nothing cut):
+# make_prefill_step over 1 x MOE_SEQ tokens, the routes of both backends
+# layer by layer, Server at batch 4 (a 16-token prompt in one parallel
+# prefill, 16 tokens), 8 teacher-forced steps
+MOE_ARCH, MOE_NAME = "qwen3-moe-30b-a3b", "Qwen3-MoE-30B-A3B"
+MOE_SEQ = 4096
+MOE_BATCH, MOE_PROMPT, MOE_GEN, MOE_FORCED = 4, 16, 16, 8
+# 29c: Llama-4-Scout (src/repro_torch/configs/llama4_scout_17b_a16e.py) at
+# its published widths (d_model 5120, 40 heads on 8 KV heads of 128, 16
+# experts top-1 of 8192 and a shared expert of 8192, vocab 202048), depth
+# cut from 48 to SCOUT_LAYERS layers (107.8 B parameters need three cards):
+# a 1 x MOE_SEQ prefill and 8 teacher-forced decode steps
+SCOUT_ARCH, SCOUT_NAME, SCOUT_LAYERS = ("llama4-scout-17b-a16e",
+                                        "Llama-4-Scout-17B-16E", 4)
 # phase 3's edge cases (and phase 14's, in bf16)
 DENSE_EDGES = [  # label, x shape, w shape, stride, pads
     ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
@@ -673,6 +744,9 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel's pallas_call)
                           "src/repro/kernels/transposed_conv.py:235"),
     "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                "src/repro/kernels/matmul.py:51"),
+    # kernel 3's batched form (the MoE experts; counted in matmul's launches)
+    "matmul_batched": ("src/repro_torch/kernels/csrc/matmul.cu",
+                       "src/repro/kernels/matmul.py:51"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:82"),
 }
@@ -683,12 +757,32 @@ def layer_products(cfg) -> int:
     return 4 + (3 if cfg.d_ff > 0 else 0)
 
 
+def ffn_products(cfg, pattern_idx: int) -> tuple[int, int]:
+    """(2-D, batched) products of the FFN at a pattern position, whose kind
+    is the reference's (``transformer._ffn_kind``): a MoE FFN's router and
+    its shared expert's three, and kernel 3's batched form for the
+    experts' three; a dense MLP's three; none."""
+    m = cfg.moe
+    if m is not None and (pattern_idx + 1) % m.every_n_layers == 0:
+        return 1 + (3 if m.shared_expert_ff else 0), 3
+    return (3 if cfg.d_ff > 0 else 0), 0
+
+
+def moe_layers(cfg) -> int:
+    """The decoder layers with a MoE FFN."""
+    return cfg.repeat * sum(ffn_products(cfg, pi)[1] > 0
+                            for pi in range(len(cfg.block_pattern)))
+
+
 def decoder_launches(cfg) -> tuple[int, int]:
-    """(products, attentions) of the decoder layers: a decoder-only
-    layer's products and 1 attention; an encoder-decoder's decoder layer
-    adds its cross attention's 4 products and 1 attention."""
+    """(products, attentions) of the decoder layers: each layer's q, k, v
+    and o, its FFN's products (``ffn_products``, the batched ones
+    included) and 1 attention; an encoder-decoder's decoder layer adds its
+    cross attention's 4 products and 1 attention."""
     cross = 1 if cfg.encoder_layers else 0
-    return ((layer_products(cfg) + 4 * cross) * cfg.num_layers,
+    ffn = sum(sum(ffn_products(cfg, pi))
+              for pi in range(len(cfg.block_pattern)))
+    return ((4 + 4 * cross) * cfg.num_layers + cfg.repeat * ffn,
             (1 + cross) * cfg.num_layers)
 
 
@@ -703,10 +797,17 @@ def encode_launches(cfg) -> dict:
 def lm_step_launches(cfg) -> dict:
     """The launches of one LM serve step, prefill or decode: each decoder
     layer's products and attentions (``decoder_launches``), and the LM
-    head's matmul."""
+    head's matmul.  ``matmul`` counts kernel 3's batched launches too, as
+    its counter does; ``batched_launches`` gives them apart."""
     products, attentions = decoder_launches(cfg)
     return {"conv2d": 0, "transposed_conv2d": 0, "matmul": products + 1,
             "flash_attention": attentions}
+
+
+def batched_launches(cfg) -> int:
+    """Kernel 3's batched launches of one LM serve step or forward: three
+    a MoE layer (the experts' gate, up and down products)."""
+    return 3 * moe_layers(cfg)
 
 
 def windowed_launches(cfg) -> int:
@@ -986,6 +1087,7 @@ class Smoke:
             for variant in by_variant:
                 by_variant[variant] = 0
         self.counters["flash_attention"].launches_windowed = 0
+        self.counters["matmul"].launches_batched = 0
 
     def read_counts(self):
         return {name: w.launches for name, w in self.counters.items()}
@@ -1062,7 +1164,8 @@ class Smoke:
         for phase, run in (("23", self.run_serving), ("24", self.run_tuning),
                            ("25", self.run_lm_serving),
                            ("26", self.run_lm_training),
-                           ("27", self.run_whisper), ("28", self.run_gemma)):
+                           ("27", self.run_whisper), ("28", self.run_gemma),
+                           ("29", self.run_moe)):
             kernels_line["kernels"] += timed(phase, run)
             torch.cuda.empty_cache()
         log("seconds by phase: " + ", ".join(
@@ -3320,9 +3423,22 @@ class Smoke:
 
     def lm_call(self, name, args):
         """(kernel, plain version, library yardstick, flops, bytes,
-        geometry, variant) of one recorded StableLM-width call."""
+        geometry, variant) of one recorded call of kernel 3 (``"matmul"``;
+        ``"matmul_batched"``, its batched form, beside ``torch.bmm``) or
+        kernel 4 (``"flash_attention"``)."""
         torch = self.torch
         kmm, kfa = self.kmm, self.kfa
+        if name == "matmul_batched":
+            a, b = args
+            e, m, k = a.shape
+            n = b.shape[2]
+            return (lambda: kmm.matmul_batched_cuda(a, b),
+                    lambda: kmm.matmul_batched_plain(a, b),
+                    lambda: torch.bmm(a, b),
+                    2 * e * m * n * k,
+                    (a.numel() + b.numel() + e * m * n) * a.element_size(),
+                    f"({e}, {m}, {k}) @ ({e}, {k}, {n})",
+                    kmm.matmul_variant(a, b))
         if name == "matmul":
             a, b = args
             m, k = a.shape
@@ -4314,40 +4430,60 @@ class Smoke:
         rep.setdefault("logits", {})[cfg.name] = rows
         del got, want
 
-    def logits_reading(self, what, got, want):
+    def logits_reading(self, what, got, want, swapped=None, gate=True):
         """Logits (rows, V) of the kernels backend against the torch
         backend's, ``LOGIT_CHUNK`` rows at a time in fp32 (no fp32 copy of the
         whole): max |err| <= 5% of max|torch| (DESIGN.md §12), and the
         greedy tokens equal wherever the torch top-2 margin exceeds that
-        bar (a 5% bar passes a 2% error).  Returns the reading."""
+        bar (a 5% bar passes a 2% error).  ``swapped`` (a MoE model's rows
+        whose routes differ between the backends, ``route_agreement``)
+        marks rows read apart: a swapped route sends a token to another
+        expert, a jump no bar of the arithmetic covers.  ``gate=False``
+        reads without raising (two MoE runs each on its own routes).
+        Returns the reading."""
+        torch = self.torch
         spans = [(i, i + LOGIT_CHUNK)
                  for i in range(0, want.shape[0], LOGIT_CHUNK)]
         top = max(want[a:b].float().abs().max().item() for a, b in spans)
         bar = BF16_FWD_RTOL * top
-        err = gtop = 0.0
-        agree = gated = bad = 0
+        err = gtop = err_sw = 0.0
+        agree = gated = bad = past = 0
         for a, b in spans:
             g, w = got[a:b].float(), want[a:b].float()
-            err = max(err, (g - w).abs().max().item())
+            row_err = (g - w).abs().amax(-1)
+            apart = (swapped[a:b] if swapped is not None
+                     else torch.zeros_like(row_err, dtype=torch.bool))
+            err = max(err, row_err[~apart].max().item() if (~apart).any()
+                      else 0.0)
+            if apart.any():
+                err_sw = max(err_sw, row_err[apart].max().item())
+                past += int((row_err[apart] > bar).sum())
             gtop = max(gtop, g.abs().max().item())
             top2 = w.topk(2, dim=-1).values
-            gate = (top2[:, 0] - top2[:, 1]) > bar
+            margin = ((top2[:, 0] - top2[:, 1]) > bar) & ~apart
             same = g.argmax(-1) == w.argmax(-1)
             agree += int(same.sum())
-            gated += int(gate.sum())
-            bad += int((gate & ~same).sum())
-            del g, w, top2
+            gated += int(margin.sum())
+            bad += int((margin & ~same).sum())
+            del g, w, top2, row_err
+        n_apart = 0 if swapped is None else int(swapped.sum())
         row = {"what": what, "max_abs_err": err, "bar": bar,
                "err_over_bar": err / bar, "positions": want.shape[0],
                "agree": agree, "gated": gated, "gated_disagree": bad,
                "zeroed_over_bar": top / bar,
-               "off2_over_bar": 0.02 * gtop / bar}
-        log(f"  {what}: max |err| {err:.4f} = {err / bar:.3f} x the bar "
+               "off2_over_bar": 0.02 * gtop / bar,
+               "rows_apart": n_apart, "apart_max_abs_err": err_sw,
+               "apart_past_bar": past}
+        apart = (f"; {n_apart} rows of tokens with a swapped route set "
+                 f"apart: max |err| {err_sw:.4f} = {err_sw / bar:.3f} x, "
+                 f"{past} past the bar" if swapped is not None else "")
+        log(f"  {what}: {want.shape[0] - n_apart} rows held: max |err| "
+            f"{err:.4f} = {err / bar:.3f} x the bar "
             f"({bar:.4f}); greedy tokens agree at {agree} of "
             f"{want.shape[0]}, {gated} with a margin over the bar, {bad} of "
             f"those differ; a zeroed output would read {top / bar:.3g} x, "
-            f"one 2% off {row['off2_over_bar']:.3g} x")
-        if err > bar or bad or top / bar <= 1.0:
+            f"one 2% off {row['off2_over_bar']:.3g} x{apart}")
+        if gate and (err > bar or bad or top / bar <= 1.0):
             raise RuntimeError(f"{what}: kernels logits off the torch "
                                f"backend's: {row}")
         return row
@@ -4460,8 +4596,8 @@ class Smoke:
         entries, rows = [], []
         with torch.no_grad():
             for what in dict.fromkeys(w for w, _, _ in groups):
-                per = {n: dict.fromkeys(keys, 0.0)
-                       for n in ("matmul", "flash_attention")}
+                per = {n: dict.fromkeys(keys, 0.0) for n in dict.fromkeys(
+                    n for w, n, _ in groups if w == what)}
                 for (w, name, geo), (args, n) in groups.items():
                     if w != what:
                         continue
@@ -4616,12 +4752,14 @@ class Smoke:
         from repro_torch.configs import get_config
         from repro_torch.data import LMDataPipeline
 
-        cfg = get_config(LM_ARCH)
-        label = f"{LM_NAME} train step"
-        log(f"phase 26: train {cfg.name} at its published configuration "
-            f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} "
-            f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
-            f"{cfg.dtype}; nothing cut) through repro_torch.launch.steps."
+        full = get_config(LM_ARCH)
+        cfg = full.replace(num_layers=TRAIN_LM_LAYERS)
+        label = f"{LM_NAME} ({cfg.num_layers} layers) train step"
+        log(f"phase 26: train {cfg.name} at its published widths (d "
+            f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}), depth cut from "
+            f"{full.num_layers} to {cfg.num_layers} layers, through "
+            f"repro_torch.launch.steps."
             f"make_train_step: seq {TRAIN_LM_SEQ}, global batch "
             f"{TRAIN_LM_BATCH} in {TRAIN_LM_MICRO} microbatches, fp32 AdamW "
             f"masters and moments, per-layer remat ({cfg.remat}), "
@@ -5720,13 +5858,14 @@ class Smoke:
         torch = self.torch
         from repro_torch.configs import get_config
 
-        cfg = get_config(GM_ARCH)
-        log(f"phase 28: {cfg.name} at its published configuration "
-            f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} "
-            f"heads on {cfg.kv_heads} KV heads x {cfg.head_dim}, d_ff "
-            f"{cfg.d_ff}, vocab {cfg.vocab} tied, window {cfg.window}, "
-            f"pattern {'/'.join(cfg.block_pattern)}, qk-norm, {cfg.dtype}; "
-            f"nothing cut)")
+        full = get_config(GM_ARCH)
+        cfg = full.replace(num_layers=GM_LAYERS)
+        log(f"phase 28: {cfg.name} at its published widths (d "
+            f"{cfg.d_model}, {cfg.num_heads} heads on {cfg.kv_heads} KV heads "
+            f"x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} tied, "
+            f"window {cfg.window}, pattern {'/'.join(cfg.block_pattern)}, "
+            f"qk-norm, {cfg.dtype}), served at {cfg.num_layers} of its "
+            f"{full.num_layers} layers")
         rep = self.report["gemma"] = {}
         self.gm_band(rep)
         params = self.lm_params(cfg, SEED + 32, rep)
@@ -5806,20 +5945,26 @@ class Smoke:
         rep["band"] = {"timed": rows, "zeroed_over_bar": zero,
                        "off2_over_bar": off}
 
-    def gm_calls(self, runs, label, rep):
+    def gm_calls(self, runs, label, rep, phase="28b", expect=None):
         """Every kernel-3 and kernel-4 call of each of ``runs`` ({what:
         fn}) held against its plain version as it is made, at phase 10's
-        bf16 bar, each matmul on ``"wgmma"`` and each attention (dh 256)
-        on ``"simt"``, with what a zeroed output and one 2% off would read.
+        bf16 bar, each on the variant ``expect(name, args)`` names (by
+        default each matmul on ``"wgmma"`` and each attention, Gemma's dh
+        256, on ``"simt"``), with what a zeroed output and one 2% off would
+        read.  Kernel 3's batched form is recorded as ``"matmul_batched"``.
         No call's output is kept (a 48-layer prefill's would fill the
         card).  Returns one call's arguments and the call count per (what,
         kernel, geometry), as :meth:`lm_serve_calls`."""
         torch = self.torch
         kmm, kfa = self.kmm, self.kfa
-        log(f"phase 28b: {label}: every kernel call of "
+        if expect is None:
+            def expect(name, args):
+                return "simt" if name == "flash_attention" else "wgmma"
+        log(f"phase {phase}: {label}: every kernel call of "
             + " and ".join(f"one {what}" for what in runs)
             + " vs its plain version, checked as it is made")
-        orig = (kmm.matmul_cuda, kfa.flash_attention_cuda)
+        orig = (kmm.matmul_cuda, kmm.matmul_batched_cuda,
+                kfa.flash_attention_cuda)
         groups, caught, state = {}, [], {"what": None, "n": 0}
 
         def checked(name, fn):
@@ -5827,7 +5972,7 @@ class Smoke:
                 out = fn(*args)
                 kern_v = self.lm_call(name, args)
                 entry = f"{name} ({label}: {state['what']})"
-                want_v = "wgmma" if name == "matmul" else "simt"
+                want_v = expect(name, args)
                 if kern_v[6] != want_v:
                     raise RuntimeError(f"{entry} call {state['n']}: "
                                        f"{kern_v[6]}, not {want_v}")
@@ -5844,7 +5989,8 @@ class Smoke:
             return wrapper
 
         kmm.matmul_cuda = checked("matmul", orig[0])
-        kfa.flash_attention_cuda = checked("flash_attention", orig[1])
+        kmm.matmul_batched_cuda = checked("matmul_batched", orig[1])
+        kfa.flash_attention_cuda = checked("flash_attention", orig[2])
         try:
             with torch.no_grad():
                 for what, fn in runs.items():
@@ -5857,7 +6003,8 @@ class Smoke:
                     log(f"  {what}: {state['n']} calls ok, worst error "
                         f"{worst:.3f} x its bar")
         finally:
-            kmm.matmul_cuda, kfa.flash_attention_cuda = orig
+            (kmm.matmul_cuda, kmm.matmul_batched_cuda,
+             kfa.flash_attention_cuda) = orig
         zero, off = (min(c[j] for c in caught) for j in range(2))
         log(f"  a zeroed output would reach >= {zero:.3g} x its bar, one 2% "
             f"off >= {off:.3g} x")
@@ -5873,7 +6020,7 @@ class Smoke:
         """28b: the main path, counts 0 just before and read just after a
         ``make_prefill_step`` over 1 x GM_SEQ tokens (each layer's 7
         matmuls and 1 attention and the head: every matmul ``"wgmma"``,
-        every attention ``"simt"``, the 40 local layers' with the window),
+        every attention ``"simt"``, the local layers' with the window),
         the prompt loop, a decode step and ``Server.generate`` (no window:
         the rings hold only the band); the prefill's logits against the
         torch backend's; every kernel call of the prefill and of a decode
@@ -5882,7 +6029,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.launch import serve, steps
 
-        label = f"{GM_NAME} served"
+        label = f"{GM_NAME} ({cfg.num_layers} layers) served"
         step = lm_step_launches(cfg)
         banded = windowed_launches(cfg)
         log(f"phase 28b: {label}: make_prefill_step over 1 x {GM_SEQ} tokens "
@@ -5955,18 +6102,20 @@ class Smoke:
                                    groups, launches, label, rep)
 
     def gm_serve_times(self, cfg, params, servers, prefill, x, prompts,
-                       groups, launches, label, rep):
+                       groups, launches, label, rep, gen=GM_GEN,
+                       phase="28b"):
         """28b: per backend, the prefill's wall ms (``make_prefill_step``
-        over 1 x GM_SEQ, median of 3), decode ms a step (a loop of
-        GM_GEN - 1 steps after the prompt loop, median of 3) and tokens/s,
-        the busy share of each (``torch.profiler``), peak memory over
+        over ``x``, median of 3), decode ms a step (a loop of ``gen`` - 1
+        steps after the prompt's prefill, median of 3) and tokens/s, the
+        busy share of each (``torch.profiler``), peak memory over
         ``Server.generate``; per kernel and shape, the device ms of one
         prefill and one decode step beside bound and library
         (``serve_shapes``: kernel 4's windowed and causal launches beside
         SDPA with the same mask)."""
         torch = self.torch
-        log(f"phase 28b: {label} times")
+        log(f"phase {phase}: {label} times")
         times = rep["times"] = {}
+        seq, batch = x.shape[1], prompts.shape[0]
         for backend, srv in servers.items():
             with torch.no_grad():
                 prefill_ms = self.wall_ms(
@@ -5979,10 +6128,10 @@ class Smoke:
 
                 def decode_loop():
                     t = tok
-                    for i in range(GM_GEN - 1):
+                    for i in range(gen - 1):
                         t = step(t, pos + i)
 
-                step_ms = self.wall_ms(decode_loop, reps=3) / (GM_GEN - 1)
+                step_ms = self.wall_ms(decode_loop, reps=3) / (gen - 1)
                 prof = {"prefill": self.profile_device(
                             lambda: prefill[backend](params, {"tokens": x}),
                             f"{backend} prefill", prefill_ms),
@@ -5991,11 +6140,11 @@ class Smoke:
             del caches
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            srv.generate(prompts, GM_GEN)
+            srv.generate(prompts, gen)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             row = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
-                   "prefill_tokens_per_s": GM_SEQ * 1e3 / prefill_ms,
-                   "tokens_per_s": GM_BATCH * 1e3 / step_ms,
+                   "prefill_tokens_per_s": seq * 1e3 / prefill_ms,
+                   "tokens_per_s": batch * 1e3 / step_ms,
                    "peak_gib": peak}
             for what, p in prof.items():
                 key = what.replace(" ", "_")
@@ -6009,9 +6158,9 @@ class Smoke:
             log(f"  {backend}: prefill {prefill_ms:.3f} ms "
                 f"({row['prefill_tokens_per_s']:.1f} tokens/s), decode "
                 f"{step_ms:.3f} ms a step = {row['tokens_per_s']:.1f} "
-                f"tokens/s; busy: prefill {busy['prefill']}, decode step "
-                f"{busy['decode_step']}; peak memory {peak:.2f} GiB "
-                f"(weights included)")
+                f"tokens/s at batch {batch}; busy: prefill "
+                f"{busy['prefill']}, decode step {busy['decode_step']}; "
+                f"peak memory {peak:.2f} GiB (weights included)")
         return self.serve_shapes(groups, launches, label, rep)
 
     def gm_ring(self, cfg, params, rep):
@@ -6184,6 +6333,319 @@ class Smoke:
         if row["out_err_over_bar"] > 1.0 or max(rel) > BF16_GRAD_RTOL:
             raise RuntimeError(f"FlashAttentionFn vs SDPA: {row}")
         del got, want
+
+    # -------------------------------------------------------------- phase 29
+    def run_moe(self):
+        """Phase 29: the MoE FFN on the card (module docstring, 29a-d).
+        Returns its entries of the kernels line."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+
+        rep = self.report["moe"] = {}
+        self.moe_batched(rep)
+        cfg = get_config(MOE_ARCH)
+        m = cfg.moe
+        log(f"phase 29b: {cfg.name} at its published configuration "
+            f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} "
+            f"heads on {cfg.kv_heads} KV heads x {cfg.head_dim}, "
+            f"{m.num_experts} experts top-{m.top_k} of {m.d_ff_expert}, "
+            f"vocab {cfg.vocab}, {cfg.dtype}; nothing cut)")
+        params = self.lm_params(cfg, SEED + 40, rep)
+        entries = self.moe_serve(cfg, params, MOE_NAME, "29b",
+                                 rep.setdefault(MOE_NAME, {}), batch=MOE_BATCH,
+                                 prompt=MOE_PROMPT)
+        del params
+        torch.cuda.empty_cache()
+        full = get_config(SCOUT_ARCH)
+        cfg = full.replace(num_layers=SCOUT_LAYERS)
+        m = cfg.moe
+        log(f"phase 29c: {cfg.name} at its published widths (d "
+            f"{cfg.d_model}, {cfg.num_heads} heads on {cfg.kv_heads} KV heads "
+            f"x {cfg.head_dim}, {m.num_experts} experts top-{m.top_k} of "
+            f"{m.d_ff_expert} and a shared expert of {m.shared_expert_ff}, "
+            f"vocab {cfg.vocab}, {cfg.dtype}), depth cut from "
+            f"{full.num_layers} to {cfg.num_layers} layers")
+        params = self.lm_params(cfg, SEED + 41, rep)
+        entries += self.moe_serve(
+            cfg, params, f"{SCOUT_NAME} ({cfg.num_layers} layers)", "29c",
+            rep.setdefault(SCOUT_NAME, {}), batch=1, prompt=MOE_SEQ)
+        del params
+        torch.cuda.empty_cache()
+        return entries
+
+    def moe_batched(self, rep):
+        """29a: kernel 3's batched form against its plain version at each
+        ``MOE_BATCHED`` shape in bf16 (``"wgmma"``) and fp32 (``"simt"``),
+        and ``MOE_UNALIGNED`` in bf16 (``"simt"``: K = 36), one batched
+        launch counted for each; a zeroed output and one 2% off shown to
+        fail the bar; each timed beside its bound and ``torch.bmm``."""
+        torch = self.torch
+        counter = self.counters["matmul"]
+        log("phase 29a: kernel 3's batched form vs its plain version (fp32: "
+            f"{TOL} x max(1, max|plain|); bf16, each element 2^-7 |plain| + "
+            f"{TOL} x max(1, max|plain|)), timed beside its bound and "
+            f"torch.bmm")
+        g = torch.Generator().manual_seed(SEED + 29)
+        cases = [(s, dt) for s in MOE_BATCHED
+                 for dt in (torch.bfloat16, torch.float32)]
+        cases.append((MOE_UNALIGNED, torch.bfloat16))
+        caught, rows = [], []
+        for (e, m, k, n), dt in cases:
+            a = torch.randn((e, m, k), generator=g).to(self.dev, dt)
+            b = (torch.randn((e, k, n), generator=g) * k ** -0.5).to(
+                self.dev, dt)
+            kern, plain, lib, flops, nbytes, geo, variant = self.lm_call(
+                "matmul_batched", (a, b))
+            want_v = ("wgmma" if dt == torch.bfloat16 and k % 8 == 0
+                      and n % 8 == 0 else "simt")
+            before = counter.launches_batched
+            out = kern()
+            torch.cuda.synchronize()
+            if variant != want_v or counter.launches_batched != before + 1:
+                raise RuntimeError(f"batched {geo} {dt}: variant {variant}, "
+                                   f"{counter.launches_batched - before} "
+                                   f"batched launches")
+            want = plain()
+            self.compare(f"batched {geo} {dt} [{variant}]", "matmul_batched",
+                         out, want)
+            caught.append(self.sensitivity(out, want, 1.0, TOL))
+            del out, want
+            peak = (PEAK_FP32_FLOPS if dt == torch.float32
+                    else PEAK_BF16_FLOPS)
+            r = {"geometry": geo, "dtype": str(dt), "variant": variant,
+                 "flops": flops, "bytes": nbytes, "ms": self.device_ms(kern),
+                 "plain_ms": self.device_ms(plain, reps=3),
+                 "library_ms": self.device_ms(lib),
+                 "ops_ms": 1e3 * flops / peak,
+                 "bytes_ms": 1e3 * nbytes / PEAK_BYTES_S}
+            r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+            rows.append(r)
+            log(f"    {r['ms']:.4f} ms, {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+                f"bound {r['bound_ms']:.4f} ms ("
+                + ("ops" if r["ops_ms"] >= r["bytes_ms"] else "bytes")
+                + f"), {r['ms'] / r['bound_ms']:.1f} x bound; torch.bmm "
+                f"{r['library_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms")
+            del a, b
+        zero, off = (min(c[j] for c in caught) for j in range(2))
+        log(f"  a zeroed output would reach >= {zero:.3g} x its bar, one 2% "
+            f"off >= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError("29a: a bar would miss a zeroed or a 2%-off "
+                               "kernel output")
+        rep["batched"] = {"timed": rows, "zeroed_over_bar": zero,
+                          "off2_over_bar": off}
+
+    def check_moe_launches(self, what, cfg, times=1):
+        """``check_lm_launches`` for ``times`` serve steps (or forwards) of
+        a MoE config: every matmul ``"wgmma"`` but the fp32 routers'
+        ``"simt"``, every attention ``"wgmma"``, and kernel 3's batched
+        launches ``batched_launches`` apart.  Returns {kernel: launches},
+        the batched ones as ``matmul_batched`` and not in ``matmul``."""
+        step = {k: v * times for k, v in lm_step_launches(cfg).items()}
+        routers = moe_layers(cfg) * times
+        counts = self.check_lm_launches(what, step, "wgmma", simt=routers)
+        batched = self.counters["matmul"].launches_batched
+        log(f"  {what}: {batched} of the matmul launches batched, "
+            f"{routers} routers on \"simt\"")
+        if batched != batched_launches(cfg) * times:
+            raise RuntimeError(f"{what}: {batched} batched launches, not "
+                               f"{batched_launches(cfg) * times}")
+        return {"matmul": counts["matmul"] - batched,
+                "matmul_batched": batched,
+                "flash_attention": counts["flash_attention"]}
+
+    def moe_serve(self, cfg, params, name, phase, rep, *, batch, prompt):
+        """29b-c: the main path, counts 0 just before and read just after a
+        ``make_prefill_step`` over 1 x MOE_SEQ tokens, a ``Server``
+        prefill of ``batch`` x ``prompt`` tokens in one call, a decode step
+        and ``Server.generate`` (MOE_GEN tokens); the routes of both
+        backends (``moe_routes``); the prefill's logits against the torch
+        backend's; every kernel call of the prefill and of a decode step
+        against its plain version; MOE_FORCED teacher-forced steps against
+        the torch backend; times.  Returns the kernels line's entries."""
+        torch = self.torch
+        from repro_torch.launch import serve, steps
+
+        label = f"{name} served"
+        step = lm_step_launches(cfg)
+        log(f"phase {phase}: {label}: make_prefill_step over 1 x {MOE_SEQ} "
+            f"tokens ({step['matmul']} matmul launches, "
+            f"{batched_launches(cfg)} of them batched and {moe_layers(cfg)} "
+            f"routers, and {step['flash_attention']} attentions), then "
+            f"Server: batch {batch}, a {prompt}-token prompt in one "
+            f"parallel prefill, {MOE_GEN} tokens")
+        x = torch.as_tensor(np.random.default_rng(SEED + 40).integers(
+            0, cfg.vocab, (1, MOE_SEQ), dtype=np.int32), device=self.dev)
+        prompts = np.random.default_rng(SEED + 41).integers(
+            0, cfg.vocab, (batch, prompt), dtype=np.int32)
+        prefill = {b: steps.make_prefill_step(cfg, b)
+                   for b in ("kernels", "torch")}
+        servers = {b: serve.Server(cfg, max_len=prompt + MOE_GEN,
+                                   backend=b, params=params)
+                   for b in ("kernels", "torch")}
+        srv = servers["kernels"]
+        launches, seen = {}, {"kernels": [], "torch": []}
+        with torch.no_grad():
+            self.reset_counts()
+            with self.moe_recording(seen["kernels"]):
+                logits = prefill["kernels"](params, {"tokens": x})
+            torch.cuda.synchronize()
+            launches["prefill"] = self.check_moe_launches(
+                f"prefill (1 x {MOE_SEQ})", cfg)
+            control = []
+            with self.moe_recording(seen["torch"], control):
+                ref = prefill["torch"](params, {"tokens": x})
+            hit, rep["routes"] = self.route_agreement(
+                f"{phase}: prefill routes", seen["kernels"], seen["torch"],
+                MOE_SEQ, control)
+            rep["prefill_logits_free"] = self.logits_reading(
+                f"prefill logits, each backend on its own routes (read, not "
+                f"gated)", logits[0], ref[0], hit, gate=False)
+            del ref
+            with self.moe_recording([], force=[r[0] for r in seen["kernels"]]):
+                ref = prefill["torch"](params, {"tokens": x})
+            rep["prefill_logits"] = self.logits_reading(
+                f"prefill logits (1 x {MOE_SEQ} x {cfg.vocab}), kernels vs "
+                f"torch on the kernels' routes", logits[0], ref[0])
+            del logits, ref, seen, control
+            torch.cuda.empty_cache()
+            self.reset_counts()
+            tok, caches, pos = srv.prefill(prompts)
+            torch.cuda.synchronize()
+            self.check_moe_launches(f"Server prefill ({batch} x {prompt})",
+                                    cfg)
+            self.reset_counts()
+            srv.serve_step(srv.params, caches, {"token": tok,
+                                                "cache_pos": pos})
+            torch.cuda.synchronize()
+            launches["decode step"] = self.check_moe_launches(
+                f"decode step at position {pos}", cfg)
+        self.reset_counts()
+        out = srv.generate(prompts, MOE_GEN)
+        torch.cuda.synchronize()
+        self.check_moe_launches(f"generate ({MOE_GEN} serve steps)", cfg,
+                                MOE_GEN)
+        if out.shape != (batch, MOE_GEN) or not (
+                (out >= 0) & (out < cfg.vocab)).all():
+            raise RuntimeError(f"generated tokens {out.shape} out of range")
+        log(f"  generated {out.shape} token ids; first request's first 8: "
+            f"{out[0, :8].tolist()}")
+        rep["launches"] = launches
+        rep["generated"] = out.tolist()
+
+        def expect(kind, args):
+            if kind == "matmul" and args[0].dtype == torch.float32:
+                return "simt"          # the fp32 router
+            return "wgmma"
+
+        groups = self.gm_calls(
+            {"prefill": lambda: prefill["kernels"](params, {"tokens": x}),
+             "decode step": lambda: srv.serve_step(
+                 srv.params, caches, {"token": tok, "cache_pos": pos})},
+            label, rep, phase=phase, expect=expect)
+        del caches
+        self.moe_forced(cfg, params, prompts, phase, rep)
+        return self.gm_serve_times(cfg, params, servers, prefill, x, prompts,
+                                   groups, launches, label, rep, gen=MOE_GEN,
+                                   phase=phase)
+
+    @contextlib.contextmanager
+    def moe_recording(self, seen, control=None, force=None):
+        """Record each ``moe.route`` call's (experts, kept mask) in
+        ``seen``, one entry a MoE layer; with ``control``, also the routes
+        of kernel 3's router (``"kernels"``) on the same router input,
+        whatever backend the call took; with ``force`` (a list of experts,
+        one entry a MoE layer in call order), each call takes its entry's
+        experts (``route(experts=)``: a teacher-forced route)."""
+        from repro_torch.models import moe
+
+        orig = moe.route
+        calls = iter(force or ())
+
+        def rec(router, xt, c, backend="kernels"):
+            out = orig(router, xt, c, backend,
+                       experts=next(calls) if force else None)
+            seen.append((out[0], out[3]))
+            if control is not None:
+                control.append(orig(router, xt, c, "kernels")[0])
+            return out
+
+        moe.route = rec
+        try:
+            yield
+        finally:
+            moe.route = orig
+
+    def route_agreement(self, what, routes_k, routes_t, rows, control=()):
+        """Routes of the kernels backend against the torch backend's, each
+        layer's taken on that backend's own residual stream: the (token,
+        layer, slot) routes whose expert differs, the kept masks that
+        differ, and (``control``: the kernels router on the torch stream's
+        router input) how many differ on the same input.  Returns (a mask
+        of the call's ``rows`` tokens with any differing route or kept
+        mask, the reading)."""
+        torch = self.torch
+        hit = torch.zeros(rows, dtype=torch.bool, device=self.dev)
+        per_layer = []
+        for i, ((ik, kk), (it, kt)) in enumerate(zip(routes_k, routes_t)):
+            d = (ik != it) | (kk != kt)
+            hit |= d.reshape(rows, -1).any(-1)
+            per_layer.append((int((ik != it).sum()), int((kk != kt).sum()),
+                              int((control[i] != it).sum()) if control
+                              else None))
+        if len(routes_k) != len(routes_t) or not routes_t:
+            raise RuntimeError(f"{what}: {len(routes_k)} and "
+                               f"{len(routes_t)} MoE layers recorded")
+        total = routes_t[0][0].numel() * len(per_layer)
+        swapped = sum(r[0] for r in per_layer)
+        first = next((i for i, r in enumerate(per_layer) if r[0]), None)
+        row = {"routes": total, "swapped": swapped,
+               "swapped_share": swapped / total,
+               "kept_differ": sum(r[1] for r in per_layer),
+               "tokens_hit": int(hit.sum()), "tokens": rows,
+               "first_layer": first, "per_layer": per_layer}
+        same = (f"; on the same router input {sum(r[2] for r in per_layer)} "
+                f"differ" if control else "")
+        log(f"  {what}: {swapped} of {total} (token, layer, slot) routes "
+            f"differ between the backends ({swapped / total:.3%}; the first "
+            f"in MoE layer {first}), {row['kept_differ']} kept masks differ, "
+            f"{row['tokens_hit']} of {rows} tokens hit{same}")
+        return hit, row
+
+    def moe_forced(self, cfg, params, prompts, phase, rep):
+        """The kernels backend's logits against the torch backend's through
+        a cached prefill of ``prompts`` and MOE_FORCED teacher-forced steps
+        (``forced_run``: the torch run's greedy tokens fed to both).  The
+        routes of the two runs are compared (``route_agreement``); then the
+        torch backend runs again on the kernels run's routes, and each
+        step's logits are held to that run's at ``logits_reading``'s bar."""
+        log(f"phase {phase}: {cfg.name} logits, backend=kernels vs "
+            f"backend=torch, teacher-forced through the prefill and "
+            f"{MOE_FORCED} decode steps (bar {BF16_FWD_RTOL:.0%} of "
+            f"max|torch|), on the kernels run's routes")
+        seen = {"kernels": [], "torch": []}
+        with self.moe_recording(seen["torch"]):
+            want, fed = self.forced_run(cfg, params, prompts, MOE_FORCED,
+                                        "torch")
+        with self.moe_recording(seen["kernels"]):
+            got, _ = self.forced_run(cfg, params, prompts, MOE_FORCED,
+                                     "kernels", feed=fed)
+        del want
+        with self.moe_recording([], force=[r[0] for r in seen["kernels"]]):
+            want, _ = self.forced_run(cfg, params, prompts, MOE_FORCED,
+                                      "torch", feed=fed)
+        n, rows = moe_layers(cfg), []
+        for i, (g, w) in enumerate(zip(got, want)):
+            name = "prefill" if i == 0 else f"decode step {i}"
+            _, routes = self.route_agreement(
+                f"{name} routes", seen["kernels"][i * n:(i + 1) * n],
+                seen["torch"][i * n:(i + 1) * n], g.shape[0] * g.shape[1])
+            row = self.logits_reading(
+                f"{cfg.name} {name}", g.reshape(-1, g.shape[-1]),
+                w.reshape(-1, w.shape[-1]))
+            rows.append({**row, "routes": routes})
+        rep.setdefault("logits", {})[cfg.name] = rows
+        del got, want, seen
 
     # --------------------------------------------------- per-call helpers
     def geometry(self, name, args):

@@ -34,6 +34,20 @@
 // A, B and C share one element type; the wrapper upcasts mixed operands to
 // fp32 first, as the reference's dot_general(preferred_element_type=f32)
 // computes them.  PERF.md has the measured times beside the bounds.
+//
+// The batched form (matmul_batched_fwd) computes c[e] = a[e] @ b[e] for
+// contiguous (E, M, K), (E, K, N) and (E, M, N): the expert products of
+// the MoE FFN (models/moe.py), which the reference writes as einsums over a
+// stacked weight (src/repro/models/moe.py:86-90) and XLA computes outside
+// any Pallas kernel.  Both variants put the expert on blockIdx.z, so one
+// launch covers every expert.  simt offsets its three pointers by the
+// expert's batch strides; wgmma reads rank-3 tensor maps (K, M, E) and so
+// on, so a tile's rows past M come back from TMA as zeros and its TMA
+// stores clip at M: no tile reads or writes the next expert's rows, which
+// an (E * M, K) view through the 2-D form would do for M not a multiple of
+// 128 (M = 320 at a prefill's capacity buffers, 1 at decode).  Bound: the
+// bf16 tensor cores at a prefill's M = 320; the bytes of every expert's
+// weights at decode, where M = 1 and the 128-row tile is mostly zeros.
 
 #include <cuda_runtime.h>
 
@@ -65,6 +79,11 @@ __global__ void __launch_bounds__(kMmThreads)
   __shared__ __align__(16) float Bs[kMmBK][kMmBN];
 
   const int t = threadIdx.x;
+  // the batched form's expert; 0 in the 2-D form (gridDim.z = 1)
+  const int64_t e = blockIdx.z;
+  a += e * M * K;
+  b += e * K * N;
+  c += e * M * N;
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kMmBM;
   const int64_t n0 = static_cast<int64_t>(blockIdx.y) * kMmBN;
 
@@ -151,6 +170,9 @@ constexpr uint32_t kTcStageBytes = kTcABytes + (kTcBN / 64) * kTcBBox;
 // the ring, 1024 bytes of alignment slack, and 2 mbarriers per stage
 constexpr size_t kTcSmem = kTcStages * kTcStageBytes + 1024 + 16 * kTcStages;
 
+// kBatched: the tensor maps are rank 3, the expert blockIdx.z their
+// outermost coordinate.
+template <bool kBatched>
 __global__ void __launch_bounds__(kTcThreads, 1)
     matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
                         const __grid_constant__ CUtensorMap tm_b,
@@ -165,6 +187,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int nk = (K + kTcBK - 1) / kTcBK;
   const int m0 = blockIdx.y * kTcBM;
   const int n0 = blockIdx.x * kTcBN;
+  const int e = blockIdx.z;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kTcStages; ++s) {
@@ -182,11 +205,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         if (kt >= kTcStages) mbar_wait(empty(s), (kt / kTcStages - 1) & 1);
         const uint32_t a_s = ring + s * kTcStageBytes;
         mbar_arrive_expect_tx(full(s), kTcStageBytes);
-        tma_load_2d(a_s, &tm_a, full(s), kt * kTcBK, m0);
+        if constexpr (kBatched)
+          tma_load_3d(a_s, &tm_a, full(s), kt * kTcBK, m0, e);
+        else
+          tma_load_2d(a_s, &tm_a, full(s), kt * kTcBK, m0);
 #pragma unroll
-        for (int j = 0; j < kTcBN / 64; ++j)
-          tma_load_2d(a_s + kTcABytes + j * kTcBBox, &tm_b, full(s),
-                      n0 + 64 * j, kt * kTcBK);
+        for (int j = 0; j < kTcBN / 64; ++j) {
+          const uint32_t b_s = a_s + kTcABytes + j * kTcBBox;
+          if constexpr (kBatched)
+            tma_load_3d(b_s, &tm_b, full(s), n0 + 64 * j, kt * kTcBK, e);
+          else
+            tma_load_2d(b_s, &tm_b, full(s), n0 + 64 * j, kt * kTcBK);
+        }
       }
     }
   } else {  // consumers: rows 64 (wg - 1) .. of the tile
@@ -238,53 +268,83 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     named_barrier_sync(2 + cw, 128);
     if (t == 0) {
 #pragma unroll
-      for (int j = 0; j < kTcBN / 64; ++j)
-        tma_store_2d(&tm_c, c_s + j * kTcBBox, n0 + 64 * j, m0 + 64 * cw);
+      for (int j = 0; j < kTcBN / 64; ++j) {
+        if constexpr (kBatched)
+          tma_store_3d(&tm_c, c_s + j * kTcBBox, n0 + 64 * j, m0 + 64 * cw,
+                       e);
+        else
+          tma_store_2d(&tm_c, c_s + j * kTcBBox, n0 + 64 * j, m0 + 64 * cw);
+      }
       tma_store_commit_and_wait();
     }
   }
 }
 
-int launch_matmul_wgmma(const void* a, const void* b, void* c, long long M,
-                        long long N, long long K, cudaStream_t st) {
+// E experts of (M, K) @ (K, N); `batched` takes rank-3 tensor maps (the
+// batched form, any E >= 1), else rank 2 (the 2-D form, E = 1).
+int launch_matmul_wgmma(const void* a, const void* b, void* c, long long E,
+                        long long M, long long N, long long K, bool batched,
+                        cudaStream_t st) {
   const long long m_tiles = (M + kTcBM - 1) / kTcBM;
   const long long n_tiles = (N + kTcBN - 1) / kTcBN;
   if (K <= 0 || K % 8 != 0 || N % 8 != 0 || M > 0x7fffffffLL ||
-      N > 0x7fffffffLL || K > 0x7fffffffLL || m_tiles > 65535)
+      N > 0x7fffffffLL || K > 0x7fffffffLL || m_tiles > 65535 ||
+      E > 65535 || (!batched && E != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int rank = batched ? 3 : 2;
+  const uint64_t e = static_cast<uint64_t>(E), m = static_cast<uint64_t>(M),
+                 n = static_cast<uint64_t>(N), k = static_cast<uint64_t>(K);
   CUtensorMap tm_a, tm_b, tm_c;
-  {  // A (M, K): dims {K, M}, box 64 x 128
-    const uint64_t dims[2] = {static_cast<uint64_t>(K),
-                              static_cast<uint64_t>(M)};
-    const uint64_t strides[1] = {static_cast<uint64_t>(K) * 2};
-    const uint32_t box[2] = {kTcBK, kTcBM};
-    cudaError_t err = make_tensor_map_bf16(&tm_a, a, 2, dims, strides, box);
+  {  // A (E, M, K): dims {K, M, E}, box 64 x 128 x 1
+    const uint64_t dims[3] = {k, m, e};
+    const uint64_t strides[2] = {k * 2, m * k * 2};
+    const uint32_t box[3] = {kTcBK, kTcBM, 1};
+    cudaError_t err = make_tensor_map_bf16(&tm_a, a, rank, dims, strides, box);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  {  // B (K, N): dims {N, K}, box 64 x 64
-    const uint64_t dims[2] = {static_cast<uint64_t>(N),
-                              static_cast<uint64_t>(K)};
-    const uint64_t strides[1] = {static_cast<uint64_t>(N) * 2};
-    const uint32_t box[2] = {64, kTcBK};
-    cudaError_t err = make_tensor_map_bf16(&tm_b, b, 2, dims, strides, box);
+  {  // B (E, K, N): dims {N, K, E}, box 64 x 64 x 1
+    const uint64_t dims[3] = {n, k, e};
+    const uint64_t strides[2] = {n * 2, k * n * 2};
+    const uint32_t box[3] = {64, kTcBK, 1};
+    cudaError_t err = make_tensor_map_bf16(&tm_b, b, rank, dims, strides, box);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  {  // C (M, N): dims {N, M}, box 64 x 64
-    const uint64_t dims[2] = {static_cast<uint64_t>(N),
-                              static_cast<uint64_t>(M)};
-    const uint64_t strides[1] = {static_cast<uint64_t>(N) * 2};
-    const uint32_t box[2] = {64, 64};
-    cudaError_t err = make_tensor_map_bf16(&tm_c, c, 2, dims, strides, box);
+  {  // C (E, M, N): dims {N, M, E}, box 64 x 64 x 1
+    const uint64_t dims[3] = {n, m, e};
+    const uint64_t strides[2] = {n * 2, m * n * 2};
+    const uint32_t box[3] = {64, 64, 1};
+    cudaError_t err = make_tensor_map_bf16(&tm_c, c, rank, dims, strides, box);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  auto kernel = batched ? matmul_wgmma_kernel<true>
+                        : matmul_wgmma_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      matmul_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kTcSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(n_tiles),
-                  static_cast<unsigned>(m_tiles), 1);
-  matmul_wgmma_kernel<<<grid, kTcThreads, kTcSmem, st>>>(
-      tm_a, tm_b, tm_c, static_cast<int>(K));
+                  static_cast<unsigned>(m_tiles), static_cast<unsigned>(E));
+  kernel<<<grid, kTcThreads, kTcSmem, st>>>(tm_a, tm_b, tm_c,
+                                            static_cast<int>(K));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The simt form over E experts (E = 1: the 2-D form).
+int launch_matmul_simt(const void* a, const void* b, void* c, long long E,
+                       long long M, long long N, long long K, int dtype,
+                       cudaStream_t st) {
+  const long long n_tiles = (N + kMmBN - 1) / kMmBN;
+  if (n_tiles > 65535 || E > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((M + kMmBM - 1) / kMmBM),
+                  static_cast<unsigned>(n_tiles), static_cast<unsigned>(E));
+  const bool known = dispatch_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    matmul_kernel<T><<<grid, kMmThreads, 0, st>>>(
+        static_cast<const T*>(a), static_cast<const T*>(b),
+        static_cast<T*>(c), M, N, K);
+  });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -302,21 +362,31 @@ extern "C" int matmul_fwd(const void* a, const void* b, void* c,
   if (M <= 0 || N <= 0 || K < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (variant == kWgmma) {
     if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_matmul_wgmma(a, b, c, M, N, K, st);
+    return launch_matmul_wgmma(a, b, c, 1, M, N, K, false, st);
   }
   if (variant != kSimt) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_tiles = (N + kMmBN - 1) / kMmBN;
-  if (n_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((M + kMmBM - 1) / kMmBM),
-                  static_cast<unsigned>(n_tiles), 1);
-  const bool known = dispatch_dtype(dtype, [&](auto tag) {
-    using T = decltype(tag);
-    matmul_kernel<T><<<grid, kMmThreads, 0, st>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b),
-        static_cast<T*>(c), M, N, K);
-  });
-  if (!known) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return launch_matmul_simt(a, b, c, 1, M, N, K, dtype, st);
+}
+
+// The batched form: a (E, M, K), b (E, K, N), c (E, M, N), row-major and
+// contiguous, c[e] = a[e] @ b[e].  E, M and N must be positive and E at
+// most 65535 (the grid's z).  `variant` as for matmul_fwd; kWgmma takes
+// the same operands it takes there (bf16, K and N multiples of 8, 16-byte
+// aligned bases, which keeps every expert's slice aligned too).
+extern "C" int matmul_batched_fwd(const void* a, const void* b, void* c,
+                                  long long E, long long M, long long N,
+                                  long long K, int dtype, int variant,
+                                  void* stream) {
+  using namespace repro;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (E <= 0 || M <= 0 || N <= 0 || K < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == kWgmma) {
+    if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_matmul_wgmma(a, b, c, E, M, N, K, true, st);
+  }
+  if (variant != kSimt) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_matmul_simt(a, b, c, E, M, N, K, dtype, st);
 }
 
 extern "C" const char* matmul_error_string(int code) {

@@ -121,6 +121,15 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "r"(src), "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_commit_and_wait() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");

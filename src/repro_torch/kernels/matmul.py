@@ -1,4 +1,5 @@
-"""Dense matmul: the CUDA kernel and its plain PyTorch version.
+"""Dense matmul, 2-D and batched: the CUDA kernel and its plain PyTorch
+versions.
 
 Replaces the TPU kernel ``src/repro/kernels/matmul.py::_mm_kernel``
 (launched by ``matmul``, ``pallas_call`` at ``matmul.py:51``).  The kernel
@@ -65,17 +66,21 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 matmul.launches = 0
 matmul.launches_by_variant = {"wgmma": 0, "simt": 0}
+#: the batched form's launches (counted in ``launches`` too)
+matmul.launches_batched = 0
 
 #: the kernel variants, by their C code (``csrc/matmul.cu``)
 VARIANTS = {"simt": 0, "wgmma": 1}
 
 
 def matmul_variant(a: torch.Tensor, b: torch.Tensor) -> str:
-    """The variant :func:`matmul_cuda` launches for ``a @ b``: ``"wgmma"``
-    for bf16 operands with K and N multiples of 8 (K > 0) and 16-byte
-    aligned bases, else ``"simt"``.  Reads dtypes, shapes and data pointers
-    only; launches nothing."""
-    k, n = b.shape
+    """The variant :func:`matmul_cuda` (or :func:`matmul_batched_cuda`)
+    launches for ``a @ b``: ``"wgmma"`` for bf16 operands with K and N
+    multiples of 8 (K > 0) and 16-byte aligned bases, else ``"simt"``.
+    Reads dtypes, shapes and data pointers only; launches nothing.  A
+    batched operand's per-expert slices are then aligned too (K and N
+    multiples of 8 make every slice a multiple of 16 bytes)."""
+    k, n = b.shape[-2:]
     if (a.dtype == b.dtype == torch.bfloat16 and k > 0 and k % 8 == 0
             and n % 8 == 0 and a.data_ptr() % 16 == 0
             and b.data_ptr() % 16 == 0):
@@ -88,11 +93,14 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
-def _matmul_fn():
+def _matmul_fn(entry: str = "matmul_fwd"):
+    """The library and its C entry ``entry`` (``matmul_fwd``, or
+    ``matmul_batched_fwd``, which takes E before M, N and K)."""
     lib = build.load("matmul")
-    fn = lib.matmul_fwd
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
+        dims = 4 if entry == "matmul_batched_fwd" else 3
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * dims
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.matmul_error_string.argtypes = [ctypes.c_int]
@@ -126,6 +134,54 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(E, M, K) @ (E, K, N) -> (E, M, N) in ``a.dtype``, fp32
+    accumulation: ``out[e] = a[e] @ b[e]``, one launch."""
+    if (a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]
+            or a.shape[2] != b.shape[1]):
+        raise ValueError(f"matmul_batched: need (E, M, K) @ (E, K, N), got "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+    dtype_code(a, "matmul_batched")
+    dtype_code(b, "matmul_batched")
+    check_device("matmul_batched", a, b)
+    if a.device.type == "cpu":
+        return matmul_batched_plain(a, b)
+    return matmul_batched_cuda(a.contiguous(), b.contiguous())
+
+
+def matmul_batched_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version: fp32 ``torch.bmm``, cast to ``a.dtype``."""
+    return torch.bmm(a.float(), b.float()).to(a.dtype)
+
+
+def matmul_batched_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/matmul.cu``'s batched form on PyTorch's current
+    stream."""
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"matmul_batched_cuda: a and b must be CUDA tensors "
+                         f"on one device, got {a.device} and {b.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("matmul_batched_cuda: a and b must be contiguous")
+    if a.dtype != b.dtype:
+        return matmul_batched_cuda(a.float(), b.float()).to(a.dtype)
+    e, m, k = a.shape
+    n = b.shape[2]
+    out = torch.empty((e, m, n), device=a.device, dtype=a.dtype)
+    if e == 0 or m == 0 or n == 0:
+        return out
+    variant = matmul_variant(a, b)
+    lib, fn = _matmul_fn("matmul_batched_fwd")
+    with torch.cuda.device(a.device):
+        code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), e, m, n, k,
+                  dtype_code(a, "matmul_batched_cuda"), VARIANTS[variant],
+                  torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(code, f"matmul_batched ({variant})", lib.matmul_error_string)
+    matmul.launches += 1
+    matmul.launches_by_variant[variant] += 1
+    matmul.launches_batched += 1
+    return out
+
+
 class MatmulFn(torch.autograd.Function):
     """``a @ b`` under autograd: the forward is :func:`matmul`, the backward
     two more :func:`matmul` calls on contiguous transposes.  Each gradient
@@ -156,4 +212,5 @@ def _transposed(t: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["matmul", "matmul_plain", "matmul_cuda", "matmul_variant",
+           "matmul_batched", "matmul_batched_plain", "matmul_batched_cuda",
            "MatmulFn", "VARIANTS"]

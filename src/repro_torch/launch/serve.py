@@ -6,7 +6,10 @@ serves fixed-size decode batches through one
 in place.  Prefill runs the whole prompt through that same step in ONE call
 (the KV cache takes all ``S`` prompt entries at once and attention masks
 causally within the chunk); ``slow=True`` / ``--slow-prefill`` keeps the
-token-by-token loop, which must give the same caches and next token.
+token-by-token loop, which gives a dense model the same caches and next
+token.  A MoE model (Qwen3-MoE, Llama-4-Scout) prefills in one call too,
+as the reference's; its two paths differ, because its capacity groups do
+(:meth:`Server.prefill`).
 
 An encoder-decoder (whisper-small) is served as the reference's tests
 drive it: the prompt's ``frames`` are encoded once, the caches come from
@@ -32,8 +35,13 @@ that take one token a step (:mod:`repro_torch.models.attention`).  Its
 cache-free prefill, ``make_prefill_step``, is where kernel 4 takes the
 window.
 
-On the card (StableLM-2-1.6B, whisper-small, Gemma-3-12B at their
-published widths, bf16)::
+Under ``backend="kernels"`` a MoE layer launches kernel 3's batched form
+for its experts' three products (``models/moe.py``): a Qwen3-MoE serve
+step launches 48 x (4 + 1) + 1 two-dimensional matmuls (the router's on
+``"simt"``), 48 x 3 batched ones and 48 attentions.
+
+On the card (StableLM-2-1.6B, whisper-small, Gemma-3-12B and
+Qwen3-MoE-30B-A3B at their published configurations, bf16)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --batch 4 --prompt-len 1024 --gen-len 64
@@ -41,6 +49,8 @@ published widths, bf16)::
       --batch 8 --prompt-len 4 --gen-len 224
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
       --batch 4 --prompt-len 16 --gen-len 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 16 --gen-len 16
 
 On the CPU (the kernels' plain versions)::
 
@@ -50,6 +60,9 @@ On the CPU (the kernels' plain versions)::
       --reduced --device cpu --batch 2 --prompt-len 4 --gen-len 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
       --reduced --device cpu --batch 2 --prompt-len 8 --gen-len 40
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen3-moe-30b-a3b --reduced --device cpu --batch 4 \\
+      --prompt-len 16 --gen-len 16
 """
 
 from __future__ import annotations
@@ -142,10 +155,15 @@ class Server:
         Default: ONE serve_step call over the whole (B, S) prompt, the
         parallel prefill forward.  ``slow=True`` (or ``slow_prefill``, or a
         config the parallel path cannot serve) runs the token-by-token
-        decode loop instead; both paths produce the same caches and next
-        token.  An encoder-decoder needs ``frames`` (encoded once here) or
-        their :meth:`encode` output ``enc_out``, which its later serve
-        steps take too; a decoder-only config refuses both.
+        decode loop instead.  For a dense model both paths produce the same
+        caches and next token; for a MoE model they need not, as in the
+        reference: one (B, S) call and S (B, 1) calls form other capacity
+        groups (at B = 4, S = 16 one group of 64 tokens with 5 slots an
+        expert against 16 calls of one group of 4 with 1 slot), so
+        other tokens are dropped.  An encoder-decoder needs ``frames``
+        (encoded once here) or their :meth:`encode` output ``enc_out``,
+        which its later serve steps take too; a decoder-only config
+        refuses both.
         """
         extra = self._extra(frames, enc_out)
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int32

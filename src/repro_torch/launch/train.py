@@ -32,6 +32,10 @@ it died)::
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-12b \\
       --reduced --steps 4 --batch 4 --seq 64 --microbatches 2 --device cpu
 
+A MoE config (Qwen3-MoE, Llama-4-Scout) is refused with
+``NotImplementedError`` (``steps.check_trainable``: moe training, ROADMAP.md
+queue 1); it serves through :mod:`repro_torch.launch.serve`.
+
 Gemma-3-12B's 48 layers take 11.8 B parameters, whose bf16 weights, fp32
 masters and moments and gradients exceed one card; ``chip_smoke.py`` phase
 28d trains it at one pattern period (6 layers, full widths) on the card.

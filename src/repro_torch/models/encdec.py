@@ -83,12 +83,10 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
                              cfg.d_model ** -0.5, dtype, dev),
         "enc_pos": normal_init(g, (cfg.encoder_ctx, cfg.d_model), 0.02,
                                dtype, dev),
-        "enc_blocks": transformer.stack_layers(
-            [_enc_layer_init(g, cfg, dtype, dev)
-             for _ in range(cfg.encoder_layers)]),
-        "dec_blocks": transformer.stack_layers(
-            [_dec_layer_init(g, cfg, dtype, dev)
-             for _ in range(cfg.num_layers)]),
+        "enc_blocks": transformer.init_stacked(
+            lambda: _enc_layer_init(g, cfg, dtype, dev), cfg.encoder_layers),
+        "dec_blocks": transformer.init_stacked(
+            lambda: _dec_layer_init(g, cfg, dtype, dev), cfg.num_layers),
         "enc_norm": rmsnorm_init(cfg.d_model, dtype, dev),
         "dec_norm": rmsnorm_init(cfg.d_model, dtype, dev),
         "lm_head": dense_init(g, cfg.d_model, cfg.vocab, dtype, device=dev),

@@ -14,8 +14,13 @@ tensors), ``backend="torch"`` calls ``torch.matmul``, the library
 yardstick.  Under autograd (grad mode on and an operand that requires
 grad) the kernels backend goes through ``kernels.matmul.MatmulFn``, whose
 backward is kernel 3 again; otherwise (serving, ``torch.no_grad()``) it
-calls the kernel's wrapper directly.  The reference's sharding hook ``lc``
-has no counterpart: the port has no mesh (ROADMAP.md, multi-device).
+calls the kernel's wrapper directly.  The MoE FFN's expert products,
+(E, R, D) buffers against stacked (E, D, F) weights, are not 2-D: they go
+to kernel 3's batched form (``kernels.matmul.matmul_batched``, one launch
+for all experts; ``torch.bmm`` under ``"torch"``) in
+:mod:`repro_torch.models.moe`, which has no autograd Function yet.  The
+reference's sharding hook ``lc`` has no counterpart: the port has no mesh
+(ROADMAP.md, multi-device).
 
 The two cross-entropy functions of training close the module:
 :func:`softmax_cross_entropy` on full logits and :func:`chunked_softmax_ce`,

@@ -19,18 +19,28 @@ kept and each layer is recomputed in the backward, the reference's
 ``nothing_saveable`` policy.
 
 Each layer = attention (global ``attn``, or ``attn_local``: a sliding
-window, Gemma-3's local layers) + dense SwiGLU FFN (or none when ``d_ff ==
-0``), both pre-norm residual.  Every product goes through
-:func:`~repro_torch.models.layers.linear` and the scores through the
-flash-attention kernel under ``backend="kernels"`` (a forward launches 7
-matmuls and 1 attention a layer, and 1 matmul for the LM head); a local
-layer's cache-free attention is the kernel's windowed band, its cached
-attention a ring of ``window`` slots (:mod:`repro_torch.models.
-attention`), each pattern position's caches sized by its kind
-(:func:`init_caches`).  Mixer kinds ``mamba``, ``mlstm`` and ``slstm`` and
-the MoE FFN raise ``NotImplementedError`` at construction
+window, Gemma-3's local layers) + an FFN, both pre-norm residual.  The FFN
+is the reference's per layer (:func:`_ffn_kind`): the MoE FFN
+(:mod:`repro_torch.models.moe`) where ``(layer + 1) % moe.every_n_layers
+== 0``, else the dense SwiGLU, or none when ``d_ff == 0``; as in the
+reference, the kind is taken at each pattern position, so the configs align
+``every_n_layers`` with the pattern (:func:`check_supported`).  Every
+product goes through :func:`~repro_torch.models.layers.linear` and the
+scores through the flash-attention kernel under ``backend="kernels"`` (a
+dense layer launches 7 matmuls and 1 attention, and the LM head 1 matmul;
+a MoE layer 4 + 1 two-dimensional matmuls for the attention and the
+router, 3 more for a shared expert, and 3 of kernel 3's batched form for
+the experts); a local layer's cache-free attention is the kernel's
+windowed band, its cached attention a ring of ``window`` slots
+(:mod:`repro_torch.models.attention`), each pattern position's caches
+sized by its kind (:func:`init_caches`).  Mixer kinds ``mamba``, ``mlstm``
+and ``slstm`` raise ``NotImplementedError`` at construction
 (:func:`check_supported`; ROADMAP.md, queue 1).  Encoder-decoder configs
 are :mod:`repro_torch.models.encdec`'s, and this module refuses them too.
+
+:func:`init_params` allocates each stack once and draws the layers into
+its slices in turn (:func:`init_stacked`): a 30.5 B-parameter MoE model
+never holds a second copy of its blocks while it stacks them.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.checkpoint.ckpt import as_tensor
 from repro_torch.kernels.util import canon_dtype, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, linear, mlp, mlp_init,
                                        normal_init, rmsnorm, rmsnorm_init)
@@ -55,45 +66,79 @@ _UNPORTED = {
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
+    """Raise ``NotImplementedError`` for what the port cannot run yet, and
+    ``ValueError`` for an FFN layout the stacks cannot hold."""
     for kind in cfg.block_pattern:
         if kind not in ("attn", "attn_local"):
             raise NotImplementedError(
                 f"{cfg.name}: mixer {kind!r} is not ported; it waits for "
                 f"{_UNPORTED.get(kind, kind)} (ROADMAP.md, queue 1)")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported (moe: ROADMAP.md, "
-            f"queue 1)")
     if cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: an encoder-decoder config is not a decoder-only "
             f"model; use repro_torch.models.encdec")
+    period = len(cfg.block_pattern)
+    if any(_ffn_kind(cfg, r * period + pi) != _ffn_kind(cfg, pi)
+           for r in range(cfg.repeat) for pi in range(period)):
+        raise ValueError(
+            f"{cfg.name}: moe.every_n_layers {cfg.moe.every_n_layers} does "
+            f"not align with the {period}-layer pattern; each pattern "
+            f"position's stack needs one FFN kind (as the reference's)")
 
 
-def _ffn_kind(cfg: ModelConfig) -> str:
-    """``"dense"``, or ``"none"`` when ``d_ff == 0`` (MoE is refused)."""
+def _ffn_kind(cfg: ModelConfig, layer_idx: int) -> str:
+    """The reference's: ``"moe"`` where ``(layer_idx + 1) %
+    moe.every_n_layers == 0``, else ``"dense"``, or ``"none"`` when ``d_ff
+    == 0``.  Callers pass the pattern position, as the reference's
+    superblock does."""
+    if cfg.moe is not None and (layer_idx + 1) % cfg.moe.every_n_layers == 0:
+        return "moe"
     return "dense" if cfg.d_ff > 0 else "none"
 
 
-def layer_init(generator, cfg: ModelConfig, dtype, device=None) -> dict:
-    """One attention layer's parameters, global or sliding-window alike
-    (``check_supported`` has refused every other mixer)."""
+def layer_init(generator, cfg: ModelConfig, pattern_idx: int, dtype,
+               device=None) -> dict:
+    """One attention layer's parameters at pattern position
+    ``pattern_idx``, global or sliding-window alike (``check_supported``
+    has refused every other mixer), with its position's FFN."""
     p = {
         "mixer": attn_mod.attn_init(generator, cfg, dtype, device=device),
         "norm1": rmsnorm_init(cfg.d_model, dtype, device),
         "norm2": rmsnorm_init(cfg.d_model, dtype, device),
     }
-    if _ffn_kind(cfg) == "dense":
+    fk = _ffn_kind(cfg, pattern_idx)
+    if fk == "moe":
+        p["ffn"] = moe_mod.moe_init(generator, cfg, dtype, device)
+    elif fk == "dense":
         p["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device)
     return p
 
 
-def stack_layers(trees: list) -> dict:
-    """Per-layer trees stacked leaf by leaf on a new leading axis."""
-    return {k: (stack_layers([t[k] for t in trees]) if isinstance(v, dict)
-                else torch.stack([t[k] for t in trees]))
-            for k, v in trees[0].items()}
+def init_stacked(draw, repeat: int) -> dict:
+    """``repeat`` trees of ``draw()``, stacked leaf by leaf on a new leading
+    axis: each stack is allocated once and each layer is drawn, in turn,
+    into its slice, so at most one layer's tree lives beside the stacks.
+    Bitwise the ``torch.stack`` of ``repeat`` draws in the same order."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((repeat, *t.shape), dtype=t.dtype, device=t.device)
+
+    def put(stack, one, r):
+        for k, v in one.items():
+            if isinstance(v, dict):
+                put(stack[k], v, r)
+            else:
+                stack[k][r].copy_(v)
+
+    one = draw()
+    stack = alloc(one)
+    for r in range(repeat):
+        if r:
+            one = draw()
+        put(stack, one, r)
+        del one
+    return stack
 
 
 def init_params(generator: torch.Generator | None, cfg: ModelConfig,
@@ -112,9 +157,9 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab,
                                        dtype, device=dev)
     params["blocks"] = [
-        stack_layers([layer_init(generator, cfg, dtype, dev)
-                for _ in range(cfg.repeat)])
-        for _ in cfg.block_pattern]
+        init_stacked(lambda pi=pi: layer_init(generator, cfg, pi, dtype, dev),
+                     cfg.repeat)
+        for pi in range(len(cfg.block_pattern))]
     params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, dev)
     return params
 
@@ -186,12 +231,13 @@ def layer_at(block, r: int) -> dict:
 
 def layer_params(params: dict, cfg: ModelConfig):
     """Yield ``(pattern_idx, repeat_idx, kind, ffn_kind, layer)`` in stack
-    order, ``layer`` the per-layer views of the stacked parameters (or the
+    order, ``ffn_kind`` the pattern position's (:func:`_ffn_kind`),
+    ``layer`` the per-layer views of the stacked parameters (or the
     per-layer dict itself where ``blocks[pattern_idx]`` is a list, as
     :func:`unstack_blocks` gives)."""
     for r in range(cfg.repeat):
         for pi, kind in enumerate(cfg.block_pattern):
-            yield (pi, r, kind, _ffn_kind(cfg),
+            yield (pi, r, kind, _ffn_kind(cfg, pi),
                    layer_at(params["blocks"][pi], r))
 
 
@@ -265,7 +311,10 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         p["mixer"], h, cfg, kind=kind, positions=positions, kv_cache=cache,
         cache_pos=cache_pos, backend=backend)
     x = x + mixed
-    if ffn_kind == "dense":
+    if ffn_kind == "moe":
+        x = x + moe_mod.moe_ffn(p["ffn"], rmsnorm(p["norm2"], x,
+                                                  cfg.norm_eps), cfg, backend)
+    elif ffn_kind == "dense":
         x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps), backend)
     return x, new_cache
 

@@ -323,6 +323,56 @@ def test_wgmma_variants_refuse_what_tma_cannot_take(cuda):
     assert b"invalid argument" in lib.matmul_error_string(code)
 
 
+# Kernel 3's batched form (the MoE experts): Qwen3-MoE's expert products at
+# a prefill's 320 capacity rows and at decode's 1, Llama-4's E = 16 at
+# narrow widths, a ragged M, and K = 36, which takes "simt" in bf16 too.
+_BATCHED = [(128, 320, 2048, 768), (128, 320, 768, 2048), (128, 1, 2048, 768),
+            (128, 1, 768, 2048), (16, 40, 72, 24), (1, 130, 64, 264),
+            (3, 130, 36, 40)]   # E, M, K, N
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("emkn", _BATCHED, ids=str)
+def test_matmul_batched_matches_plain(cuda, emkn, dtype):
+    e, m, k, n = emkn
+    g = torch.Generator().manual_seed(e + m + k + n)
+    a = torch.randn((e, m, k), generator=g).to(cuda, dtype)
+    b = torch.randn((e, k, n), generator=g).to(cuda, dtype)
+    want_v = ("wgmma" if dtype == torch.bfloat16 and k % 8 == 0
+              and n % 8 == 0 else "simt")
+    assert kmm.matmul_variant(a, b) == want_v
+    before = (kmm.matmul.launches_batched, kmm.matmul.launches,
+              dict(kmm.matmul.launches_by_variant))
+    got = kmm.matmul_batched(a, b)
+    torch.cuda.synchronize()
+    after = kmm.matmul.launches_by_variant
+    assert (kmm.matmul.launches_batched, kmm.matmul.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert {v: after[v] - before[2][v] for v in after} == \
+        {v: int(v == want_v) for v in after}
+    _close(got, kmm.matmul_batched_plain(a, b))
+
+
+@pytest.mark.parametrize("variant", ["simt", "wgmma"])
+def test_matmul_batched_writes_no_row_past_m(cuda, variant):
+    """M = 70 is no multiple of either variant's tile: each expert's last
+    tile holds rows past M, which must not reach the next expert's rows
+    (nor, for the last expert, the memory after the output)."""
+    e, m, k, n = 4, 70, 64, 64
+    g = torch.Generator().manual_seed(70)
+    a = torch.randn((e, m, k), generator=g).to(cuda, torch.bfloat16)
+    b = torch.randn((e, k, n), generator=g).to(cuda, torch.bfloat16)
+    buf = torch.full(((e + 1) * m * n,), float("nan"), device=cuda,
+                     dtype=torch.bfloat16)
+    lib, fn = kmm._matmul_fn("matmul_batched_fwd")
+    code = fn(a.data_ptr(), b.data_ptr(), buf.data_ptr(), e, m, n, k, 1,
+              kmm.VARIANTS[variant], torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 0
+    _close(buf[:e * m * n].view(e, m, n), kmm.matmul_batched_plain(a, b))
+    assert bool(torch.isnan(buf[e * m * n:]).all())
+
+
 # ------------------------------------------------------------- backward
 # The backward edge cases of chip_smoke.py phase 7: gradients through the
 # kernels' autograd Functions against ``backend="torch"`` autograd (cuDNN,
@@ -957,4 +1007,54 @@ def test_gemma_reduced_ring_decode_matches_the_cpu(cuda, dtype, head_dim):
         assert bool(torch.isfinite(got).all())
         top = want.abs().max().item()
         bar = 1e-4 * max(1.0, top) if dtype == "float32" else 0.05 * top
+        assert (got - want).abs().max().item() <= bar
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_reduced_matches_the_cpu(cuda, arch):
+    """The reduced MoE configs in fp32 (the router's 2-D product and the
+    experts' batched form on ``"simt"``): a 128-token forward (groups within
+    the sequence) and a batch-2 prefill and 4 decode steps (groups across
+    the batch) on the card against the same on the CPU, every route equal
+    and the logits at 1e-4 x max(1, max|cpu|); 3 batched launches a MoE
+    layer."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import moe, transformer
+
+    cfg = get_reduced(arch).replace(dtype="float32")
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
+                                     "cpu")
+    flat = transformer.flatten_params(params)
+    on = {"cpu": params, "cuda": transformer.unflatten_params(
+        {k: t.to(cuda) for k, t in flat.items()}, params)}
+    toks = torch.randint(0, cfg.vocab, (2, 128),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    out, routes = {}, {}
+    orig = moe.route
+    b0 = kmm.matmul.launches_batched
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        for dev, p in on.items():
+            seen = routes[dev] = []
+            mp.setattr(moe, "route", lambda *a, seen=seen, **kw: seen.append(
+                orig(*a, **kw)) or seen[-1])
+            logits = [transformer.forward(p, toks.to(dev), cfg)]
+            caches = transformer.init_caches(cfg, 2, 132, device=dev)
+            lg, caches = transformer.decode_step(p, toks.to(dev), caches, 0,
+                                                 cfg)
+            logits.append(lg)
+            for t in range(4):
+                lg, caches = transformer.decode_step(
+                    p, toks[:, t:t + 1].to(dev), caches, 128 + t, cfg)
+                logits.append(lg)
+            out[dev] = [t.float().cpu() for t in logits]
+    torch.cuda.synchronize()
+    assert kmm.matmul.launches_batched - b0 == 6 * 3 * cfg.num_layers
+    for got, want in zip(routes["cuda"], routes["cpu"]):
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[3].cpu(), want[3])
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert bool(torch.isfinite(got).all())
+        bar = 1e-4 * max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= bar

@@ -44,7 +44,7 @@ def test_walk_covers_every_package():
     assert _PORT / "launch" / "serve_gen.py" in _FILES
     for mod in ("models/config.py", "models/layers.py",
                 "models/attention.py", "models/transformer.py",
-                "models/encdec.py",
+                "models/encdec.py", "models/moe.py",
                 "launch/serve.py", "configs/stablelm_1_6b.py",
                 "launch/train.py", "data/pipeline.py"):
         assert _PORT / mod in _FILES
@@ -95,7 +95,7 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.configs, repro_torch.models.config, "
             "repro_torch.models.layers, repro_torch.models.attention, "
             "repro_torch.models.transformer, repro_torch.models.encdec, "
-            "repro_torch.launch.serve, "
+            "repro_torch.models.moe, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.data.pipeline, "
             "repro_torch.checkpoint.ckpt, "
             "repro_torch.distributed.fault_tolerance; "
@@ -132,7 +132,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             serve()
     lm = get_reduced("stablelm-1.6b")
     wh = get_reduced("whisper-small")
+    mo = get_reduced("qwen3-moe-30b-a3b")
     for build in (lambda: encdec.init_params(g, wh),
+                  lambda: lm_serve.Server(mo, generator=g),
+                  lambda: transformer.init_params(g, mo),
+                  lambda: lm_serve.main(["--arch", "qwen3-moe-30b-a3b",
+                                         "--reduced"]),
                   lambda: encdec.init_caches(wh, 1, 8),
                   lambda: lm_serve.Server(wh, generator=g),
                   lambda: lm_serve.main(["--arch", "whisper-small",

@@ -41,8 +41,7 @@ _LOGIT_BAR = {"fp32": 1e-4, "bf16": 5e-2}
 _CFG_DTYPE = {"fp32": "float32", "bf16": "bfloat16"}
 _SERVED = ("stablelm-1.6b", "qwen3-32b", "deepseek-coder-33b",
            "chameleon-34b")
-_UNPORTED = ("qwen3-moe-30b-a3b", "llama4-scout-17b-a16e",
-             "jamba-1.5-large-398b", "xlstm-1.3b")
+_UNPORTED = ("jamba-1.5-large-398b", "xlstm-1.3b")
 # served and trained by repro_torch.models.encdec (tests/test_torch_encdec.py)
 _ENCDEC = ("whisper-small",)
 
