@@ -77,9 +77,10 @@ nvcc, then:
    phases 18-23, on phase 24's tuned forwards, and kernels 3 and 4 on
    phase 25's served prefill and decode step, on phase 26's train
    step, kernels 1, 3 and 4 on phase 27's whisper-small, kernels 3
-   and 4 on phase 28's Gemma-3-12B served and trained, and kernel 3, its
+   and 4 on phase 28's Gemma-3-12B served and trained, kernel 3, its
    batched form and kernel 4 on phase 29's Qwen3-MoE-30B-A3B and
-   Llama-4-Scout served) and, last, ``{"ok": true, "device": {...}}``;
+   Llama-4-Scout served, and on phase 30's trained) and, last, ``{"ok":
+   true, "device": {...}}``;
 
 and, before those two lines, the bf16 slice:
 
@@ -244,13 +245,13 @@ e. tuning switched on (``$REPRO_TORCH_AUTOTUNE=1``) over an empty table,
 and last, phase 25 serves an LM through the port's
 ``repro_torch.launch.serve.Server``: StableLM-2-1.6B at its published widths
 (d_model 2048, 32 heads of 64, d_ff 5632, vocab 100352, bf16), depth cut to
-12 of its 24 layers (b-e; the script's time), weights drawn on the card from
+6 of its 24 layers (b-e; the script's time), weights drawn on the card from
 a seeded CUDA generator, batch 4, a 1024-token prompt drawn from ``SEED``,
 64 generated tokens:
 
 a. the main path, counts 0 just before and read just after a prefill, a
-   decode step and ``Server.generate``: each serve step launches 12 x 7 +
-   1 matmuls and 12 attentions, every one ``"wgmma"``;
+   decode step and ``Server.generate``: each serve step launches 6 x 7 +
+   1 matmuls and 6 attentions, every one ``"wgmma"``;
 b. every kernel call of one prefill and one decode step (position 1024),
    recorded, against its plain version at phase 10's bf16 bar, with what
    a zeroed output and one 2% off would read;
@@ -274,7 +275,7 @@ g. GQA, qk-norm and head dim 128: Qwen3-32B at its published widths, depth
    gates.
 
 and last, phase 26 trains it through ``repro_torch.launch.steps.
-make_train_step``: StableLM-2-1.6B at its published widths, depth cut to 12
+make_train_step``: StableLM-2-1.6B at its published widths, depth cut to 6
 of its 24 layers (the script's time), weights drawn on the card from a
 seeded CUDA generator, bf16 with fp32
 AdamW masters and moments, per-layer remat, sequence length 4096 (the
@@ -285,8 +286,8 @@ a. the main path, counts 0 just before one step and read just after, by
    part (forward, the remat recompute, backward: the counters read on
    entry to and exit from the backward pass and each ``MatmulFn.backward``):
    the kernel-3 and kernel-4 launches that ``lm_train_launches`` works out
-   (tested on the CPU: 12 x 7 + 8 head chunks a forward, again in the
-   recompute, twice that in the backward, 368 a microbatch; 24
+   (tested on the CPU: 6 x 7 + 8 head chunks a forward, again in the
+   recompute, twice that in the backward, 200 a microbatch; 12
    attentions), every one ``"wgmma"``; no library conv or attention and no
    plain version; the attention backward's own fp32 products (``bmm``,
    ``baddbmm``) and the transposes counted apart;
@@ -403,12 +404,13 @@ a. the batched form against its plain version (fp32 ``torch.bmm``) at
    @ (16, 5120, 8192), and one K = 36 case that takes ``"simt"`` in bf16;
    one batched launch counted for each; a zeroed output and one 2% off
    shown to fail; each timed beside its bound and ``torch.bmm``;
-b. Qwen3-MoE-30B-A3B at its published configuration (48 layers, d_model
-   2048, 32 heads on 4 KV heads of 128, 128 experts top-8 of 768, vocab
-   151936, bf16; nothing cut): ``make_prefill_step`` over 1 x 4096 tokens,
-   counts 0 just before and read just after: 48 x (4 + 1) + 1 two-dimensional
-   matmuls (the 48 fp32 routers on ``"simt"``, the rest ``"wgmma"``), 48 x 3
-   batched and 48 attentions; every layer's routes recorded on both
+b. Qwen3-MoE-30B-A3B at its published widths (d_model 2048, 32 heads on 4
+   KV heads of 128, 128 experts top-8 of 768, vocab 151936, bf16), depth cut
+   to 12 of its 48 layers (the script's time):
+   ``make_prefill_step`` over 1 x 4096 tokens, counts 0 just before and read
+   just after: 12 x (4 + 1) + 1 two-dimensional matmuls (the 12 fp32
+   routers on ``"simt"``, the rest ``"wgmma"``), 12 x 3 batched and 12
+   attentions; every layer's routes recorded on both
    backends (``moe.route``), the (token, layer, slot) routes that differ
    counted and their share printed; the logits of both backends each on its
    own routes read (not gated: a swapped route is a jump no arithmetic bar
@@ -429,6 +431,42 @@ c. Llama-4-Scout at its published widths (d_model 5120, 40 heads on 8 KV
    4 x 3 batched launches;
 d. the kernels line's entries of b and c: kernel 3 (``matmul``), its
    batched form (``matmul_batched``) and kernel 4.
+
+and last, phase 30 trains the MoE (``repro_torch.models.moe`` under autograd:
+the experts' products forward and backward on kernel 3's batched form,
+``kernels.matmul.BatchedMatmulFn``), weights drawn on the card from a seeded
+CUDA generator:
+
+a. ``BatchedMatmulFn``'s dA = dC @ B^T and dB = A^T @ dC, one batched
+   launch each, against their plain versions (fp32 ``torch.bmm`` of the
+   same operands) at phase 10's bars, ``"wgmma"`` in bf16 and ``"simt"`` in
+   fp32, at Qwen3-MoE's training shapes (R = 640 capacity rows: (128, 640,
+   2048) @ (128, 2048, 768) and (128, 640, 768) @ (128, 768, 2048)) and
+   Llama-4-Scout's ((16, 320, 5120) @ (16, 5120, 8192)); in bf16 an R and N
+   whose contractions end in a partial 64-deep K tile and an R = 36 whose dB
+   takes ``"simt"``; a zeroed output and one 2% off shown to fail; each
+   gradient timed beside its bound, ``torch.bmm`` and its operand's
+   transpose;
+b. Qwen3-MoE-30B-A3B at its published widths, depth cut to 2 of 48 layers
+   (the full step's peak reckoned first, over its largest leaf, an expert
+   stack; one layer less while it does not fit), ``make_train_step``: seq
+   4096, global batch 4 in 2 microbatches, phase 26's schedule, fp32 AdamW,
+   remat.  26a's gates by part with the batched launches apart (each MoE
+   layer 3 forward, 3 in the recompute, 6 backward; the fp32 routers'
+   products ``"simt"``: forward, recompute, dA and dB) and every layer's
+   routes in the remat recompute equal to its forward's bit for bit; 26b's
+   calls, each against its plain version as it is made; 26c's loss,
+   gradient norm and gradients against the torch backend run on the kernels
+   run's routes (``moe_recording(force=)``, replayed in call order over the
+   forward and the recompute), and the share of routes that differ when
+   each backend takes its own (read, not gated); 3 steps, losses finite;
+   26f's times, with the batched form, the routers' ``"simt"`` products and
+   the dispatch and combine apart;
+c. Llama-4-Scout at its published widths, 2 of 48 layers, batch 1 x 4096,
+   ``make_value_and_grad``: b's gates, and the top-1 router's gradient
+   exactly zero on both backends (its one gate is the constant 1);
+d. the kernels line's entries of b and c: kernel 3's 2-D and batched
+   launches forward (with the recompute) and backward, and kernel 4.
 
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
@@ -540,7 +578,7 @@ LOGIT_CHUNK = 512
 # 1,088 slots); the logits held to the torch backend's through the prefill
 # and 8 teacher-forced decode steps
 LM_NAME = "StableLM-2-1.6B"
-SERVE_LM_LAYERS = 12
+SERVE_LM_LAYERS = 6
 SERVE_LM_BATCH, SERVE_LM_PROMPT, SERVE_LM_GEN = 4, 1024, 64
 SERVE_LM_FORCED = 8
 # parallel vs sequential prefill caches: |a - b| <= tol + tol |b|, the
@@ -558,7 +596,7 @@ GQA_ARCH, GQA_NAME, GQA_LAYERS, GQA_DECODE = "qwen3-32b", "Qwen3-32B", 2, 4
 # length), global batch 4 in 2 microbatches of 2, fp32 AdamW masters and
 # moments, per-layer remat, LMDataPipeline(seed=SEED) batches, warmup 2 of
 # 100 steps; 3 steps a backend (26d) and the median of 5 warm ones (26f)
-TRAIN_LM_LAYERS = 12
+TRAIN_LM_LAYERS = 6
 TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_MICRO = 4, 4096, 2
 TRAIN_LM_WARMUP, TRAIN_LM_TOTAL = 2, 100
 TRAIN_LM_STEPS, TRAIN_LM_TIMED = 3, 5
@@ -628,12 +666,13 @@ MOE_BATCHED = [(128, 320, 2048, 768), (128, 320, 768, 2048),
                (16, 320, 5120, 8192)]
 MOE_UNALIGNED = (16, 40, 36, 40)
 # 29b: Qwen3-MoE-30B-A3B (src/repro_torch/configs/qwen3_moe_30b_a3b.py) at
-# its published configuration (48 layers, d_model 2048, 32 heads on 4 KV
-# heads of 128, 128 experts top-8 of 768, vocab 151936, bf16; nothing cut):
+# its published widths (d_model 2048, 32 heads on 4 KV heads of 128, 128
+# experts top-8 of 768, vocab 151936, bf16), depth cut from 48 to MOE_LAYERS
+# layers (to keep the whole script within its time):
 # make_prefill_step over 1 x MOE_SEQ tokens, the routes of both backends
 # layer by layer, Server at batch 4 (a 16-token prompt in one parallel
 # prefill, 16 tokens), 8 teacher-forced steps
-MOE_ARCH, MOE_NAME = "qwen3-moe-30b-a3b", "Qwen3-MoE-30B-A3B"
+MOE_ARCH, MOE_NAME, MOE_LAYERS = "qwen3-moe-30b-a3b", "Qwen3-MoE-30B-A3B", 12
 MOE_SEQ = 4096
 MOE_BATCH, MOE_PROMPT, MOE_GEN, MOE_FORCED = 4, 16, 16, 8
 # 29c: Llama-4-Scout (src/repro_torch/configs/llama4_scout_17b_a16e.py) at
@@ -643,6 +682,31 @@ MOE_BATCH, MOE_PROMPT, MOE_GEN, MOE_FORCED = 4, 16, 16, 8
 # a 1 x MOE_SEQ prefill and 8 teacher-forced decode steps
 SCOUT_ARCH, SCOUT_NAME, SCOUT_LAYERS = ("llama4-scout-17b-a16e",
                                         "Llama-4-Scout-17B-16E", 4)
+# phase 30: MoE training (src/repro_torch/models/moe.py under autograd: the
+# experts' products forward and backward on kernel 3's batched form,
+# kernels.matmul.BatchedMatmulFn).  30a: dA and dB of the batched form against
+# its plain version, (E, R, K, N) of the forward product (E, R, K) @ (E, K,
+# N), in bf16 ("wgmma") and fp32 ("simt"): Qwen3-MoE's expert products at a
+# training microbatch's R = 640 capacity rows (2 x 4096 tokens: 16 groups of
+# 512, 40 slots an expert) and Llama-4-Scout's at R = 320 (1 x 4096 tokens);
+# then, in bf16, R = 200 and N = 264, whose dB and dA contract over a last
+# 64-deep K tile of 8 rows ("wgmma"), and R = 36, whose dB contracts over K =
+# 36 and so takes "simt"
+MOE_TRAIN_BATCHED = [(128, 640, 2048, 768), (128, 640, 768, 2048),
+                     (16, 320, 5120, 8192)]
+MOE_TRAIN_EDGES = [(8, 200, 256, 264), (16, 36, 64, 40)]
+# 30b: Qwen3-MoE-30B-A3B at its published widths, depth cut from 48 to
+# MOE_TRAIN_LAYERS layers (one card holds the full step's fp32 AdamW state
+# of 1.87 B parameters; 30.5 B would need ~977 GB), through make_train_step:
+# seq MOE_SEQ, global batch 4 in 2 microbatches, phase 26's schedule, remat,
+# weights drawn on the card; 3 steps on the kernels backend, the median of
+# MOE_TRAIN_TIMED warm steps a backend timed
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_BATCH, MOE_TRAIN_MICRO, MOE_TRAIN_TIMED = 4, 2, 3
+# 30c: Llama-4-Scout at its published widths, 2 of 48 layers (6.47 B
+# parameters: a full step would reckon ~207 GB), seq MOE_SEQ, batch 1: the
+# loss and gradients (make_value_and_grad)
+SCOUT_TRAIN_LAYERS = 2
 # phase 3's edge cases (and phase 14's, in bf16)
 DENSE_EDGES = [  # label, x shape, w shape, stride, pads
     ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
@@ -848,6 +912,28 @@ def lm_train_launches(cfg, seq_len: int, microbatches: int) -> dict:
           "backward": 0}
     return {"matmul": {k: v * microbatches for k, v in mm.items()},
             "flash_attention": {k: v * microbatches for k, v in fa.items()}}
+
+
+def lm_train_split(cfg, seq_len: int, microbatches: int) -> dict:
+    """``lm_train_launches`` with kernel 3's batched launches apart:
+    ``"matmul"`` the 2-D ones, ``"matmul_batched"`` the batched form's (the
+    experts' three products a MoE layer forward, again in the recompute
+    under ``cfg.remat``, and their dA and dB in the backward,
+    ``BatchedMatmulFn``), ``"flash_attention"`` as there."""
+    out = lm_train_launches(cfg, seq_len, microbatches)
+    n = batched_launches(cfg) * microbatches
+    batched = {"forward": n, "recompute": n if cfg.remat else 0,
+               "backward": 2 * n}
+    out["matmul"] = {k: v - batched[k] for k, v in out["matmul"].items()}
+    out["matmul_batched"] = batched
+    return out
+
+
+def router_train_launches(cfg, microbatches: int) -> int:
+    """The 2-D launches of a step that take ``"simt"``: the fp32 routers'
+    product a MoE layer forward, again in the recompute under
+    ``cfg.remat``, and its dA and dB."""
+    return moe_layers(cfg) * microbatches * (3 + (1 if cfg.remat else 0))
 
 
 def log(msg: str) -> None:
@@ -1165,7 +1251,8 @@ class Smoke:
                            ("25", self.run_lm_serving),
                            ("26", self.run_lm_training),
                            ("27", self.run_whisper), ("28", self.run_gemma),
-                           ("29", self.run_moe)):
+                           ("29", self.run_moe),
+                           ("30", self.run_moe_training)):
             kernels_line["kernels"] += timed(phase, run)
             torch.cuda.empty_cache()
         log("seconds by phase: " + ", ".join(
@@ -4828,7 +4915,7 @@ class Smoke:
         counts ``read()`` gives (``{"matmul": n, "flash_attention": n}``)
         on entry to and exit from the backward pass (the outermost
         ``torch.autograd.grad``) and each forward and backward body of
-        ``MatmulFn`` and ``FlashAttentionFn``.  A launch is the innermost
+        ``MatmulFn``, ``BatchedMatmulFn`` and ``FlashAttentionFn``.  A launch is the innermost
         body's: ``backward`` in a Function's backward body; ``recompute`` in
         a forward body inside the backward pass (a checkpointed forward run
         again, which a backward body's read of its saved tensors starts);
@@ -4843,7 +4930,8 @@ class Smoke:
         stack = []
         orig = (torch.autograd.grad, kmm.MatmulFn.forward,
                 kmm.MatmulFn.backward, kfa.FlashAttentionFn.forward,
-                kfa.FlashAttentionFn.backward)
+                kfa.FlashAttentionFn.backward, kmm.BatchedMatmulFn.forward,
+                kmm.BatchedMatmulFn.backward)
 
         def body(kind, fn):
             def wrapper(*args, **kw):
@@ -4868,6 +4956,9 @@ class Smoke:
         kfa.FlashAttentionFn.forward = staticmethod(body("forward", orig[3]))
         kfa.FlashAttentionFn.backward = staticmethod(
             body("backward", orig[4]))
+        kmm.BatchedMatmulFn.forward = staticmethod(body("forward", orig[5]))
+        kmm.BatchedMatmulFn.backward = staticmethod(
+            body("backward", orig[6]))
         try:
             yield
         finally:
@@ -4876,6 +4967,8 @@ class Smoke:
             kmm.MatmulFn.backward = staticmethod(orig[2])
             kfa.FlashAttentionFn.forward = staticmethod(orig[3])
             kfa.FlashAttentionFn.backward = staticmethod(orig[4])
+            kmm.BatchedMatmulFn.forward = staticmethod(orig[5])
+            kmm.BatchedMatmulFn.backward = staticmethod(orig[6])
         outside = {n: c - start[n] - sum(o[n] for o in own.values())
                    for n, c in read().items()}
         for n in start:
@@ -4886,7 +4979,7 @@ class Smoke:
     def lm_train_main(self, cfg, params, batch, launches, label, rep, *,
                       phase="26a", micro=TRAIN_LM_MICRO, chunks=None,
                       simt=0, attn_variant=None, windowed=0,
-                      grads_only=False):
+                      grads_only=False, routes=None):
         """26a: the main path.  Counts 0 just before one train step on
         ``backend="kernels"`` (with ``grads_only``, its loss and gradients,
         ``make_value_and_grad``, which launch every kernel the step does),
@@ -4898,13 +4991,19 @@ class Smoke:
         ``torch.matmul``; the attention backward's own fp32 products
         (``attention_grads``: per query chunk one ``bmm``, two ``baddbmm``
         and two ``baddbmm_``; ``chunks`` of them, by default phase 26's)
-        and the transposes counted apart.  Returns the measured launches by
-        part."""
+        and the transposes counted apart.  With ``launches["matmul_batched"]``
+        (a MoE config, ``lm_train_split``) kernel 3's batched launches are
+        read and split apart from its 2-D ones, and with a list ``routes``
+        each ``moe.route`` call's (experts, kept) is recorded in it.
+        Returns the measured launches by part."""
         torch = self.torch
         F = torch.nn.functional
         kmm, kfa = self.kmm, self.kfa
         want = {"conv2d": 0, "transposed_conv2d": 0,
                 **{k: sum(v.values()) for k, v in launches.items()}}
+        batched = want.pop("matmul_batched", None)
+        if batched is not None:
+            want["matmul"] += batched
         if chunks is None:
             chunks = (TRAIN_LM_SEQ // kfa.Q_CHUNK * cfg.num_layers
                       * TRAIN_LM_MICRO)
@@ -4925,14 +5024,25 @@ class Smoke:
         other, parts = {}, {}
         targets = [(F, "conv2d"), (F, "conv_transpose2d"),
                    (F, "scaled_dot_product_attention"),
-                   (kmm, "matmul_plain"), (kfa, "attention_plain"),
+                   (kmm, "matmul_plain"), (kmm, "matmul_batched_plain"),
+                   (kfa, "attention_plain"),
                    (torch, "matmul"), (torch, "bmm"), (torch, "baddbmm"),
                    (torch.Tensor, "baddbmm_")]
         transposes = kmm.MatmulFn.transposes
+        mm = self.counters["matmul"]
+
+        def read():
+            got = {n: self.counters[n].launches for n in launches
+                   if n != "matmul_batched"}
+            if batched is not None:
+                got["matmul_batched"] = mm.launches_batched
+                got["matmul"] -= mm.launches_batched
+            return got
+
         self.reset_counts()
         with self.counting_calls(other, targets), self.counting_parts(
-                parts, lambda: {n: self.counters[n].launches
-                                for n in launches}):
+                parts, read), self.moe_recording(
+                    routes if routes is not None else []):
             if grads_only:
                 loss, grads = vg(params, batch)
                 m, new_o = {"loss": loss}, None
@@ -4946,18 +5056,25 @@ class Smoke:
         transposes = kmm.MatmulFn.transposes - transposes
         other = {attr: other.get(attr, 0) for _, attr in targets}
         log(f"  by part, measured: matmul {parts['matmul']}, flash "
-            f"attention {parts['flash_attention']}")
+            f"attention {parts['flash_attention']}"
+            + (f", batched {parts['matmul_batched']}" if batched is not None
+               else ""))
         log(f"  other calls in the step: {other}; transposes copied: "
             f"{transposes} (one a backward product)")
+        if batched is not None and mm.launches_batched != batched:
+            raise RuntimeError(f"{mm.launches_batched} batched launches, "
+                               f"not {batched}")
         if parts != launches:
             raise RuntimeError(f"train step launches by part {parts} != "
                                f"{launches}")
         want_other = {"conv2d": 0, "conv_transpose2d": 0,
                       "scaled_dot_product_attention": 0, "matmul_plain": 0,
+                      "matmul_batched_plain": 0,
                       "attention_plain": 0, "matmul": 0, "bmm": chunks,
                       "baddbmm": 2 * chunks, "baddbmm_": 2 * chunks}
-        if other != want_other or transposes != launches["matmul"][
-                "backward"]:
+        backward = sum(launches[k]["backward"] for k in launches
+                       if k.startswith("matmul"))
+        if other != want_other or transposes != backward:
             raise RuntimeError(f"train step calls {other} (transposes "
                                f"{transposes}) != {want_other}: a product "
                                f"or an attention left the kernels")
@@ -5005,11 +5122,12 @@ class Smoke:
         samples = {"transposes": {}, "attention": {}}
         # the innermost Function body running (forward or backward) and
         # how many torch.autograd.grad calls are open
-        state = {"stack": [], "grad": 0, "n": 0}
+        state = {"stack": [], "grad": 0, "n": 0, "zero": 0}
         orig = (kmm.matmul_cuda, kfa.flash_attention_cuda,
                 kmm.MatmulFn.forward, kmm.MatmulFn.backward,
                 kfa.FlashAttentionFn.forward, torch.autograd.grad,
-                kmm._transposed)
+                kmm._transposed, kmm.matmul_batched_cuda,
+                kmm.BatchedMatmulFn.forward, kmm.BatchedMatmulFn.backward)
 
         def part():
             if state["stack"][-1] == "backward":
@@ -5018,15 +5136,19 @@ class Smoke:
 
         def check(name, args, out, plain):
             where = part()
-            entry = (f"matmul ({label} "
+            entry = (f"{name} ({label} "
                      f"{'backward' if where == 'backward' else 'forward'})"
-                     if name == "matmul" else f"flash_attention ({label})")
+                     if name.startswith("matmul")
+                     else f"flash_attention ({label})")
             floor = 0.0 if where == "backward" else 1.0
             want = plain()
             self.compare(f"{entry} call {state['n']} ({where})", entry, out,
                          want, quiet=True, floor=floor)
-            caught.setdefault(where, []).append(
-                self.sensitivity(out, want, floor, TOL))
+            if bool(want.any()):
+                caught.setdefault(where, []).append(
+                    self.sensitivity(out, want, floor, TOL))
+            else:   # a top-1 router's dA and dB: its gate is the constant 1
+                state["zero"] += 1
             state["n"] += 1
             geo = self.lm_call(name, args)[5]
             grp = groups.setdefault((where, name, geo), [args, 0])
@@ -5035,6 +5157,12 @@ class Smoke:
         def mm(a, b):
             out = orig[0](a, b)
             check("matmul", (a, b), out, lambda: kmm.matmul_plain(a, b))
+            return out
+
+        def bmm(a, b):
+            out = orig[7](a, b)
+            check("matmul_batched", (a, b), out,
+                  lambda: kmm.matmul_batched_plain(a, b))
             return out
 
         def fa(q, k, v, causal, window=0):
@@ -5072,9 +5200,12 @@ class Smoke:
             return orig[6](t)
 
         kmm.matmul_cuda, kfa.flash_attention_cuda = mm, fa
+        kmm.matmul_batched_cuda = bmm
         kmm.MatmulFn.forward = inside("forward", orig[2])
         kmm.MatmulFn.backward = inside("backward", orig[3])
         kfa.FlashAttentionFn.forward = inside("forward", orig[4])
+        kmm.BatchedMatmulFn.forward = inside("forward", orig[8])
+        kmm.BatchedMatmulFn.backward = inside("backward", orig[9])
         torch.autograd.grad, kmm._transposed = grad, transposed
         try:
             loss, grads = vg(params, mb)
@@ -5084,14 +5215,19 @@ class Smoke:
             kmm.MatmulFn.forward = staticmethod(orig[2])
             kmm.MatmulFn.backward = staticmethod(orig[3])
             kfa.FlashAttentionFn.forward = staticmethod(orig[4])
-            torch.autograd.grad, kmm._transposed = orig[5:]
+            torch.autograd.grad, kmm._transposed = orig[5:7]
+            kmm.matmul_batched_cuda = orig[7]
+            kmm.BatchedMatmulFn.forward = staticmethod(orig[8])
+            kmm.BatchedMatmulFn.backward = staticmethod(orig[9])
         del grads
         per_part = {}
         for (where, name, _), (_, n) in groups.items():
             per_part[(where, name)] = per_part.get((where, name), 0) + n
-        worst = {e: self.worst[e] for e in (f"matmul ({label} forward)",
-                                            f"matmul ({label} backward)",
-                                            f"flash_attention ({label})")}
+        worst = {e: self.worst[e] for e in (
+            f"matmul ({label} forward)", f"matmul ({label} backward)",
+            f"matmul_batched ({label} forward)",
+            f"matmul_batched ({label} backward)",
+            f"flash_attention ({label})") if e in self.worst}
         reads = {w: [min(c[j] for c in cs) for j in range(2)]
                  for w, cs in caught.items()}
         log(f"  {state['n']} calls ok, loss {float(loss):.4f}; by part: "
@@ -5100,6 +5236,9 @@ class Smoke:
         for w, (zero, off) in reads.items():
             log(f"  {w}: a zeroed output would reach >= {zero:.3g} x its "
                 f"bar, one 2% off >= {off:.3g} x")
+        if state["zero"]:
+            log(f"  {state['zero']} calls whose plain output is all zeros "
+                f"(held exactly, no zeroed or 2%-off output to tell apart)")
         want = {(w, k): n // micro for k, by in launches.items()
                 for w, n in by.items() if n}
         if per_part != want:
@@ -5109,6 +5248,7 @@ class Smoke:
             raise RuntimeError(f"{label}: a bar would miss a zeroed or a "
                                f"2%-off kernel output: {reads}")
         rep["calls"] = {"checked": state["n"], "zeroed_off2_over_bar": reads,
+                        "all_zero_plain": state["zero"],
                         "by_part": {f"{w} {k}": n
                                     for (w, k), n in per_part.items()}}
         return groups, samples
@@ -5118,20 +5258,50 @@ class Smoke:
         """26c: step-0 loss, gradient norm and gradients, kernels against
         ``backend="torch"`` from one state and batch: loss within 5%,
         gradient norm within 10%, each gradient tensor at 10% relative L2
-        (DESIGN.md §12)."""
+        (DESIGN.md §12).  A MoE config's torch run takes the kernels run's
+        routes (``moe_recording(force=)``, replayed in call order over the
+        forward and the recompute), after a free torch run whose routes
+        are compared with the kernels' (``route_agreement``, read, not
+        gated); a top-1 router's gradient must be exactly zero on both
+        backends."""
         from repro_torch.launch import steps
         from repro_torch.optim import global_norm
 
         log(f"phase {phase}: step-0 gradients, backend=kernels vs "
             f"backend=torch "
             f"(loss {BF16_FWD_RTOL:.0%}, grad_norm {BF16_GRAD_RTOL:.0%}, "
-            f"each tensor {BF16_GRAD_RTOL:.0%} relative L2)")
-        out = {}
-        for backend in ("kernels", "torch"):
+            f"each tensor {BF16_GRAD_RTOL:.0%} relative L2)"
+            + (", the torch run on the kernels run's routes" if cfg.moe
+               else ""))
+        out, seen = {}, {"kernels": [], "torch": []}
+        runs = [("kernels", seen["kernels"], None), ("torch", [], True)]
+        if cfg.moe is not None:
+            runs.insert(0, ("torch free", seen["torch"], None))
+        for name, record, force in runs:
+            backend = name.split(" ")[0]
             vg = steps.make_value_and_grad(cfg, microbatches=micro,
                                            backend=backend)
-            loss, grads = vg(params, batch)
-            out[backend] = (float(loss), float(global_norm(grads)), grads)
+            with self.moe_recording(record, force=[
+                    r[0] for r in seen["kernels"]] if force else None):
+                loss, grads = vg(params, batch)
+            out[name] = (float(loss), float(global_norm(grads)),
+                         None if name == "torch free" else grads)
+            del grads
+        if cfg.moe is not None:
+            free = out.pop("torch free")
+            _, rep["routes_free"] = self.route_agreement(
+                f"{phase}: routes, each backend on its own (read, not "
+                f"gated; the free torch run's loss {free[0]:.5f}, grad_norm "
+                f"{free[1]:.5f})", seen["kernels"], seen["torch"],
+                batch["tokens"].numel() // micro)
+            if cfg.moe.top_k == 1:
+                nonzero = {b: [k for k, g in out[b][2].items()
+                               if k.endswith("ffn.router") and bool(g.any())]
+                           for b in ("kernels", "torch")}
+                log(f"  top-1 router gradients nonzero: {nonzero} (must be "
+                    f"none: the one gate is the constant 1)")
+                if any(nonzero.values()):
+                    raise RuntimeError(f"top-1 router gradients {nonzero}")
         (lk, nk, gk), (lt, nt, gt) = out["kernels"], out["torch"]
         rel = {k: ((gk[k].float() - gt[k].float()).norm()
                    / gt[k].float().norm().clamp_min(1e-30)).item()
@@ -5154,17 +5324,19 @@ class Smoke:
         del out, gk, gt
 
     def lm_train_steps(self, cfg, params, batches, rep, *, phase="26d",
-                       micro=TRAIN_LM_MICRO, rtol=BF16_FWD_RTOL):
-        """26d: three steps on both backends from one state on successive
-        batches: losses finite and within ``rtol`` (5%) of each other,
-        masters fp32, parameters bf16, ``opt_state.step`` 3."""
+                       micro=TRAIN_LM_MICRO, rtol=BF16_FWD_RTOL,
+                       backends=("kernels", "torch")):
+        """26d: three steps on ``backends`` (both by default) from one state
+        on successive batches: losses finite and within ``rtol`` (5%) of
+        each other, masters fp32, parameters in their dtypes (bf16; a MoE
+        router fp32), ``opt_state.step`` 3."""
         torch = self.torch
         from repro_torch.models import transformer
 
-        log(f"phase {phase}: {TRAIN_LM_STEPS} make_train_step steps on both "
-            f"backends from one state on successive batches")
+        log(f"phase {phase}: {TRAIN_LM_STEPS} make_train_step steps on "
+            f"{' and '.join(backends)} from one state on successive batches")
         losses = {}
-        for backend in ("kernels", "torch"):
+        for backend in backends:
             step, opt_init = self.train_fns(cfg, backend, micro)
             p, o = params, opt_init(params)
             losses[backend] = []
@@ -5176,13 +5348,18 @@ class Smoke:
                       {str(t.dtype) for t in o.master.values()})
             log(f"  {backend}: losses {losses[backend]}, parameters "
                 f"{dtypes[0]}, masters {dtypes[1]}, step {int(o.step)}")
-            if (dtypes != ({"torch.bfloat16"}, {"torch.float32"})
+            if (dtypes != ({str(t.dtype) for t in transformer.
+                            flatten_params(params).values()},
+                           {"torch.float32"})
                     or int(o.step) != TRAIN_LM_STEPS
                     or not all(map(math.isfinite, losses[backend]))):
                 raise RuntimeError(f"{backend} steps: {losses[backend]}, "
                                    f"{dtypes}, step {int(o.step)}")
             del p, o, m
             torch.cuda.empty_cache()
+        if "torch" not in losses:
+            rep["steps"] = {"losses": losses}
+            return
         rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernels"],
                                                    losses["torch"])]
         log(f"  kernels vs torch losses: relative {[f'{r:.2e}' for r in rel]}"
@@ -5299,6 +5476,12 @@ class Smoke:
                    "library GEMM": ("gemm", "xmma", "nvjet", "cutlass",
                                     "Kernel2"),
                    "library attention": ("flash", "fmha", "attention")}
+        if cfg.moe is not None:
+            # the MoE dispatch and combine (the routing's sorts and
+            # searchsorted, the gathers, index_put and their backwards) and
+            # the embedding's backward, an index_put too
+            classes["index ops"] = ("index", "gather", "scatter", "ort",
+                                    "searchsorted")
         times = rep["times"] = {}
         for backend in ("kernels", "torch"):
             if grads_only:
@@ -5380,7 +5563,7 @@ class Smoke:
             t = torch.randn(shape, device=self.dev).to(getattr(
                 torch, dtype.removeprefix("torch.")))
             transpose_ms += micro * n * self.device_ms(
-                lambda: t.t().contiguous())
+                lambda: t.transpose(-2, -1).contiguous())
             del t
         rows, per = self.lm_train_shapes(groups, label, micro)
         k3f, k3b = (per[f"matmul ({label} {w})"]["ms"]
@@ -5390,10 +5573,24 @@ class Smoke:
         split = {"kernel 3 forward": k3f, "kernel 3 backward": k3b,
                  "kernel 4": k4, "attention backward recompute":
                  recompute_ms, "transposes": transpose_ms}
+        if cfg.moe is not None:
+            # the batched form apart, and the fp32 routers' "simt" products
+            # (counted in kernel 3's 2-D time) by part
+            for w in ("forward", "backward"):
+                split[f"kernel 3 batched {w}"] = per[
+                    f"matmul_batched ({label} {w})"]["ms"]
+                split[f"routers simt {w} (in kernel 3 {w})"] = sum(
+                    r["calls"] * r["ms"] for r in rows
+                    if r["variant"] == "simt" and r["kernel"] == "matmul"
+                    and (r["part"] == "backward") == (w == "backward"))
+            classes_ms = row.get("classes") or {}
+            split["index ops: dispatch, combine, embedding (profiler)"] = (
+                classes_ms.get("index ops"))
         if not grads_only:
             split["optimizer"] = row["optimizer_ms"]
         if row["device_ms"] is not None and None not in split.values():
-            split["rest"] = row["device_ms"] - sum(split.values())
+            split["rest"] = row["device_ms"] - sum(
+                v for k, v in split.items() if " (in " not in k)
         row["split_ms"] = split
         row["recompute_ms_by_geometry"] = recompute
         log(f"  kernels {what} device ms, each piece timed alone (kernel 3 "
@@ -5420,8 +5617,11 @@ class Smoke:
         torch = self.torch
         keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
                 "bytes_ms", "flops")
+        names = ["matmul"] + (["matmul_batched"] if any(
+            n == "matmul_batched" for _, n, _ in groups) else [])
         per = {e: dict.fromkeys(keys, 0.0) for e in (
-            f"matmul ({label} forward)", f"matmul ({label} backward)",
+            *(f"{n} ({label} {w})" for n in names
+              for w in ("forward", "backward")),
             f"flash_attention ({label})")}
         rows, timed = [], {}
         with torch.no_grad():
@@ -5437,13 +5637,15 @@ class Smoke:
                 r = {"part": part, "kernel": name, "geometry": geo,
                      "variant": variant, "calls": calls, "flops": flops,
                      "bytes": nbytes, **timed[name, geo],
-                     "ops_ms": 1e3 * flops / PEAK_BF16_FLOPS,
+                     "ops_ms": 1e3 * flops / (
+                         PEAK_FP32_FLOPS if args[0].dtype == torch.float32
+                         else PEAK_BF16_FLOPS),
                      "bytes_ms": 1e3 * nbytes / PEAK_BYTES_S}
                 r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
                 r["tflops"] = flops / r["ms"] / 1e9
                 rows.append(r)
-                entry = (f"flash_attention ({label})" if name != "matmul"
-                         else f"matmul ({label} "
+                entry = (f"flash_attention ({label})"
+                         if name == "flash_attention" else f"{name} ({label} "
                          f"{'backward' if part == 'backward' else 'forward'})")
                 for k in keys:
                     per[entry][k] += calls * r[k]
@@ -6343,17 +6545,19 @@ class Smoke:
 
         rep = self.report["moe"] = {}
         self.moe_batched(rep)
-        cfg = get_config(MOE_ARCH)
+        full = get_config(MOE_ARCH)
+        cfg = full.replace(num_layers=MOE_LAYERS)
         m = cfg.moe
-        log(f"phase 29b: {cfg.name} at its published configuration "
-            f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} "
-            f"heads on {cfg.kv_heads} KV heads x {cfg.head_dim}, "
-            f"{m.num_experts} experts top-{m.top_k} of {m.d_ff_expert}, "
-            f"vocab {cfg.vocab}, {cfg.dtype}; nothing cut)")
+        log(f"phase 29b: {cfg.name} at its published widths (d "
+            f"{cfg.d_model}, {cfg.num_heads} heads on {cfg.kv_heads} KV heads "
+            f"x {cfg.head_dim}, {m.num_experts} experts top-{m.top_k} of "
+            f"{m.d_ff_expert}, vocab {cfg.vocab}, {cfg.dtype}), depth cut "
+            f"from {full.num_layers} to {cfg.num_layers} layers")
         params = self.lm_params(cfg, SEED + 40, rep)
-        entries = self.moe_serve(cfg, params, MOE_NAME, "29b",
-                                 rep.setdefault(MOE_NAME, {}), batch=MOE_BATCH,
-                                 prompt=MOE_PROMPT)
+        entries = self.moe_serve(cfg, params,
+                                 f"{MOE_NAME} ({cfg.num_layers} layers)",
+                                 "29b", rep.setdefault(MOE_NAME, {}),
+                                 batch=MOE_BATCH, prompt=MOE_PROMPT)
         del params
         torch.cuda.empty_cache()
         full = get_config(SCOUT_ARCH)
@@ -6646,6 +6850,238 @@ class Smoke:
             rows.append({**row, "routes": routes})
         rep.setdefault("logits", {})[cfg.name] = rows
         del got, want, seen
+
+    # -------------------------------------------------------------- phase 30
+    def run_moe_training(self):
+        """Phase 30: MoE training on the card (module docstring, 30a-d).
+        Returns its entries of the kernels line."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+
+        rep = self.report["moe_train"] = {}
+        self.moe_train_batched(rep)
+        entries = self.moe_train(get_config(MOE_ARCH), MOE_NAME,
+                                 MOE_TRAIN_LAYERS, "30b",
+                                 rep.setdefault(MOE_NAME, {}))
+        torch.cuda.empty_cache()
+        entries += self.moe_train(get_config(SCOUT_ARCH), SCOUT_NAME,
+                                  SCOUT_TRAIN_LAYERS, "30c",
+                                  rep.setdefault(SCOUT_NAME, {}))
+        torch.cuda.empty_cache()
+        return entries
+
+    def moe_train_batched(self, rep):
+        """30a: ``BatchedMatmulFn`` (forward, then dA and dB, one batched
+        launch each) at each ``MOE_TRAIN_BATCHED`` shape in bf16 and fp32
+        and each ``MOE_TRAIN_EDGES`` shape in bf16: each gradient against
+        its plain version (fp32 ``torch.bmm`` of the same operands: the
+        cotangent and B^T, A^T and the cotangent) at phase 10's bars, on
+        the variant the rule gives its operands; a zeroed output and one 2%
+        off shown to fail; each timed beside its bound and ``torch.bmm``."""
+        torch = self.torch
+        kmm = self.kmm
+        counter = self.counters["matmul"]
+        name = "matmul_batched (30a backward)"
+        log("phase 30a: kernel 3's batched backward (BatchedMatmulFn: dA = "
+            "dC @ B^T, dB = A^T @ dC, one launch each over every expert) vs "
+            f"its plain version (fp32: {TOL} x max(1, max|plain|); bf16, "
+            f"each element 2^-7 |plain| + {TOL} x max(1, max|plain|)), "
+            f"timed beside its bound and torch.bmm")
+        g = torch.Generator().manual_seed(SEED + 30)
+        cases = [(sh, dt) for sh in MOE_TRAIN_BATCHED
+                 for dt in (torch.bfloat16, torch.float32)]
+        cases += [(sh, torch.bfloat16) for sh in MOE_TRAIN_EDGES]
+        caught, rows = [], []
+        for (e, r, k, n), dt in cases:
+            a = torch.randn((e, r, k), generator=g).to(self.dev, dt)
+            b = (torch.randn((e, k, n), generator=g) * k ** -0.5).to(
+                self.dev, dt)
+            cot = torch.randn((e, r, n), generator=g).to(self.dev, dt)
+            ta, tb = (t.detach().requires_grad_() for t in (a, b))
+            before = counter.launches_batched
+            da, db = torch.autograd.grad(kmm.BatchedMatmulFn.apply(ta, tb),
+                                         (ta, tb), cot)
+            torch.cuda.synchronize()
+            if counter.launches_batched != before + 3:
+                raise RuntimeError(f"30a ({e}, {r}, {k}, {n}) {dt}: "
+                                   f"{counter.launches_batched - before} "
+                                   f"batched launches, not 3")
+            bt, at = (t.transpose(1, 2).contiguous() for t in (b, a))
+            for what, got, args in (("dA", da, (cot, bt)),
+                                    ("dB", db, (at, cot))):
+                kern, plain, lib, flops, nbytes, geo, variant = self.lm_call(
+                    "matmul_batched", args)
+                kk, nn = args[1].shape[1:]
+                want_v = ("wgmma" if dt == torch.bfloat16 and kk % 8 == 0
+                          and nn % 8 == 0 else "simt")
+                if variant != want_v or got.dtype != dt:
+                    raise RuntimeError(f"30a {what} {geo} {dt}: variant "
+                                       f"{variant} (not {want_v}), "
+                                       f"{got.dtype}")
+                want = plain()
+                self.compare(f"30a {what} of ({e}, {r}, {k}, {n}): {geo} "
+                             f"{dt} [{variant}], last K tile "
+                             f"{kk - (kk - 1) // 64 * 64} of 64", name,
+                             got, want)
+                caught.append(self.sensitivity(got, want, 1.0, TOL))
+                del want
+                peak = (PEAK_FP32_FLOPS if dt == torch.float32
+                        else PEAK_BF16_FLOPS)
+                row = {"gradient": what, "forward": [e, r, k, n],
+                       "geometry": geo, "dtype": str(dt),
+                       "variant": variant, "flops": flops, "bytes": nbytes,
+                       "ms": self.device_ms(kern),
+                       "plain_ms": self.device_ms(plain, reps=3),
+                       "library_ms": self.device_ms(lib),
+                       "transpose_ms": self.device_ms(
+                           lambda t=args[1 if what == "dA" else 0]:
+                           t.transpose(1, 2).contiguous()),
+                       "ops_ms": 1e3 * flops / peak,
+                       "bytes_ms": 1e3 * nbytes / PEAK_BYTES_S}
+                row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+                rows.append(row)
+                log(f"    {row['ms']:.4f} ms, {flops / row['ms'] / 1e9:.1f} "
+                    f"TFLOP/s, bound {row['bound_ms']:.4f} ms ("
+                    + ("ops" if row["ops_ms"] >= row["bytes_ms"] else "bytes")
+                    + f"), {row['ms'] / row['bound_ms']:.1f} x bound; "
+                    f"torch.bmm {row['library_ms']:.4f} ms; plain "
+                    f"{row['plain_ms']:.3f} ms; its operand's transpose "
+                    f"{row['transpose_ms']:.4f} ms")
+            del a, b, cot, ta, tb, da, db, at, bt
+        zero, off = (min(c[j] for c in caught) for j in range(2))
+        log(f"  a zeroed output would reach >= {zero:.3g} x its bar, one 2% "
+            f"off >= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError("30a: a bar would miss a zeroed or a 2%-off "
+                               "kernel output")
+        rep["batched_backward"] = {"timed": rows, "zeroed_over_bar": zero,
+                                   "off2_over_bar": off}
+
+    def moe_train(self, full, name, layers, phase, rep):
+        """30b (Qwen3-MoE, ``make_train_step``) and 30c (Llama-4-Scout,
+        ``make_value_and_grad``): ``full`` at its published widths cut to
+        ``layers`` layers.  The full step's peak is reckoned first (32
+        bytes a parameter, the update's temporaries over the largest leaf
+        20 bytes an entry); Qwen3-MoE takes one layer less while it does
+        not fit, Llama-4-Scout runs its loss and gradients.  Then 26a's
+        gates by part with the batched launches apart (the fp32 routers'
+        products ``"simt"``) and the routes of the forward and of the remat
+        recompute equal bit for bit; 26b's calls; 26c's gradients against
+        the torch backend on the kernels run's routes; 26d's steps on the
+        kernels backend (30b); 26f's times.  Returns the kernels line's
+        entries."""
+        torch = self.torch
+        from repro_torch.data import LMDataPipeline
+        from repro_torch.models import transformer
+
+        qwen = phase == "30b"
+        micro, rows_b = ((MOE_TRAIN_MICRO, MOE_TRAIN_BATCH) if qwen
+                         else (1, 1))
+        total = torch.cuda.get_device_properties(self.dev).total_memory
+        while True:
+            cfg = full.replace(num_layers=layers)
+            flat = transformer.flatten_params(
+                transformer.init_params(None, cfg, device="meta"))
+            n_par = sum(t.numel() for t in flat.values())
+            largest = max(flat, key=lambda k: flat[k].numel())
+            reckon = 32 * n_par + 20 * flat[largest].numel()
+            fits = reckon < total
+            if fits or not qwen or layers == 1:
+                break
+            log(f"  {cfg.name} at {layers} layers reckons "
+                f"{reckon / 2 ** 30:.1f} GiB: one layer less")
+            layers -= 1
+        if qwen and not fits:
+            raise RuntimeError(f"{cfg.name}: a full step at 1 layer reckons "
+                               f"{reckon / 2 ** 30:.1f} GiB")
+        grads_only = not qwen
+        m = cfg.moe
+        what = "loss and gradients" if grads_only else "train step"
+        label = f"{name} ({cfg.num_layers} layers) {what}"
+        log(f"phase {phase}: train {cfg.name} at its published widths (d "
+            f"{cfg.d_model}, {cfg.num_heads} heads on {cfg.kv_heads} KV heads "
+            f"x {cfg.head_dim}, {m.num_experts} experts top-{m.top_k} of "
+            f"{m.d_ff_expert}"
+            + (f" and a shared expert of {m.shared_expert_ff}"
+               if m.shared_expert_ff else "")
+            + f", vocab {cfg.vocab}, {cfg.dtype}), depth cut from "
+            f"{full.num_layers} to {cfg.num_layers} layers: seq {MOE_SEQ}, "
+            f"global batch {rows_b} in {micro} microbatches, "
+            + ("make_train_step with fp32 AdamW" if qwen else
+               "make_value_and_grad")
+            + f", remat ({cfg.remat}); {n_par:,} parameters: a full step's "
+            f"reckoned peak {reckon / 2 ** 30:.1f} GiB (32 bytes a "
+            f"parameter, the update's temporaries over the largest leaf, "
+            f"{largest} of {flat[largest].numel():,} entries, 20 bytes an "
+            f"entry) against the card's {total / 2 ** 30:.1f} GiB")
+        rep.update({"reckoned_peak_gib": reckon / 2 ** 30, "layers": layers,
+                    "largest_leaf": [largest, flat[largest].numel()],
+                    "full_step_run": not grads_only})
+        del flat
+        params = self.lm_params(cfg, SEED + (42 if qwen else 43), rep)
+        pipe = LMDataPipeline(rows_b, MOE_SEQ, cfg.vocab, seed=SEED)
+        try:
+            batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.dev) for k, v in pipe.batch_at(i).items()}
+                for i in range(TRAIN_LM_STEPS)]
+        finally:
+            pipe.close()
+        launches = lm_train_split(cfg, MOE_SEQ, micro)
+        kw = dict(phase=phase, micro=micro)
+        routes = []
+        parts = self.lm_train_main(
+            cfg, params, batches[0], launches, label, rep,
+            chunks=MOE_SEQ // self.kfa.Q_CHUNK * cfg.num_layers * micro,
+            simt=router_train_launches(cfg, micro), grads_only=grads_only,
+            routes=routes, **kw)
+        self.remat_routes(cfg, routes, micro, phase, rep)
+        del routes
+        groups, samples = self.lm_train_calls(cfg, params, batches[0],
+                                              launches, label, rep, **kw)
+        wrong = [(w, n, geo) for (w, n, geo), (args, _) in groups.items()
+                 if self.lm_call(n, args)[6] != (
+                     "simt" if args[0].dtype == torch.float32
+                     else "wgmma")]
+        if wrong:
+            raise RuntimeError(f"{label}: calls off their variant: {wrong}")
+        self.lm_train_grads(cfg, params, batches[0], rep, **kw)
+        if not grads_only:
+            self.lm_train_steps(cfg, params, batches, rep,
+                                backends=("kernels",), **kw)
+        torch.cuda.empty_cache()
+        entries = self.lm_train_times(cfg, params, batches, groups, samples,
+                                      parts, label, rep,
+                                      timed=MOE_TRAIN_TIMED,
+                                      grads_only=grads_only, **kw)
+        del params, batches, groups, samples
+        return entries
+
+    def remat_routes(self, cfg, routes, micro, phase, rep):
+        """The routes recorded over a step (``lm_train_main``): each
+        microbatch's MoE layers in the forward, then again in the remat
+        recompute, in reverse layer order.  Each recompute's experts and
+        kept mask must be its forward's bit for bit, or the gradient would
+        be another function's than the loss."""
+        n = moe_layers(cfg)
+        per = n * (2 if cfg.remat else 1)
+        if len(routes) != per * micro:
+            raise RuntimeError(f"{phase}: {len(routes)} routes recorded over "
+                               f"the step, not {per * micro}")
+        compared = differ = 0
+        if cfg.remat:
+            for i in range(micro):
+                fwd = routes[i * per:i * per + n]
+                again = routes[i * per + n:(i + 1) * per][::-1]
+                for (fi, fk), (ri, rk) in zip(fwd, again):
+                    compared += fi.numel()
+                    differ += int((fi != ri).sum()) + int((fk != rk).sum())
+        log(f"  routes of the forward vs the remat recompute: {compared:,} "
+            f"(token, layer, slot) routes over {micro} microbatches x {n} "
+            f"MoE layers, {differ} experts or kept masks differ (must be 0)")
+        rep["remat_routes"] = {"compared": compared, "differ": differ}
+        if not cfg.remat or differ:
+            raise RuntimeError(f"{phase}: remat {cfg.remat}; the recompute "
+                               f"routed {differ} slots otherwise")
 
     # --------------------------------------------------- per-call helpers
     def geometry(self, name, args):

@@ -39,6 +39,13 @@ kernel 3 again (bf16 operands with K and N multiples of 8 take
 operands only, so ``B^T`` and ``A^T`` are contiguous copies
 (``MatmulFn.transposes`` counts them; a kernel that reads a transposed
 operand in place is a later lever, ROADMAP.md).
+
+:class:`BatchedMatmulFn` does the same for the batched form (MoE
+training): ``dA[e] = dC[e] @ B[e]^T`` and ``dB[e] = A[e]^T @ dC[e]``, each
+one :func:`matmul_batched` launch over every expert, on contiguous
+per-expert transposes (counted in ``MatmulFn.transposes`` too).  In ``dB``
+the contraction runs over the capacity rows R, so a K tile past R reads
+TMA's zeros of that expert's rank-3 map, never the next expert's rows.
 """
 
 from __future__ import annotations
@@ -205,12 +212,37 @@ class MatmulFn(torch.autograd.Function):
         return da, db
 
 
+class BatchedMatmulFn(torch.autograd.Function):
+    """``a @ b`` of the batched form under autograd, ``a`` (E, M, K) and
+    ``b`` (E, K, N): the forward is :func:`matmul_batched`, the backward
+    one more :func:`matmul_batched` launch for each gradient, over every
+    expert, on contiguous per-expert transposes.  Each gradient is in its
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return matmul_batched(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = matmul_batched(g, _transposed(b)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = matmul_batched(_transposed(a), g).to(b.dtype)
+        return da, db
+
+
 def _transposed(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``t.T``, counted in ``MatmulFn.transposes``."""
+    """A contiguous copy of ``t`` with its last two axes swapped (``t.T``
+    of a matrix, each expert's transpose of a batched operand), counted in
+    ``MatmulFn.transposes``."""
     MatmulFn.transposes += 1
-    return t.t().contiguous()
+    return t.transpose(-2, -1).contiguous()
 
 
 __all__ = ["matmul", "matmul_plain", "matmul_cuda", "matmul_variant",
            "matmul_batched", "matmul_batched_plain", "matmul_batched_cuda",
-           "MatmulFn", "VARIANTS"]
+           "MatmulFn", "BatchedMatmulFn", "VARIANTS"]

@@ -51,22 +51,15 @@ def _model_fns(cfg: ModelConfig):
     return transformer
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the train step cannot
-    take yet: a MoE FFN (its experts' batched products have no backward;
-    moe training, ROADMAP.md queue 1).  Serving takes it."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: moe training (ROADMAP.md queue 1) is not ported; "
-            f"the MoE FFN serves only")
-
-
 def make_value_and_grad(cfg: ModelConfig, *, microbatches: int = 1,
                         backend: str = "kernels"):
     """``value_and_grad(params, batch) -> (loss, grads)`` of the train
     step: the mean CE loss (a 0-d fp32 tensor) and the flat gradients by
     ``flatten_params(params)``'s names, in the stacked layout.  A MoE
-    config raises (:func:`check_trainable`).
+    config trains as any other, with no auxiliary loss, as the
+    reference's: its stacked leaves (the fp32 ``ffn.router``, the expert
+    stacks ``ffn.we_*``, ``ffn.shared.*``) get their gradients like the
+    rest.
 
     A decoder-only model's loss is the chunked CE over the final hidden
     states; an encoder-decoder's is ``softmax_cross_entropy`` over the
@@ -81,7 +74,6 @@ def make_value_and_grad(cfg: ModelConfig, *, microbatches: int = 1,
     the gradients keep the parameters' dtype.
     """
     mod = _model_fns(cfg)
-    check_trainable(cfg)
     check_backend(backend)
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
@@ -303,7 +295,7 @@ def make_gen_scan_step(scan_steps: int, *, t_max: int = DDIM_T_MAX,
     return gen_scan_step
 
 
-__all__ = ["check_trainable", "make_value_and_grad", "make_train_step",
+__all__ = ["make_value_and_grad", "make_train_step",
            "make_prefill_step",
            "make_serve_step", "DDIM_T_MAX",
            "ddim_alpha_bar", "ddim_timesteps", "make_gen_step",

@@ -31,10 +31,16 @@ it died)::
       --steps 3 --batch 16 --seq 448 --microbatches 2    # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-12b \\
       --reduced --steps 4 --batch 4 --seq 64 --microbatches 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen3-moe-30b-a3b --reduced --steps 4 --batch 4 --seq 64 \\
+      --microbatches 2 --device cpu
 
-A MoE config (Qwen3-MoE, Llama-4-Scout) is refused with
-``NotImplementedError`` (``steps.check_trainable``: moe training, ROADMAP.md
-queue 1); it serves through :mod:`repro_torch.launch.serve`.
+A MoE config (Qwen3-MoE, Llama-4-Scout) trains through the same loop:
+checkpoint, restore, recovery and heartbeat as any other, its experts'
+products forward and backward on kernel 3's batched form
+(``kernels.matmul.BatchedMatmulFn``).  Qwen3-MoE's 48 layers take 30.5 B
+parameters and Llama-4-Scout's 107.8 B, far past one card with fp32 AdamW;
+``chip_smoke.py`` phase 30 trains both at 2 layers and full widths.
 
 Gemma-3-12B's 48 layers take 11.8 B parameters, whose bf16 weights, fp32
 masters and moments and gradients exceed one card; ``chip_smoke.py`` phase

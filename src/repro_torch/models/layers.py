@@ -18,7 +18,8 @@ calls the kernel's wrapper directly.  The MoE FFN's expert products,
 (E, R, D) buffers against stacked (E, D, F) weights, are not 2-D: they go
 to kernel 3's batched form (``kernels.matmul.matmul_batched``, one launch
 for all experts; ``torch.bmm`` under ``"torch"``) in
-:mod:`repro_torch.models.moe`, which has no autograd Function yet.  The
+:mod:`repro_torch.models.moe`, under autograd through
+``kernels.matmul.BatchedMatmulFn``.  The
 reference's sharding hook ``lc`` has no counterpart: the port has no mesh
 (ROADMAP.md, multi-device).
 

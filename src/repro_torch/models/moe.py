@@ -35,9 +35,29 @@ dispatch:
 A MoE layer thus launches 1 + 3 two-dimensional matmuls (router, shared
 expert) or 1, and 3 batched ones.  Decode computes every expert's buffer,
 as the reference does, empty ones included (launching only the experts
-that hold tokens is a lever, ROADMAP.md).  There is no backward: MoE
-training is ROADMAP.md's queue 1 item, and the kernels backend refuses an
-operand that requires grad.
+that hold tokens is a lever, ROADMAP.md).
+
+**The backward** (MoE training) is what the reference's ``jax.grad``
+takes of the same function.  Under autograd (grad mode on and an operand
+that requires grad) the kernels backend runs the experts through
+``kernels.matmul.BatchedMatmulFn``, whose dA and dB are kernel 3's
+batched form again (two launches a product); the router and the shared
+expert go through ``linear`` and so ``MatmulFn``.  The router's gradient
+flows through the softmax of the k chosen logits, as the reference's
+``lax.top_k`` -> ``softmax``; with top-1 that softmax is the constant 1,
+so the router's gradient is exactly zero in both packages.  Dispatch and
+combine take autograd's gradients of the gathers, which are those of the
+reference's one-hot contractions: a dropped (token, slot) writes the
+spare row ``E * R``, which no expert reads, so its token gets no gradient
+through the experts; its gate is multiplied by ``keep`` = 0, so the gate
+gets none; and its clamped read of row ``E * R - 1`` is weighted by that
+0, so it adds exactly zero to the real row it reads.  Under remat the
+layer routes again in the recompute; the router's product has no split-K
+and the sort is stable, so the routes are the forward's bit for bit.
+
+:func:`aux_load_balance_loss` is the reference's Switch-style auxiliary
+loss, a plain function: no reference path calls it, and neither does the
+port.
 """
 
 from __future__ import annotations
@@ -132,15 +152,16 @@ def route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig,
 
 
 def _experts(p: dict, xe: torch.Tensor, backend: str) -> torch.Tensor:
-    """The experts' SwiGLU on their buffers xe (E, R, D) -> (E, R, D)."""
+    """The experts' SwiGLU on their buffers xe (E, R, D) -> (E, R, D):
+    kernel 3's batched form (``BatchedMatmulFn`` under autograd) or
+    ``torch.bmm``."""
     if backend == "kernels":
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (xe, p["we_gate"], p["we_up"],
                                           p["we_down"])):
-            raise NotImplementedError(
-                "the MoE experts have no backward yet (moe training, "
-                "ROADMAP.md queue 1)")
-        bmm = kmm.matmul_batched
+            bmm = kmm.BatchedMatmulFn.apply
+        else:
+            bmm = kmm.matmul_batched
     else:
         bmm = torch.bmm
     h = F.silu(bmm(xe, p["we_gate"])) * bmm(xe, p["we_up"])
@@ -178,4 +199,17 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return out.reshape(b, s, d)
 
 
-__all__ = ["moe_init", "moe_ffn", "route", "group_tokens", "capacity"]
+def aux_load_balance_loss(logits: torch.Tensor, idx: torch.Tensor,
+                          e: int) -> torch.Tensor:
+    """The reference's Switch-style load-balancing loss: ``e * sum(f * P)``
+    with ``f`` each expert's share of the first-choice routes ``idx[...,
+    0]`` and ``P`` its mean router probability, both averaged over the
+    leading two axes of ``logits`` (G, g, E)."""
+    probs = torch.softmax(logits, dim=-1)
+    frac_tokens = F.one_hot(idx[..., 0].long(), e).float().mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    return e * torch.sum(frac_tokens * frac_probs)
+
+
+__all__ = ["moe_init", "moe_ffn", "route", "group_tokens", "capacity",
+           "aux_load_balance_loss"]

@@ -1058,3 +1058,88 @@ def test_moe_reduced_matches_the_cpu(cuda, arch):
         assert bool(torch.isfinite(got).all())
         bar = 1e-4 * max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= bar
+
+
+# Kernel 3's batched backward (``BatchedMatmulFn``, MoE training): dA and dB
+# of (E, R, K) @ (E, K, N), each one batched launch.  R = 200 and N = 264
+# put a last 64-deep K tile of 8 rows in dB's and dA's contraction (TMA's
+# zero fill of each expert's rank-3 map, never the next expert's rows);
+# R = 36 takes "simt" for dB in bf16; Qwen3-MoE's gate product at a
+# training microbatch's R = 640.
+_BATCHED_BWD = [(8, 200, 256, 264), (16, 36, 64, 40), (4, 72, 130, 24),
+                (128, 640, 2048, 768)]   # E, R, K, N
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("erkn", _BATCHED_BWD, ids=str)
+def test_batched_matmul_fn_backward_matches_plain(cuda, erkn, dtype):
+    e, r, k, n = erkn
+    g = torch.Generator().manual_seed(e + r + k + n)
+    a = torch.randn((e, r, k), generator=g).to(cuda, dtype)
+    b = (torch.randn((e, k, n), generator=g) * k ** -0.5).to(cuda, dtype)
+    cot = torch.randn((e, r, n), generator=g).to(cuda, dtype)
+    ta, tb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    before = (kmm.matmul.launches_batched, kmm.MatmulFn.transposes)
+    da, db = torch.autograd.grad(kmm.BatchedMatmulFn.apply(ta, tb),
+                                 (ta, tb), cot)
+    torch.cuda.synchronize()
+    assert (kmm.matmul.launches_batched - before[0],
+            kmm.MatmulFn.transposes - before[1]) == (3, 2)
+    assert da.dtype == db.dtype == dtype
+    _close(da, kmm.matmul_batched_plain(cot, b.transpose(1, 2).contiguous()))
+    _close(db, kmm.matmul_batched_plain(a.transpose(1, 2).contiguous(), cot))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_reduced_train_step_matches_the_cpu(cuda, arch):
+    """One ``make_train_step`` step (2 microbatches, fp32 AdamW, remat on)
+    of the reduced MoE configs in fp32 on the card (kernel 3's ``"simt"``
+    forms, the experts' forward and backward batched) against the same step
+    on the CPU: every route equal, loss and gradient norm at 1e-5, every
+    parameter at 1e-4 x max(1, max|cpu|); 6 batched launches a MoE layer
+    and microbatch in the backward, 3 in the forward and 3 in the
+    recompute."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import steps
+    from repro_torch.models import moe, transformer
+    from repro_torch.optim import adamw_init
+
+    cfg = get_reduced(arch).replace(dtype="float32", remat=True)
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
+                                     "cpu")
+    flat = transformer.flatten_params(params)
+    toks = torch.randint(0, cfg.vocab, (4, 129),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": torch.ones(4, 128)}
+    out, routes = {}, {}
+    orig = moe.route
+    b0 = kmm.matmul.launches_batched
+    for dev in ("cpu", "cuda"):
+        p = transformer.unflatten_params(
+            {k: t.to(dev) for k, t in flat.items()}, params)
+        step = steps.make_train_step(cfg, warmup=2, total_steps=10,
+                                     microbatches=2)
+        seen = routes[dev] = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(moe, "route", lambda *a, seen=seen, **kw: seen.append(
+                orig(*a, **kw)) or seen[-1])
+            new_p, _, m = step(p, adamw_init(transformer.flatten_params(p)),
+                               {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: t.float().cpu() for k, t in
+                     transformer.flatten_params(new_p).items()})
+    torch.cuda.synchronize()
+    assert kmm.matmul.launches_batched - b0 == 2 * 12 * cfg.num_layers
+    assert len(routes["cuda"]) == len(routes["cpu"]) == 4 * cfg.num_layers
+    for got, want in zip(routes["cuda"], routes["cpu"]):
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[3].cpu(), want[3])
+    (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    for k in ("loss", "grad_norm"):
+        assert abs(mg[k] - mc[k]) <= 1e-5 * abs(mc[k]), k
+    for k, want in pc.items():
+        assert bool(torch.isfinite(pg[k]).all())
+        bar = 1e-4 * max(1.0, want.abs().max().item())
+        assert (pg[k] - want).abs().max().item() <= bar, k

@@ -43,7 +43,7 @@ from repro.models import transformer as jtr
 from repro_torch import configs
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
-from repro_torch.launch import serve, steps, train
+from repro_torch.launch import serve
 from repro_torch.models import moe, transformer
 
 _ARCHS = ("qwen3-moe-30b-a3b", "llama4-scout-17b-a16e")
@@ -209,16 +209,6 @@ def test_capacity_as_the_reference_writes_it(g, cap):
     """Qwen3-MoE's prefill groups (512 tokens, 40 slots), a batch-4 decode
     (1) and a 64-token group (5)."""
     assert moe.capacity(g, configs.get_config("qwen3-moe-30b-a3b")) == cap
-
-
-def test_experts_refuse_a_backward_on_the_kernels():
-    tcfg, jcfg = _cfgs("qwen3-moe-30b-a3b", "fp32")
-    tp = _tensors(jmoe.moe_init(jax.random.PRNGKey(8), jcfg, jnp.float32),
-                  torch.float32)
-    tp["we_up"].requires_grad_()
-    x = torch.zeros((1, 4, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="moe training"):
-        moe.moe_ffn(tp, x, tcfg)
 
 
 # ---------------------------------------------------- the batched matmul ---
@@ -521,7 +511,7 @@ def test_a_moe_stack_is_built_in_place():
     assert sum(t.numel() for t in flat.values()) == 30_532_122_624
 
 
-# ----------------------------------------------------- launches, refusals ---
+# ------------------------------------------------------------- launches ---
 
 @pytest.mark.parametrize("arch", _ARCHS)
 def test_serve_step_launch_counts(arch):
@@ -561,20 +551,6 @@ def test_serve_step_launch_counts(arch):
     scout = configs.get_config("llama4-scout-17b-a16e").replace(num_layers=4)
     assert chip_smoke.lm_step_launches(scout)["matmul"] == 4 * 11 + 1
     assert chip_smoke.batched_launches(scout) == 4 * 3
-
-
-@pytest.mark.parametrize("arch", _ARCHS)
-def test_training_refuses_a_moe_config(arch):
-    cfg = configs.get_reduced(arch)
-    for build in (lambda: steps.make_train_step(cfg),
-                  lambda: steps.make_value_and_grad(cfg),
-                  lambda: train.train(cfg, steps=1, global_batch=2,
-                                      seq_len=8, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match=r"moe training \(ROADMAP.md queue 1\)"):
-            build()
-    assert steps.make_serve_step(cfg) is not None
-    assert steps.make_prefill_step(cfg) is not None
 
 
 def test_a_teacher_forced_route_takes_the_given_experts():
