@@ -79,7 +79,8 @@ nvcc, then:
    step, kernels 1, 3 and 4 on phase 27's whisper-small, kernels 3
    and 4 on phase 28's Gemma-3-12B served and trained, kernel 3, its
    batched form and kernel 4 on phase 29's Qwen3-MoE-30B-A3B and
-   Llama-4-Scout served, and on phase 30's trained) and, last, ``{"ok":
+   Llama-4-Scout served, and on phase 30's trained, and kernel 3 on
+   phase 31's xLSTM-1.3B and Jamba Mamba mixer) and, last, ``{"ok":
    true, "device": {...}}``;
 
 and, before those two lines, the bf16 slice:
@@ -245,7 +246,7 @@ e. tuning switched on (``$REPRO_TORCH_AUTOTUNE=1``) over an empty table,
 and last, phase 25 serves an LM through the port's
 ``repro_torch.launch.serve.Server``: StableLM-2-1.6B at its published widths
 (d_model 2048, 32 heads of 64, d_ff 5632, vocab 100352, bf16), depth cut to
-6 of its 24 layers (b-e; the script's time), weights drawn on the card from
+1 of its 24 layers (b-e; the script's time), weights drawn on the card from
 a seeded CUDA generator, batch 4, a 1024-token prompt drawn from ``SEED``,
 64 generated tokens:
 
@@ -268,14 +269,14 @@ e. per backend: prefill wall ms (time to first token), decode ms a step
    and shape, the device ms of one prefill and one decode step beside its
    bound and the library call (the kernels line's ``matmul (StableLM-2-1.6B
    served, batch 4: prefill)`` etc.);
-f. the same model in fp32, depth cut to 2 layers: ``"simt"`` launches,
+f. the same model in fp32, depth cut to 1 layer: ``"simt"`` launches,
    logits against the plain path at the fp32 bar;
 g. GQA, qk-norm and head dim 128: Qwen3-32B at its published widths, depth
-   cut to 2 of 64 layers, one prefill and 4 decode steps with a-c's
+   cut to 1 of 64 layers, one prefill and 4 decode steps with a-c's
    gates.
 
 and last, phase 26 trains it through ``repro_torch.launch.steps.
-make_train_step``: StableLM-2-1.6B at its published widths, depth cut to 6
+make_train_step``: StableLM-2-1.6B at its published widths, depth cut to 1
 of its 24 layers (the script's time), weights drawn on the card from a
 seeded CUDA generator, bf16 with fp32
 AdamW masters and moments, per-layer remat, sequence length 4096 (the
@@ -316,7 +317,7 @@ f. per backend: step wall ms (median of 5 warm steps), tokens/s, 6ND
 and last, phase 27 runs whisper-small's encoder-decoder
 (``repro_torch.models.encdec``) at its published widths (d_model 768, 12
 heads of 64, d_ff 3072, vocab 51865, encoder_ctx 1500, bf16), depth cut
-from 12 + 12 to 2 + 2 layers (the script's time), weights drawn on the card
+from 12 + 12 to 1 + 1 layers (the script's time), weights drawn on the card
 from a seeded CUDA generator:
 
 a. the frontend on kernel 1 (fp32) turns batch 8 seeded (3000, 80)
@@ -342,7 +343,7 @@ c. ``make_train_step`` at decoder sequence 448, global batch 16 in 2
    attentions a microbatch, the head's 3 products ``"simt"``; the losses
    of 3 steps a backend within 0.1%), with tokens/s and frames/s;
 d. 26e's loop drill at the reduced configuration, zero frames fed;
-e. the same model in fp32 at depth 2 + 2: an encode and each serve step
+e. the same model in fp32 at depth 1 + 1: an encode and each serve step
    on the ``"simt"`` variants, the encoder output and the logits of the
    prompt loop and 4 decode steps against ``backend="torch"`` at 1e-4 x
    max(1, max|torch|).
@@ -406,10 +407,10 @@ a. the batched form against its plain version (fp32 ``torch.bmm``) at
    shown to fail; each timed beside its bound and ``torch.bmm``;
 b. Qwen3-MoE-30B-A3B at its published widths (d_model 2048, 32 heads on 4
    KV heads of 128, 128 experts top-8 of 768, vocab 151936, bf16), depth cut
-   to 12 of its 48 layers (the script's time):
+   to 6 of its 48 layers (the script's time):
    ``make_prefill_step`` over 1 x 4096 tokens, counts 0 just before and read
-   just after: 12 x (4 + 1) + 1 two-dimensional matmuls (the 12 fp32
-   routers on ``"simt"``, the rest ``"wgmma"``), 12 x 3 batched and 12
+   just after: 6 x (4 + 1) + 1 two-dimensional matmuls (the 6 fp32
+   routers on ``"simt"``, the rest ``"wgmma"``), 6 x 3 batched and 6
    attentions; every layer's routes recorded on both
    backends (``moe.route``), the (token, layer, slot) routes that differ
    counted and their share printed; the logits of both backends each on its
@@ -425,10 +426,10 @@ b. Qwen3-MoE-30B-A3B at its published widths (d_model 2048, 32 heads on 4
    memory, and each kernel shape beside its bound and library call;
 c. Llama-4-Scout at its published widths (d_model 5120, 40 heads on 8 KV
    heads of 128, 16 experts top-1 of 8192 and a shared expert of 8192, vocab
-   202048), depth cut to 4 of its 48 layers (107.8 B parameters need three
+   202048), depth cut to 1 of its 48 layers (107.8 B parameters need three
    cards): b's gates, a 1 x 4096 prefill through ``Server`` and 8
-   teacher-forced steps at batch 1, 4 x (4 + 1 + 3) + 1 two-dimensional and
-   4 x 3 batched launches;
+   teacher-forced steps at batch 1, 4 + 1 + 3 + 1 two-dimensional and 3
+   batched launches;
 d. the kernels line's entries of b and c: kernel 3 (``matmul``), its
    batched form (``matmul_batched``) and kernel 4.
 
@@ -447,7 +448,7 @@ a. ``BatchedMatmulFn``'s dA = dC @ B^T and dB = A^T @ dC, one batched
    takes ``"simt"``; a zeroed output and one 2% off shown to fail; each
    gradient timed beside its bound, ``torch.bmm`` and its operand's
    transpose;
-b. Qwen3-MoE-30B-A3B at its published widths, depth cut to 2 of 48 layers
+b. Qwen3-MoE-30B-A3B at its published widths, depth cut to 1 of 48 layers
    (the full step's peak reckoned first, over its largest leaf, an expert
    stack; one layer less while it does not fit), ``make_train_step``: seq
    4096, global batch 4 in 2 microbatches, phase 26's schedule, fp32 AdamW,
@@ -462,11 +463,55 @@ b. Qwen3-MoE-30B-A3B at its published widths, depth cut to 2 of 48 layers
    each backend takes its own (read, not gated); 3 steps, losses finite;
    26f's times, with the batched form, the routers' ``"simt"`` products and
    the dispatch and combine apart;
-c. Llama-4-Scout at its published widths, 2 of 48 layers, batch 1 x 4096,
+c. Llama-4-Scout at its published widths, 1 of 48 layers, batch 1 x 4096,
    ``make_value_and_grad``: b's gates, and the top-1 router's gradient
    exactly zero on both backends (its one gate is the constant 1);
 d. the kernels line's entries of b and c: kernel 3's 2-D and batched
    launches forward (with the recompute) and backward, and kernel 4.
+
+and last, phase 31 serves the recurrent mixers (``repro_torch.models.mamba``
+and ``.xlstm``), every projection on kernel 3, weights drawn on the card
+from a seeded CUDA generator:
+
+a. kernel 3 against its plain version at phase 10's bars at the slice's
+   shapes (``REC_CALLS``): xLSTM-1.3B's ``up_proj``, ``wq``/``wk``/``wv``
+   and ``out_proj`` on ``"wgmma"``, its fp32 ``w_if``, decode products and
+   recurrent ``r_gates`` on ``"simt"``, its odd-width sLSTM FFN (2730) on
+   bf16 ``"simt"``, and Jamba-1.5-Large's ``in_proj``, ``x_proj``, fp32
+   ``dt_proj`` and ``out_proj``; one launch on its rule's variant each; a
+   zeroed output and one 2% off shown to fail;
+b. xLSTM-1.3B at all 48 layers and its published widths (3.09 B
+   parameters, bf16): ``make_prefill_step`` over 1 x 1024 tokens (the
+   mLSTM's chunkwise form in 2 chunks, a 1,024-step sLSTM loop a layer) and
+   ``Server`` at batch 4, a 32-token prompt through the token loop
+   (``parallel_prefill_ok`` is false) and 32 tokens; counts 0 just before
+   and read just after each (24,793 kernel-3 launches a forward, 24,648 of
+   them ``"simt"``; 241 a serve step, 168 ``"simt"``); the kernels backend
+   held to the torch backend layer by layer, each layer run again on the
+   kernels from the torch run's recorded input x to it, its change got - x
+   held to the torch run's y - x within 5% of max|y - x| plus one bf16 step
+   of y (``replay_layers``; a layer that added nothing shown to fail at
+   every call), over the forward and over the torch ``Server.generate``'s
+   prompt loop and 31 decode steps (the replay's caches its own), and the
+   head on the torch run's last hidden states; the decode forms held to the
+   parallel ones the same way on the kernels backend (the forward over the
+   prompts replayed as decode steps); the forward's end-to-end logits read
+   and not gated (bf16 roundings of either backend grow over 48 layers and
+   1,024 steps past any bar: PERF.md); every kernel call of a decode step,
+   and the first of each geometry in the forward's replay, against its
+   plain version; forward and prefill ms, decode ms a step, tokens/s, busy
+   shares (the forward's at one pattern period over 1 x 256) and peak
+   memory, and each kernel shape beside its bound and ``torch.matmul``;
+c. one Mamba mixer of Jamba-1.5-Large alone at full width (d_model 8192,
+   d_inner 16384, d_state 16, dt_rank 512; 0.42 B parameters):
+   ``mamba_block`` over 1 x 4096 rows (8 scan chunks, 18 launches) on both
+   backends, held within 5%; 16 decode steps at batch 4 from a zero cache
+   against one scan over the same tokens on each backend, and the kernels
+   backend against the torch backend; every kernel call against its plain
+   version; ms, busy shares, peak memory and each shape beside its bound
+   and ``torch.matmul``;
+d. the kernels line's entries of b and c: kernel 3 in xLSTM's forward and
+   decode step and in the Jamba mixer's forward and decode step.
 
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
@@ -578,25 +623,25 @@ LOGIT_CHUNK = 512
 # 1,088 slots); the logits held to the torch backend's through the prefill
 # and 8 teacher-forced decode steps
 LM_NAME = "StableLM-2-1.6B"
-SERVE_LM_LAYERS = 6
+SERVE_LM_LAYERS = 1
 SERVE_LM_BATCH, SERVE_LM_PROMPT, SERVE_LM_GEN = 4, 1024, 64
 SERVE_LM_FORCED = 8
 # parallel vs sequential prefill caches: |a - b| <= tol + tol |b|, the
 # reference's bf16 bound (tests/test_launch.py)
 PREFILL_CACHE_TOL = 2e-2
-# 25f: the same model in fp32, depth cut to 2 of 24 layers
-SERVE_LM_FP32_LAYERS = 2
+# 25f: the same model in fp32, depth cut to 1 of 24 layers
+SERVE_LM_FP32_LAYERS = 1
 # 25g: GQA, qk-norm and head dim 128: Qwen3-32B (hf:Qwen/Qwen3-32B) at its
-# published widths, depth cut to 2 of 64 layers (5.1 GB of bf16 weights),
+# published widths, depth cut to 1 of 64 layers (4.1 GB of bf16 weights),
 # one prefill and 4 decode steps
-GQA_ARCH, GQA_NAME, GQA_LAYERS, GQA_DECODE = "qwen3-32b", "Qwen3-32B", 2, 4
+GQA_ARCH, GQA_NAME, GQA_LAYERS, GQA_DECODE = "qwen3-32b", "Qwen3-32B", 1, 4
 # phase 26: StableLM-2-1.6B trained at its published widths (bf16), depth cut
 # from 24 to TRAIN_LM_LAYERS layers (to keep the whole script within its
 # time), through make_train_step: seq 4096 (the reference's train_4k
 # length), global batch 4 in 2 microbatches of 2, fp32 AdamW masters and
 # moments, per-layer remat, LMDataPipeline(seed=SEED) batches, warmup 2 of
 # 100 steps; 3 steps a backend (26d) and the median of 5 warm ones (26f)
-TRAIN_LM_LAYERS = 6
+TRAIN_LM_LAYERS = 1
 TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_MICRO = 4, 4096, 2
 TRAIN_LM_WARMUP, TRAIN_LM_TOTAL = 2, 100
 TRAIN_LM_STEPS, TRAIN_LM_TIMED = 3, 5
@@ -616,7 +661,7 @@ DRILL_LM_STEPS, DRILL_LM_EVERY, DRILL_LM_FAIL, DRILL_LM_SEQ = 4, 2, 3, 1024
 # backend's through the encoder output, the prompt loop and 8 teacher-forced
 # decode steps; decode ms from a loop of 32 steps
 WH_ARCH = "whisper-small"
-WH_LAYERS = 2
+WH_LAYERS = 1
 WH_BATCH, WH_PROMPT, WH_GEN, WH_CTX = 8, 4, 224, 448
 WH_FORCED, WH_LOOP = 8, 32
 # 27c: decoder sequence 448, global batch 16 in 2 microbatches, seeded fp32
@@ -624,8 +669,8 @@ WH_FORCED, WH_LOOP = 8, 32
 # steps a backend within 0.1% of each other
 WH_TRAIN_BATCH, WH_TRAIN_SEQ, WH_TRAIN_MICRO = 16, 448, 2
 WH_LOSS_RTOL = 1e-3
-# 27e: fp32 at depth 2 + 2 (of 12 + 12), the prompt loop and 4 decode steps
-WH_FP32_LAYERS, WH_FP32_DECODE = 2, 4
+# 27e: fp32 at depth 1 + 1 (of 12 + 12), the prompt loop and 4 decode steps
+WH_FP32_LAYERS, WH_FP32_DECODE = 1, 4
 # phase 28: Gemma-3-12B (src/repro_torch/configs/gemma3_12b.py) at its
 # published widths (d_model 3840, 16 heads on 8 KV heads of 256, d_ff 15360,
 # vocab 262144 tied, window 1024, 5 local : 1 global, qk-norm, bf16), served
@@ -672,7 +717,7 @@ MOE_UNALIGNED = (16, 40, 36, 40)
 # make_prefill_step over 1 x MOE_SEQ tokens, the routes of both backends
 # layer by layer, Server at batch 4 (a 16-token prompt in one parallel
 # prefill, 16 tokens), 8 teacher-forced steps
-MOE_ARCH, MOE_NAME, MOE_LAYERS = "qwen3-moe-30b-a3b", "Qwen3-MoE-30B-A3B", 12
+MOE_ARCH, MOE_NAME, MOE_LAYERS = "qwen3-moe-30b-a3b", "Qwen3-MoE-30B-A3B", 6
 MOE_SEQ = 4096
 MOE_BATCH, MOE_PROMPT, MOE_GEN, MOE_FORCED = 4, 16, 16, 8
 # 29c: Llama-4-Scout (src/repro_torch/configs/llama4_scout_17b_a16e.py) at
@@ -681,7 +726,7 @@ MOE_BATCH, MOE_PROMPT, MOE_GEN, MOE_FORCED = 4, 16, 16, 8
 # cut from 48 to SCOUT_LAYERS layers (107.8 B parameters need three cards):
 # a 1 x MOE_SEQ prefill and 8 teacher-forced decode steps
 SCOUT_ARCH, SCOUT_NAME, SCOUT_LAYERS = ("llama4-scout-17b-a16e",
-                                        "Llama-4-Scout-17B-16E", 4)
+                                        "Llama-4-Scout-17B-16E", 1)
 # phase 30: MoE training (src/repro_torch/models/moe.py under autograd: the
 # experts' products forward and backward on kernel 3's batched form,
 # kernels.matmul.BatchedMatmulFn).  30a: dA and dB of the batched form against
@@ -696,17 +741,62 @@ MOE_TRAIN_BATCHED = [(128, 640, 2048, 768), (128, 640, 768, 2048),
                      (16, 320, 5120, 8192)]
 MOE_TRAIN_EDGES = [(8, 200, 256, 264), (16, 36, 64, 40)]
 # 30b: Qwen3-MoE-30B-A3B at its published widths, depth cut from 48 to
-# MOE_TRAIN_LAYERS layers (one card holds the full step's fp32 AdamW state
-# of 1.87 B parameters; 30.5 B would need ~977 GB), through make_train_step:
+# MOE_TRAIN_LAYERS layers (to keep the whole script within its time; one
+# card holds the full step's fp32 AdamW state of 1.87 B parameters at 2
+# layers, and 30.5 B would need ~977 GB), through make_train_step:
 # seq MOE_SEQ, global batch 4 in 2 microbatches, phase 26's schedule, remat,
 # weights drawn on the card; 3 steps on the kernels backend, the median of
 # MOE_TRAIN_TIMED warm steps a backend timed
-MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_LAYERS = 1
 MOE_TRAIN_BATCH, MOE_TRAIN_MICRO, MOE_TRAIN_TIMED = 4, 2, 3
-# 30c: Llama-4-Scout at its published widths, 2 of 48 layers (6.47 B
-# parameters: a full step would reckon ~207 GB), seq MOE_SEQ, batch 1: the
-# loss and gradients (make_value_and_grad)
-SCOUT_TRAIN_LAYERS = 2
+# 30c: Llama-4-Scout at its published widths, 1 of 48 layers (to keep the
+# whole script within its time; at 2 layers, 6.47 B parameters, a full step
+# would reckon ~207 GB), seq MOE_SEQ, batch 1: the loss and gradients
+# (make_value_and_grad)
+SCOUT_TRAIN_LAYERS = 1
+# phase 31: the recurrent mixers (src/repro_torch/models/{mamba,xlstm}.py),
+# every projection on kernel 3.  31a: kernel 3 against its plain version at
+# the slice's shapes, (what, M, K, N, dtype): xLSTM-1.3B's products at a
+# 1 x 1024 forward's M (the sLSTM's recurrent product at M = 1, a step) and
+# at a batch-4 decode's, and Jamba-1.5-Large's Mamba mixer at a 1 x 4096
+# forward's (x_proj and dt_proj once a 512-token scan chunk)
+REC_CALLS = [
+    ("xLSTM up_proj, sLSTM w_gates", 1024, 2048, 8192, "bf16"),
+    ("xLSTM wq, wk, wv", 1024, 4096, 4096, "bf16"),
+    ("xLSTM out_proj", 1024, 4096, 2048, "bf16"),
+    ("xLSTM w_if", 1024, 4096, 8, "fp32"),
+    ("xLSTM ff_up", 1024, 2048, 2730, "bf16"),
+    ("xLSTM ff_down", 1024, 2730, 2048, "bf16"),
+    ("xLSTM r_gates, a forward step", 1, 2048, 8192, "fp32"),
+    ("xLSTM decode wq, wk, wv", 4, 4096, 4096, "fp32"),
+    ("xLSTM decode w_if", 4, 4096, 8, "fp32"),
+    ("xLSTM decode r_gates", 4, 2048, 8192, "fp32"),
+    ("xLSTM decode ff_up", 4, 2048, 2730, "bf16"),
+    ("xLSTM decode ff_down", 4, 2730, 2048, "bf16"),
+    ("Jamba in_proj", 4096, 8192, 32768, "bf16"),
+    ("Jamba x_proj", 512, 16384, 544, "bf16"),
+    ("Jamba dt_proj", 512, 512, 16384, "fp32"),
+    ("Jamba out_proj", 4096, 16384, 8192, "bf16"),
+]
+# 31b: xLSTM-1.3B (src/repro_torch/configs/xlstm_1_3b.py) at all 48 layers
+# and its published widths (d_model 2048, 4 heads, mLSTM up-projection 2x
+# and head width 1024, sLSTM FFN 2730, vocab 50304, bf16), weights drawn on
+# the card: make_prefill_step over 1 x XL_SEQ tokens (the mLSTM's chunkwise
+# form in 2 chunks, a 1,024-step sLSTM loop), and Server at batch XL_BATCH:
+# a XL_PROMPT-token prompt through the token loop, XL_GEN tokens
+XL_ARCH, XL_NAME = "xlstm-1.3b", "xLSTM-1.3B"
+XL_SEQ, XL_BATCH, XL_PROMPT, XL_GEN = 1024, 4, 32, 32
+# the forward's busy share is read at one pattern period over the first
+# XL_PROFILE_SEQ tokens: the profiler takes ~0.5 ms a launched op to digest,
+# and the sLSTM loop's steps are alike
+XL_PROFILE_SEQ = 256
+# 31c: one Mamba mixer of Jamba-1.5-Large (src/repro_torch/configs/
+# jamba_1_5_large_398b.py) alone at its full width (d_model 8192, d_inner
+# 16384, d_state 16, dt_rank 512, bf16): mamba_block over 1 x JM_SEQ
+# unit-normal rows (8 scan chunks), and JM_DECODE decode steps at batch
+# JM_BATCH from a zero cache against one scan over the same tokens
+JM_ARCH, JM_NAME = "jamba-1.5-large-398b", "Jamba-1.5-Large Mamba mixer"
+JM_SEQ, JM_BATCH, JM_DECODE = 4096, 4, 16
 # phase 3's edge cases (and phase 14's, in bf16)
 DENSE_EDGES = [  # label, x shape, w shape, stride, pads
     ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
@@ -838,16 +928,83 @@ def moe_layers(cfg) -> int:
                             for pi in range(len(cfg.block_pattern)))
 
 
-def decoder_launches(cfg) -> tuple[int, int]:
-    """(products, attentions) of the decoder layers: each layer's q, k, v
-    and o, its FFN's products (``ffn_products``, the batched ones
-    included) and 1 attention; an encoder-decoder's decoder layer adds its
-    cross attention's 4 products and 1 attention."""
+def kernel3_variant(k: int, n: int, dtype: str) -> str:
+    """The variant kernel 3 takes for an (M, ``k``) @ (``k``, ``n``) product
+    of ``dtype`` (``"bf16"`` or ``"fp32"``) operands by its rule
+    (``kernels.matmul.matmul_variant``, less the bases' alignment, which the
+    allocator gives): ``"wgmma"`` for bf16 with K and N multiples of 8,
+    else ``"simt"``."""
+    return ("wgmma" if dtype == "bf16" and k > 0 and k % 8 == 0
+            and n % 8 == 0 else "simt")
+
+
+def mixer_products(cfg, kind: str, seq: int = 1) -> dict:
+    """Kernel 3's launches of one sequence mixer of ``kind`` over ``seq``
+    tokens (a cache-free forward, or a decode step at ``seq`` 1), by the
+    variant each takes (``kernel3_variant`` of its K, N and dtype):
+    ``{"wgmma": n, "simt": n}``.  Attention's q, k, v and o (on
+    ``"wgmma"``); a Mamba block's ``in_proj`` and ``out_proj``, and its
+    ``x_proj`` and fp32 ``dt_proj`` once a scan chunk (``mamba.
+    SCAN_CHUNK``, the reference's rule); an mLSTM block's ``up_proj``,
+    ``out_proj`` and ``wq``, ``wk`` and ``wv``, these in the model's dtype
+    in the forward and in fp32 in a decode step, beside the fp32 gates
+    ``w_if``; an sLSTM block's ``w_gates``, its fp32 recurrent product
+    once a step, and its FFN."""
+    from repro_torch.models import mamba, xlstm
+
+    if kind in ("attn", "attn_local"):
+        return {"wgmma": 4, "simt": 0}
+    dt = "bf16" if cfg.dtype == "bfloat16" else "fp32"
+    d = cfg.d_model
+    if kind == "mamba":
+        m, d_in, dt_rank = mamba._cfg(cfg)
+        chunk = mamba.SCAN_CHUNK
+        n = seq // chunk if seq > chunk and seq % chunk == 0 else 1
+        products = ([(d, 2 * d_in, dt), (d_in, d, dt)]
+                    + n * [(d_in, dt_rank + 2 * m.d_state, dt),
+                           (dt_rank, d_in, "fp32")])
+    elif kind == "mlstm":
+        _, d_in, _ = xlstm._dims(cfg)
+        qkv = dt if seq > 1 else "fp32"
+        products = ([(d, 2 * d_in, dt), (d_in, d, dt),
+                     (d_in, 2 * cfg.num_heads, "fp32")]
+                    + 3 * [(d_in, d_in, qkv)])
+    elif kind == "slstm":
+        dff = int(cfg.xlstm.s_ff_factor * d)
+        products = ([(d, 4 * d, dt), (d, dff, dt), (dff, d, dt)]
+                    + seq * [(d, 4 * d, "fp32")])
+    else:
+        raise ValueError(f"unknown mixer {kind!r}")
+    out = {"wgmma": 0, "simt": 0}
+    for k, n_, dtype in products:
+        out[kernel3_variant(k, n_, dtype)] += 1
+    return out
+
+
+def decoder_launches(cfg, seq: int = 1) -> tuple[int, int]:
+    """(products, attentions) of the decoder layers over ``seq`` tokens:
+    each layer's mixer's products (``mixer_products``) and its FFN's
+    (``ffn_products``, the batched ones included), and 1 attention an
+    attention layer; an encoder-decoder's decoder layer adds its cross
+    attention's 4 products and 1 attention."""
     cross = 1 if cfg.encoder_layers else 0
     ffn = sum(sum(ffn_products(cfg, pi))
               for pi in range(len(cfg.block_pattern)))
-    return ((4 + 4 * cross) * cfg.num_layers + cfg.repeat * ffn,
-            (1 + cross) * cfg.num_layers)
+    mix = sum(sum(mixer_products(cfg, kind, seq).values())
+              for kind in cfg.block_pattern)
+    attn = sum(kind.startswith("attn") for kind in cfg.block_pattern)
+    return (cfg.repeat * (mix + ffn) + 4 * cross * cfg.num_layers,
+            (cfg.repeat * attn) + cross * cfg.num_layers)
+
+
+def recurrent_simt(cfg, seq: int = 1) -> int:
+    """The launches of kernel 3's mixer products in a forward over ``seq``
+    tokens, or a decode step at ``seq`` 1, that take ``"simt"``
+    (``mixer_products``): in bf16 the recurrent mixers' fp32 products and
+    any product of a width its rule refuses (xLSTM-1.3B's 2730-wide sLSTM
+    FFN)."""
+    return cfg.repeat * sum(mixer_products(cfg, kind, seq)["simt"]
+                            for kind in cfg.block_pattern)
 
 
 def encode_launches(cfg) -> dict:
@@ -858,12 +1015,14 @@ def encode_launches(cfg) -> dict:
             "flash_attention": cfg.encoder_layers}
 
 
-def lm_step_launches(cfg) -> dict:
-    """The launches of one LM serve step, prefill or decode: each decoder
-    layer's products and attentions (``decoder_launches``), and the LM
-    head's matmul.  ``matmul`` counts kernel 3's batched launches too, as
-    its counter does; ``batched_launches`` gives them apart."""
-    products, attentions = decoder_launches(cfg)
+def lm_step_launches(cfg, seq: int = 1) -> dict:
+    """The launches of one LM serve step, prefill or decode, or of a
+    forward over ``seq`` tokens (a recurrent mixer's count depends on it,
+    ``mixer_products``): each decoder layer's products and attentions
+    (``decoder_launches``), and the LM head's matmul.  ``matmul`` counts
+    kernel 3's batched launches too, as its counter does;
+    ``batched_launches`` gives them apart."""
+    products, attentions = decoder_launches(cfg, seq)
     return {"conv2d": 0, "transposed_conv2d": 0, "matmul": products + 1,
             "flash_attention": attentions}
 
@@ -1184,10 +1343,11 @@ class Smoke:
                 for name, w in self.counters.items()
                 if hasattr(w, "launches_by_variant")}
 
-    def wall_ms(self, fn, reps=10):
-        """Median wall time of ``fn()`` ending in a synchronize, in ms."""
+    def wall_ms(self, fn, reps=10, warmup=2):
+        """Median wall time of ``fn()`` ending in a synchronize, in ms,
+        after ``warmup`` untimed calls."""
         torch = self.torch
-        for _ in range(2):
+        for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
         times = []
@@ -1252,7 +1412,8 @@ class Smoke:
                            ("26", self.run_lm_training),
                            ("27", self.run_whisper), ("28", self.run_gemma),
                            ("29", self.run_moe),
-                           ("30", self.run_moe_training)):
+                           ("30", self.run_moe_training),
+                           ("31", self.run_recurrent)):
             kernels_line["kernels"] += timed(phase, run)
             torch.cuda.empty_cache()
         log("seconds by phase: " + ", ".join(
@@ -1546,19 +1707,22 @@ class Smoke:
             f"{worst['bound_ms']:.4f})")
         return table
 
-    def profile_device(self, fn, what, wall_ms, classes=None):
+    def profile_device(self, fn, what, wall_ms, classes=None, warmup=True):
         """Device time of one ``fn()`` (a ``what``) by kernel name and by
         the op that launched it (``torch.profiler``), and the device's busy
         share of its wall time measured without the profiler.  Busy time
         sums the device's own events (kernels, copies) only: an op's
         device time is its kernels' time again, so adding both counts it
         twice.  ``classes`` ({class: name substrings}, first match wins)
-        also sums every device event by class, the rest under "rest"."""
+        also sums every device event by class, the rest under "rest".
+        ``warmup=False`` skips the untimed call before the profiled one
+        (for a ``fn`` already warm)."""
         torch = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        fn()
+        if warmup:
+            fn()
         torch.cuda.synchronize()
         # a profiled window now and then records no device event at all;
         # up to three windows are taken before the share is "not measured"
@@ -3512,9 +3676,11 @@ class Smoke:
         """(kernel, plain version, library yardstick, flops, bytes,
         geometry, variant) of one recorded call of kernel 3 (``"matmul"``;
         ``"matmul_batched"``, its batched form, beside ``torch.bmm``) or
-        kernel 4 (``"flash_attention"``)."""
+        kernel 4 (``"flash_attention"``).  A geometry of fp32 operands ends
+        in " fp32", so that calls of one shape in two dtypes group apart."""
         torch = self.torch
         kmm, kfa = self.kmm, self.kfa
+        fp32 = " fp32" if args[0].dtype == torch.float32 else ""
         if name == "matmul_batched":
             a, b = args
             e, m, k = a.shape
@@ -3524,7 +3690,7 @@ class Smoke:
                     lambda: torch.bmm(a, b),
                     2 * e * m * n * k,
                     (a.numel() + b.numel() + e * m * n) * a.element_size(),
-                    f"({e}, {m}, {k}) @ ({e}, {k}, {n})",
+                    f"({e}, {m}, {k}) @ ({e}, {k}, {n})" + fp32,
                     kmm.matmul_variant(a, b))
         if name == "matmul":
             a, b = args
@@ -3535,7 +3701,8 @@ class Smoke:
                     lambda: torch.matmul(a, b),
                     2 * m * n * k,
                     (a.numel() + b.numel() + m * n) * a.element_size(),
-                    f"({m}, {k}) @ ({k}, {n})", kmm.matmul_variant(a, b))
+                    f"({m}, {k}) @ ({k}, {n})" + fp32,
+                    kmm.matmul_variant(a, b))
         q, k, v, causal, *rest = args
         window = rest[0] if rest else 0
         bsz, h, sq, dh = q.shape
@@ -4741,7 +4908,7 @@ class Smoke:
             kmm.matmul_cuda, kfa.flash_attention_cuda = orig
 
     def lm_serve_fp32(self, prompts, rep):
-        """25f: the same model in fp32, depth cut to 2 layers: the
+        """25f: the same model in fp32, depth cut to 1 layer: the
         ``"simt"`` variants, logits against the plain path at the fp32
         bar."""
         torch = self.torch
@@ -5661,7 +5828,7 @@ class Smoke:
     def run_whisper(self):
         """Phase 27: whisper-small served (its frames from the frontend on
         kernel 1) and trained on the card at its published configuration,
-        the loop drill at the reduced one and an fp32 run at depth 2 + 2
+        the loop drill at the reduced one and an fp32 run at depth 1 + 1
         (module docstring, 27a-e).  Returns its entries of the kernels
         line."""
         torch = self.torch
@@ -5997,7 +6164,7 @@ class Smoke:
         return entries
 
     def wh_fp32(self, prompts, frames, rep):
-        """27e: whisper-small in fp32, depth cut to 2 + 2 layers: an encode
+        """27e: whisper-small in fp32, depth cut to 1 + 1 layers: an encode
         and each serve step on the ``"simt"`` variants, and the encoder
         output and the logits of the prompt loop and WH_FP32_DECODE decode
         steps against backend=torch (TF32 off) at 1e-4 x max(1,
@@ -6147,13 +6314,15 @@ class Smoke:
         rep["band"] = {"timed": rows, "zeroed_over_bar": zero,
                        "off2_over_bar": off}
 
-    def gm_calls(self, runs, label, rep, phase="28b", expect=None):
+    def gm_calls(self, runs, label, rep, phase="28b", expect=None,
+                 once=()):
         """Every kernel-3 and kernel-4 call of each of ``runs`` ({what:
         fn}) held against its plain version as it is made, at phase 10's
         bf16 bar, each on the variant ``expect(name, args)`` names (by
         default each matmul on ``"wgmma"`` and each attention, Gemma's dh
         256, on ``"simt"``), with what a zeroed output and one 2% off would
-        read.  Kernel 3's batched form is recorded as ``"matmul_batched"``.
+        read; in a run named in ``once``, only the first call of each
+        geometry is held (the rest are counted).  Kernel 3's batched form is recorded as ``"matmul_batched"``.
         No call's output is kept (a 48-layer prefill's would fill the
         card).  Returns one call's arguments and the call count per (what,
         kernel, geometry), as :meth:`lm_serve_calls`."""
@@ -6167,12 +6336,17 @@ class Smoke:
             + " vs its plain version, checked as it is made")
         orig = (kmm.matmul_cuda, kmm.matmul_batched_cuda,
                 kfa.flash_attention_cuda)
-        groups, caught, state = {}, [], {"what": None, "n": 0}
+        groups, caught, held = {}, [], set()
+        state = {"what": None, "n": 0, "zero": 0}
 
         def checked(name, fn):
             def wrapper(*args):
                 out = fn(*args)
                 kern_v = self.lm_call(name, args)
+                key = (state["what"], name, kern_v[5])
+                groups.setdefault(key, [args, 0])[1] += 1
+                if state["what"] in once and key in held:
+                    return out
                 entry = f"{name} ({label}: {state['what']})"
                 want_v = expect(name, args)
                 if kern_v[6] != want_v:
@@ -6181,11 +6355,12 @@ class Smoke:
                 want = kern_v[1]()
                 self.compare(f"{entry} call {state['n']}", entry, out, want,
                              quiet=True)
-                caught.append(self.sensitivity(out, want, 1.0, TOL))
+                if bool(want.any()):
+                    caught.append(self.sensitivity(out, want, 1.0, TOL))
+                    held.add(key)
+                else:   # e.g. a recurrent product of the zero first state
+                    state["zero"] += 1
                 del want
-                grp = groups.setdefault((state["what"], name, kern_v[5]),
-                                        [args, 0])
-                grp[1] += 1
                 state["n"] += 1
                 return out
             return wrapper
@@ -6202,20 +6377,26 @@ class Smoke:
                     torch.cuda.synchronize()
                     worst = max(c["err_over_bar"]
                                 for c in self.report["checks"][checks:])
-                    log(f"  {what}: {state['n']} calls ok, worst error "
-                        f"{worst:.3f} x its bar")
+                    made = sum(n for (w, _, _), (_, n) in groups.items()
+                               if w == what)
+                    log(f"  {what}: {state['n']} calls ok"
+                        + (f" (the first of each geometry; {made} made)"
+                           if what in once else "")
+                        + f", worst error {worst:.3f} x its bar")
         finally:
             (kmm.matmul_cuda, kmm.matmul_batched_cuda,
              kfa.flash_attention_cuda) = orig
         zero, off = (min(c[j] for c in caught) for j in range(2))
         log(f"  a zeroed output would reach >= {zero:.3g} x its bar, one 2% "
-            f"off >= {off:.3g} x")
+            f"off >= {off:.3g} x"
+            + (f"; {state['zero']} calls whose plain output is all zeros "
+               f"held at the bar, out of that gate" if state["zero"] else ""))
         if not (zero > 1.0 and off > 1.0):
             raise RuntimeError(f"{label}: a bar would miss a zeroed or a "
                                f"2%-off kernel output")
         rep.setdefault("calls", {})[label] = {
             "checked": len(caught), "zeroed_over_bar": zero,
-            "off2_over_bar": off}
+            "off2_over_bar": off, "all_zero": state["zero"]}
         return groups
 
     def gm_serve(self, cfg, params, rep):
@@ -7084,6 +7265,595 @@ class Smoke:
                                f"routed {differ} slots otherwise")
 
     # --------------------------------------------------- per-call helpers
+    # ------------------------------------------- the recurrent mixers
+    def run_recurrent(self):
+        """Phase 31: the recurrent mixers (module docstring, 31a-c).
+        Returns its entries of the kernels line."""
+        torch = self.torch
+        rep = self.report["recurrent"] = {}
+        self.rec_kernels(rep)
+        entries = self.xl_serve(rep)
+        torch.cuda.empty_cache()
+        entries += self.jm_mixer(rep)
+        torch.cuda.empty_cache()
+        return entries
+
+    @staticmethod
+    def rec_variant(name, args):
+        """The variant kernel 3 takes for ``matmul(a, b)`` by its rule
+        (``kernel3_variant``)."""
+        a, b = args[0], args[1]
+        dts = {str(a.dtype), str(b.dtype)}
+        return kernel3_variant(*b.shape[-2:], "bf16" if dts == {
+            "torch.bfloat16"} else "fp32")
+
+    def rec_kernels(self, rep):
+        """31a: kernel 3 at each ``REC_CALLS`` shape, seeded operands on the
+        card (B scaled by K^-1/2, as the models' weights), one launch on
+        the variant its rule names, against its plain version at phase
+        10's bars; a zeroed output and one 2% off shown to fail."""
+        torch = self.torch
+        kmm = self.kmm
+        log("phase 31a: kernel 3 at the recurrent mixers' shapes vs its "
+            "plain version (fp32: 1e-4 x max(1, max|plain|); bf16: each "
+            "element 2^-7 |plain| + that bar)")
+        g = torch.Generator(self.dev).manual_seed(SEED + 31)
+        caught, rows = [], []
+        for what, m, k, n, dt in REC_CALLS:
+            dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+            a = torch.randn((m, k), generator=g, device=self.dev).to(dtype)
+            b = (torch.randn((k, n), generator=g, device=self.dev)
+                 * k ** -0.5).to(dtype)
+            want_v = self.rec_variant("matmul", (a, b))
+            self.reset_counts()
+            out = kmm.matmul(a, b)
+            torch.cuda.synchronize()
+            got_v = self.read_variants()["matmul"]
+            if got_v[want_v] != 1 or sum(got_v.values()) != 1:
+                raise RuntimeError(f"31a {what}: launches {got_v}, not one "
+                                   f"{want_v!r}")
+            want = kmm.matmul_plain(a, b)
+            err, rel, _ = self.compare(
+                f"{what} ({m}, {k}) @ ({k}, {n}) {dt} [{want_v}]",
+                "matmul (31a)", out, want)
+            caught.append(self.sensitivity(out, want, 1.0, TOL))
+            rows.append({"what": what, "shape": [m, k, n], "dtype": dt,
+                         "variant": want_v, "max_abs_err": err,
+                         "max_rel_err": rel})
+            del a, b, out, want
+        zero, off = (min(c[j] for c in caught) for j in range(2))
+        log(f"  a zeroed output would reach >= {zero:.3g} x its bar, one 2% "
+            f"off >= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError("31a: a bar would miss a zeroed or a 2%-off "
+                               "kernel output")
+        rep["kernels"] = {"calls": rows, "zeroed_over_bar": zero,
+                          "off2_over_bar": off}
+
+    def held(self, what, got, want):
+        """A bf16 output (rows, D) against another within 5% of
+        max|want| (DESIGN.md §12's bf16 output bar), read ``LOGIT_CHUNK``
+        rows at a time in fp32, with what a zeroed output and one 2% off
+        would read; raises on a miss.  Returns the reading."""
+        spans = [(i, i + LOGIT_CHUNK)
+                 for i in range(0, want.shape[0], LOGIT_CHUNK)]
+        top = max(want[i:j].float().abs().max().item() for i, j in spans)
+        gtop = max(got[i:j].float().abs().max().item() for i, j in spans)
+        err = max((got[i:j].float() - want[i:j].float()).abs().max().item()
+                  for i, j in spans)
+        bar = BF16_FWD_RTOL * top
+        row = {"what": what, "max_abs_err": err, "bar": bar,
+               "err_over_bar": err / bar, "zeroed_over_bar": top / bar,
+               "off2_over_bar": 0.02 * gtop / bar}
+        log(f"  {what}: max |err| {err:.4g} = {err / bar:.3f} x the bar "
+            f"({bar:.4g}); a zeroed output would read {top / bar:.3g} x, "
+            f"one 2% off {row['off2_over_bar']:.3g} x")
+        if err > bar or top / bar <= 1.0 or not bool(
+                self.torch.isfinite(got).all()):
+            raise RuntimeError(f"{what}: {row}")
+        return row
+
+    def xl_serve(self, rep):
+        """31b: xLSTM-1.3B at 48 layers.  Counts 0 just before and read just
+        after a ``make_prefill_step`` over 1 x XL_SEQ tokens, the prompt
+        loop, a decode step and ``Server.generate``; the kernels backend
+        held to the torch backend layer by layer (``replay_layers``) over
+        the forward and over the prompt loop and decode steps, the head on
+        the torch run's last hidden states; the decode forms held to the
+        parallel ones layer by layer on the kernels backend; the forward's
+        end-to-end logits read (not gated: bf16 roundings grow over 48
+        layers and 1,024 steps, PERF.md); every kernel call of a decode
+        step, and the first of each geometry in the forward's replay,
+        against its plain version; times.  Returns the kernels line's
+        entries."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch import serve, steps
+        from repro_torch.models import transformer, xlstm
+
+        cfg = get_config(XL_ARCH)
+        _, d_in, hd = xlstm._dims(cfg)
+        label = f"{XL_NAME} ({cfg.num_layers} layers)"
+        fwd, step = lm_step_launches(cfg, XL_SEQ), lm_step_launches(cfg)
+        fwd_simt, step_simt = recurrent_simt(cfg, XL_SEQ), recurrent_simt(cfg)
+        log(f"phase 31b: {cfg.name} at its published widths (d "
+            f"{cfg.d_model}, {cfg.num_heads} heads, mLSTM d_inner {d_in} and "
+            f"head width {hd}, sLSTM FFN "
+            f"{int(cfg.xlstm.s_ff_factor * cfg.d_model)}, vocab {cfg.vocab}, "
+            f"{cfg.dtype}) at all {cfg.num_layers} layers: make_prefill_step "
+            f"over 1 x {XL_SEQ} tokens ({fwd['matmul']} matmul launches, "
+            f"{fwd_simt} \"simt\"), then Server at batch {XL_BATCH}: a "
+            f"{XL_PROMPT}-token prompt through the token loop, {XL_GEN} "
+            f"tokens ({step['matmul']} launches a serve step, {step_simt} "
+            f"\"simt\")")
+        params = self.lm_params(cfg, SEED + 31, rep)
+        x = torch.as_tensor(np.random.default_rng(SEED + 31).integers(
+            0, cfg.vocab, (1, XL_SEQ), dtype=np.int32), device=self.dev)
+        prompts = np.random.default_rng(SEED + 32).integers(
+            0, cfg.vocab, (XL_BATCH, XL_PROMPT), dtype=np.int32)
+        prefill = {b: steps.make_prefill_step(cfg, b)
+                   for b in ("kernels", "torch")}
+        servers = {b: serve.Server(cfg, max_len=XL_PROMPT + XL_GEN,
+                                   backend=b, params=params)
+                   for b in ("kernels", "torch")}
+        srv = servers["kernels"]
+        launches, fwd_ms = {}, {}
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.reset_counts()
+            t0 = time.perf_counter()
+            logits, mine = self.record_layers(
+                lambda: prefill["kernels"](params, {"tokens": x}))
+            torch.cuda.synchronize()
+            fwd_ms["kernels"] = (time.perf_counter() - t0) * 1e3
+            rep["forward_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2 ** 30)
+            launches["forward"] = self.check_lm_launches(
+                f"forward (1 x {XL_SEQ})", fwd, "wgmma", simt=fwd_simt)
+            t0 = time.perf_counter()
+            ref, calls = self.record_layers(
+                lambda: prefill["torch"](params, {"tokens": x}))
+            torch.cuda.synchronize()
+            fwd_ms["torch"] = (time.perf_counter() - t0) * 1e3
+        rep["forward_logits"] = self.logits_reading(
+            f"forward logits (1 x {XL_SEQ} x {cfg.vocab}), kernels vs torch "
+            f"end to end (read, not gated)", logits[0], ref[0], gate=False)
+        drift = rep["forward_drift"] = {
+            i: ((mine[i][2].float() - calls[i][2].float()).abs().max()
+                / calls[i][2].float().abs().max()).item()
+            for i in sorted({0, 1, 3, 7, 15, 31, len(calls) - 1})
+            if i < len(calls)}
+        log("  the two backends' hidden states after layer i, end to end, "
+            "max |kernels - torch| / max |torch| (read): " + ", ".join(
+                f"{i} {d:.2%}" for i, d in drift.items()))
+        del logits, mine
+        served, out, (tok, caches, pos) = self.xl_served(
+            srv, prompts, step, step_simt, launches)
+        if out.shape != (XL_BATCH, XL_GEN) or not (
+                (out >= 0) & (out < cfg.vocab)).all():
+            raise RuntimeError(f"generated tokens {out.shape} out of range")
+        log(f"  generated {out.shape} token ids; first request's first 8: "
+            f"{out[0, :8].tolist()}")
+        rep["launches"] = launches
+        rep["generated"] = out.tolist()
+
+        def replay_forward():
+            rep["forward_layers"] = self.replay_layers(
+                f"forward (1 x {XL_SEQ}), kernels vs torch", cfg, params,
+                calls)
+            rep["forward_head"] = self.logits_reading(
+                "forward's head on the torch run's last hidden states, "
+                "kernels vs torch", transformer.linear(
+                    transformer.rmsnorm(params["final_norm"], calls[-1][2],
+                                        cfg.norm_eps),
+                    transformer.lm_head(params, cfg))[0], ref[0])
+
+        log(f"phase 31b: the forward replayed layer by layer on the kernels "
+            f"backend from the torch run's inputs, and a decode step")
+        groups = self.gm_calls(
+            {"forward": replay_forward,
+             "decode step": lambda: srv.serve_step(
+                 srv.params, caches, {"token": tok, "cache_pos": pos})},
+            label, rep, phase="31b", expect=self.rec_variant,
+            once=("forward",))
+        del caches, calls, ref
+        torch.cuda.empty_cache()
+        self.xl_decode_held(cfg, params, prefill["kernels"],
+                            servers["torch"], prompts, rep)
+        return self.xl_times(cfg, params, servers, x, prompts, fwd_ms,
+                             served, groups, launches, label, rep)
+
+    def record_layers(self, fn):
+        """``fn()`` with each ``transformer.apply_layer`` call's input,
+        ``cache_pos`` and output recorded in call order: (``fn()``'s
+        result, [(x, cache_pos, y), ...])."""
+        from repro_torch.models import transformer
+
+        calls, orig = [], transformer.apply_layer
+
+        def rec(p, x, cfg, kind, fk, positions, cache=None, cache_pos=None,
+                backend="kernels"):
+            y, c = orig(p, x, cfg, kind, fk, positions, cache=cache,
+                        cache_pos=cache_pos, backend=backend)
+            calls.append((x, cache_pos, y))
+            return y, c
+
+        transformer.apply_layer = rec
+        try:
+            out = fn()
+        finally:
+            transformer.apply_layer = orig
+        return out, calls
+
+    def replay_layers(self, what, cfg, params, calls, caches=None,
+                      as_decode=False):
+        """Each recorded layer call (``record_layers``, the stack's layers
+        in order, again and again) run once more on the kernels backend
+        from the recorded input x: a layer held alone, so that no earlier
+        layer's or step's rounding compounds into it.  Its change got - x
+        is held to the recorded y - x, each element within 5% of max|y - x|
+        (the bf16 output bar, DESIGN.md §12) plus one bf16 step of y,
+        2^-7 |y| (the residual add's rounding, as 31a's bf16 bar): the bar
+        scales with what the layer adds, not with the residual stream it
+        adds it to.  A layer that added nothing (got = x) must read over
+        that bar at every call.  ``caches`` (``init_caches``) are the
+        replay's own, written from the recorded inputs; ``as_decode`` runs
+        each recorded cache-free call of S tokens as S decode steps (the
+        recurrent decode forms held to the parallel ones).  Returns the
+        worst readings by mixer kind; raises on a miss."""
+        torch = self.torch
+        from repro_torch.models import transformer
+
+        order = list(transformer.layer_params(params, cfg))
+        worst = {}
+        with torch.no_grad():
+            for i, (x, pos, y) in enumerate(calls):
+                pi, r, kind, fk, p = order[i % len(order)]
+                cache = (None if caches is None
+                         else {k: c[r] for k, c in caches[pi].items()})
+                if as_decode:
+                    got = torch.cat([transformer.apply_layer(
+                        p, x[:, t:t + 1], cfg, kind, fk, None, cache=cache,
+                        cache_pos=t)[0] for t in range(x.shape[1])], dim=1)
+                else:
+                    positions = (torch.arange(x.shape[1], device=x.device)
+                                 .expand(x.shape[0], -1)
+                                 if pos is None else None)
+                    got = transformer.apply_layer(
+                        p, x, cfg, kind, fk, positions, cache=cache,
+                        cache_pos=pos)[0]
+                yf, xf = y.float(), x.float()
+                change = (yf - xf).abs()
+                bar = BF16_FWD_RTOL * change.max() + 2.0 ** -7 * yf.abs()
+                ratio = ((got.float() - yf).abs() / bar).max().item()
+                zeroed = (change / bar).max().item()
+                del yf, xf, change, bar
+                if not (ratio <= 1.0 < zeroed
+                        and bool(torch.isfinite(got).all())):
+                    raise RuntimeError(
+                        f"{what}: call {i} ({kind}, layer {r} of position "
+                        f"{pi}) reads {ratio:.3f} x its bar, a layer that "
+                        f"added nothing {zeroed:.3f} x")
+                w = worst.setdefault(kind, {"calls": 0, "err_over_bar": 0.0,
+                                            "zeroed_over_bar": math.inf})
+                w["calls"] += 1
+                if ratio >= w["err_over_bar"]:
+                    w.update(err_over_bar=ratio, call=i)
+                if zeroed < w["zeroed_over_bar"]:
+                    w.update(zeroed_over_bar=zeroed, zeroed_call=i)
+        log(f"  {what}, layer by layer (each from the recorded input, its "
+            f"change within 5% of max|recorded change| + 2^-7 |recorded|): "
+            + "; ".join(
+                f"{k}: {w['calls']} calls, worst {w['err_over_bar']:.3f} x "
+                f"(call {w['call']}), a layer that added nothing >= "
+                f"{w['zeroed_over_bar']:.3g} x (call {w['zeroed_call']})"
+                for k, w in worst.items()))
+        return worst
+
+    def xl_decode_held(self, cfg, params, prefill, srv, prompts, rep):
+        """31b's serving held layer by layer: the torch backend's
+        ``Server.generate`` (``srv``: the prompt loop and XL_GEN - 1 greedy
+        decode steps) recorded and replayed on the kernels backend with its
+        own caches; and the kernels forward over the prompts recorded and
+        replayed as decode steps (the recurrent decode forms against the
+        parallel ones)."""
+        torch = self.torch
+        from repro_torch.models import transformer
+
+        b, p = prompts.shape
+        with torch.no_grad():
+            _, calls = self.record_layers(
+                lambda: srv.generate(prompts, XL_GEN))
+        rep["decode_layers"] = self.replay_layers(
+            f"prompt loop and {XL_GEN - 1} decode steps at batch {b}, kernels "
+            f"vs torch", cfg, srv.params, calls,
+            caches=transformer.init_caches(cfg, b, p + XL_GEN, self.dev))
+        del calls
+        x = torch.as_tensor(prompts, device=self.dev)
+        with torch.no_grad():
+            _, calls = self.record_layers(
+                lambda: prefill(params, {"tokens": x}))
+        rep["decode_forms"] = self.replay_layers(
+            f"the prompts ({b} x {p}) as decode steps vs the forward, kernels",
+            cfg, params, calls, caches=transformer.init_caches(cfg, b, p,
+                                                               self.dev),
+            as_decode=True)
+        del calls
+        torch.cuda.empty_cache()
+
+    def xl_served(self, srv, prompts, step=None, step_simt=0,
+                  launches=None):
+        """31b's serving through ``srv``'s entry points: ``Server.prefill``
+        over the prompts (the token loop; its wall ms is the time to first
+        token), one serve step from its caches, and ``Server.generate``
+        (decode ms a step: its wall less the prefill's, over its XL_GEN - 1
+        decode steps); the serving peak memory over the prefill and the
+        serve step (weights and one set of caches: ``generate`` draws its
+        own beside the prefill's, which are kept).  With ``step`` (a
+        serve step's launches, ``simt`` of them ``step_simt``) the counts
+        are 0 just before and read just after each call, the serve step's
+        into ``launches``.  Returns (times, the generated tokens, the
+        prefill's (token, caches, position))."""
+        torch = self.torch
+
+        def check(what, n):
+            if step is None:
+                return None
+            return self.check_lm_launches(
+                what, {k: v * n for k, v in step.items()}, "wgmma",
+                simt=step_simt * n)
+
+        served = {}
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.reset_counts()
+            t0 = time.perf_counter()
+            tok, caches, pos = srv.prefill(prompts)
+            torch.cuda.synchronize()
+            served["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            check(f"prompt loop ({XL_PROMPT} serve steps)", XL_PROMPT)
+            self.reset_counts()
+            srv.serve_step(srv.params, caches, {"token": tok,
+                                                "cache_pos": pos})
+            torch.cuda.synchronize()
+            served["serve_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                        / 2 ** 30)
+            one = check(f"decode step at position {pos}", 1)
+            if launches is not None:
+                launches["decode step"] = one
+        n = XL_PROMPT + XL_GEN - 1
+        self.reset_counts()
+        t0 = time.perf_counter()
+        out = srv.generate(prompts, XL_GEN)
+        torch.cuda.synchronize()
+        served["decode_step_ms"] = ((time.perf_counter() - t0) * 1e3
+                                    - served["prefill_ms"]) / (XL_GEN - 1)
+        check(f"generate ({n} serve steps)", n)
+        return served, out, (tok, caches, pos)
+
+    def xl_times(self, cfg, params, servers, x, prompts, fwd_ms, served,
+                 groups, launches, label, rep):
+        """31b's times, per backend: the forward's wall ms (``fwd_ms``, its
+        first run, on the main path) and the busy share of a forward at one
+        pattern period (an mLSTM and an sLSTM layer) over the first
+        XL_PROFILE_SEQ tokens (the profiler over all 48 layers' and 1,024
+        steps' ~500,000 events takes minutes);
+        the prompt loop's wall ms (``Server.prefill``, time to first
+        token), decode ms a step (``Server.generate``'s wall less that
+        loop's, over its XL_GEN - 1 decode steps) and tokens/s, and serving
+        peak memory, for the kernels backend from its main-path runs
+        (``served``), for the torch backend from the same two calls; a
+        decode step's busy share, from a fresh cache (a recurrent step
+        costs the same at any state); per kernel and shape the device ms of
+        the forward and of a decode step beside bound and library
+        (``serve_shapes``)."""
+        torch = self.torch
+        from repro_torch.launch import steps
+        from repro_torch.models import transformer
+
+        def srv_tokens(a):
+            return torch.as_tensor(a, dtype=torch.int32, device=self.dev)
+
+        log(f"phase 31b: {label} times")
+        period = cfg.replace(num_layers=len(cfg.block_pattern))
+
+        def first(tree):
+            return {k: first(v) if isinstance(v, dict) else v[:1]
+                    for k, v in tree.items()}
+
+        p1 = {**params, "blocks": [first(b) for b in params["blocks"]]}
+        times = rep["times"] = {}
+        for backend, srv in servers.items():
+            with torch.no_grad():
+                prefill = steps.make_prefill_step(period, backend)
+
+                def forward():
+                    return prefill(p1, {"tokens": x[:, :XL_PROFILE_SEQ]})
+
+                period_ms = self.wall_ms(forward, reps=1, warmup=1)
+                prof_fwd = self.profile_device(
+                    forward, f"{backend} forward at one pattern period over "
+                    f"1 x {XL_PROFILE_SEQ}", period_ms, warmup=False)
+                row = dict(served) if backend == "kernels" else (
+                    self.xl_served(srv, prompts)[0])
+                caches = transformer.init_caches(
+                    cfg, XL_BATCH, XL_PROMPT + XL_GEN, self.dev)
+                tok = srv_tokens(prompts[:, :1])
+
+                def step():
+                    return srv.serve_step(srv.params, caches,
+                                          {"token": tok,
+                                           "cache_pos": XL_PROMPT})[0]
+
+                step_ms = row["decode_step_ms"]
+                prof_step = self.profile_device(step,
+                                                f"{backend} decode step",
+                                                step_ms)
+            del caches
+            row.update(forward_ms=fwd_ms[backend],
+                       forward_tokens_per_s=XL_SEQ * 1e3 / fwd_ms[backend],
+                       period_forward_ms=period_ms,
+                       tokens_per_s=XL_BATCH * 1e3 / step_ms)
+            prefill_ms, serve_peak = row["prefill_ms"], row["serve_peak_gib"]
+            for what, prof in (("period_forward", prof_fwd),
+                               ("decode_step", prof_step)):
+                row[f"{what}_busy"] = prof.get("busy_share")
+                row[f"{what}_device_ms"] = prof.get("device_ms")
+                row[f"{what}_profile"] = prof
+            times[backend] = row
+            busy = {w: ("not measured" if row[f"{w}_busy"] is None
+                        else f"{row[f'{w}_busy']:.1%}")
+                    for w in ("period_forward", "decode_step")}
+            log(f"  {backend}: forward (1 x {XL_SEQ}, {cfg.num_layers} layers) "
+                f"{fwd_ms[backend]:.3f} ms ({row['forward_tokens_per_s']:.1f}"
+                f" tokens/s); at one pattern period over 1 x "
+                f"{XL_PROFILE_SEQ} {period_ms:.3f} ms, busy "
+                f"{busy['period_forward']}; prefill ({XL_PROMPT}-token loop, "
+                f"batch {XL_BATCH}) {prefill_ms:.3f} ms; decode "
+                f"{step_ms:.3f} ms a step = {row['tokens_per_s']:.1f} "
+                f"tokens/s, busy {busy['decode_step']}; serving peak "
+                f"{serve_peak:.2f} GiB (weights included)")
+        log(f"  forward peak (kernels, {cfg.num_layers} layers): "
+            f"{rep['forward_peak_gib']:.2f} GiB (weights included)")
+        return self.serve_shapes(groups, launches, label, rep)
+
+    def jm_mixer(self, rep):
+        """31c: one Jamba-1.5-Large Mamba mixer alone at full width.  Counts
+        0 just before and read just after ``mamba_block`` over 1 x JM_SEQ
+        rows (8 scan chunks) and one decode step; the forward's output
+        against the torch backend's; JM_DECODE decode steps at batch
+        JM_BATCH from a zero cache against one scan over the same tokens,
+        on each backend, and the kernels backend's against the torch
+        backend's; every kernel call of the forward and of a decode step
+        against its plain version; times.  Returns the kernels line's
+        entries."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import mamba
+
+        cfg = get_config(JM_ARCH)
+        m, d_in, dt_rank = mamba._cfg(cfg)
+        label = JM_NAME
+        fwd = mixer_products(cfg, "mamba", JM_SEQ)
+        step = mixer_products(cfg, "mamba")
+        log(f"phase 31c: {label} alone at full width (d_model "
+            f"{cfg.d_model}, d_inner {d_in}, d_state {m.d_state}, dt_rank "
+            f"{dt_rank}, d_conv {m.d_conv}, bf16): mamba_block over 1 x "
+            f"{JM_SEQ} ({mamba.SCAN_CHUNK}-token scan chunks; {fwd} kernel-3 "
+            f"launches), {JM_DECODE} decode steps at batch {JM_BATCH} ({step} "
+            f"a step)")
+        g = torch.Generator(self.dev).manual_seed(SEED + 34)
+        t0 = time.perf_counter()
+        p = mamba.mamba_init(g, cfg, torch.bfloat16, self.dev)
+        torch.cuda.synchronize()
+        leaves = list(p.values())
+        n_par = sum(t.numel() for t in leaves)
+        gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+        log(f"  weights: {n_par:,} parameters, {gb:.2f} GB, drawn on the "
+            f"card in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        rep["jamba_weights"] = {"parameters": n_par, "gb": gb}
+        x = torch.randn((1, JM_SEQ, cfg.d_model), generator=g,
+                        device=self.dev).to(torch.bfloat16)
+        xd = torch.randn((JM_BATCH, JM_DECODE, cfg.d_model), generator=g,
+                         device=self.dev).to(torch.bfloat16)
+
+        def want(counts):
+            return {"conv2d": 0, "transposed_conv2d": 0,
+                    "matmul": sum(counts.values()), "flash_attention": 0}
+
+        def decode(backend, cache):
+            return torch.cat([mamba.mamba_block(
+                p, xd[:, t:t + 1], cfg, cache=cache, backend=backend)[0]
+                for t in range(JM_DECODE)], dim=1)
+
+        launches, out, par, dec = {}, {}, {}, {}
+        with torch.no_grad():
+            self.reset_counts()
+            out["kernels"] = mamba.mamba_block(p, x, cfg)[0]
+            torch.cuda.synchronize()
+            launches["forward"] = self.check_lm_launches(
+                f"forward (1 x {JM_SEQ})", want(fwd), "wgmma",
+                simt=fwd["simt"])
+            out["torch"] = mamba.mamba_block(p, x, cfg, backend="torch")[0]
+            for backend in ("kernels", "torch"):
+                par[backend] = mamba.mamba_block(p, xd, cfg,
+                                                 backend=backend)[0]
+                cache = mamba.init_mamba_cache(cfg, JM_BATCH, torch.bfloat16,
+                                               self.dev)
+                if backend == "kernels":
+                    self.reset_counts()
+                    mamba.mamba_block(p, xd[:, :1], cfg, cache=cache)
+                    torch.cuda.synchronize()
+                    launches["decode step"] = self.check_lm_launches(
+                        "decode step", want(step), "wgmma",
+                        simt=step["simt"])
+                    cache = mamba.init_mamba_cache(
+                        cfg, JM_BATCH, torch.bfloat16, self.dev)
+                dec[backend] = decode(backend, cache)
+        readings = [self.held(
+            f"forward (1 x {JM_SEQ} x {cfg.d_model}), kernels vs torch",
+            out["kernels"][0], out["torch"][0])]
+        for backend in ("kernels", "torch"):
+            readings.append(self.held(
+                f"{JM_DECODE} decode steps vs one scan over them, {backend}",
+                dec[backend].reshape(-1, cfg.d_model),
+                par[backend].reshape(-1, cfg.d_model)))
+        readings.append(self.held(
+            f"{JM_DECODE} decode steps, kernels vs torch",
+            dec["kernels"].reshape(-1, cfg.d_model),
+            dec["torch"].reshape(-1, cfg.d_model)))
+        rep["jamba_outputs"] = readings
+        del out, par, dec
+        torch.cuda.empty_cache()
+        cache = mamba.init_mamba_cache(cfg, JM_BATCH, torch.bfloat16,
+                                       self.dev)
+        groups = self.gm_calls(
+            {"forward": lambda: mamba.mamba_block(p, x, cfg),
+             "decode step": lambda: mamba.mamba_block(
+                 p, xd[:, :1], cfg, cache=cache)},
+            label, rep, phase="31c", expect=self.rec_variant)
+        log(f"phase 31c: {label} times")
+        times = rep["jamba_times"] = {}
+        for backend in ("kernels", "torch"):
+            with torch.no_grad():
+                def forward(b=backend):
+                    return mamba.mamba_block(p, x, cfg, backend=b)
+
+                def step(b=backend):
+                    return mamba.mamba_block(p, xd[:, :1], cfg, cache=cache,
+                                             backend=b)
+
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fwd_ms = self.wall_ms(forward, reps=3)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                step_ms = self.wall_ms(step, reps=JM_DECODE)
+                prof = {"forward": self.profile_device(
+                            forward, f"{backend} mixer forward", fwd_ms),
+                        "decode_step": self.profile_device(
+                            step, f"{backend} mixer decode step", step_ms)}
+            row = {"forward_ms": fwd_ms, "decode_step_ms": step_ms,
+                   "forward_tokens_per_s": JM_SEQ * 1e3 / fwd_ms,
+                   "peak_gib": peak}
+            for what, pr in prof.items():
+                row[f"{what}_busy"] = pr.get("busy_share")
+                row[f"{what}_device_ms"] = pr.get("device_ms")
+                row[f"{what}_profile"] = pr
+            times[backend] = row
+            busy = {w: ("not measured" if row[f"{w}_busy"] is None
+                        else f"{row[f'{w}_busy']:.1%}")
+                    for w in ("forward", "decode_step")}
+            log(f"  {backend}: forward {fwd_ms:.3f} ms "
+                f"({row['forward_tokens_per_s']:.1f} tokens/s), busy "
+                f"{busy['forward']}; decode step (batch {JM_BATCH}) "
+                f"{step_ms:.3f} ms, busy {busy['decode_step']}; peak "
+                f"{peak:.2f} GiB (weights included)")
+        entries = self.serve_shapes(groups, launches, label, rep)
+        del p, x, xd, cache
+        return entries
+
     def geometry(self, name, args):
         x, w = args[0], args[1]
         spec = args[-2]

@@ -35,13 +35,21 @@ that take one token a step (:mod:`repro_torch.models.attention`).  Its
 cache-free prefill, ``make_prefill_step``, is where kernel 4 takes the
 window.
 
+A recurrent config (xLSTM-1.3B; Jamba's Mamba layers) prefills through the
+token loop too, as the reference's: its caches are fixed-size states
+(:mod:`repro_torch.models.mamba`, :mod:`repro_torch.models.xlstm`) that take
+one token a step.  An xLSTM-1.3B serve step launches kernel 3 24 x 6 + 24
+x 4 + 1 times, 168 of them on ``"simt"`` (the mLSTM's fp32 decode products
+and gates, the sLSTM's recurrent product and its 2730-wide FFN).
+
 Under ``backend="kernels"`` a MoE layer launches kernel 3's batched form
 for its experts' three products (``models/moe.py``): a Qwen3-MoE serve
 step launches 48 x (4 + 1) + 1 two-dimensional matmuls (the router's on
 ``"simt"``), 48 x 3 batched ones and 48 attentions.
 
-On the card (StableLM-2-1.6B, whisper-small, Gemma-3-12B and
-Qwen3-MoE-30B-A3B at their published configurations, bf16)::
+On the card (StableLM-2-1.6B, whisper-small, Gemma-3-12B,
+Qwen3-MoE-30B-A3B and xLSTM-1.3B at their published configurations,
+bf16)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --batch 4 --prompt-len 1024 --gen-len 64
@@ -51,6 +59,8 @@ Qwen3-MoE-30B-A3B at their published configurations, bf16)::
       --batch 4 --prompt-len 16 --gen-len 16
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 16 --gen-len 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
+      --batch 4 --prompt-len 32 --gen-len 32
 
 On the CPU (the kernels' plain versions)::
 

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly, the dense path of ``repro.models.transformer``.
+"""Decoder-only LM assembly, the port of ``repro.models.transformer``.
 
 The stack is ``repeat`` copies of ``cfg.block_pattern``; parameters are
 stacked on a leading ``repeat`` axis per pattern position, as in the
@@ -18,8 +18,11 @@ into the stacked layout.  ``cfg.remat`` checkpoints each layer
 kept and each layer is recomputed in the backward, the reference's
 ``nothing_saveable`` policy.
 
-Each layer = attention (global ``attn``, or ``attn_local``: a sliding
-window, Gemma-3's local layers) + an FFN, both pre-norm residual.  The FFN
+Each layer = a sequence mixer + an FFN, both pre-norm residual.  The
+mixer is attention (global ``attn``, or ``attn_local``: a sliding window,
+Gemma-3's local layers), a Mamba block (``mamba``, Jamba's;
+:mod:`repro_torch.models.mamba`) or an xLSTM block (``mlstm``, ``slstm``;
+:mod:`repro_torch.models.xlstm`).  The FFN
 is the reference's per layer (:func:`_ffn_kind`): the MoE FFN
 (:mod:`repro_torch.models.moe`) where ``(layer + 1) % moe.every_n_layers
 == 0``, else the dense SwiGLU, or none when ``d_ff == 0``; as in the
@@ -30,13 +33,16 @@ scores through the flash-attention kernel under ``backend="kernels"`` (a
 dense layer launches 7 matmuls and 1 attention, and the LM head 1 matmul;
 a MoE layer 4 + 1 two-dimensional matmuls for the attention and the
 router, 3 more for a shared expert, and 3 of kernel 3's batched form for
-the experts); a local layer's cache-free attention is the kernel's
+the experts; a Mamba mixer 4, or 2 + 2 x (S / SCAN_CHUNK) when its scan is
+chunked; an mLSTM mixer 6; an sLSTM mixer 3 + S, its recurrent product
+once a step); a local layer's cache-free attention is the kernel's
 windowed band, its cached attention a ring of ``window`` slots
-(:mod:`repro_torch.models.attention`), each pattern position's caches
-sized by its kind (:func:`init_caches`).  Mixer kinds ``mamba``, ``mlstm``
-and ``slstm`` raise ``NotImplementedError`` at construction
-(:func:`check_supported`; ROADMAP.md, queue 1).  Encoder-decoder configs
-are :mod:`repro_torch.models.encdec`'s, and this module refuses them too.
+(:mod:`repro_torch.models.attention`).  Each pattern position's cache is
+sized by its kind (:func:`init_caches`): a KV cache or ring, or a
+recurrent state of fixed size (Mamba's conv window and SSM state, the
+mLSTM's (C, n, m) and conv window, the sLSTM's (c, n, h, m)); a recurrent
+state takes one token a step.  Encoder-decoder configs are
+:mod:`repro_torch.models.encdec`'s, and this module refuses them.
 
 :func:`init_params` allocates each stack once and draws the layers into
 its slices in turn (:func:`init_stacked`): a 30.5 B-parameter MoE model
@@ -52,27 +58,24 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.checkpoint.ckpt import as_tensor
 from repro_torch.kernels.util import canon_dtype, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, linear, mlp, mlp_init,
                                        normal_init, rmsnorm, rmsnorm_init)
 
-#: what each unported part of a config waits for (ROADMAP.md, queue 1)
-_UNPORTED = {
-    "mamba": "the Mamba mixer (mamba/xlstm)",
-    "mlstm": "the xLSTM mixers (mamba/xlstm)",
-    "slstm": "the xLSTM mixers (mamba/xlstm)",
-}
+#: the mixer kinds of ``cfg.block_pattern``
+MIXERS = ("attn", "attn_local", "mamba", "mlstm", "slstm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet, and
-    ``ValueError`` for an FFN layout the stacks cannot hold."""
+    """Raise ``NotImplementedError`` for an encoder-decoder config, and
+    ``ValueError`` for an unknown mixer or an FFN layout the stacks cannot
+    hold."""
     for kind in cfg.block_pattern:
-        if kind not in ("attn", "attn_local"):
-            raise NotImplementedError(
-                f"{cfg.name}: mixer {kind!r} is not ported; it waits for "
-                f"{_UNPORTED.get(kind, kind)} (ROADMAP.md, queue 1)")
+        if kind not in MIXERS:
+            raise ValueError(f"{cfg.name}: unknown mixer {kind!r}")
     if cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: an encoder-decoder config is not a decoder-only "
@@ -96,13 +99,23 @@ def _ffn_kind(cfg: ModelConfig, layer_idx: int) -> str:
     return "dense" if cfg.d_ff > 0 else "none"
 
 
+def _mixer_init(generator, cfg: ModelConfig, kind: str, dtype, device):
+    if kind in ("attn", "attn_local"):
+        return attn_mod.attn_init(generator, cfg, dtype, device=device)
+    if kind == "mamba":
+        return mamba_mod.mamba_init(generator, cfg, dtype, device)
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_init(generator, cfg, dtype, device)
+    return xlstm_mod.slstm_init(generator, cfg, dtype, device)
+
+
 def layer_init(generator, cfg: ModelConfig, pattern_idx: int, dtype,
                device=None) -> dict:
-    """One attention layer's parameters at pattern position
-    ``pattern_idx``, global or sliding-window alike (``check_supported``
-    has refused every other mixer), with its position's FFN."""
+    """One layer's parameters at pattern position ``pattern_idx``: its
+    kind's mixer, the two norms and its position's FFN."""
     p = {
-        "mixer": attn_mod.attn_init(generator, cfg, dtype, device=device),
+        "mixer": _mixer_init(generator, cfg, cfg.block_pattern[pattern_idx],
+                             dtype, device),
         "norm1": rmsnorm_init(cfg.d_model, dtype, device),
         "norm2": rmsnorm_init(cfg.d_model, dtype, device),
     }
@@ -307,9 +320,16 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 backend: str = "kernels"):
     """One (mixer + FFN) layer.  Returns (y, cache written in place)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    mixed, new_cache = attn_mod.attention(
-        p["mixer"], h, cfg, kind=kind, positions=positions, kv_cache=cache,
-        cache_pos=cache_pos, backend=backend)
+    if kind in ("attn", "attn_local"):
+        mixed, new_cache = attn_mod.attention(
+            p["mixer"], h, cfg, kind=kind, positions=positions,
+            kv_cache=cache, cache_pos=cache_pos, backend=backend)
+    else:
+        block = {"mamba": mamba_mod.mamba_block,
+                 "mlstm": xlstm_mod.mlstm_block,
+                 "slstm": xlstm_mod.slstm_block}[kind]
+        mixed, new_cache = block(p["mixer"], h, cfg, cache=cache,
+                                 backend=backend)
     x = x + mixed
     if ffn_kind == "moe":
         x = x + moe_mod.moe_ffn(p["ffn"], rmsnorm(p["norm2"], x,
@@ -359,20 +379,35 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     return linear(x, lm_head(params, cfg), backend)
 
 
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 dtype, device) -> dict:
+    """One layer's cache of mixer ``kind``, as the reference's
+    ``init_caches`` sizes it."""
+    if kind in ("attn", "attn_local"):
+        return attn_mod.init_kv_cache(cfg, batch, max_len, kind, dtype,
+                                      device)
+    if kind == "mamba":
+        return mamba_mod.init_mamba_cache(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return xlstm_mod.init_mlstm_cache(cfg, batch, device)
+    return xlstm_mod.init_slstm_cache(cfg, batch, device)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device=None) -> list:
-    """Per-pattern-position stacked KV caches with a leading (repeat,)
-    axis, zeros in ``cfg.dtype`` on ``device`` (``None`` -> CUDA): a global
-    layer's of ``max_len`` slots, a sliding-window layer's ring of
-    ``min(max_len, cfg.window)``."""
+    """Per-pattern-position stacked caches with a leading (repeat,) axis on
+    ``device`` (``None`` -> CUDA), each position's sized by its kind: a
+    global layer's KV cache of ``max_len`` slots, a sliding-window layer's
+    ring of ``min(max_len, cfg.window)``, both zeros in ``cfg.dtype``; a
+    recurrent mixer's state in the dtypes the reference gives it (Mamba's
+    conv window in ``cfg.dtype``, the rest fp32; the running maxima
+    ``m`` at -1e30 where the reference starts them)."""
     check_supported(cfg)
     dtype, dev = canon_dtype(cfg.dtype), resolve_device(device)
     caches = []
     for kind in cfg.block_pattern:
-        one = attn_mod.init_kv_cache(cfg, batch, max_len, kind, dtype,
-                                     "meta")
-        caches.append({k: torch.zeros((cfg.repeat,) + tuple(a.shape),
-                                      dtype=dtype, device=dev)
+        one = _layer_cache(cfg, kind, batch, max_len, dtype, dev)
+        caches.append({k: a[None].repeat((cfg.repeat,) + (1,) * a.dim())
                        for k, a in one.items()})
     return caches
 
@@ -382,7 +417,9 @@ def decode_step(params: dict, token: torch.Tensor, caches: list,
                 ) -> tuple[torch.Tensor, list]:
     """One cached step.  token (B, S) at positions ``cache_pos ..
     cache_pos + S - 1`` -> (logits (B, S, V), caches).  S = 1 decodes;
-    S > 1 at ``cache_pos = 0`` is the parallel prefill.  The caches are
+    S > 1 at ``cache_pos = 0`` is the parallel prefill of a config whose
+    mixers are all global attention (a recurrent mixer takes one token a
+    step, as ``launch.serve.parallel_prefill_ok`` says).  The caches are
     written in place and returned."""
     check_supported(cfg)
     x = params["embed"][token].to(canon_dtype(cfg.dtype))

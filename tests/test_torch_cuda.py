@@ -1143,3 +1143,115 @@ def test_moe_reduced_train_step_matches_the_cpu(cuda, arch):
         assert bool(torch.isfinite(pg[k]).all())
         bar = 1e-4 * max(1.0, want.abs().max().item())
         assert (pg[k] - want).abs().max().item() <= bar, k
+
+
+# The recurrent mixers' kernel-3 shapes (chip_smoke.py phase 31a):
+# xLSTM-1.3B's sLSTM FFN, 2730 wide, which takes bf16 "simt" (N, or K, no
+# multiple of 8), at a forward's M and a decode's; its fp32 decode products
+# at M = 4 and the sLSTM's recurrent one at M = 1; the gates' fp32 w_if at
+# N = 8.  (M, K, N, dtype, variant)
+_RECURRENT_MM = [(1024, 2048, 2730, torch.bfloat16, "simt"),
+                 (1024, 2730, 2048, torch.bfloat16, "simt"),
+                 (4, 2048, 2730, torch.bfloat16, "simt"),
+                 (4, 2730, 2048, torch.bfloat16, "simt"),
+                 (4, 4096, 4096, torch.float32, "simt"),
+                 (4, 2048, 8192, torch.float32, "simt"),
+                 (1, 2048, 8192, torch.float32, "simt"),
+                 (4, 4096, 8, torch.float32, "simt"),
+                 (512, 16384, 544, torch.bfloat16, "wgmma")]
+
+
+@pytest.mark.parametrize("mknv", _RECURRENT_MM, ids=str)
+def test_matmul_at_the_recurrent_mixers_shapes(cuda, mknv):
+    m, k, n, dtype, variant = mknv
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=g).to(cuda, dtype)
+    b = (torch.randn((k, n), generator=g) * k ** -0.5).to(cuda, dtype)
+    assert kmm.matmul_variant(a, b) == variant
+    n0 = kmm.matmul.launches_by_variant[variant]
+    got = kmm.matmul(a, b)
+    torch.cuda.synchronize()
+    assert kmm.matmul.launches_by_variant[variant] - n0 == 1
+    _close(got, kmm.matmul_plain(a, b))
+
+
+def _plain_matmul(mp):
+    """Kernel 3's plain version in place of its launcher (the same model
+    code on the card, without the kernel)."""
+    mp.setattr(kmm, "matmul_cuda", kmm.matmul_plain)
+
+
+def test_jamba_mamba_mixer_at_full_width_matches_plain(cuda):
+    """One Mamba mixer of Jamba-1.5-Large at full width (d_model 8192,
+    d_inner 16384, bf16): a forward over 1 x 1024 rows (2 scan chunks) and
+    4 decode steps at batch 2, each against the same with kernel 3's plain
+    version, within 5% of max|plain| (the bf16 output bar); 2 + 2 x 2 and
+    4 launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba
+
+    cfg = get_config("jamba-1.5-large-398b")
+    g = torch.Generator(cuda).manual_seed(0)
+    p = mamba.mamba_init(g, cfg, torch.bfloat16, cuda)
+    x = torch.randn((1, 1024, cfg.d_model), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    xd = torch.randn((2, 4, cfg.d_model), generator=g,
+                     device=cuda).to(torch.bfloat16)
+
+    def run():
+        cache = mamba.init_mamba_cache(cfg, 2, torch.bfloat16, cuda)
+        with torch.no_grad():
+            y = mamba.mamba_block(p, x, cfg)[0]
+            ys = [mamba.mamba_block(p, xd[:, t:t + 1], cfg, cache=cache)[0]
+                  for t in range(4)]
+        return [y, torch.cat(ys, dim=1), cache["ssm"]]
+
+    n0 = kmm.matmul.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert kmm.matmul.launches - n0 == 6 + 4 * 4
+    with pytest.MonkeyPatch.context() as mp:
+        _plain_matmul(mp)
+        want = run()
+    for gt, wt in zip(got, want):
+        assert bool(torch.isfinite(gt).all())
+        top = wt.float().abs().max().item()
+        assert (gt.float() - wt.float()).abs().max().item() <= 0.05 * top
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-1.5-large-398b"])
+def test_recurrent_reduced_matches_the_cpu(cuda, arch):
+    """The reduced xLSTM and Jamba in fp32 (kernel 3's ``"simt"`` forms): a
+    forward over (2, 64) tokens (the mLSTM's chunkwise form and Mamba's
+    chunked scan at chunks of 16) and 4 steps of the token loop on the
+    card against the same on the CPU, the logits at 1e-4 x max(1,
+    max|cpu|)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import mamba, transformer, xlstm
+
+    cfg = get_reduced(arch).replace(dtype="float32")
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
+                                     "cpu")
+    flat = transformer.flatten_params(params)
+    toks = torch.randint(0, cfg.vocab, (2, 64),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    out = {}
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mamba, "SCAN_CHUNK", 16)
+        mp.setattr(xlstm, "M_CHUNK", 16)
+        for dev in ("cpu", "cuda"):
+            p = transformer.unflatten_params(
+                {k: t.to(dev) for k, t in flat.items()}, params)
+            logits = [transformer.forward(p, toks.to(dev), cfg)]
+            caches = transformer.init_caches(cfg, 2, 4, device=dev)
+            for t in range(4):
+                lg, caches = transformer.decode_step(
+                    p, toks[:, t:t + 1].to(dev), caches, t, cfg)
+                logits.append(lg)
+            out[dev] = [t.float().cpu() for t in logits]
+    torch.cuda.synchronize()
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert bool(torch.isfinite(got).all())
+        bar = 1e-4 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= bar

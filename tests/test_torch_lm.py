@@ -41,7 +41,8 @@ _LOGIT_BAR = {"fp32": 1e-4, "bf16": 5e-2}
 _CFG_DTYPE = {"fp32": "float32", "bf16": "bfloat16"}
 _SERVED = ("stablelm-1.6b", "qwen3-32b", "deepseek-coder-33b",
            "chameleon-34b")
-_UNPORTED = ("jamba-1.5-large-398b", "xlstm-1.3b")
+# served by the recurrent mixers (tests/test_torch_{mamba,xlstm}.py)
+_RECURRENT = ("jamba-1.5-large-398b", "xlstm-1.3b")
 # served and trained by repro_torch.models.encdec (tests/test_torch_encdec.py)
 _ENCDEC = ("whisper-small",)
 
@@ -480,11 +481,10 @@ def test_parallel_prefill_gating():
                 is ok)
 
 
-@pytest.mark.parametrize("arch", _UNPORTED + _ENCDEC)
+@pytest.mark.parametrize("arch", _ENCDEC)
 def test_unported_configs_raise_at_construction(arch):
-    """Unported configs raise in every entry point.  An encoder-decoder is
-    refused by the decoder-only module, which names its own, while the
-    steps and ``Server`` accept it."""
+    """An encoder-decoder is refused by the decoder-only module, which
+    names its own, while the steps and ``Server`` accept it."""
     cfg = configs.get_reduced(arch)
     g = torch.Generator().manual_seed(0)
     decoder_only = (lambda: transformer.init_params(g, cfg, device="cpu"),
@@ -493,17 +493,40 @@ def test_unported_configs_raise_at_construction(arch):
     generic = (lambda: serve.Server(cfg, device="cpu", generator=g),
                lambda: steps.make_serve_step(cfg),
                lambda: steps.make_prefill_step(cfg))
-    if arch in _ENCDEC:
-        for build in decoder_only:
-            with pytest.raises(NotImplementedError,
-                               match="repro_torch.models.encdec"):
-                build()
-        for build in generic:
-            assert build() is not None
-        return
-    for build in decoder_only + generic:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for build in decoder_only:
+        with pytest.raises(NotImplementedError,
+                           match="repro_torch.models.encdec"):
             build()
+    for build in generic:
+        assert build() is not None
+
+
+@pytest.mark.parametrize("arch", _RECURRENT)
+def test_recurrent_configs_build_at_construction(arch):
+    """The configs of the recurrent mixers build in every entry point: the
+    full config's parameters on the meta device, with the reference's tree
+    (names, shapes, dtypes); the reduced config's parameters, caches,
+    ``Server`` and steps on the CPU, the caches as the reference's."""
+    full = configs.get_config(arch)
+    got = transformer.flatten_params(transformer.init_params(None, full,
+                                                             device="meta"))
+    want = transformer.flatten_params(
+        jtr.init_abstract(jconfigs.get_config(arch)))
+    assert {k: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+            for k, t in got.items()} == {
+        k: (tuple(a.shape), str(a.dtype)) for k, a in want.items()}
+    cfg = configs.get_reduced(arch)
+    g = torch.Generator().manual_seed(0)
+    params = transformer.init_params(g, cfg, device="cpu")
+    caches = transformer.init_caches(cfg, 2, 8, device="cpu")
+    want = jtr.init_caches(jconfigs.get_reduced(arch), 2, 8)
+    assert [{k: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+             for k, t in c.items()} for c in caches] == [
+        {k: (a.shape, str(a.dtype)) for k, a in c.items()} for c in want]
+    srv = serve.Server(cfg, device="cpu", params=params)
+    assert not srv.parallel_prefill_ok()
+    assert steps.make_serve_step(cfg) is not None
+    assert steps.make_prefill_step(cfg) is not None
 
 
 def test_server_rejects_unknown_backend():
