@@ -513,6 +513,47 @@ c. one Mamba mixer of Jamba-1.5-Large alone at full width (d_model 8192,
 d. the kernels line's entries of b and c: kernel 3 in xLSTM's forward and
    decode step and in the Jamba mixer's forward and decode step.
 
+and last, phase 32 trains the recurrent mixers (the two modules under
+autograd: every product forward and backward on kernel 3 through
+``MatmulFn``; the selective scan's chunks each under a checkpoint):
+
+a. ``MatmulFn``'s dA = dC @ B^T and dB = A^T @ dC at the recurrent training
+   path's new shapes (``REC_TRAIN_CALLS``): the sLSTM's recurrent product at
+   batch 1 and 4 (dB contracts over K = the batch), the mLSTM's ``w_if`` (N
+   = 8), Jamba's fp32 ``dt_proj`` (dB over a 512-token chunk) and the
+   2730-wide sLSTM FFN on bf16 ``"simt"``; each gradient against its plain
+   version at phase 10's bars on its rule's variant, a zeroed output and
+   one 2% off shown to fail, each timed beside its bound, ``torch.matmul``
+   and its operand's transpose;
+b. xLSTM-1.3B at its published widths, depth cut to one pattern period (2
+   of 48 layers: an mLSTM and an sLSTM; 326 M parameters with the untied
+   embedding and head), ``make_train_step`` with fp32 AdamW and remat at 1 x
+   4096 tokens (the mLSTM's 8 chunks, a 4,096-step sLSTM loop): 3 steps on
+   each backend from one state, the kernels backend's first the main path
+   (26a's launches by part and variant, ``recurrent_train_launches``), the
+   losses within 5% step by step; the step-0 gradient norm and gradients
+   end to end read, not gated (the sLSTM's backward grows ~e^(0.0041 t):
+   over 4,096 steps any two implementations' gradients part), and held
+   layer by layer instead: each layer's VJP from the torch run's recorded
+   input and output cotangent, kernels against torch at 10% relative L2
+   per gradient, the mLSTM over the whole sequence and the sLSTM over its
+   first XL_REPLAY_SEQ tokens; the same weights' loss and gradients in
+   fp32 on both backends, each gradient's largest error within 1e-4 of its
+   largest entry at 1 x XL_WITNESS_SHORT and within 1e-4 relative L2 at
+   1 x XL_WITNESS_SEQ; each distinct kernel-3 shape of the step on seeded
+   operands against its plain version; step ms, tokens/s, peak memory,
+   busy share and device ms by class (profiled over a 1 x
+   XL_TRAIN_PROFILE_SEQ step: the profiler takes ~0.5 ms a launch to
+   digest), and each shape beside its bound and ``torch.matmul``;
+c. one Mamba mixer of Jamba-1.5-Large at full width, forward and backward
+   over 1 x 4096 rows (8 chunks, each recomputed in the backward): launches
+   by part and variant (``mixer_train_split``), the first call of each
+   shape against its plain version, the gradients of x and of every leaf
+   against the torch backend's at 10% relative L2, peak memory under
+   ``JM_TRAIN_PEAK_GIB``; ms, busy share and each shape's times;
+d. the kernels line's entries of b and c: kernel 3 forward (with the
+   recomputes) and backward.
+
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
 with TF32 off.  The full per-call results go to
@@ -521,6 +562,7 @@ with TF32 off.  The full per-call results go to
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -535,6 +577,10 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# the spin kernel's cycles a second: the H100's 1.98 GHz boost clock (a
+# slower clock spins longer, never shorter)
+SPIN_CYCLES_PER_S = 1.98e9
 
 # NVIDIA H100 SXM data-sheet peaks (at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12        # CUDA cores, no tensor cores
@@ -797,6 +843,32 @@ XL_PROFILE_SEQ = 256
 # JM_BATCH from a zero cache against one scan over the same tokens
 JM_ARCH, JM_NAME = "jamba-1.5-large-398b", "Jamba-1.5-Large Mamba mixer"
 JM_SEQ, JM_BATCH, JM_DECODE = 4096, 4, 16
+# phase 32: the recurrent mixers trained.  32a: kernel 3's backward (dA and
+# dB through MatmulFn) at the new shapes of that path, (what, M, K, N,
+# dtype) of the forward product
+REC_TRAIN_CALLS = [
+    ("sLSTM r_gates, batch 1", 1, 2048, 8192, "fp32"),
+    ("sLSTM r_gates, batch 4", 4, 2048, 8192, "fp32"),
+    ("mLSTM w_if", 4096, 4096, 8, "fp32"),
+    ("Jamba dt_proj", 512, 512, 16384, "fp32"),
+    ("sLSTM ff_up", 4096, 2048, 2730, "bf16"),
+    ("sLSTM ff_down", 4096, 2730, 2048, "bf16"),
+]
+# 32b: xLSTM-1.3B at one pattern period (2 of 48 layers), the full step at
+# 1 x XL_TRAIN_SEQ (the reference's train_4k length), the fp32 witness at 1 x
+# XL_WITNESS_SEQ, the busy share read over a 1 x XL_TRAIN_PROFILE_SEQ step
+XL_TRAIN_LAYERS, XL_TRAIN_SEQ, XL_TRAIN_BATCH = 2, 4096, 1
+XL_TRAIN_PROFILE_SEQ = 64
+# the sLSTM's backward grows by ~e^(0.0041 t) over t steps at these widths,
+# so any two implementations' gradients part chaotically over 4,096: the
+# fp32 witness runs at 1 x XL_WITNESS_SHORT (growth ~1.3x; each gradient's
+# largest error held) and at 1 x XL_WITNESS_SEQ (~2.9x; relative L2), and
+# the sLSTM layer's bf16 VJP is held on its first XL_REPLAY_SEQ tokens
+XL_WITNESS_SHORT = 64
+XL_WITNESS_SEQ = XL_REPLAY_SEQ = 256
+# 32c: the Jamba mixer's forward and backward at 1 x JM_SEQ must peak under
+# this (the per-chunk checkpoint keeps one chunk's scan live: ~12-15 GiB)
+JM_TRAIN_PEAK_GIB = 20.0
 # phase 3's edge cases (and phase 14's, in bf16)
 DENSE_EDGES = [  # label, x shape, w shape, stride, pads
     ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
@@ -950,35 +1022,135 @@ def mixer_products(cfg, kind: str, seq: int = 1) -> dict:
     in the forward and in fp32 in a decode step, beside the fp32 gates
     ``w_if``; an sLSTM block's ``w_gates``, its fp32 recurrent product
     once a step, and its FFN."""
-    from repro_torch.models import mamba, xlstm
-
     if kind in ("attn", "attn_local"):
         return {"wgmma": 4, "simt": 0}
+    out = {"wgmma": 0, "simt": 0}
+    for _, k, n, dtype in mixer_matmuls(cfg, kind, seq):
+        out[kernel3_variant(k, n, dtype)] += 1
+    return out
+
+
+def scan_chunks(cfg, seq: int) -> int:
+    """The Mamba scan's chunks over ``seq`` tokens (``mamba.SCAN_CHUNK``,
+    the reference's rule): ``seq // chunk`` for a longer multiple of the
+    chunk, else 1 (one scan)."""
+    from repro_torch.models import mamba
+
+    chunk = mamba.SCAN_CHUNK
+    return seq // chunk if seq > chunk and seq % chunk == 0 else 1
+
+
+def mixer_matmuls(cfg, kind: str, seq: int = 1, rows: int = 1) -> list:
+    """The kernel-3 products ``(M, K, N, dtype)`` of one recurrent mixer of
+    ``kind`` over ``rows`` x ``seq`` tokens, in launch order where it
+    matters (``mixer_products`` reads their variants): a Mamba block's
+    ``in_proj`` and ``out_proj``, and its ``x_proj`` and fp32 ``dt_proj``
+    once a scan chunk (M the chunk's tokens); an mLSTM block's
+    ``up_proj``, ``out_proj``, the fp32 gates ``w_if`` and ``wq``, ``wk``
+    and ``wv`` (fp32 in a decode step); an sLSTM block's ``w_gates``, its
+    FFN, and its fp32 recurrent product once a step at M = ``rows``."""
+    from repro_torch.models import mamba, xlstm
+
     dt = "bf16" if cfg.dtype == "bfloat16" else "fp32"
-    d = cfg.d_model
+    d, tokens = cfg.d_model, rows * seq
     if kind == "mamba":
         m, d_in, dt_rank = mamba._cfg(cfg)
-        chunk = mamba.SCAN_CHUNK
-        n = seq // chunk if seq > chunk and seq % chunk == 0 else 1
-        products = ([(d, 2 * d_in, dt), (d_in, d, dt)]
-                    + n * [(d_in, dt_rank + 2 * m.d_state, dt),
-                           (dt_rank, d_in, "fp32")])
-    elif kind == "mlstm":
+        n = scan_chunks(cfg, seq)
+        per = tokens // n
+        return ([(tokens, d, 2 * d_in, dt), (tokens, d_in, d, dt)]
+                + n * [(per, d_in, dt_rank + 2 * m.d_state, dt),
+                       (per, dt_rank, d_in, "fp32")])
+    if kind == "mlstm":
         _, d_in, _ = xlstm._dims(cfg)
         qkv = dt if seq > 1 else "fp32"
-        products = ([(d, 2 * d_in, dt), (d_in, d, dt),
-                     (d_in, 2 * cfg.num_heads, "fp32")]
-                    + 3 * [(d_in, d_in, qkv)])
-    elif kind == "slstm":
+        return ([(tokens, d, 2 * d_in, dt), (tokens, d_in, d, dt),
+                 (tokens, d_in, 2 * cfg.num_heads, "fp32")]
+                + 3 * [(tokens, d_in, d_in, qkv)])
+    if kind == "slstm":
         dff = int(cfg.xlstm.s_ff_factor * d)
-        products = ([(d, 4 * d, dt), (d, dff, dt), (dff, d, dt)]
-                    + seq * [(d, 4 * d, "fp32")])
-    else:
-        raise ValueError(f"unknown mixer {kind!r}")
-    out = {"wgmma": 0, "simt": 0}
-    for k, n_, dtype in products:
-        out[kernel3_variant(k, n_, dtype)] += 1
+        return ([(tokens, d, 4 * d, dt), (tokens, d, dff, dt),
+                 (tokens, dff, d, dt)]
+                + seq * [(rows, d, 4 * d, "fp32")])
+    raise ValueError(f"unknown mixer {kind!r}")
+
+
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
+
+
+def autograd_launches(forward, recompute=(), no_da=()) -> list:
+    """Kernel 3's launches under autograd, one ``(part, M, K, N, dtype)``
+    each, part ``"forward"``, ``"recompute"`` or ``"backward"``: the
+    ``forward`` products ``(M, K, N, dtype)``, the ``recompute`` ones run
+    again, and each forward product's dA = dC @ B^T, (M, N) @ (N, K), and
+    dB = A^T @ dC, (K, M) @ (M, N), but no dA for the forward products at
+    the indices in ``no_da``."""
+    out = [("forward", *p) for p in forward]
+    out += [("recompute", *p) for p in recompute]
+    for i, (m, k, n, dt) in enumerate(forward):
+        if i not in no_da:
+            out.append(("backward", m, n, k, dt))
+        out.append(("backward", k, m, n, dt))
     return out
+
+
+def mixer_train_launches(cfg, kind: str, seq: int, rows: int = 1,
+                         remat: bool = False) -> list:
+    """``autograd_launches`` of one recurrent mixer of ``kind`` over
+    ``rows`` x ``seq`` tokens: its forward products (``mixer_matmuls``);
+    under ``remat`` (the layer checkpoint) each again; a chunked Mamba
+    scan's ``x_proj`` and ``dt_proj`` once more a chunk (each chunk runs
+    under its checkpoint when grad is on); no dA for an sLSTM layer's first
+    recurrent product (its h, the zero state, needs no gradient)."""
+    products = mixer_matmuls(cfg, kind, seq, rows)
+    again = list(products) if remat else []
+    if kind == "mamba" and scan_chunks(cfg, seq) > 1:
+        again += products[2:]
+    return autograd_launches(products, again,
+                             no_da=(3,) if kind == "slstm" else ())
+
+
+def head_train_launches(cfg, seq: int, rows: int = 1) -> list:
+    """``autograd_launches`` of the LM head over ``rows`` x ``seq`` tokens:
+    one product a CE chunk (``layers.ce_chunks``), each checkpointed and so
+    run again when there are several; an encoder-decoder takes the full
+    logits, one product not checkpointed."""
+    from repro_torch.models.layers import ce_chunks
+
+    dt = "bf16" if cfg.dtype == "bfloat16" else "fp32"
+    heads = 1 if cfg.encoder_layers else ce_chunks(seq)
+    head = heads * [(rows * seq // heads, cfg.d_model, cfg.vocab, dt)]
+    return autograd_launches(head, head if heads > 1 else [])
+
+
+def recurrent_train_launches(cfg, seq: int, rows: int) -> list:
+    """``autograd_launches`` of one microbatch of ``rows`` x ``seq`` tokens
+    through a model of recurrent mixers only (no attention, no FFN of its
+    own: xLSTM's): each layer's ``mixer_train_launches`` under
+    ``cfg.remat``, then the head's (``head_train_launches``)."""
+    if cfg.d_ff or cfg.moe or any(k not in RECURRENT_KINDS
+                                  for k in cfg.block_pattern):
+        raise ValueError(f"{cfg.name}: not a model of recurrent mixers only")
+    out = []
+    for kind in cfg.repeat * cfg.block_pattern:
+        out += mixer_train_launches(cfg, kind, seq, rows, cfg.remat)
+    return out + head_train_launches(cfg, seq, rows)
+
+
+def train_variants(launches) -> dict:
+    """``autograd_launches`` by part and the variant each takes
+    (``kernel3_variant`` of its K, N and dtype): ``{"forward" |
+    "recompute" | "backward": {"wgmma": n, "simt": n}}``."""
+    out = {p: {"wgmma": 0, "simt": 0}
+           for p in ("forward", "recompute", "backward")}
+    for part, _, k, n, dt in launches:
+        out[part][kernel3_variant(k, n, dt)] += 1
+    return out
+
+
+def mixer_train_split(cfg, seq: int, rows: int = 1) -> dict:
+    """``train_variants`` of one Mamba mixer over ``rows`` x ``seq`` tokens
+    differentiated alone, without the layer checkpoint (phase 32c)."""
+    return train_variants(mixer_train_launches(cfg, "mamba", seq, rows))
 
 
 def decoder_launches(cfg, seq: int = 1) -> tuple[int, int]:
@@ -1047,26 +1219,26 @@ def lm_train_launches(cfg, seq_len: int, microbatches: int) -> dict:
     ``backend="kernels"``, by part: ``{"matmul": {"forward", "recompute",
     "backward"}, "flash_attention": {...}}``.
 
-    Per microbatch: each layer's products (an encoder-decoder's encoder
-    layers and decoder layers) and the LM head's, one per CE chunk
-    (``layers.ce_chunks``; an encoder-decoder takes the full logits, one
-    product not checkpointed); under ``cfg.remat`` every layer runs again
-    in the backward, and a chunked head's products always do (each chunk
-    is checkpointed); the backward launches 2 products for each forward
-    one (dA and dB, every operand requires grad).  Attention runs kernel 4
-    in the forward and in the recompute; its backward launches no
-    kernel."""
-    from repro_torch.models.layers import ce_chunks
-
-    body, attn = decoder_launches(cfg)
+    Per microbatch: each layer's products over ``seq_len`` tokens
+    (``decoder_launches``; an encoder-decoder's encoder layers and decoder
+    layers), run again in the backward under ``cfg.remat``, with dA and dB
+    each in the backward; but a recurrent mixer's as
+    ``mixer_train_launches`` has them, and the LM head's as
+    ``head_train_launches``.  Attention runs kernel 4 in the forward and in
+    the recompute; its backward launches no kernel."""
+    body, attn = decoder_launches(cfg, seq_len)
     if cfg.encoder_layers:
         enc = encode_launches(cfg)
         body, attn = body + enc["matmul"], attn + enc["flash_attention"]
-    heads = 1 if cfg.encoder_layers else ce_chunks(seq_len)
-    mm = {"forward": body + heads,
-          "recompute": (body if cfg.remat else 0) + (heads if heads > 1
-                                                      else 0),
-          "backward": 2 * (body + heads)}
+    rec = [part for kind in cfg.repeat * cfg.block_pattern
+           if kind in RECURRENT_KINDS
+           for part, *_ in mixer_train_launches(cfg, kind, seq_len,
+                                                remat=cfg.remat)]
+    head = [part for part, *_ in head_train_launches(cfg, seq_len)]
+    other = body - rec.count("forward")
+    mm = {"forward": other, "recompute": other if cfg.remat else 0,
+          "backward": 2 * other}
+    mm = {k: v + rec.count(k) + head.count(k) for k, v in mm.items()}
     fa = {"forward": attn, "recompute": attn if cfg.remat else 0,
           "backward": 0}
     return {"matmul": {k: v * microbatches for k, v in mm.items()},
@@ -1303,20 +1475,26 @@ class Smoke:
             kconv.conv2d_cuda, ktr.tconv_cuda = orig
 
     def device_ms(self, fn, reps=10, rounds=3):
-        """Median device time of one ``fn()``, in ms.
+        """Median device time of one ``fn()``, in ms: the median over
+        ``rounds`` of ``reps`` back-to-back calls.
 
         A spin kernel holds the stream while the host enqueues ``reps``
         calls, so the events bracket back-to-back device work and not the
-        host's launch latency.
+        host's launch latency: it spins 4x the host's time to enqueue them
+        (read from the second warm-up call), at least 1 ms.
         """
         torch = self.torch
         fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        spin = int(max(4 * reps * (time.perf_counter() - t0), 1e-3)
+                   * SPIN_CYCLES_PER_S)
         times = []
         for _ in range(rounds):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(50_000_000)
+            torch.cuda._sleep(spin)
             start.record()
             for _ in range(reps):
                 fn()
@@ -1407,13 +1585,16 @@ class Smoke:
 
         kernels_line["kernels"] += timed("14-17", self.run_bf16, fp32_train)
         kernels_line["kernels"] += timed("18-22", self.run_models)
-        for phase, run in (("23", self.run_serving), ("24", self.run_tuning),
-                           ("25", self.run_lm_serving),
+        for phase, run in (("23", self.run_serving), ("24", self.run_tuning)):
+            kernels_line["kernels"] += timed(phase, run)
+            torch.cuda.empty_cache()
+        for phase, run in (("25", self.run_lm_serving),
                            ("26", self.run_lm_training),
                            ("27", self.run_whisper), ("28", self.run_gemma),
                            ("29", self.run_moe),
                            ("30", self.run_moe_training),
-                           ("31", self.run_recurrent)):
+                           ("31", self.run_recurrent),
+                           ("32", self.run_rec_training)):
             kernels_line["kernels"] += timed(phase, run)
             torch.cuda.empty_cache()
         log("seconds by phase: " + ", ".join(
@@ -5146,7 +5327,7 @@ class Smoke:
     def lm_train_main(self, cfg, params, batch, launches, label, rep, *,
                       phase="26a", micro=TRAIN_LM_MICRO, chunks=None,
                       simt=0, attn_variant=None, windowed=0,
-                      grads_only=False, routes=None):
+                      grads_only=False, routes=None, keep=None):
         """26a: the main path.  Counts 0 just before one train step on
         ``backend="kernels"`` (with ``grads_only``, its loss and gradients,
         ``make_value_and_grad``, which launch every kernel the step does),
@@ -5161,8 +5342,9 @@ class Smoke:
         and the transposes counted apart.  With ``launches["matmul_batched"]``
         (a MoE config, ``lm_train_split``) kernel 3's batched launches are
         read and split apart from its 2-D ones, and with a list ``routes``
-        each ``moe.route`` call's (experts, kept) is recorded in it.
-        Returns the measured launches by part."""
+        each ``moe.route`` call's (experts, kept) is recorded in it.  A dict
+        ``keep`` receives the step's new ``params``, ``opt`` state and
+        ``metrics``.  Returns the measured launches by part."""
         torch = self.torch
         F = torch.nn.functional
         kmm, kfa = self.kmm, self.kfa
@@ -5258,10 +5440,14 @@ class Smoke:
         rep["launches"] = {"counted": counts, "by_part": parts,
                            "worked_out": launches, "other": other,
                            "transposes": transposes}
+        if keep is not None:
+            keep.update(params=None if grads_only else new_p, opt=new_o,
+                        metrics=m)
         return parts
 
     def lm_train_calls(self, cfg, params, batch, launches, label, rep, *,
-                       phase="26b", micro=TRAIN_LM_MICRO):
+                       phase="26b", micro=TRAIN_LM_MICRO, once=False,
+                       run=None):
         """26b: every kernel-3 and kernel-4 call of one microbatch's
         forward and backward (the recompute included), each held against
         its plain version as it is made at phase 10's bf16 bar (a product
@@ -5273,18 +5459,27 @@ class Smoke:
         forward run again inside the backward pass) or ``backward`` (dA
         and dB); and one sample of the attention's inputs per attention
         geometry with its call count, and the count of every transposed
-        shape."""
+        shape.  With ``once`` only the first call of each (part, kernel,
+        geometry) is held (phase 32b: a 4,096-step sLSTM loop repeats its
+        shapes); ``run`` (no arguments) takes the microbatch's place (phase
+        32c: one mixer's forward and backward)."""
         torch = self.torch
         from repro_torch.launch import steps
 
         kmm, kfa = self.kmm, self.kfa
-        rows = batch["tokens"].shape[0] // micro
-        log(f"phase {phase}: {label}: every kernel call of one microbatch's "
-            f"forward and backward ({rows} x {batch['tokens'].shape[1]} "
-            f"tokens) vs its plain version, checked as it is made (backward "
-            f"products: no max(1, .) floor)")
-        mb = {k: v[:rows] for k, v in batch.items()}
-        vg = steps.make_value_and_grad(cfg, backend="kernels")
+        which = ("the first kernel call of each shape by part" if once
+                 else "every kernel call")
+        if run is None:
+            rows = batch["tokens"].shape[0] // micro
+            mb = {k: v[:rows] for k, v in batch.items()}
+            vg = steps.make_value_and_grad(cfg, backend="kernels")
+            what = (f"one microbatch's forward and backward ({rows} x "
+                    f"{batch['tokens'].shape[1]} tokens)")
+        else:
+            what = "its forward and backward"
+        log(f"phase {phase}: {label}: {which} of {what} vs its plain "
+            f"version, checked as it is made (backward products: no max(1, "
+            f".) floor)")
         groups, caught = {}, {}
         samples = {"transposes": {}, "attention": {}}
         # the innermost Function body running (forward or backward) and
@@ -5303,6 +5498,10 @@ class Smoke:
 
         def check(name, args, out, plain):
             where = part()
+            geo = self.lm_call(name, args)[5]
+            if once and (where, name, geo) in groups:
+                groups[where, name, geo][1] += 1
+                return
             entry = (f"{name} ({label} "
                      f"{'backward' if where == 'backward' else 'forward'})"
                      if name.startswith("matmul")
@@ -5317,7 +5516,6 @@ class Smoke:
             else:   # a top-1 router's dA and dB: its gate is the constant 1
                 state["zero"] += 1
             state["n"] += 1
-            geo = self.lm_call(name, args)[5]
             grp = groups.setdefault((where, name, geo), [args, 0])
             grp[1] += 1
 
@@ -5375,7 +5573,10 @@ class Smoke:
         kmm.BatchedMatmulFn.backward = inside("backward", orig[9])
         torch.autograd.grad, kmm._transposed = grad, transposed
         try:
-            loss, grads = vg(params, mb)
+            if run is None:
+                loss, grads = vg(params, mb)
+            else:
+                loss, grads = run(), None
             torch.cuda.synchronize()
         finally:
             kmm.matmul_cuda, kfa.flash_attention_cuda = orig[:2]
@@ -5397,7 +5598,9 @@ class Smoke:
             f"flash_attention ({label})") if e in self.worst}
         reads = {w: [min(c[j] for c in cs) for j in range(2)]
                  for w, cs in caught.items()}
-        log(f"  {state['n']} calls ok, loss {float(loss):.4f}; by part: "
+        log(f"  {state['n']} calls ok"
+            + ("" if loss is None else f", loss {float(loss):.4f}")
+            + "; by part: "
             + ", ".join(f"{w} {n} x {k}" for (w, k), n in per_part.items())
             + f"; worst max abs err {json.dumps(worst)}")
         for w, (zero, off) in reads.items():
@@ -6770,15 +6973,16 @@ class Smoke:
             f"{TOL} x max(1, max|plain|); bf16, each element 2^-7 |plain| + "
             f"{TOL} x max(1, max|plain|)), timed beside its bound and "
             f"torch.bmm")
-        g = torch.Generator().manual_seed(SEED + 29)
+        # drawn on the card: the CPU's draws of these operands took ~20 s
+        g = torch.Generator(self.dev).manual_seed(SEED + 29)
         cases = [(s, dt) for s in MOE_BATCHED
                  for dt in (torch.bfloat16, torch.float32)]
         cases.append((MOE_UNALIGNED, torch.bfloat16))
         caught, rows = [], []
         for (e, m, k, n), dt in cases:
-            a = torch.randn((e, m, k), generator=g).to(self.dev, dt)
-            b = (torch.randn((e, k, n), generator=g) * k ** -0.5).to(
-                self.dev, dt)
+            a = torch.randn((e, m, k), generator=g, device=self.dev).to(dt)
+            b = (torch.randn((e, k, n), generator=g, device=self.dev)
+                 * k ** -0.5).to(dt)
             kern, plain, lib, flops, nbytes, geo, variant = self.lm_call(
                 "matmul_batched", (a, b))
             want_v = ("wgmma" if dt == torch.bfloat16 and k % 8 == 0
@@ -7068,16 +7272,17 @@ class Smoke:
             f"its plain version (fp32: {TOL} x max(1, max|plain|); bf16, "
             f"each element 2^-7 |plain| + {TOL} x max(1, max|plain|)), "
             f"timed beside its bound and torch.bmm")
-        g = torch.Generator().manual_seed(SEED + 30)
+        # drawn on the card: the CPU's draws of these operands took ~25 s
+        g = torch.Generator(self.dev).manual_seed(SEED + 30)
         cases = [(sh, dt) for sh in MOE_TRAIN_BATCHED
                  for dt in (torch.bfloat16, torch.float32)]
         cases += [(sh, torch.bfloat16) for sh in MOE_TRAIN_EDGES]
         caught, rows = [], []
         for (e, r, k, n), dt in cases:
-            a = torch.randn((e, r, k), generator=g).to(self.dev, dt)
-            b = (torch.randn((e, k, n), generator=g) * k ** -0.5).to(
-                self.dev, dt)
-            cot = torch.randn((e, r, n), generator=g).to(self.dev, dt)
+            a = torch.randn((e, r, k), generator=g, device=self.dev).to(dt)
+            b = (torch.randn((e, k, n), generator=g, device=self.dev)
+                 * k ** -0.5).to(dt)
+            cot = torch.randn((e, r, n), generator=g, device=self.dev).to(dt)
             ta, tb = (t.detach().requires_grad_() for t in (a, b))
             before = counter.launches_batched
             da, db = torch.autograd.grad(kmm.BatchedMatmulFn.apply(ta, tb),
@@ -7852,6 +8057,608 @@ class Smoke:
                 f"{peak:.2f} GiB (weights included)")
         entries = self.serve_shapes(groups, launches, label, rep)
         del p, x, xd, cache
+        return entries
+
+    # ------------------------------------------ the recurrent mixers trained
+    def run_rec_training(self):
+        """Phase 32: the recurrent mixers trained (module docstring,
+        32a-d).  Returns its entries of the kernels line."""
+        torch = self.torch
+        rep = self.report["rec_train"] = {}
+        self.rec_train_kernels(rep)
+        entries = self.xl_train(rep.setdefault(XL_NAME, {}))
+        torch.cuda.empty_cache()
+        entries += self.jm_train(rep.setdefault(JM_NAME, {}))
+        torch.cuda.empty_cache()
+        return entries
+
+    def rec_train_kernels(self, rep):
+        """32a: ``MatmulFn`` (forward, then dA and dB, a launch each) at each
+        ``REC_TRAIN_CALLS`` shape: each gradient against its plain version
+        (fp32 ``torch.matmul`` of the cotangent and B^T, of A^T and the
+        cotangent) at phase 10's bars, on the variant the rule gives its
+        operands; a zeroed output and one 2% off shown to fail; each timed
+        beside its bound, ``torch.matmul`` and its operand's transpose."""
+        torch = self.torch
+        kmm = self.kmm
+        counter = self.counters["matmul"]
+        name = "matmul (32a backward)"
+        log("phase 32a: kernel 3's backward at the recurrent training "
+            "path's shapes (MatmulFn: dA = dC @ B^T, dB = A^T @ dC) vs its "
+            f"plain version (fp32: {TOL} x max(1, max|plain|); bf16, each "
+            f"element 2^-7 |plain| + that bar), timed beside its bound and "
+            f"torch.matmul")
+        g = torch.Generator(self.dev).manual_seed(SEED + 35)
+        caught, rows = [], []
+        for what, m, k, n, dt in REC_TRAIN_CALLS:
+            dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+            a = torch.randn((m, k), generator=g, device=self.dev).to(dtype)
+            b = (torch.randn((k, n), generator=g, device=self.dev)
+                 * k ** -0.5).to(dtype)
+            cot = torch.randn((m, n), generator=g, device=self.dev).to(dtype)
+            ta, tb = (t.detach().requires_grad_() for t in (a, b))
+            before = counter.launches
+            da, db = torch.autograd.grad(kmm.MatmulFn.apply(ta, tb),
+                                         (ta, tb), cot)
+            torch.cuda.synchronize()
+            if counter.launches != before + 3:
+                raise RuntimeError(f"32a {what}: {counter.launches - before}"
+                                   f" launches, not 3")
+            bt, at = b.T.contiguous(), a.T.contiguous()
+            for grad, got, args in (("dA", da, (cot, bt)),
+                                    ("dB", db, (at, cot))):
+                kern, plain, lib, flops, nbytes, geo, variant = self.lm_call(
+                    "matmul", args)
+                want_v = self.rec_variant("matmul", args)
+                if variant != want_v or got.dtype != dtype:
+                    raise RuntimeError(f"32a {what} {grad} {geo}: variant "
+                                       f"{variant} (not {want_v}), "
+                                       f"{got.dtype}")
+                want = plain()
+                err, rel, _ = self.compare(
+                    f"32a {what} ({m}, {k}) @ ({k}, {n}) {dt}: {grad} {geo} "
+                    f"[{variant}]", name, got, want)
+                caught.append(self.sensitivity(got, want, 1.0, TOL))
+                del want
+                peak = PEAK_FP32_FLOPS if dt == "fp32" else PEAK_BF16_FLOPS
+                row = {"what": what, "gradient": grad, "forward": [m, k, n],
+                       "geometry": geo, "dtype": dt, "variant": variant,
+                       "max_abs_err": err, "max_rel_err": rel,
+                       "flops": flops, "bytes": nbytes,
+                       "ms": self.device_ms(kern),
+                       "plain_ms": self.device_ms(plain, reps=3),
+                       "library_ms": self.device_ms(lib),
+                       "transpose_ms": self.device_ms(
+                           lambda t=args[1 if grad == "dA" else 0]:
+                           t.T.contiguous()),
+                       "ops_ms": 1e3 * flops / peak,
+                       "bytes_ms": 1e3 * nbytes / PEAK_BYTES_S}
+                row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+                rows.append(row)
+                log(f"    {row['ms']:.4f} ms, {flops / row['ms'] / 1e9:.2f} "
+                    f"TFLOP/s, bound {row['bound_ms']:.4f} ms ("
+                    + ("ops" if row["ops_ms"] >= row["bytes_ms"] else "bytes")
+                    + f"), {row['ms'] / row['bound_ms']:.1f} x bound; "
+                    f"torch.matmul {row['library_ms']:.4f} ms; plain "
+                    f"{row['plain_ms']:.3f} ms; its operand's transpose "
+                    f"{row['transpose_ms']:.4f} ms")
+            del a, b, cot, ta, tb, da, db, at, bt
+        zero, off = (min(c[j] for c in caught) for j in range(2))
+        log(f"  a zeroed output would reach >= {zero:.3g} x its bar, one 2% "
+            f"off >= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError("32a: a bar would miss a zeroed or a 2%-off "
+                               "kernel output")
+        rep["backward"] = {"timed": rows, "zeroed_over_bar": zero,
+                           "off2_over_bar": off}
+
+    def lm_batches(self, cfg, rows, seq, n):
+        """``LMDataPipeline(rows, seq, seed=SEED)``'s first ``n`` batches on
+        the card."""
+        torch = self.torch
+        from repro_torch.data import LMDataPipeline
+
+        pipe = LMDataPipeline(rows, seq, cfg.vocab, seed=SEED)
+        try:
+            return [{k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.dev) for k, v in pipe.batch_at(i).items()}
+                for i in range(n)]
+        finally:
+            pipe.close()
+
+    def xl_train(self, rep):
+        """32b: xLSTM-1.3B at one pattern period trained (module docstring).
+        Returns the kernels line's entries."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import xlstm
+
+        full = get_config(XL_ARCH)
+        cfg = full.replace(num_layers=XL_TRAIN_LAYERS)
+        _, d_in, _ = xlstm._dims(cfg)
+        label = f"{XL_NAME} ({cfg.num_layers} layers) train step"
+        launches = lm_train_launches(cfg, XL_TRAIN_SEQ, 1)
+        per_launch = recurrent_train_launches(cfg, XL_TRAIN_SEQ,
+                                              XL_TRAIN_BATCH)
+        variants = train_variants(per_launch)
+        simt = sum(v["simt"] for v in variants.values())
+        log(f"phase 32b: train {cfg.name} at its published widths (d "
+            f"{cfg.d_model}, {cfg.num_heads} heads, mLSTM d_inner {d_in}, "
+            f"sLSTM FFN {int(cfg.xlstm.s_ff_factor * cfg.d_model)}, vocab "
+            f"{cfg.vocab}, {cfg.dtype}), depth cut from {full.num_layers} to "
+            f"{cfg.num_layers} layers (one pattern period): make_train_step "
+            f"over {XL_TRAIN_BATCH} x {XL_TRAIN_SEQ} tokens, fp32 AdamW, "
+            f"remat ({cfg.remat}); kernel-3 launches by part and variant "
+            f"(recurrent_train_launches): {variants}")
+        params = self.lm_params(cfg, SEED + 32, rep)
+        batches = self.lm_batches(cfg, XL_TRAIN_BATCH, XL_TRAIN_SEQ,
+                                  TRAIN_LM_STEPS)
+        layers = []
+        parts = self.xl_train_steps(cfg, params, batches, launches, simt,
+                                    label, rep, layers)
+        self.xl_layer_vjps(cfg, params, layers, rep)
+        del layers
+        self.xl_witness(cfg, params, rep)
+        groups = self.rec_train_groups(per_launch, label)
+        return self.xl_train_times(cfg, params, groups, parts, label, rep)
+
+    @contextlib.contextmanager
+    def first_grads(self, store):
+        """Keep in ``store`` the gradients that the first ``make_train_step``
+        call made inside the block hands AdamW (``steps.adamw_update``'s
+        first argument)."""
+        from repro_torch.launch import steps
+
+        orig = steps.adamw_update
+
+        def update(grads, *args, **kw):
+            if not store:
+                store.update(grads)
+            return orig(grads, *args, **kw)
+
+        steps.adamw_update = update
+        try:
+            yield
+        finally:
+            steps.adamw_update = orig
+
+    @contextlib.contextmanager
+    def layer_cotangents(self, rec):
+        """Append to ``rec`` each ``transformer.apply_layer`` call's input x
+        made inside the block, with the cotangent the backward then hands
+        its output (a hook on it): ``[x, cotangent]`` in call order.  A
+        remat recompute's calls get none: their outputs are not the
+        graph's."""
+        from repro_torch.models import transformer
+
+        orig = transformer.apply_layer
+
+        def record(*args, **kw):
+            y, cache = orig(*args, **kw)
+            entry = [args[1].detach(), None]
+            rec.append(entry)
+            y.register_hook(lambda g: entry.__setitem__(1, g))
+            return y, cache
+
+        transformer.apply_layer = record
+        try:
+            yield
+        finally:
+            transformer.apply_layer = orig
+
+    def xl_train_steps(self, cfg, params, batches, launches, simt, label,
+                       rep, layers):
+        """32b's steps: on each backend TRAIN_LM_STEPS ``make_train_step``
+        steps from one state on successive batches, timed, the kernels
+        backend's first one the main path (``lm_train_main``: counts 0 just
+        before it and read just after, by part and variant), each backend's
+        step-0 gradients kept (``first_grads``), the torch backend's first
+        step's layer inputs and output cotangents recorded into ``layers``
+        (``layer_cotangents``).  Gates: the losses within 5%
+        step by step, the step-0 loss within 5%, finite; the step-0
+        gradient norm and each gradient's relative L2 end to end are read,
+        not gated (the sLSTM's backward parts chaotically over 4,096 steps:
+        ``XL_REPLAY_SEQ``; ``xl_layer_vjps`` holds each layer).  Returns
+        the main path's launches by part."""
+        torch = self.torch
+        from repro_torch.optim import global_norm
+
+        log(f"phase 32b: {TRAIN_LM_STEPS} make_train_step steps on kernels "
+            f"and torch from one state on successive batches, the kernels "
+            f"backend's first the main path")
+        losses, walls, peaks, first = {}, {}, {}, {}
+        parts = None
+        for backend in ("kernels", "torch"):
+            step, opt_init = self.train_fns(cfg, backend, 1)
+            p, o = params, opt_init(params)
+            losses[backend], walls[backend] = [], []
+            grads = first[backend] = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for i, b in enumerate(batches[:TRAIN_LM_STEPS]):
+                t0 = time.perf_counter()
+                with self.first_grads(grads), (
+                        self.layer_cotangents(layers)
+                        if backend == "torch" and i == 0
+                        else contextlib.nullcontext()):
+                    if backend == "kernels" and i == 0:
+                        keep = {}
+                        parts = self.lm_train_main(
+                            cfg, p, b, launches, label, rep, phase="32b",
+                            micro=1, chunks=0, simt=simt, keep=keep)
+                        p, o, m = keep["params"], keep["opt"], keep["metrics"]
+                    else:
+                        p, o, m = step(p, o, b)
+                    loss = float(m["loss"])
+                walls[backend].append((time.perf_counter() - t0) * 1e3)
+                losses[backend].append(loss)
+            peaks[backend] = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"  {backend}: losses {losses[backend]}, step {int(o.step)}; "
+                f"wall ms {[round(w, 1) for w in walls[backend]]}, peak "
+                f"{peaks[backend]:.2f} GiB")
+            if int(o.step) != TRAIN_LM_STEPS or not all(
+                    map(math.isfinite, losses[backend])):
+                raise RuntimeError(f"{backend} steps: {losses[backend]}")
+            del p, o, m
+            torch.cuda.empty_cache()
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernels"],
+                                                   losses["torch"])]
+        gk, gt = first["kernels"], first["torch"]
+        nk, nt = float(global_norm(gk)), float(global_norm(gt))
+        grad_rel = {k: ((gk[k].float() - gt[k].float()).norm()
+                        / gt[k].float().norm().clamp_min(1e-30)).item()
+                    for k in gt}
+        worst = max(grad_rel, key=grad_rel.get)
+        log(f"  kernels vs torch losses: relative {[f'{r:.2e}' for r in rel]}"
+            f" (bar {BF16_FWD_RTOL:.0%}); step 0 end to end (read, not "
+            f"gated): grad_norm {nk:.4f} vs {nt:.4f} ({abs(nk - nt) / nt:.2e}"
+            f"), worst gradient {worst} at relative L2 {grad_rel[worst]:.3e} "
+            f"(median {statistics.median(grad_rel.values()):.3e})")
+        rep["steps"] = {"losses": losses, "rel": rel, "walls_ms": walls,
+                        "peak_gib": peaks}
+        rep["grads_end_to_end"] = {"grad_norm": [nk, nt],
+                                   "worst": [worst, grad_rel[worst]],
+                                   "rel_l2": grad_rel}
+        del first, gk, gt
+        torch.cuda.empty_cache()
+        if max(rel) > BF16_FWD_RTOL:
+            raise RuntimeError(f"train losses differ: {losses}")
+        return parts
+
+    def xl_layer_vjps(self, cfg, params, layers, rep):
+        """32b's bf16 gradient gate, layer by layer: each layer's VJP from
+        the torch backend's first step's recorded input x and output
+        cotangent (``layer_cotangents``) on both backends, each gradient
+        (x's and every leaf's) kernels against torch at 10% relative L2 (a
+        zeroed gradient reads 1.0).  The mLSTM layer over the whole
+        sequence (its chunkwise form); the sLSTM layer over its first
+        XL_REPLAY_SEQ tokens, where its backward has not yet grown chaotic
+        (the whole layer's reading is the end to end one)."""
+        torch = self.torch
+        from repro_torch.models import transformer
+
+        log(f"phase 32b: each layer's bf16 VJP from the torch run's recorded "
+            f"input and output cotangent, kernels vs torch (each gradient "
+            f"{BF16_GRAD_RTOL:.0%} relative L2): the mLSTM over "
+            f"{XL_TRAIN_SEQ} tokens, the sLSTM over its first "
+            f"{XL_REPLAY_SEQ}")
+        rec = [r for r in layers if r[1] is not None]
+        order = list(transformer.layer_params(params, cfg))
+        readings = {}
+        for (pi, r, kind, fk, p), (x, cot) in zip(order, rec):
+            if kind == "slstm":
+                x, cot = x[:, :XL_REPLAY_SEQ], cot[:, :XL_REPLAY_SEQ]
+            flat = transformer.flatten_params(p)
+            names = ["x", *flat]
+            got = {}
+            for backend in ("kernels", "torch"):
+                leaves = {k: v.detach().requires_grad_()
+                          for k, v in flat.items()}
+                tx = x.detach().requires_grad_()
+                y = transformer.apply_layer(
+                    transformer.unflatten_params(leaves, p), tx, cfg, kind,
+                    fk, None, backend=backend)[0]
+                got[backend] = dict(zip(names, torch.autograd.grad(
+                    y, [tx, *leaves.values()], cot, materialize_grads=True)))
+            rel = {k: ((got["kernels"][k].float() - got["torch"][k].float())
+                       .norm() / got["torch"][k].float().norm()
+                       .clamp_min(1e-30)).item()
+                   for k in names if bool(got["torch"][k].any())}
+            worst = max(rel, key=rel.get)
+            readings[f"{kind} (layer {r} of position {pi}, {x.shape[1]} "
+                     f"tokens)"] = rel
+            log(f"  {kind}, {x.shape[1]} tokens: worst {worst} at "
+                f"{rel[worst]:.3e} (median "
+                f"{statistics.median(rel.values()):.3e}); "
+                + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+            if rel[worst] > BF16_GRAD_RTOL or not all(
+                    bool(torch.isfinite(g).all())
+                    for g in got["kernels"].values()):
+                raise RuntimeError(f"32b {kind} VJP: {worst} {rel[worst]}")
+            del got
+        if len(readings) != cfg.num_layers:
+            raise RuntimeError(f"32b: {len(readings)} layers replayed, not "
+                               f"{cfg.num_layers}")
+        rep["layer_vjps"] = readings
+        del rec
+        torch.cuda.empty_cache()
+
+    def xl_witness(self, cfg, params, rep):
+        """32b's arithmetic witness: the loss and gradients of the same
+        weights in fp32, kernels (every product ``"simt"``) against torch
+        (TF32 off), the loss at 1e-4 relative, each gradient held twice
+        with what a zeroed gradient would read: at 1 x XL_WITNESS_SHORT,
+        where the sLSTM's backward has grown ~1.3x, its largest error
+        within 1e-4 of its largest entry; at 1 x XL_WITNESS_SEQ, where it
+        has grown ~2.9x, at 1e-4 relative L2, the largest error read
+        beside."""
+        torch = self.torch
+        from repro_torch.launch import steps
+        from repro_torch.models import transformer
+
+        c32 = cfg.replace(dtype="float32")
+        p32 = transformer.unflatten_params(
+            {k: v.float() for k, v in
+             transformer.flatten_params(params).items()}, params)
+        rep["fp32_witness"] = {}
+        for seq, gate in ((XL_WITNESS_SHORT, "max |err|"),
+                          (XL_WITNESS_SEQ, "relative L2")):
+            batch = self.lm_batches(cfg, XL_TRAIN_BATCH, seq, 1)[0]
+            log(f"phase 32b: the fp32 witness: loss and gradients of the "
+                f"same weights in fp32 over {XL_TRAIN_BATCH} x {seq}, "
+                f"kernels vs torch, each gradient's {gate} within {TOL} of "
+                f"the torch gradient's")
+            out = {}
+            for backend in ("kernels", "torch"):
+                vg = steps.make_value_and_grad(c32, backend=backend)
+                t0 = time.perf_counter()
+                loss, grads = vg(p32, batch)
+                torch.cuda.synchronize()
+                out[backend] = (float(loss), grads,
+                                (time.perf_counter() - t0) * 1e3)
+            (lk, gk, msk), (lt, gt, mst) = out["kernels"], out["torch"]
+            nonzero = [k for k in gt if bool(gt[k].any())]
+            l2 = {k: ((gk[k] - gt[k]).norm() / (TOL * gt[k].norm())).item()
+                  for k in nonzero}
+            peak = {k: ((gk[k] - gt[k]).abs().max()
+                        / (TOL * gt[k].abs().max())).item() for k in nonzero}
+            ratio, read = (peak, l2) if gate == "max |err|" else (l2, peak)
+            worst = max(ratio, key=ratio.get)
+            loss_rel = abs(lk - lt) / abs(lt)
+            log(f"  loss {lk:.6f} vs {lt:.6f} ({loss_rel:.2e}); "
+                f"{len(ratio)} gradients, {gate} over its bar: worst {worst} "
+                f"at {ratio[worst]:.3f} x (median "
+                f"{statistics.median(ratio.values()):.3f}); the other form "
+                f"(read): worst {max(read.values()):.3f}, median "
+                f"{statistics.median(read.values()):.3f}; a zeroed gradient "
+                f"would read {1 / TOL:.0f} x; {msk:.1f} / {mst:.1f} ms")
+            rep["fp32_witness"][seq] = {
+                "gate": gate, "loss": [lk, lt], "loss_rel": loss_rel,
+                "worst": [worst, ratio[worst]], "rel_l2_over_bar": l2,
+                "max_err_over_bar": peak, "ms": [msk, mst]}
+            del out, gk, gt
+            if loss_rel > TOL or ratio[worst] > 1.0:
+                raise RuntimeError(f"fp32 witness at {seq} tokens: loss {lk} "
+                                   f"vs {lt}, {worst} {ratio[worst]:.3f} x "
+                                   f"its bar ({gate})")
+        del p32
+        torch.cuda.empty_cache()
+
+    def rec_train_groups(self, launches, label):
+        """Seeded operands on the card for each distinct kernel-3 shape of
+        a step by part (``launches``: ``recurrent_train_launches``), each
+        launched once and held against its plain version at phase 10's
+        bars (backward products without the max(1, .) floor, as 26b), with
+        what a zeroed output and one 2% off would read: ``{(part,
+        "matmul", geometry): [operands, calls a step]}`` for
+        ``lm_train_shapes``."""
+        torch = self.torch
+        kmm = self.kmm
+        log(f"phase 32b: {label}: each distinct kernel-3 shape of the step, "
+            f"on seeded operands, vs its plain version")
+        counts = collections.Counter(launches)
+        g = torch.Generator(self.dev).manual_seed(SEED + 37)
+        groups, caught = {}, []
+        for (part, m, k, n, dt), calls in counts.items():
+            dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+            a = torch.randn((m, k), generator=g, device=self.dev).to(dtype)
+            b = (torch.randn((k, n), generator=g, device=self.dev)
+                 * k ** -0.5).to(dtype)
+            entry = (f"matmul ({label} "
+                     f"{'backward' if part == 'backward' else 'forward'})")
+            floor = 0.0 if part == "backward" else 1.0
+            out, want = kmm.matmul(a, b), kmm.matmul_plain(a, b)
+            geo = self.lm_call("matmul", (a, b))[5]
+            self.compare(f"{entry} {geo} ({part}, x{calls})", entry, out,
+                         want, quiet=True, floor=floor)
+            caught.append(self.sensitivity(out, want, floor, TOL))
+            groups[part, "matmul", geo] = [(a, b), calls]
+            del out, want
+        zero, off = (min(c[j] for c in caught) for j in range(2))
+        log(f"  {len(groups)} shapes ok; a zeroed output would reach >= "
+            f"{zero:.3g} x its bar, one 2% off >= {off:.3g} x")
+        if not (zero > 1.0 and off > 1.0):
+            raise RuntimeError("32b: a bar would miss a zeroed or a 2%-off "
+                               "kernel output")
+        return groups
+
+    def xl_train_times(self, cfg, params, groups, parts, label, rep):
+        """32b's times: per backend the step wall ms (the median of the
+        warm steps, ``xl_train_steps``), tokens/s, peak memory; the busy
+        share and device ms by class of a step over 1 x
+        XL_TRAIN_PROFILE_SEQ; each distinct shape's kernel, plain and
+        library ms (``lm_train_shapes``).  Returns the kernels line's
+        entries."""
+        torch = self.torch
+
+        log(f"phase 32b: {label} times")
+        tokens = XL_TRAIN_BATCH * XL_TRAIN_SEQ
+        short = self.lm_batches(cfg, XL_TRAIN_BATCH, XL_TRAIN_PROFILE_SEQ,
+                                1)[0]
+        classes = {"kernel 3": ("matmul_wgmma_kernel", "matmul_kernel"),
+                   "library GEMM": ("gemm", "xmma", "nvjet", "cutlass",
+                                    "Kernel2"),
+                   "copies (transposes, casts)": ("copy",)}
+        times = rep["times"] = {}
+        for backend in ("kernels", "torch"):
+            walls = rep["steps"]["walls_ms"][backend]
+            wall = statistics.median(walls[1:])
+            step, opt_init = self.train_fns(cfg, backend, 1)
+            state = [params, opt_init(params)]
+
+            def run(step=step, state=state):
+                state[:] = step(*state, short)[:2]
+
+            short_ms = self.wall_ms(run, reps=1, warmup=1)
+            prof = self.profile_device(
+                run, f"{backend} train step over 1 x {XL_TRAIN_PROFILE_SEQ}",
+                short_ms, classes, warmup=False)
+            del state
+            torch.cuda.empty_cache()
+            row = times[backend] = {
+                "wall_ms": wall, "walls_ms": walls,
+                "tokens_per_s": tokens * 1e3 / wall,
+                "peak_gib": rep["steps"]["peak_gib"][backend],
+                "short_wall_ms": short_ms, "busy": prof.get("busy_share"),
+                "device_ms": prof.get("device_ms"),
+                "classes": prof.get("classes"), "profile": prof}
+            busy = ("not measured" if row["busy"] is None
+                    else f"{row['busy']:.1%}")
+            log(f"  {backend}: step {wall:.3f} ms (warm steps "
+                f"{[round(w, 1) for w in walls[1:]]}, the first "
+                f"{walls[0]:.1f}), {row['tokens_per_s']:.1f} tokens/s, peak "
+                f"{row['peak_gib']:.2f} GiB; over 1 x {XL_TRAIN_PROFILE_SEQ}: "
+                f"{short_ms:.3f} ms, busy {busy}")
+        return self.rec_train_entries(groups, parts, label, rep)
+
+    def rec_train_entries(self, groups, parts, label, rep):
+        """Each distinct shape of a recorded forward and backward timed
+        (``lm_train_shapes``), and the kernels line's entries: kernel 3
+        forward (with the recomputes) and backward, each with the main
+        path's launches ``parts``."""
+        rows, per = self.lm_train_shapes(groups, label, 1)
+        rep["shapes"] = rows
+        entries = []
+        for entry, p in per.items():
+            name = entry.split(" ")[0]
+            n = (parts[name]["forward"] + parts[name]["recompute"]
+                 if "backward" not in entry else parts[name]["backward"])
+            if not n:
+                continue
+            log(f"  {entry}: {p['ms']:.3f} ms over {n} launches, "
+                f"{p['flops'] / p['ms'] / 1e9:.2f} TFLOP/s; bound "
+                f"{p['bound_ms']:.3f} ms; library {p['library_ms']:.3f} ms; "
+                f"plain {p['plain_ms']:.3f} ms")
+            entries.append(self.kernel_entry(name, entry, n, p))
+        return entries
+
+    def jm_train(self, rep):
+        """32c: one Jamba-1.5-Large Mamba mixer at full width, forward and
+        backward over 1 x JM_SEQ (module docstring).  Returns the kernels
+        line's entries."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import mamba
+
+        cfg = get_config(JM_ARCH)
+        m, d_in, dt_rank = mamba._cfg(cfg)
+        label = f"{JM_NAME} trained"
+        split = mixer_train_split(cfg, JM_SEQ)
+        launches = {"matmul": {p: sum(v.values()) for p, v in split.items()},
+                    "flash_attention": dict.fromkeys(split, 0)}
+        simt = sum(v["simt"] for v in split.values())
+        log(f"phase 32c: {JM_NAME} at full width (d_model {cfg.d_model}, "
+            f"d_inner {d_in}, d_state {m.d_state}, dt_rank {dt_rank}, bf16): "
+            f"mamba_block over 1 x {JM_SEQ} ({JM_SEQ // mamba.SCAN_CHUNK} "
+            f"scan chunks, each checkpointed), its output's gradient taken "
+            f"for x and every leaf; kernel-3 launches by part and variant "
+            f"(mixer_train_split): {split}")
+        g = torch.Generator(self.dev).manual_seed(SEED + 36)
+        p = mamba.mamba_init(g, cfg, torch.bfloat16, self.dev)
+        x = torch.randn((1, JM_SEQ, cfg.d_model), generator=g,
+                        device=self.dev).to(torch.bfloat16)
+        cot = torch.randn((1, JM_SEQ, cfg.d_model), generator=g,
+                          device=self.dev).to(torch.bfloat16)
+        names = ["x", *p]
+
+        def run(backend="kernels"):
+            leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+            tx = x.detach().requires_grad_()
+            y = mamba.mamba_block(leaves, tx, cfg, backend=backend)[0]
+            return dict(zip(names, torch.autograd.grad(
+                y, [tx, *leaves.values()], cot)))
+
+        parts = {}
+
+        def read():
+            return {"matmul": self.counters["matmul"].launches,
+                    "flash_attention": 0}
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.reset_counts()
+        t0 = time.perf_counter()
+        with self.counting_parts(parts, read):
+            got = run()
+            torch.cuda.synchronize()
+        main_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        total = sum(launches["matmul"].values())
+        self.check_lm_launches(
+            "forward and backward", {"conv2d": 0, "transposed_conv2d": 0,
+                                     "matmul": total, "flash_attention": 0},
+            "wgmma", simt=simt)
+        log(f"  by part: {parts['matmul']}; peak {peak:.2f} GiB (bar "
+            f"{JM_TRAIN_PEAK_GIB} GiB, weights included); {main_ms:.1f} ms "
+            f"cold")
+        if parts["matmul"] != launches["matmul"]:
+            raise RuntimeError(f"32c launches by part {parts} != {launches}")
+        if peak >= JM_TRAIN_PEAK_GIB:
+            raise RuntimeError(f"32c peaks at {peak:.2f} GiB")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want = run("torch")
+        peak_t = torch.cuda.max_memory_allocated() / 2 ** 30
+        rel = {k: ((got[k].float() - want[k].float()).norm()
+                   / want[k].float().norm().clamp_min(1e-30)).item()
+               for k in names}
+        worst = max(rel, key=rel.get)
+        log(f"  gradients, kernels vs torch, relative L2 (bar "
+            f"{BF16_GRAD_RTOL:.0%}; a zeroed gradient reads 1.0): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+        rep["grads_rel_l2"] = rel
+        rep["launches"] = {"by_part": parts, "worked_out": split}
+        rep["peak_gib"] = {"kernels": peak, "torch": peak_t}
+        if rel[worst] > BF16_GRAD_RTOL or not all(
+                bool(torch.isfinite(t).all()) for t in got.values()):
+            raise RuntimeError(f"32c: {worst} at {rel[worst]:.3e}")
+        del got, want
+        torch.cuda.empty_cache()
+        def grads_only():
+            run()
+
+        groups, _ = self.lm_train_calls(cfg, p, None, launches, label, rep,
+                                        phase="32c", micro=1, once=True,
+                                        run=grads_only)
+        times = rep["times"] = {}
+        for backend in ("kernels", "torch"):
+            wall = self.wall_ms(lambda b=backend: run(b), reps=1, warmup=1)
+            prof = self.profile_device(lambda b=backend: run(b),
+                                       f"{backend} mixer forward and "
+                                       f"backward", wall, warmup=False)
+            times[backend] = {"wall_ms": wall,
+                              "peak_gib": rep["peak_gib"][backend],
+                              "tokens_per_s": JM_SEQ * 1e3 / wall,
+                              "busy": prof.get("busy_share"),
+                              "device_ms": prof.get("device_ms"),
+                              "profile": prof}
+            busy = ("not measured" if prof.get("busy_share") is None
+                    else f"{prof['busy_share']:.1%}")
+            log(f"  {backend}: forward and backward {wall:.3f} ms "
+                f"({JM_SEQ * 1e3 / wall:.1f} tokens/s), busy {busy}, peak "
+                f"{rep['peak_gib'][backend]:.2f} GiB (its first run)")
+        entries = self.rec_train_entries(groups, parts, label, rep)
+        del p, x, cot
         return entries
 
     def geometry(self, name, args):

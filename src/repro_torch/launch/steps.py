@@ -92,7 +92,10 @@ def make_value_and_grad(cfg: ModelConfig, *, microbatches: int = 1,
 
     def loss_and_grads(leaves, flat, mb):
         loss = loss_fn(leaves, mb)
-        grads = torch.autograd.grad(loss, list(flat.values()))
+        # a leaf the loss does not reach (xLSTM's ``norm2``: no FFN when
+        # ``d_ff == 0``) gets zeros, as ``jax.grad`` gives it
+        grads = torch.autograd.grad(loss, list(flat.values()),
+                                    materialize_grads=True)
         return loss.detach(), dict(zip(flat, grads))
 
     def value_and_grad(params, batch):

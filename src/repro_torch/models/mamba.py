@@ -17,20 +17,28 @@ discretised pairs, and the carried state entering through the chunk's
 ``cumprod`` of the decays, so that the decay underflows where the
 reference's does.  The reference's within-chunk ``associative_scan``
 becomes a log-depth doubling scan (:func:`_scan`): the same recurrence,
-its products taken in another order.  No kernel of the reference carries
+its products taken in another order.  Under autograd each chunk runs
+under a non-reentrant ``torch.utils.checkpoint``, as the reference
+checkpoints its chunk body: the backward recomputes one chunk's (B, L,
+d_inner, d_state) tensors at a time, where keeping every chunk's
+doubling-scan levels would hold ~11.5 GiB a 512-token chunk at
+Jamba-1.5-Large's width.  Serving (grad off) runs the chunks plainly and
+launches the same products.  No kernel of the reference carries
 the scan (it is XLA ops); a selective-scan kernel is a lever (ROADMAP.md).
 
 Decode (S = 1) carries ``{"conv": (B, d_conv, d_inner) model dtype,
 "ssm": (B, d_inner, d_state) fp32}``, written in place, as the attention
 layers write their KV caches.  A block launches 4 products a call, or 2 +
 2 x (S / SCAN_CHUNK) when the scan is chunked (``x_proj`` and ``dt_proj``
-run once a chunk).
+run once a chunk, and once more in the backward, where each checkpointed
+chunk is recomputed).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, linear, normal_init
@@ -121,14 +129,27 @@ def _selective_scan_chunked(p, xc, cfg, backend: str = "kernels"):
         return torch.einsum("bsdn,bsn->bsd", _scan(a, bx), cc)
     h = torch.zeros((b, d_in, cfg.mamba.d_state), dtype=torch.float32,
                     device=xc.device)
+    remat = torch.is_grad_enabled()
     ys = []
     for c0 in range(0, s, chunk):
-        a, bx, cc = _ssm_params(p, xc[:, c0:c0 + chunk], cfg, backend)
-        hs = _scan(a, bx) + torch.cumprod(a, dim=1) * h[:, None]
-        ys.append(torch.einsum("bldn,bln->bld", hs, cc))
-        h = hs[:, -1]
-        del a, bx, hs
+        args = (p, xc[:, c0:c0 + chunk], h, cfg, backend)
+        h, y = (checkpoint(_chunk_body, *args, use_reentrant=False,
+                           preserve_rng_state=False) if remat
+                else _chunk_body(*args))
+        ys.append(y)
     return torch.cat(ys, dim=1)
+
+
+def _chunk_body(p, xblk, h_in, cfg, backend):
+    """One chunk of the chunked scan from the carried state ``h_in`` (B,
+    d_in, N): (the state after its last token, its output (B, L, d_in)
+    fp32).  The state is a copy, not a view of the chunk's (B, L, d_in, N)
+    states: the next chunk's checkpoint keeps its input for the backward,
+    and a view would keep that whole tensor (512 MiB at Jamba-1.5-Large's
+    width) alive with it."""
+    a, bx, cc = _ssm_params(p, xblk, cfg, backend)
+    hs = _scan(a, bx) + torch.cumprod(a, dim=1) * h_in[:, None]
+    return hs[:, -1].clone(), torch.einsum("bldn,bln->bld", hs, cc)
 
 
 def _causal_conv(xr, w, bias):

@@ -11,6 +11,7 @@ could not see it.
 """
 
 import importlib.util
+import inspect
 from pathlib import Path
 
 import pytest
@@ -99,3 +100,89 @@ def test_fp32_bar_is_relative_to_the_largest_value(smoke):
     with pytest.raises(RuntimeError, match="x its bar"):
         smoke.compare("out", "k", want + torch.tensor([0.0, 4.1e-4]), want,
                       quiet=True)
+
+
+# ------------------------------------------- phase 32 rehearsed on the CPU
+
+_ENTRY_KEYS = {"name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms"}
+
+
+def _route_to_cuda(a, b):
+    """``kernels.matmul.matmul``'s body for the rehearsal: every call
+    through ``matmul_cuda`` (its globals are the module's), CPU tensors
+    too."""
+    return matmul_cuda(a.contiguous(), b.contiguous())  # noqa: F821
+
+
+def test_phase_32_rehearses_on_the_cpu(monkeypatch):
+    """Phase 32's wiring (``Smoke.run_rec_training``: 32a's backward shapes,
+    32b's xLSTM step, witness and times, 32c's Jamba mixer) at the reduced
+    configurations on the CPU: a counted stand-in for kernel 3 (its plain
+    arithmetic, counted by variant on ``matmul``'s own counters), the
+    ``torch.cuda`` calls stubbed, the timers and profiler stubbed.  Every
+    gate of the phase runs (launches by part and variant against the
+    oracles, calls against their plain versions, the backends' gradients,
+    the steps, the fp32 witness), and the kernels line gets phase 32's
+    kernel-3 entries, each with every key of the line."""
+    from repro_torch import configs
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.models import mamba, xlstm
+
+    mm = torch.matmul      # unwrapped: the phase counts torch.matmul calls
+
+    def fake_cuda(a, b):
+        assert a.is_contiguous() and b.is_contiguous()
+        if a.dtype != b.dtype:
+            return fake_cuda(a.float(), b.float()).to(a.dtype)
+        variant = kmm.matmul_variant(a, b)
+        kmm.matmul.launches += 1
+        kmm.matmul.launches_by_variant[variant] += 1
+        return mm(a.float(), b.float()).to(a.dtype)
+
+    smoke = chip_smoke.Smoke(torch)
+    smoke.dev = torch.device("cpu")
+    monkeypatch.setattr(kmm, "matmul_cuda", fake_cuda)
+    monkeypatch.setattr(kmm.matmul, "__code__", _route_to_cuda.__code__)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(smoke, "device_ms", lambda fn, reps=10, rounds=3: 1.0)
+    monkeypatch.setattr(smoke, "profile_device",
+                        lambda *a, **k: {"device_ms": None})
+    monkeypatch.setattr(configs, "get_config",
+                        lambda a: configs.get_reduced(a).replace(remat=True))
+    monkeypatch.setattr(mamba, "SCAN_CHUNK", 8)
+    monkeypatch.setattr(xlstm, "M_CHUNK", 16)
+    for name, value in (("XL_TRAIN_SEQ", 64), ("XL_WITNESS_SHORT", 16),
+                        ("XL_WITNESS_SEQ", 32),
+                        ("XL_REPLAY_SEQ", 32),
+                        ("XL_TRAIN_PROFILE_SEQ", 16), ("JM_SEQ", 32),
+                        ("REC_TRAIN_CALLS", [
+                            ("r_gates", 1, 64, 256, "fp32"),
+                            ("w_if", 48, 128, 8, "fp32"),
+                            ("ff_up", 48, 64, 85, "bf16")])):
+        monkeypatch.setattr(chip_smoke, name, value)
+    entries = smoke.run_rec_training()
+    rep = smoke.report["rec_train"]
+    assert len(rep["backward"]["timed"]) == 6
+    names = {e["name"] for e in entries}
+    assert names == {
+        f"matmul ({chip_smoke.XL_NAME} (2 layers) train step forward)",
+        f"matmul ({chip_smoke.XL_NAME} (2 layers) train step backward)",
+        f"matmul ({chip_smoke.JM_NAME} trained forward)",
+        f"matmul ({chip_smoke.JM_NAME} trained backward)"}
+    for e in entries:
+        assert set(e) == _ENTRY_KEYS and e["launches"] > 0
+        assert e["source"].endswith("csrc/matmul.cu")
+        assert e["replaces"] == "src/repro/kernels/matmul.py:51"
+    xl = rep[chip_smoke.XL_NAME]
+    assert [(seq, w["gate"]) for seq, w in xl["fp32_witness"].items()] == [
+        (16, "max |err|"), (32, "relative L2")]
+    assert all(w["worst"][1] <= 1.0 for w in xl["fp32_witness"].values())
+    assert len(xl["steps"]["walls_ms"]["kernels"]) == 3
+    jm = rep[chip_smoke.JM_NAME]
+    assert jm["launches"]["by_part"]["matmul"] == {
+        "forward": 2 + 2 * 4, "recompute": 2 * 4, "backward": 2 * 10}
+    assert "run_rec_training" in inspect.getsource(chip_smoke.Smoke.run)
