@@ -554,6 +554,51 @@ c. one Mamba mixer of Jamba-1.5-Large at full width, forward and backward
 d. the kernels line's entries of b and c: kernel 3 forward (with the
    recomputes) and backward.
 
+Phase 33 runs the data axis (DESIGN.md §13) on N ranks that share the one
+card (``repro_torch.launch.mesh.launch``: spawned processes, gloo over CUDA
+tensors; one spawn of 4 ranks runs ``repro_torch.launch.data_axis``'s jobs
+in a 4-rank world, then in a 1-rank world on rank 0 beside a 2-rank world
+on ranks 2-3, at the same time), on a plan table of its own
+(``Smoke.da_plan_table``).  A plan can change a row's bits, and a rank's
+share of a batch is another shape than the whole, which a table may give
+another plan, so a share's launches take the whole batch's plan
+(``autotune.whole_batch_plans``).  The phase first runs every launch
+geometry of 33a's forwards and of 33c's lanes at every plan its kernel
+builds, each row alone bitwise itself in the whole batch, and counts the
+geometries whose plans give other bits; its table gives each whole batch
+its default plan and each share of 2 and 4 ranks such a plan, so only the
+pin keeps the ranks' bitwise gates:
+
+a. ``shard_conv2d`` at ENet-512's layer shapes, batch 5 (the padding
+   remainder): the 3x3 of a stage-2 bottleneck, its dilated convs at d =
+   2, 4, 8, 16 (the folded phase batch split over the ranks) and the
+   transposed convs of the decoder (b4.0's upsampler and the 19-class
+   output head): the forward bitwise equal to the unsharded call on every
+   rank and across the worlds, dx and dw within 1e-5 x max(1, max|ref|) of
+   the unsharded call's, and kernel 1 or 2 launched on every rank;
+b. ``make_sharded_train_step("enet", backend="kernels")``: ENet-512 (19
+   classes, seeded weights with BN and PReLU redrawn as phase 4's), fp32,
+   a batch of 8 in 8 virtual shards, 3 steps: parameters, AdamW state and
+   losses bitwise equal on every rank of worlds 1, 2 and 4 (dense
+   transport); the bf16 transport (2 ranks) within 5e-3 of the dense
+   losses per step, its step-0 grad norm off the dense one by more than 0
+   and at most 1e-4 of it, its parameters not the dense run's; the 1-rank
+   kernels step held to the torch backend's at
+   phase 8's bars (loss 1e-4, grad norm 1e-3); each rank's launches of a
+   step (its chunks x (86 + 165, 3 + 4)); per-world step ms;
+c. ``GenServer(mesh=)`` over the denoiser and DCGAN-64 lanes (phase 23's
+   weights, batch 4, 2 DDIM steps a tick): each world's drain bitwise equal
+   to the 1-rank drain on every rank; a snapshot taken at 4 ranks
+   restored on 2 finishes bitwise;
+d. ``FailoverPool`` of three in-process hosts on the card, one killed
+   before it serves: the drain bitwise equal to one server's no-fault
+   drain;
+
+and the kernels line's entries ``conv2d (phase 33)`` and
+``transposed_conv2d (phase 33)``: 33a's forwards as the 1-rank world
+launches them, timed in this process beside their plain versions, bound
+and library calls.
+
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
 with TF32 off.  The full per-call results go to
@@ -869,6 +914,38 @@ XL_WITNESS_SEQ = XL_REPLAY_SEQ = 256
 # 32c: the Jamba mixer's forward and backward at 1 x JM_SEQ must peak under
 # this (the per-chunk checkpoint keeps one chunk's scan live: ~12-15 GiB)
 JM_TRAIN_PEAK_GIB = 20.0
+# phase 33, the data axis on ranks sharing one card: the worlds, in order
+# (4 before 2: 2 restores 4's snapshot); 33a's convs at ENet-512's layer
+# shapes (core/enet_spec.py), batch 5 so the padding remainder runs
+DA_WORLDS = (4, 1, 2)
+# the global ranks of each world in the one spawn, and how the script names
+# them: worlds 1 and 2 run at the same time on disjoint ranks
+DA_RANKS = {4: (0, 1, 2, 3), 1: (0,), 2: (2, 3)}
+DA_LABEL = {4: "4 ranks sharing one card",
+            1: "1 rank, beside the 2-rank world (3 ranks sharing one card)",
+            2: "2 ranks, beside the 1-rank world (3 ranks sharing one card)"}
+DA_CASES = (
+    [("3x3 b2.1", (5, 64, 64, 32), (3, 3, 32, 32), {})]
+    + [(f"dilated d={d}", (5, 64, 64, 32), (3, 3, 32, 32), {"dilation": d})
+       for d in (2, 4, 8, 16)]
+    + [("transposed b4.0", (5, 64, 64, 16), (3, 3, 16, 16),
+        {"transposed": True, "stride": 2, "output_padding": 1}),
+       ("transposed fullconv", (5, 256, 256, 16), (3, 3, 16, CLASSES),
+        {"transposed": True, "stride": 2, "output_padding": 1})])
+DA_GRAD_TOL = 1e-5
+# 33b: ENet-512 steps, batch 8 in 8 virtual shards; the bf16 transport's
+# losses within DA_BF16_TOL x max(1, |dense|) of the dense run's
+DA_TRAIN_BATCH, DA_SHARDS = 8, 8
+DA_BF16_TOL = 5e-3
+# and step 0's grad norm (one state, only the wire differs) within this of
+# the dense one's, but not equal to it (4.1e-5 read on the CPU's tiny ENet)
+DA_BF16_GRAD_NORM = 1e-4
+# 33c: both lanes at batch 4 (a 4-rank share is one slot), 2 steps a tick
+DA_SERVE_KW = {"batch": 4, "scan_steps": 2}
+DA_SERVE_STEPS = (4, 2, 3, 5, 1, 6)
+DA_GAN_REQUESTS, DA_SNAP_TICK = 4, 2
+# 33d: the failover pool's hosts, the one killed, the heartbeat staleness
+DA_HOSTS, DA_VICTIM, DA_HB_TIMEOUT = 3, 1, 2.0
 # phase 3's edge cases (and phase 14's, in bf16)
 DENSE_EDGES = [  # label, x shape, w shape, stride, pads
     ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
@@ -1594,7 +1671,8 @@ class Smoke:
                            ("29", self.run_moe),
                            ("30", self.run_moe_training),
                            ("31", self.run_recurrent),
-                           ("32", self.run_rec_training)):
+                           ("32", self.run_rec_training),
+                           ("33", self.run_data_axis)):
             kernels_line["kernels"] += timed(phase, run)
             torch.cuda.empty_cache()
         log("seconds by phase: " + ", ".join(
@@ -8661,6 +8739,430 @@ class Smoke:
         del p, x, cot
         return entries
 
+    # ------------------------------------------------ phase 33: data axis
+    def gate33(self, ok, what):
+        """Fail phase 33 at a check that missed."""
+        if not ok:
+            raise RuntimeError(f"phase 33: {what}")
+
+    def run_data_axis(self):
+        """Phase 33: the data axis on 1, 4 and 2 ranks sharing the card
+        (the module docstring), then the failover pool in this process
+        and the kernels line's entries, on the plan table of
+        :meth:`da_plan_table`."""
+        log("phase 33: the data axis on N ranks sharing one card (gloo "
+            "over CUDA tensors; spawned ranks, one thread each)")
+        rep = self.report["data_axis"] = {}
+        den, gan = self.serving_params()
+        with self.plan_table("phase33"):
+            return self.da_ranks(den, gan, rep)
+
+    def da_ranks(self, den, gan, rep):
+        """Phase 33 on its plan table: the ranks' jobs, their gates, the
+        failover pool and the kernels line's entries."""
+        from repro_torch.data import SegDataPipeline
+        from repro_torch.launch import data_axis
+        from repro_torch.launch.mesh import launch
+
+        rep["plan_table"] = self.da_plan_table(den, gan)
+        model, _ = self.make_model()
+        params = {n: p.detach().cpu().numpy()
+                  for n, p in model.named_parameters()}
+        del model
+        batch = SegDataPipeline(DA_TRAIN_BATCH, hw=HW, classes=CLASSES,
+                                seed=SEED).batch_at(0)
+        server_kw = dict(DA_SERVE_KW, params={"unet_dec": den,
+                                              "dcgan64": gan})
+        requests = ([("unet_dec", s, SEED + 400 + i)
+                     for i, s in enumerate(DA_SERVE_STEPS)]
+                    + [("dcgan64", 1, SEED + 500 + i)
+                       for i in range(DA_GAN_REQUESTS)])
+        snap = os.path.join(ROOT, "chiprun_out", "data_axis_snapshot")
+        shutil.rmtree(snap, ignore_errors=True)
+        jobs = {}
+        for n in DA_WORLDS:
+            runs = ((("kernels", "dense"), ("torch", "dense")) if n == 1
+                    else (("kernels", "dense"), ("kernels", "bf16"))
+                    if n == 2 else (("kernels", "dense"),))
+            serve = {"server_kw": server_kw, "requests": requests}
+            if n == 4:
+                serve["snapshot"] = (DA_SNAP_TICK, snap)
+            jobs[n] = [("conv", {"cases": DA_CASES, "seed": SEED,
+                                 "tensors": False}),
+                       ("train", {"params": params, "batch": batch,
+                                  "runs": runs,
+                                  "virtual_shards": DA_SHARDS}),
+                       ("serve", serve)]
+        jobs[2].append(("serve", {"restore": snap}))
+        # one spawn of 4 ranks: the 4-rank world, then the 1-rank world
+        # on rank 0 beside the 2-rank world on ranks 2-3
+        worlds = [(DA_RANKS[n], jobs[n]) for n in DA_WORLDS]
+        t0 = time.perf_counter()
+        spawned = launch(data_axis.run_worlds, 4, device=self.dev,
+                         args=(worlds,), join=False)
+        ranks = spawned.result()
+        secs = time.perf_counter() - t0
+        out = {n: [ranks[r][i] for r in DA_RANKS[n]]
+               for i, n in enumerate(DA_WORLDS)}
+        log(f"  4 ranks spawned once: {secs:.1f} s (spawn, library "
+            f"load and every world's jobs); by rank, setup (from the "
+            f"rank's first line: device, process group) and jobs: "
+            + "; ".join(f"{s['init']:.1f} + {s['fn']:.1f}"
+                        for s in spawned.seconds) + " s")
+        rep["world_seconds"] = {"all": secs, "ranks": spawned.seconds}
+        for n in DA_WORLDS:
+            log(f"  {DA_LABEL[n]}: rank 0's jobs " + ", ".join(
+                f"{k} {v:.1f}" for k, v in out[n][0]["seconds"].items())
+                + " s")
+        self.da_convs(out, rep)
+        self.da_train(out, rep)
+        self.da_serve(out, rep)
+        self.da_failover(den, gan, rep)
+        return self.da_entries(rep)
+
+    def da_plan_table(self, den, gan):
+        """Phase 33's plan table, written to the table directory in force,
+        and its gates.  A launch plan can change a row's bits; a rank's
+        share of a batch is another shape, which a table may give another
+        plan; so a share's launches take the whole batch's plan
+        (``autotune.whole_batch_plans``).  Each kernel launch geometry of
+        33a's unsharded forwards (batch 5) and of a drain of both lanes at
+        33c's batch (``den``, ``gan`` their trees) runs at every plan its
+        kernel builds (``autotune.candidates``), on the whole batch and on
+        its first and last rows alone: the rows' bits must not depend on
+        the batch.  The table then gives the whole batch its default plan
+        and each share of 2 and 4 ranks a plan whose bits differ from it,
+        where the kernel builds one: only the pin keeps the ranks' bits
+        the unsharded call's."""
+        torch = self.torch
+        from repro_torch.core.decompose import conv2d
+
+        at = self.at
+        calls = []
+        with torch.no_grad(), self.recording(calls):
+            for i, (label, xs, ws, kw) in enumerate(DA_CASES):
+                rng = np.random.default_rng(SEED + i)
+                x, w = (torch.from_numpy(rng.standard_normal(
+                    sh, dtype=np.float32)).to(self.dev) for sh in (xs, ws))
+                conv2d(x, w, **kw)
+            srv = self.sg.GenServer(**DA_SERVE_KW, device=self.dev,
+                                    params={"unet_dec": den,
+                                            "dcgan64": gan})
+            for i in range(DA_SERVE_KW["batch"]):
+                srv.submit("unet_dec", steps=1, seed=SEED + 800 + i)
+                srv.submit("dcgan64", steps=1, seed=SEED + 900 + i)
+            srv.run()
+        seen = {}
+        for name, args in calls:
+            seen.setdefault(self.geometry(name, args), (name, args))
+        launch = {"conv2d": self.kconv.conv2d_cuda,
+                  "transposed_conv2d": self.ktr.tconv_cuda}
+        runs, moving, wholes, shares, pins = 0, 0, {}, {}, []
+        for geo, (name, args) in seen.items():
+            x, w = args[0], args[1]
+            kind = "dense" if name == "conv2d" else "tconv"
+            n = x.shape[0]
+
+            def rows(sl, a=args):
+                eps = tuple(e[sl] if e.dim() == 4 else e for e in a[-1])
+                return (a[0][sl], *a[1:-1], eps)
+
+            def run(sl, plan, name=name, rows=rows):
+                # the copy width follows the address, as launch_plan's
+                a = rows(sl)
+                vec = self.kconv.copy_vec(a[0].shape[-1], a[0].dtype,
+                                          a[0].data_ptr())
+                return launch[name](*a, plan=plan._replace(vec=vec))
+
+            def key(m, name=name, args=args):
+                shape = (m, *args[0].shape[1:])
+                if name == "conv2d":
+                    return at.make_key("dense", shape, tuple(args[1].shape),
+                                       stride=args[2], dtype=args[0].dtype,
+                                       padding=args[3], epilogue=args[4])
+                return at.make_key("tconv", shape, tuple(args[1].shape),
+                                   stride=args[2], dtype=args[0].dtype,
+                                   padding=args[3],
+                                   output_padding=args[4] - args[3],
+                                   epilogue=args[5])
+
+            default = at.default_plan(kind, tuple(x.shape), tuple(w.shape),
+                                      stride=args[2], dtype=x.dtype)
+            want = run(slice(None), default)
+            other = None
+            for plan in at.candidates(kind, tuple(x.shape), tuple(w.shape),
+                                      dtype=x.dtype):
+                whole = run(slice(None), plan)
+                for sl in (slice(0, 1), slice(n - 1, n)):
+                    runs += 1
+                    self.gate33(torch.equal(run(sl, plan), whole[sl]),
+                                f"{geo}: plan {plan} gives rows {sl} other "
+                                f"bits alone than in the whole batch")
+                if other is None and not torch.equal(whole, want):
+                    other = plan
+            moving += other is not None
+            moves = other is not None
+            if other is None:
+                other = next((c for c in at.candidates(
+                    kind, tuple(x.shape), tuple(w.shape), dtype=x.dtype)
+                    if c[1:] != default[1:]), default)
+            wholes[key(n)] = default
+            for ranks in (2, 4):
+                share = -(-n // ranks)
+                shares.setdefault(key(share), other)
+                pins.append((name, args, rows, share, moves))
+        entries = {**shares, **wholes}      # a whole batch's key wins
+        for k, plan in entries.items():
+            at._persist(k, plan, self.dev)
+        at.clear_memory_cache()
+        for name, args, rows, share, moves in pins:
+            # rows(slice(0, share)) is a share's launch of the same geometry
+            a = rows(slice(0, share))
+            whole = self.plan_of(name, args)
+            own = self.plan_of(name, a)
+            with at.whole_batch_plans(share, args[0].shape[0]):
+                pinned = self.plan_of(name, a)
+            self.gate33(pinned == whole and (own != whole or not moves),
+                        f"{self.geometry(name, a)}: a share's plan {own}, "
+                        f"{pinned} under the pin; the whole batch's {whole}")
+        log(f"  {len(seen)} launch geometries (33a's forwards, the "
+            f"denoiser's and DCGAN-64's ticks at batch "
+            f"{DA_SERVE_KW['batch']}), each at every plan its kernel "
+            f"builds: {runs} runs of one row alone, each bitwise its rows "
+            f"in the whole batch; {moving} geometries have a plan that "
+            f"gives other bits than the default; the ranks run on a table "
+            f"giving each whole batch its default plan and each share of 2 "
+            f"and 4 ranks such a plan ({len(entries)} entries): only the "
+            f"pin (the whole batch's plan for a share) holds their bits")
+        return {"geometries": len(seen), "runs": runs,
+                "bit_moving_geometries": moving, "entries": len(entries)}
+
+    def da_convs(self, out, rep):
+        """33a's gates: bitwise forwards, gradient bars, launches."""
+        log("phase 33a: shard_conv2d at ENet-512's layer shapes, batch 5")
+        first = out[1][0]["conv"]
+        rows = {}
+        for label, xs, ws, kw in DA_CASES:
+            kind = ("transposed_conv2d" if kw.get("transposed")
+                    else "conv2d")
+            worst = {"dx": 0.0, "dw": 0.0}
+            for n in DA_WORLDS:
+                # rank 0 holds the comparisons with the unsharded call; the
+                # other ranks' digests carry them
+                lead = out[n][0]["conv"][label]
+                self.gate33(lead["equal"], f"{label}: {n} ranks: forward "
+                            f"!= the unsharded call")
+                for g in ("dx", "dw"):
+                    rel = lead[f"{g}_err"] / max(1.0, lead[f"{g}_scale"])
+                    worst[g] = max(worst[g], rel)
+                    self.gate33(rel <= DA_GRAD_TOL, f"{label}: {n} ranks: "
+                                f"{g} at {rel:.3e} x max(1, max|ref|)")
+                for r, res in enumerate(out[n]):
+                    got = res["conv"][label]
+                    self.gate33(got["digest"] == first[label]["digest"],
+                                f"{label}: {n} ranks, rank {r}: forward "
+                                f"bits differ from 1 rank's")
+                    self.gate33(got["grad_digests"] == lead["grad_digests"],
+                                f"{label}: {n} ranks, rank {r}: gradients "
+                                f"differ from rank 0's")
+                    want = {"conv2d": 0, "transposed_conv2d": 0, kind: 1}
+                    self.gate33(got["launches"] == want,
+                                f"{label}: {n} ranks, rank {r}: launches "
+                                f"{got['launches']} != {want}")
+            rows[label] = worst
+            log(f"  {label}: forward bitwise on every rank of worlds "
+                f"{DA_WORLDS} and the unsharded call; dx {worst['dx']:.2e}, "
+                f"dw {worst['dw']:.2e} x max(1, max|ref|) (bar "
+                f"{DA_GRAD_TOL}); {kind} launched on every rank")
+        rep["convs"] = rows
+        rep["launches_1_rank"] = {
+            k: sum(out[1][0]["conv"][label]["launches"][k]
+                   for label, *_ in DA_CASES)
+            for k in ("conv2d", "transposed_conv2d")}
+
+    def da_train(self, out, rep):
+        """33b's gates: the dense step bitwise across worlds and ranks,
+        bf16 within its bar, kernels vs torch at phase 8's bars."""
+        torch = self.torch
+        log(f"phase 33b: ENet-512 sharded train step, batch "
+            f"{DA_TRAIN_BATCH} in {DA_SHARDS} virtual shards, "
+            f"{len(out[1][0]['train'][('kernels', 'dense')]['ms'])} steps")
+        one = out[1][0]["train"][("kernels", "dense")]
+
+        def flat(state):
+            f = {f"params.{k}": v for k, v in state.params.items()}
+            f.update({f"mu.{k}": v for k, v in state.opt.mu.items()})
+            f.update({f"nu.{k}": v for k, v in state.opt.nu.items()})
+            f.update(step=state.opt.step, scale=state.scale.scale,
+                     good=state.scale.good_steps)
+            return f
+
+        want = flat(one["state"])
+        per_step = {}
+        for n in DA_WORLDS:
+            for r, res in enumerate(out[n]):
+                got = res["train"][("kernels", "dense")]
+                for i, (m1, m) in enumerate(zip(one["metrics"],
+                                                got["metrics"])):
+                    self.gate33(torch.equal(m["losses"], m1["losses"]),
+                                f"{n} ranks, rank {r}: step {i} losses")
+                    self.gate33(m["skipped"].item() == 0.0,
+                                f"{n} ranks: step {i} skipped")
+                f = flat(got["state"])
+                bad = [k for k, v in want.items()
+                       if not torch.equal(f[k], v)]
+                self.gate33(not bad, f"{n} ranks, rank {r}: {len(bad)} "
+                            f"state tensors differ (e.g. {bad[:3]})")
+                local = DA_SHARDS // n
+                steps = LAUNCHES_PER_STEP
+                want_l = {k: local * (steps["forward"][k]
+                                      + steps["backward"][k])
+                          for k in ("conv2d", "transposed_conv2d")}
+                self.gate33(got["launches"] == want_l,
+                            f"{n} ranks, rank {r}: a step's launches "
+                            f"{got['launches']} != {want_l}")
+            ms = [statistics.median(res["train"][("kernels",
+                                                  "dense")]["ms"][1:])
+                  for res in out[n]]
+            per_step[n] = {"ms": ms,
+                           "launches": out[n][0]["train"][
+                               ("kernels", "dense")]["launches"]}
+            log(f"  {DA_LABEL[n]}: dense steps bitwise the "
+                f"1-rank run on every rank (params, AdamW state, losses); "
+                f"{DA_SHARDS // n} chunk(s) a rank, launches a rank a step "
+                f"{per_step[n]['launches']}; warm step "
+                + ", ".join(f"{v:.1f}" for v in ms) + " ms by rank")
+        losses = [m["loss"].item() for m in one["metrics"]]
+        wire = out[2][0]["train"][("kernels", "bf16")]
+        bf16 = [m["loss"].item() for m in wire["metrics"]]
+        gap = max(abs(a - b) / max(1.0, abs(a))
+                  for a, b in zip(losses, bf16))
+        # step 0 starts both runs from one state: only the wire differs
+        gn = one["metrics"][0]["grad_norm"].item()
+        gn_gap = abs(wire["metrics"][0]["grad_norm"].item() - gn) / gn
+        moved = [k for k, v in flat(wire["state"]).items()
+                 if k.startswith("params.") and not torch.equal(v, want[k])]
+        log(f"  bf16 transport (2 ranks): losses {bf16} against dense "
+            f"{losses}: {gap:.2e} (bar {DA_BF16_TOL}); step 0's grad norm "
+            f"{gn_gap:.2e} from dense (bar (0, {DA_BF16_GRAD_NORM}]); "
+            f"{len(moved)} of {len(one['state'].params)} parameters differ "
+            f"from the dense run's after {len(bf16)} steps")
+        self.gate33(gap <= DA_BF16_TOL, f"bf16 transport at {gap:.3e}")
+        self.gate33(0.0 < gn_gap <= DA_BF16_GRAD_NORM and moved,
+                    f"bf16 transport: step 0's grad norm {gn_gap:.3e} from "
+                    f"dense, {len(moved)} parameters moved")
+        tm = out[1][0]["train"][("torch", "dense")]["metrics"]
+        for i, (m, t) in enumerate(zip(one["metrics"], tm)):
+            dl = abs(m["loss"].item() - t["loss"].item()) / t["loss"].item()
+            dg = (abs(m["grad_norm"].item() - t["grad_norm"].item())
+                  / t["grad_norm"].item())
+            log(f"  step {i}: kernels vs torch backend (1 rank): loss "
+                f"{dl:.2e} (bar {TRAIN_LOSS_RTOL}), grad norm {dg:.2e} "
+                f"(bar 1e-3)")
+            self.gate33(dl <= TRAIN_LOSS_RTOL and dg <= 1e-3,
+                        f"step {i}: kernels vs torch {dl:.3e} {dg:.3e}")
+        rep["train"] = {"losses": losses, "bf16_losses": bf16,
+                        "bf16_gap": gap, "bf16_grad_norm_gap": gn_gap,
+                        "bf16_params_moved": len(moved),
+                        "per_world": per_step}
+
+    def da_serve(self, out, rep):
+        """33c's gates: every world's drain and the restored drain bitwise
+        the 1-rank drain."""
+        log("phase 33c: GenServer(mesh=), denoiser and DCGAN-64 lanes at "
+            f"batch {DA_SERVE_KW['batch']}")
+        want = out[1][0]["serve"]["images"]
+        walls = {}
+        for n in DA_WORLDS:
+            keys = ["serve"] + (["serve#3"] if n == 2 else [])
+            for r, res in enumerate(out[n]):
+                for key in keys:
+                    got = res[key]["images"]
+                    self.gate33(sorted(got) == sorted(want),
+                                f"{n} ranks {key}: requests {sorted(got)}")
+                    bad = [rid for rid in want
+                           if not np.array_equal(got[rid], want[rid])]
+                    self.gate33(not bad, f"{n} ranks, rank {r}, {key}: "
+                                f"images {bad} differ from 1 rank's")
+            walls[n] = [res["serve"]["wall_s"] for res in out[n]]
+            log(f"  {DA_LABEL[n]}: {len(want)} images "
+                f"bitwise the 1-rank drain on every rank; drain "
+                + ", ".join(f"{w:.2f}" for w in walls[n]) + " s by rank"
+                + ("; the snapshot taken at 4 ranks, tick "
+                   f"{DA_SNAP_TICK}, restored here finishes bitwise"
+                   if n == 2 else ""))
+        rep["serve"] = {"wall_s": walls, "images": len(want)}
+
+    def da_failover(self, den, gan, rep):
+        """33d: three in-process hosts on the card, one killed."""
+        from repro_torch.launch.failover import FailoverPool
+
+        log(f"phase 33d: FailoverPool, {DA_HOSTS} hosts, host {DA_VICTIM} "
+            f"killed")
+        kw = dict(DA_SERVE_KW, params={"unet_dec": den, "dcgan64": gan},
+                  device=self.dev)
+        mix = [("unet_dec", s, SEED + 600 + i)
+               for i, s in enumerate(DA_SERVE_STEPS)] + [
+            ("dcgan64", 1, SEED + 700)]
+        ref = self.sg.GenServer(**kw)
+        rids = [ref.submit(wl, steps=s, seed=seed) for wl, s, seed in mix]
+        want = ref.run()
+        hb = os.path.join(ROOT, "chiprun_out", "data_axis_heartbeats")
+        shutil.rmtree(hb, ignore_errors=True)
+        pool = FailoverPool(hb, hosts=DA_HOSTS, timeout_s=DA_HB_TIMEOUT,
+                            server_kw=kw)
+        toks = [pool.submit(wl, steps=s, seed=seed) for wl, s, seed in mix]
+        owned = {t for t, (h, _) in pool._where.items() if h == DA_VICTIM}
+        pool.kill_host(DA_VICTIM)
+        time.sleep(DA_HB_TIMEOUT * 1.05)
+        t0 = time.perf_counter()
+        got = pool.drain()
+        secs = time.perf_counter() - t0
+        st = pool.stats()
+        moved = {t for t, _, _ in pool.failovers}
+        self.gate33(st["dead_hosts"] == 1 and moved == owned and owned,
+                    f"failover moved {sorted(moved)}, owned "
+                    f"{sorted(owned)}, stats {st}")
+        bad = [i for i, t in enumerate(toks)
+               if not np.array_equal(got[t], want[rids[i]])]
+        self.gate33(not bad, f"failover drain: requests {bad} differ")
+        log(f"  {len(owned)} request(s) of the dead host reassigned; "
+            f"{len(toks)} images bitwise the no-fault drain; drain "
+            f"{secs:.2f} s")
+        rep["failover"] = {"stats": st, "drain_s": secs}
+
+    def da_entries(self, rep):
+        """The kernels line's entries of phase 33: 33a's forwards as the
+        1-rank world launches them (the unsharded calls), each against its
+        plain version, timed beside its bound and library call."""
+        torch = self.torch
+        from repro_torch.core.decompose import conv2d
+
+        calls = []
+        for i, (label, xs, ws, kw) in enumerate(DA_CASES):
+            rng = np.random.default_rng(SEED + i)
+            x = torch.from_numpy(rng.standard_normal(
+                xs, dtype=np.float32)).to(self.dev)
+            w = torch.from_numpy(rng.standard_normal(
+                ws, dtype=np.float32)).to(self.dev)
+            with torch.no_grad(), self.recording(calls):
+                conv2d(x, w, **kw)
+        for i, (name, args) in enumerate(calls):
+            kern, plain, _ = self.kernels[name]
+            self.compare(f"phase 33 call {i}", f"{name} (phase 33)",
+                         kern(*args), plain(*args), quiet=True)
+        rows, per = self.time_calls(calls, reps=MODEL_REPS)
+        rep["geometries"] = self.geometry_table(rows, "33a's forwards")
+        entries = []
+        for name, p in per.items():
+            n = rep["launches_1_rank"][name]
+            full = f"{name} (phase 33)"
+            log(f"  {full}: {p['ms']:.3f} ms over {n} launches; bound "
+                f"{p['bound_ms']:.3f} ms; plain {p['plain_ms']:.3f} ms; "
+                f"library {p['library_ms']:.3f} ms")
+            entries.append(self.kernel_entry(name, full, n, p))
+        return entries
+
     def geometry(self, name, args):
         x, w = args[0], args[1]
         spec = args[-2]
@@ -8672,16 +9174,18 @@ class Smoke:
                 f"p({args[3]},{args[4]}) ep({int(spec.bn)}{int(spec.prelu)}"
                 f"{spec.residual})")
 
-    def variant(self, name, args):
+    def plan_of(self, name, args):
         """The launch plan of a recorded call, as the wrappers decide it
         (``launch_plan``: a narrower copy for an input that is not aligned
-        to the plan's): its variant and tile width."""
+        to the plan's)."""
         x, w, spec = args[0], args[1], args[-2]
         if name == "conv2d":
-            plan = self.kconv.launch_plan(x, w, args[2], args[3], spec)
-        else:
-            plan = self.ktr.launch_plan(x, w, args[2], args[3], args[4],
-                                        spec)
+            return self.kconv.launch_plan(x, w, args[2], args[3], spec)
+        return self.ktr.launch_plan(x, w, args[2], args[3], args[4], spec)
+
+    def variant(self, name, args):
+        """A recorded call's launch variant and tile width."""
+        plan = self.plan_of(name, args)
         return f"{plan.variant}/n{plan.bn}"
 
     def work(self, name, args):

@@ -19,9 +19,16 @@ launch plan (Cout tile, resident or streamed weights) comes from the plan
 table of :mod:`repro_torch.kernels.autotune` (``conv2d.launch_plan``,
 ``transposed_conv.launch_plan``), and from the shape alone on a miss; the
 backward passes' launches are keyed the same way.  The reference's
-TPU-only knobs are not here: the tile overrides ``th``/``tc``,
-``interpret`` and ``phase_sharding`` (multi-device is a later ROADMAP.md
-item).  Gradients flow through both backends: the torch backend
+TPU-only knobs are not here: the tile overrides ``th``/``tc`` and
+``interpret``.  The reference's ``phase_sharding`` becomes ``group=``, a
+``torch.distributed`` group over the data axis (DESIGN.md §13): the
+phase-batched dilated engine splits its folded ``d*d*N`` batch over the
+group's ranks (a batch smaller than the ranks spreads its phases over
+them), and every other form runs on this rank's share of the batch rows
+(for a transposed conv, every parity plane of those rows, as the
+reference's constraint on each parity's input batch); the shares are
+gathered in order, so every rank ends with the whole output
+(:func:`split_kind`).  Gradients flow through both backends: the torch backend
 differentiates natively (it is the card-side oracle of the kernels'
 gradients), and the kernel wrappers' ``torch.autograd.Function`` classes
 re-enter the same two kernels through the adjoints of
@@ -36,6 +43,7 @@ import torch
 from repro_torch.core import dilated as _dil
 from repro_torch.core import nhwc
 from repro_torch.core import transposed as _tr
+from repro_torch.distributed.collectives import map_rows
 from repro_torch.kernels.conv2d import conv2d as kernel_conv2d
 from repro_torch.kernels.dilated_conv import dilated_conv2d
 from repro_torch.kernels.epilogue import (NO_EPILOGUE, EpilogueSpec,
@@ -64,6 +72,7 @@ def conv2d(
     alpha=None,
     residual=None,
     compute_dtype=None,
+    group=None,
 ) -> torch.Tensor:
     """General 2-D convolution with the paper's decomposition applied.
 
@@ -91,6 +100,11 @@ def conv2d(
         fp32 and round once; the torch backend rounds the conv output to the
         compute dtype and again after the fp32 epilogue, as the reference's
         xla path does.  fp16 raises (still to port).
+      group: a ``torch.distributed`` group whose ranks split the work (see
+        the module docstring); every rank passes the same operands and gets
+        the whole output.  Under autograd each rank's gradients cover its
+        share (:func:`repro_torch.distributed.sharding.shard_conv2d` reduces
+        them).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
@@ -98,6 +112,15 @@ def conv2d(
     if cd is not None:
         x, w, residual = (t if t is None or t.dtype == cd else t.to(cd)
                           for t in (x, w, residual))
+    if group is not None and split_kind(
+            dilation=dilation, transposed=transposed, decomposed=decomposed,
+            strategy=strategy) == "rows":
+        kw = dict(stride=stride, dilation=dilation, transposed=transposed,
+                  padding=padding, output_padding=output_padding,
+                  decomposed=decomposed, strategy=strategy, backend=backend,
+                  epilogue=epilogue, scale=scale, shift=shift, alpha=alpha)
+        return map_rows(lambda xs, rs: conv2d(xs, w, residual=rs, **kw),
+                        x, residual, group=group)
     if backend == "kernels" and not decomposed:
         # the kernels ARE the decomposition; the naive zero-laden baseline
         # only exists as composed plain convs
@@ -131,11 +154,11 @@ def conv2d(
                 raise ValueError(f"the kernel dilated path is phase-batched "
                                  f"only, got {strategy!r}")
             return dilated_conv2d(x, w, dilation, stride=stride,
-                                  epilogue=epilogue, **ep_kw)
+                                  epilogue=epilogue, group=group, **ep_kw)
         if decomposed:
             y = _dil.dilated_conv2d_decomposed(x, w, dilation,
                                                strategy=strategy,
-                                               stride=stride)
+                                               stride=stride, group=group)
         else:
             y = _dil.dilated_conv2d_naive(x, w, dilation, stride=stride)
         return apply_reference(spec, y, eps)
@@ -151,4 +174,16 @@ def conv2d(
     return apply_reference(spec, nhwc.conv(x, w, stride, pads), eps)
 
 
-__all__ = ["conv2d", "BACKENDS"]
+def split_kind(*, dilation: int = 1, transposed: bool = False,
+               decomposed: bool = True, strategy: str = "batched",
+               **_) -> str:
+    """What :func:`conv2d` with ``group=`` splits over the ranks:
+    ``"phase"``, the phase-batched dilated engine's folded batch, or
+    ``"rows"``, the batch rows around the whole call."""
+    if (not transposed and dilation > 1 and decomposed
+            and strategy == "batched"):
+        return "phase"
+    return "rows"
+
+
+__all__ = ["conv2d", "split_kind", "BACKENDS"]

@@ -15,6 +15,12 @@ interleave back.  Three forms, all NHWC / HWIO:
 
 A strided dilated conv uses the output-class schedule
 (:func:`stride_class_schedule`, DESIGN.md §2c).
+
+The phase-batched form takes ``group=`` (a ``torch.distributed`` group,
+the data axis of DESIGN.md §13; the reference's ``phase_sharding``): the
+folded ``(d*d*N, H/d, W/d, C)`` batch (or the stacked class windows) is
+independent block by block, so rank r convolves its contiguous share of
+it, and the shares are gathered in fold order before the stitch.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import nhwc
+from repro_torch.distributed.collectives import map_rows
 
 
 def same_pad(k: int) -> int:
@@ -149,14 +156,17 @@ def _class_window(x: torch.Tensor, d: int, row, col, rows_span: int,
 
 
 def _dilated_strided_decomposed(x: torch.Tensor, w: torch.Tensor, d: int,
-                                s: int, strategy: str,
-                                conv_fn=None) -> torch.Tensor:
+                                s: int, strategy: str, conv_fn=None,
+                                group=None) -> torch.Tensor:
     """Strided-dilated decomposition: class split -> strided conv -> stitch.
 
     ``conv_fn(xb, w, sb)`` runs a VALID dense conv at stride ``sb``; it
     defaults to ``F.conv2d`` and the kernel path passes its own, so both
-    share one schedule and stitch.
+    share one schedule and stitch.  ``group`` splits the batched class
+    windows over its ranks.
     """
+    if group is not None and strategy != "batched":
+        raise ValueError("group= splits the phase-batched layout only")
     if conv_fn is None:
         def conv_fn(xb, wt, sb):
             return nhwc.conv(xb, wt, sb)
@@ -176,7 +186,8 @@ def _dilated_strided_decomposed(x: torch.Tensor, w: torch.Tensor, d: int,
     windows = [_class_window(x, d, row, col, rows_span, cols_span)
                for row in rsched for col in csched]
     if strategy == "batched":
-        yb = conv_fn(torch.cat(windows, dim=0), w, sb)
+        yb = map_rows(lambda xb: conv_fn(xb, w, sb),
+                      torch.cat(windows, dim=0), group=group)
         planes = [yb[i * n: (i + 1) * n] for i in range(q * q)]
     else:  # ragged: one conv per class (paper-faithful schedule)
         planes = [conv_fn(win, w, sb) for win in windows]
@@ -191,20 +202,24 @@ def _dilated_strided_decomposed(x: torch.Tensor, w: torch.Tensor, d: int,
 
 def dilated_conv2d_decomposed(x: torch.Tensor, w: torch.Tensor, dilation: int,
                               strategy: str = "batched",
-                              stride: int = 1) -> torch.Tensor:
+                              stride: int = 1, group=None) -> torch.Tensor:
     """The paper's method: phase decomposition -> dense conv -> stitch.
 
     ``strategy='ragged'`` convolves the ``d**2`` ragged blocks separately;
     ``'batched'`` stacks them on the batch axis into one dense conv.  Both
-    are exact.  ``stride > 1`` uses the output-class schedule.
+    are exact.  ``stride > 1`` uses the output-class schedule.  ``group``
+    (batched only) splits the folded batch over its ranks.
     """
     d = dilation
     if strategy not in ("ragged", "batched"):
         raise ValueError(f"unknown strategy {strategy!r}")
+    if group is not None and (strategy != "batched" or d == 1):
+        raise ValueError("group= splits the phase-batched layout only")
     if d == 1:
         return dilated_conv2d_reference(x, w, 1, stride)
     if stride != 1:
-        return _dilated_strided_decomposed(x, w, d, stride, strategy)
+        return _dilated_strided_decomposed(x, w, d, stride, strategy,
+                                           group=group)
     pad = same_pad(w.shape[0])
     pads = ((pad, pad), (pad, pad))
     n, h, w_, _ = x.shape
@@ -213,7 +228,8 @@ def dilated_conv2d_decomposed(x: torch.Tensor, w: torch.Tensor, dilation: int,
                 for row in phase_split(x, d)]
         return phase_stitch(outs, (n, h, w_, w.shape[-1]))
     xb, _, _ = _phase_to_batch(x, d)
-    return _batch_to_phase(nhwc.conv(xb, w, 1, pads), d, n, h, w_)
+    yb = map_rows(lambda xs: nhwc.conv(xs, w, 1, pads), xb, group=group)
+    return _batch_to_phase(yb, d, n, h, w_)
 
 
 __all__ = ["same_pad", "effective_kernel_size", "strided_out_size",

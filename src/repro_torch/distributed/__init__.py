@@ -1,5 +1,6 @@
-"""Fault tolerance of the port (``repro.distributed``); multi-device comes
-later (ROADMAP.md, multi-device)."""
+"""The port of ``repro.distributed``: fault tolerance, and the data axis
+across ranks (``collectives``, ``sharding``, ``compression``); the model
+axis and ``hlo_analysis`` are later items of ROADMAP.md."""
 
 from repro_torch.distributed.fault_tolerance import (FailureInjector, Fault,
                                                      Heartbeat,

@@ -43,6 +43,13 @@ and ``$REPRO_TORCH_AUTOTUNE_CACHE``.  The reference's legacy calibrated
 prune (``$REPRO_AUTOTUNE_PRUNE``) has no counterpart: the policy is the
 one way candidates are chosen.
 
+A plan can change a launch's bits (its tile sets the order of the
+reduction), and a rank's share of a batch is another shape than the whole
+batch, which the table may give another plan.  Inside
+:func:`whole_batch_plans` a launch of a share's rows looks its plan up as
+the launch of the whole batch, so the share's rows carry the bits the
+whole batch's launch gives them (the data axis runs its shares there).
+
 A launch's lookup is paid in full once per geometry and process: the
 string key is built from the launch's raw arguments the first time, and
 later launches of the same arguments read the plan from a dict keyed by
@@ -51,6 +58,7 @@ those arguments (:data:`_FAST`).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import json
@@ -85,6 +93,9 @@ _DISK: dict[pathlib.Path, dict[str, tuple[int, bool]]] = {}
 #: a launch's raw arguments -> its plan: what a repeated launch reads
 #: (cleared whenever a plan is tuned, so it never outlives a table entry)
 _FAST: dict[tuple, kconv.ConvPlan] = {}
+#: (share rows, whole rows) of the enclosing whole_batch_plans, innermost
+#: last
+_WHOLE: list[tuple[int, int]] = []
 
 
 def autotune_enabled() -> bool:
@@ -331,6 +342,19 @@ def tune(kind: str, x_shape: tuple, w_shape: tuple, *, stride: int = 1,
     return best
 
 
+@contextlib.contextmanager
+def whole_batch_plans(share: int, whole: int):
+    """Inside, a launch of ``share`` rows takes the plan of the same launch
+    at ``whole`` rows (a launch of any other batch keeps its own): a rank
+    running its share of a batch gets the plan, and so the bits, of the
+    unsharded launch."""
+    _WHOLE.append((share, whole))
+    try:
+        yield
+    finally:
+        _WHOLE.pop()
+
+
 def get_plan(kind: str, x_shape: tuple, w_shape: tuple, *, stride: int = 1,
              dtype=torch.float32, padding=None,
              output_padding: int | None = None, epilogue=None,
@@ -342,8 +366,12 @@ def get_plan(kind: str, x_shape: tuple, w_shape: tuple, *, stride: int = 1,
     without timing anything (and remembers the miss for this process), so
     an empty table changes no launch.  The table of ``device`` (default:
     this host's card) is read once per process, and a repeated launch is
-    one dict lookup on its raw arguments.
+    one dict lookup on its raw arguments.  Inside
+    :func:`whole_batch_plans` a share's launch is looked up at the whole
+    batch.
     """
+    if _WHOLE and x_shape[0] == _WHOLE[-1][0]:
+        x_shape = (_WHOLE[-1][1], *x_shape[1:])
     fast = (kind, x_shape, w_shape, stride, dtype, _frozen(padding),
             output_padding, epilogue, device)
     hit = _FAST.get(fast)

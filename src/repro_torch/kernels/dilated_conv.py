@@ -21,6 +21,12 @@ strided class windows through its epilogue-free Function.
 (:func:`repro_torch.core.dilated.stride_class_schedule`): the class windows
 batch into one strided VALID dense conv, and the epilogue runs after the
 stitch, as in the reference (its class windows have uneven output extents).
+
+``group=`` (a ``torch.distributed`` group: the data axis, DESIGN.md §13)
+splits the folded phase batch (or the batched class windows) over its
+ranks: rank r runs kernel 1 on its contiguous share, and the shares are
+gathered in fold order before the stitch.  Under autograd that path
+differentiates by composition (each rank's gradients cover its share).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from repro_torch.core import adjoints
 from repro_torch.core.dilated import (_batch_to_phase,
                                       _dilated_strided_decomposed,
                                       _phase_to_batch)
+from repro_torch.distributed.collectives import map_rows
 from repro_torch.kernels import conv2d as kconv
 from repro_torch.kernels.epilogue import (NO_EPILOGUE, EpilogueSpec,
                                           apply_reference, pack_args)
@@ -38,7 +45,7 @@ from repro_torch.kernels.epilogue import (NO_EPILOGUE, EpilogueSpec,
 
 def dilated_conv2d(x, w, dilation: int, *, stride: int = 1,
                    epilogue: EpilogueSpec | None = None, scale=None,
-                   shift=None, alpha=None, residual=None):
+                   shift=None, alpha=None, residual=None, group=None):
     """SAME dilated convolution via phase decomposition + the dense kernel.
 
     Args:
@@ -46,6 +53,7 @@ def dilated_conv2d(x, w, dilation: int, *, stride: int = 1,
       dilation: step ``d = D + 1``.
       stride: output stride ``s`` (output extent ``ceil(H/s)``).
       epilogue: optional :class:`EpilogueSpec` with matching operands.
+      group: a process group whose ranks split the folded batch.
     Returns:
       (N, ceil(H/s), ceil(W/s), Cout).
     """
@@ -55,34 +63,44 @@ def dilated_conv2d(x, w, dilation: int, *, stride: int = 1,
                     residual=residual)
     ep_kw = dict(zip(spec.slots, eps))
     if d == 1:
+        if group is not None:
+            raise ValueError("group= splits the phase-batched layout only")
         return kconv.conv2d(x, w, stride=s, padding="SAME", epilogue=epilogue,
                             **ep_kw)
     if s != 1:
         def conv_fn(xb, wt, sb):
             return kconv.conv2d(xb, wt, stride=sb, padding="VALID")
 
-        y = _dilated_strided_decomposed(x, w, d, s, "batched", conv_fn)
+        y = _dilated_strided_decomposed(x, w, d, s, "batched", conv_fn,
+                                        group=group)
         return apply_reference(spec, y, eps)
-    if spec.empty and w.shape[0] % 2 and kconv.wants_grad(x, w):
+    if (group is None and spec.empty and w.shape[0] % 2
+            and kconv.wants_grad(x, w)):
         return _DilatedFn.apply(x, w, d)
     # fused epilogues and even k differentiate by composition through the
     # dense kernel's Functions: the symmetry adjoint of _DilatedFn assumes
     # odd-k symmetric SAME pads, and the epilogue's gradient needs the
     # recompute of the dense epilogue Function
-    return _dilated_impl(x, w, d, spec, ep_kw)
+    return _dilated_impl(x, w, d, spec, ep_kw, group)
 
 
 def _dilated_impl(x, w, d: int, spec: EpilogueSpec = NO_EPILOGUE,
-                  ep_kw: dict | None = None):
-    """Stride 1: phases on the batch axis, one dense SAME conv, stitch."""
+                  ep_kw: dict | None = None, group=None):
+    """Stride 1: phases on the batch axis, one dense SAME conv (over this
+    rank's share of the fold, with ``group``), stitch."""
     ep_kw = dict(ep_kw or {})
     n, h, w_in, _ = x.shape
     xb, _, _ = _phase_to_batch(x, d)
-    if "residual" in ep_kw:
-        # the pad-up rows of the residual land in the cropped region
-        ep_kw["residual"] = _phase_to_batch(ep_kw["residual"], d)[0]
-    yb = kconv.conv2d(xb, w, padding="SAME",
-                      epilogue=None if spec.empty else spec, **ep_kw)
+    # the pad-up rows of the residual land in the cropped region
+    res = ep_kw.pop("residual", None)
+    res = None if res is None else _phase_to_batch(res, d)[0]
+
+    def conv(xs, rs):
+        kw = ep_kw if rs is None else {**ep_kw, "residual": rs}
+        return kconv.conv2d(xs, w, padding="SAME",
+                            epilogue=None if spec.empty else spec, **kw)
+
+    yb = map_rows(conv, xb, res, group=group)
     return _batch_to_phase(yb, d, n, h, w_in)
 
 

@@ -50,19 +50,42 @@ Where the port differs from the reference:
   ``predict_layers_split(layers, backend=)``); the CLI loads
   ``calibrate.default_cache_path()`` when a capture left one there, and
   prints the cycle model's ``serve_report`` after the drain.
-* Not ported yet (ROADMAP.md): ``mesh``/``spatial`` serving.
+* ``mesh=`` takes a :class:`repro_torch.launch.mesh.LiveMesh`: the server
+  runs on every rank of the process group (SPMD), each rank running the
+  same scheduler over the same request stream.  A lane's slots split over
+  the mesh's data axes where its batch divides them (the reference's
+  ``image_sharding``; otherwise every rank runs them all): each rank ticks
+  its share, and the shares are all-gathered, so every rank holds the
+  whole lane state and every finished image.  Ranks along the model axis
+  replicate.  The lanes' library products (the denoiser's timestep MLP,
+  DCGAN's projection: ``torch.matmul``, as the reference computes them
+  outside its kernels) run over every slot on every rank, and only the
+  convs split: cuBLAS (and the CPU's BLAS) picks its algorithm by the row
+  count, so a share's rows would carry other bits than the whole batch's
+  (DCGAN-64's projection did at a 1-slot share on the H100), while kernels
+  1 and 2 compute a row the same in any batch at one launch plan, and a
+  share's launches take the whole batch's plans (the plan table may hold
+  another for the share's shape; ``autotune.whole_batch_plans``).
+  Decisions read off a
+  clock (calibrated shedding, the watchdog) are the mesh's rank 0's,
+  broadcast, so the ranks never part; rank 0 alone writes a snapshot.
+  ``spatial=True`` (image rows over the model axis, halos exchanged by
+  hand) is a later item of ROADMAP.md and raises.
 
 CPU-scale usage (the CLI runs on CUDA unless ``--device cpu``):
 
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --requests 6 \\
       --steps 8,5,3 --batch 4 --scan-steps 4 --slo realtime
+  PYTHONPATH=src python -m repro_torch.launch.serve_gen --smoke \\
+      --device cpu --devices 4      # 4 gloo ranks, a (2, 2) mesh
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import sys
 import time
 from dataclasses import dataclass, field
 
@@ -76,9 +99,12 @@ from repro_torch.core import gen_spec
 from repro_torch.core.cycle_model import np_percentile
 from repro_torch.core.decompose import BACKENDS
 from repro_torch.core.gen_spec import GEN_WORKLOADS, UNET_WIDTHS
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import all_gather_cat
 from repro_torch.distributed.fault_tolerance import (FailureInjector,
                                                      InjectedFault,
                                                      StragglerWatchdog)
+from repro_torch.kernels import autotune
 from repro_torch.kernels.util import canon_dtype, resolve_device
 from repro_torch.launch.steps import (DDIM_T_MAX, ddim_timesteps,
                                       make_gen_scan_step)
@@ -208,11 +234,32 @@ class GenRequest:
 # ---------------------------------------------------------------------------
 
 class _Lane:
-    """What both lane kinds share: slots, activity, the device sync."""
+    """What both lane kinds share: slots, activity, the device sync, and
+    the split of the slots over a mesh's data axes."""
+
+    mesh = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _spread(self, fn, *rows: torch.Tensor) -> torch.Tensor:
+        """``fn(*rows)`` over every slot: on a mesh whose data extent
+        divides the batch, each rank runs its share of the slots and the
+        shares are gathered in slot order; otherwise ``fn`` runs them all
+        (the reference's divisibility guard resolves to replicated).  A
+        share's kernel launches take the whole batch's plans
+        (:func:`repro_torch.kernels.autotune.whole_batch_plans`)."""
+        if self.mesh is None:
+            return fn(*rows)
+        sh = shd.image_sharding(self.mesh, tuple(rows[0].shape))
+        if sh.spec[0] is None:
+            return fn(*rows)
+        shares = [sh.shard(r) for r in rows]
+        with autotune.whole_batch_plans(shares[0].shape[0],
+                                        rows[0].shape[0]):
+            out = fn(*shares)
+        return all_gather_cat(out, shd.data_group(self.mesh))
 
     @property
     def busy(self) -> bool:
@@ -244,7 +291,8 @@ class _DiffusionLane(_Lane):
     def __init__(self, params: dict, *, batch: int, widths: tuple[int, ...],
                  hw: int, out_ch: int, backend: str, decomposed: bool,
                  device: torch.device, scan_steps: int = 1,
-                 compute_dtype: str | None = None):
+                 compute_dtype: str | None = None, mesh=None):
+        self.mesh = mesh
         size = hw * 2 ** len(widths)
         self.image_shape = (size, size, out_ch)
         self.params = params
@@ -349,11 +397,19 @@ class _DiffusionLane(_Lane):
                     t_next[i, j] = traj[p + j + 1]
                 act[i, j] = True
         self.seen_sizes.add(self.batch)
-        batch = {"t": t, "t_next": t_next, "active": act}
-        batch = {key: torch.from_numpy(v).to(self.device)
-                 for key, v in batch.items()}
+        keys = ["t", "t_next", "active"]
+        rows = [torch.from_numpy(v).to(self.device) for v in (t, t_next, act)]
         with torch.no_grad():
-            self.x = self._step(self.params, self.x, batch)
+            if self.mesh is not None:
+                # each substep's timestep MLP over every slot, on every
+                # rank (the module docstring says why)
+                keys.append("cond")
+                rows.append(torch.stack([unet_decoder.timestep_cond(
+                    self.params, rows[0][:, j], self._x_dtype)
+                    for j in range(k)], dim=1))
+            self.x = self._spread(
+                lambda x, *r: self._step(self.params, x, dict(zip(keys, r))),
+                self.x, *rows)
         self._sync()
         self.device_steps += 1
         self.substeps += int(act.sum())
@@ -380,7 +436,8 @@ class _DCGANLane(_Lane):
 
     def __init__(self, model: DCGAN, *, batch: int, nz: int, backend: str,
                  decomposed: bool, device: torch.device,
-                 compute_dtype: str | None = None):
+                 compute_dtype: str | None = None, mesh=None):
+        self.mesh = mesh
         self.model = model
         self.nz = nz
         self.backend = backend
@@ -446,9 +503,16 @@ class _DCGANLane(_Lane):
     def tick(self) -> list[GenRequest]:
         self.seen_sizes.add(self.batch)
         with torch.no_grad():
-            imgs = self.model(self.z, decomposed=self.decomposed,
-                              backend=self.backend,
-                              compute_dtype=self.compute_dtype)
+            if self.mesh is None:
+                imgs = self.model(self.z, decomposed=self.decomposed,
+                                  backend=self.backend,
+                                  compute_dtype=self.compute_dtype)
+            else:
+                # the projection over every slot, on every rank (the
+                # module docstring says why); the transposed stages split
+                imgs = self._spread(lambda h: self.model.decode(
+                    h, self.decomposed, self.backend, self.compute_dtype),
+                    self.model.project(self.z, self.compute_dtype))
         imgs = imgs.float().cpu().numpy()
         self.device_steps += 1
         done = []
@@ -481,13 +545,17 @@ class GenServer:
     ``None``/``"fp32"`` or ``"bf16"``.  ``params`` overrides a workload's
     parameters with the reference's tree (nested dicts of numpy arrays);
     otherwise a lane draws its weights from ``param_seed`` (not the
-    reference's weights for that seed: the generators differ).  The other
-    arguments are the reference's (its class docstring gives them);
-    ``interpret``, ``mesh`` and ``spatial`` are not ported.
+    reference's weights for that seed: the generators differ).  ``mesh``:
+    a :class:`~repro_torch.launch.mesh.LiveMesh` the lanes span (the module
+    docstring); its device is the server's unless ``device`` is given.
+    ``spatial=True`` raises (the model axis is a later ROADMAP.md item).
+    The other arguments are the reference's (its class docstring gives
+    them); ``interpret`` is not ported.
     """
 
     def __init__(self, *, batch: int = 4, backend: str = "kernels",
-                 device=None, decomposed: bool = True,
+                 device=None, decomposed: bool = True, mesh=None,
+                 spatial: bool = False,
                  unet_widths: tuple[int, ...] = UNET_WIDTHS, unet_hw: int = 8,
                  out_ch: int = 3, dcgan_nz: int = 100, dcgan_ngf: int = 64,
                  params: dict | None = None, param_seed: int = 0,
@@ -511,7 +579,13 @@ class GenServer:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; known: "
                              f"{BACKENDS}")
-        self.device = resolve_device(device)
+        if spatial:
+            raise NotImplementedError(f"GenServer(spatial=True): "
+                                      f"{shd.MODEL_AXIS_ITEM}")
+        self.mesh = mesh
+        self.spatial = spatial
+        self.device = resolve_device(
+            device if device is not None or mesh is None else mesh.device)
         self.batch = batch
         self.backend = backend
         self.decomposed = decomposed
@@ -615,7 +689,7 @@ class GenServer:
         p = self._init_params(workload)
         kw = dict(backend=self.backend, decomposed=self.decomposed,
                   batch=batch or self.batch, device=self.device,
-                  compute_dtype=self.compute_dtype)
+                  compute_dtype=self.compute_dtype, mesh=self.mesh)
         if workload == "unet_dec":
             lane = _DiffusionLane(
                 p, widths=self.unet_widths, hw=self.unet_hw,
@@ -708,8 +782,8 @@ class GenServer:
             lane = self._lane(workload)
             for req in sorted(reqs, key=self._admission_key):
                 # the stamped estimate says the SLO is already unmeetable
-                if (req.est_us is not None
-                        and req.deadline_us() - now_us < req.est_us):
+                if (req.est_us is not None and self._agree(
+                        req.deadline_us() - now_us < req.est_us)):
                     self._pending.remove(req)
                     req.status = "shed"
                     continue
@@ -802,6 +876,13 @@ class GenServer:
             req.status = "corrupt"
         return False
 
+    def _agree(self, flag: bool) -> bool:
+        """A decision read off a clock, made the same on every rank of a
+        mesh: rank 0's."""
+        if self.mesh is None:
+            return bool(flag)
+        return bool(self.mesh.replicate(torch.tensor(int(flag))).item())
+
     def _shed_lowest_class(self) -> None:
         """Stuck-tick shedding: drop every pending request of the lowest-
         priority class present; in-flight work is never shed."""
@@ -861,8 +942,9 @@ class GenServer:
         self._tick_log.append(
             (t_end - t_start, dispatches, len(done), substeps, cold))
         if self.watchdog is not None and dispatches:
-            self._stuck = (self._stuck + 1 if self.watchdog.observe(
-                self._tick - 1, t_end - t_start) else 0)
+            self._stuck = (self._stuck + 1 if self._agree(
+                self.watchdog.observe(self._tick - 1, t_end - t_start))
+                else 0)
             if self._stuck >= self.stuck_shed_after:
                 self._shed_lowest_class()
                 self._stuck = 0
@@ -891,6 +973,10 @@ class GenServer:
         cfg["unet_widths"] = list(self.unet_widths)
         cfg["param_seed"] = self._param_seed
         cfg["device"] = str(self.device)
+        if self.mesh is not None:
+            # the geometry only: restore() lays it over the process group
+            # it runs in, or reshards onto a mesh= override
+            cfg["mesh"] = self.mesh.geometry()
         return cfg
 
     @staticmethod
@@ -933,7 +1019,8 @@ class GenServer:
         ``param:{wl}:{i:05d}``, leaves in the sorted order of their dotted
         names), trajectory cursors, request and SLO metadata, the queue,
         completed results and the fault counters (manifest ``extra``),
-        through the manifest+COMMITTED layout."""
+        through the manifest+COMMITTED layout.  On a mesh every rank holds
+        the same state: rank 0 writes, and every rank waits for it."""
         directory = directory or self.snapshot_dir
         if directory is None:
             raise ValueError("snapshot() needs a directory argument or a "
@@ -970,8 +1057,12 @@ class GenServer:
                 "degraded": dict(self._degraded), "retries": self._retries,
                 "recoveries": self._recoveries,
                 "snapshots": self._snapshots + 1}
-        ckpt.save_checkpoint(directory, self._tick, arrays,
-                             keep=self.snapshot_keep, extra=meta)
+        if self.mesh is None or self.mesh.rank == 0:
+            ckpt.save_checkpoint(directory, self._tick, arrays,
+                                 keep=self.snapshot_keep, extra=meta)
+        if self.mesh is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self.mesh.everyone())
         self._snapshots += 1
         return directory
 
@@ -985,7 +1076,11 @@ class GenServer:
         parameters round-trip exactly and the step is timestep-data driven.
         Work done after the snapshot in the killed process is recomputed.
         ``overrides`` are constructor keywords (``calibration=``,
-        ``faults=``, ``device=``; they are not serialised).
+        ``faults=``, ``device=``, ``mesh=``; they are not serialised).  A
+        meshed snapshot keeps its mesh's geometry, which a restore lays
+        over its own process group; ``mesh=`` reshards onto another rank
+        count (or none), bit for bit, since the lane state is whole on
+        every rank.
         """
         if step is None:
             step = ckpt.latest_step(directory)
@@ -995,6 +1090,20 @@ class GenServer:
         arrays, meta = ckpt.load_flat(directory, step)
         cfg = dict(meta["config"])
         cfg["unet_widths"] = tuple(cfg["unet_widths"])
+        geometry = cfg.pop("mesh", None)
+        if geometry is not None and "mesh" not in overrides:
+            import torch.distributed as dist
+
+            from repro_torch.launch.mesh import LiveMesh, mesh_of
+            mesh = mesh_of(geometry["shape"], geometry["axes"])
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if mesh.size != world:
+                raise ValueError(
+                    f"snapshot took a {tuple(geometry['shape'])} mesh but "
+                    f"{world} rank(s) run; pass mesh= to restore() to "
+                    f"reshard")
+            cfg["mesh"] = LiveMesh(mesh, overrides.get("device",
+                                                       cfg["device"]))
         kw = dict(cfg, snapshot_dir=directory)
         kw.update(overrides)
         server = cls(**kw)
@@ -1122,7 +1231,7 @@ def reference_sample(params: dict, *, steps: int, seed: int, image_size: int,
     return x.float().cpu().numpy()[0]
 
 
-def main(argv=None) -> None:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", default="unet_dec",
                     choices=sorted(GEN_WORKLOADS))
@@ -1152,7 +1261,35 @@ def main(argv=None) -> None:
                     help="auto-snapshot every N ticks (0: on demand only)")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny widths: 16x16 images, small DCGAN")
-    ns = ap.parse_args(argv)
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks to spawn (gloo; all on --device's card or "
+                         "on the CPU): the lanes span a (data, model) mesh "
+                         "of them (DESIGN.md §13)")
+    return ap
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    ns = _parser().parse_args(argv)
+    if ns.devices > 1:
+        from repro_torch.launch.mesh import launch
+        launch(_serve_rank, ns.devices, device=ns.device, args=(argv,))
+        return
+    _serve(ns)
+
+
+def _serve_rank(device, argv) -> None:
+    """One rank of ``--devices N``: the drain over a (data, model) mesh of
+    the ranks, reported by rank 0."""
+    from repro_torch.launch.mesh import live_mesh, make_smoke_mesh
+
+    _serve(_parser().parse_args(argv), live_mesh(make_smoke_mesh(), device))
+
+
+def _serve(ns, mesh=None) -> None:
+    def say(*args):
+        if mesh is None or mesh.rank == 0:
+            print(*args)
 
     scan: int | str = ns.scan_steps if ns.scan_steps == "auto" \
         else int(ns.scan_steps)
@@ -1160,7 +1297,8 @@ def main(argv=None) -> None:
                     scan_steps=scan, autoscale=ns.autoscale,
                     snapshot_dir=ns.snapshot_dir,
                     snapshot_every=ns.snapshot_every,
-                    compute_dtype=None if ns.dtype == "fp32" else ns.dtype)
+                    compute_dtype=None if ns.dtype == "fp32" else ns.dtype,
+                    mesh=mesh)
     if ns.smoke:
         kw.update(unet_widths=(8, 8), unet_hw=4, dcgan_nz=16, dcgan_ngf=4)
     cache = cal.default_cache_path()
@@ -1169,10 +1307,11 @@ def main(argv=None) -> None:
     step_list = [int(s) for s in ns.steps.split(",")]
     if ns.snapshot_dir and ckpt.latest_step(ns.snapshot_dir) is not None:
         server = GenServer.restore(ns.snapshot_dir, device=ns.device,
+                                   mesh=mesh,
                                    snapshot_every=ns.snapshot_every,
                                    calibration=kw.get("calibration"))
-        print(f"[serve_gen] restored tick {server._tick} from "
-              f"{ns.snapshot_dir}; resuming the drain")
+        say(f"[serve_gen] restored tick {server._tick} from "
+            f"{ns.snapshot_dir}; resuming the drain")
     else:
         server = GenServer(**kw)
         for i in range(ns.requests):
@@ -1182,35 +1321,36 @@ def main(argv=None) -> None:
     images = server.run()
     st = server.stats()
     lane = server._lanes.get(ns.workload)
-    print(f"[serve_gen] {st['requests']} requests "
-          f"({ns.workload}, steps {ns.steps}, slo={ns.slo}, "
-          f"scan_steps={getattr(lane, 'scan_steps', 1)}, {ns.backend}, "
-          f"{ns.dtype}, {server.device}) in "
-          f"{st['wall_s']:.2f}s over {st['ticks']} ticks / "
-          f"{st['device_steps']} dispatches ({st['substeps']} substeps): "
-          f"{st['images_per_s']:.2f} img/s "
-          f"(warm {st['warm_images_per_s']:.2f}), "
-          f"p50 {st['latency_p50_s'] * 1e3:.0f} ms / "
-          f"p99 {st['latency_p99_s'] * 1e3:.0f} ms")
+    say(f"[serve_gen] {st['requests']} requests "
+        f"({ns.workload}, steps {ns.steps}, slo={ns.slo}, "
+        f"scan_steps={getattr(lane, 'scan_steps', 1)}, {ns.backend}, "
+        f"{ns.dtype}, {server.device}) in "
+        f"{st['wall_s']:.2f}s over {st['ticks']} ticks / "
+        f"{st['device_steps']} dispatches ({st['substeps']} substeps): "
+        f"{st['images_per_s']:.2f} img/s "
+        f"(warm {st['warm_images_per_s']:.2f}), "
+        f"p50 {st['latency_p50_s'] * 1e3:.0f} ms / "
+        f"p99 {st['latency_p99_s'] * 1e3:.0f} ms")
     if st["degraded"] or st["retries"] or st["recoveries"] or st["snapshots"]:
-        print(f"[serve_gen] fault plane: {st['degraded']:.0f} degraded "
-              f"lane(s), {st['retries']:.0f} retries, "
-              f"{st['recoveries']:.0f} recoveries, "
-              f"{st['snapshots']:.0f} snapshots")
+        say(f"[serve_gen] fault plane: {st['degraded']:.0f} degraded "
+            f"lane(s), {st['retries']:.0f} retries, "
+            f"{st['recoveries']:.0f} recoveries, "
+            f"{st['snapshots']:.0f} snapshots")
     dropped = int(st["cancelled"] + st["timeout"] + st["shed"] +
                   st["corrupt"])
     if dropped:
-        print(f"[serve_gen] dropped {dropped} request(s): "
-              f"{st['cancelled']:.0f} cancelled, {st['timeout']:.0f} "
-              f"timed out, {st['shed']:.0f} shed at admission, "
-              f"{st['corrupt']:.0f} corrupt")
+        say(f"[serve_gen] dropped {dropped} request(s): "
+            f"{st['cancelled']:.0f} cancelled, {st['timeout']:.0f} "
+            f"timed out, {st['shed']:.0f} shed at admission, "
+            f"{st['corrupt']:.0f} corrupt")
     if images:
         shp = next(iter(images.values())).shape
-        print(f"[serve_gen] image shape {shp}; "
-              f"mean wait {st['mean_wait_ticks']:.1f} ticks "
-              f"(max {st['max_wait_ticks']:.0f})")
-    print_serve_report(server, ns.workload, step_list, ns.requests,
-                       getattr(lane, "scan_steps", 1))
+        say(f"[serve_gen] image shape {shp}; "
+            f"mean wait {st['mean_wait_ticks']:.1f} ticks "
+            f"(max {st['max_wait_ticks']:.0f})")
+    if mesh is None or mesh.rank == 0:
+        print_serve_report(server, ns.workload, step_list, ns.requests,
+                           getattr(lane, "scan_steps", 1))
 
 
 def print_serve_report(server: "GenServer", workload: str,

@@ -233,7 +233,10 @@ def make_gen_step(*, t_max: int = DDIM_T_MAX, decomposed: bool = True,
     * ``t``      (B,) int — current timestep of each slot;
     * ``t_next`` (B,) int — next timestep, ``-1`` for the final step (land
       on x0);
-    * ``active`` (B,) bool — inactive slots pass through bit for bit.
+    * ``active`` (B,) bool — inactive slots pass through bit for bit;
+    * ``cond``   (B, C), optional — the denoiser's timestep conditioning of
+      ``t`` (:func:`repro_torch.models.unet_decoder.timestep_cond`), when
+      the caller computed it.
 
     The step runs :func:`repro_torch.models.unet_decoder.denoise` and the
     update ``x' = sqrt(ab') * x0_pred + sqrt(1 - ab') * eps``.
@@ -256,7 +259,8 @@ def make_gen_step(*, t_max: int = DDIM_T_MAX, decomposed: bool = True,
             ab = on_device[x.device] = alpha_bar.to(x.device)
         eps = unet_decoder.denoise(params, x, t, decomposed=decomposed,
                                    backend=backend,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype,
+                                   cond=batch.get("cond"))
         ab_t = ab[t][:, None, None, None]
         ab_n = torch.where(t_next >= 0, ab[t_next.clamp(min=0)],
                            1.0)[:, None, None, None]
@@ -279,7 +283,8 @@ def make_gen_scan_step(scan_steps: int, *, t_max: int = DDIM_T_MAX,
 
     * ``t``      (B, K) int — timestep of slot ``b`` at substep ``j``;
     * ``t_next`` (B, K) int — next timestep (``-1``: land on x0);
-    * ``active`` (B, K) bool — padding columns pass through bit for bit.
+    * ``active`` (B, K) bool — padding columns pass through bit for bit;
+    * ``cond``   (B, K, C), optional — each substep's conditioning.
 
     The loop body is exactly :func:`make_gen_step`'s step, so a K-step
     dispatch equals K single dispatches bit for bit, and the denoiser runs

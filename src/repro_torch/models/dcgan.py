@@ -84,6 +84,12 @@ class DCGAN(SeededModule):
         fused into the transposed kernel's output pass.
         ``decomposed=False`` is the naive zero-laden baseline (torch only).
         """
+        return self.decode(self.project(z, compute_dtype), decomposed,
+                           backend, compute_dtype)
+
+    def project(self, z: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        """The latent projection with its BN/ReLU: (N, nz) -> (N, 4, 4,
+        C), in ``compute_dtype`` when it is given."""
         cd = canon_dtype(compute_dtype)
         if cd is not None:
             z = z.to(cd)
@@ -93,7 +99,14 @@ class DCGAN(SeededModule):
         h = torch.matmul(z, self.proj.to(z.dtype)).reshape(z.shape[0], 4, 4,
                                                            -1)
         sc, sh = fold_bn(self.proj_bn)
-        h = apply_reference(_EP_BN_ACT, h, (sc, sh, relu))
+        return apply_reference(_EP_BN_ACT, h, (sc, sh, relu))
+
+    def decode(self, h: torch.Tensor, decomposed: bool = True,
+               backend: str = "kernels", compute_dtype=None) -> torch.Tensor:
+        """The transposed-conv stages and the tanh head from
+        :meth:`project`'s output."""
+        cd = canon_dtype(compute_dtype)
+        relu = torch.zeros((1,), dtype=torch.float32, device=h.device)
         kw = dict(stride=2, transposed=True, padding=2, output_padding=0,
                   decomposed=decomposed, backend=backend, compute_dtype=cd)
         for i in range(1, self.n_up):

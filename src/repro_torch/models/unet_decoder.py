@@ -132,12 +132,25 @@ def init_denoiser_params(generator: torch.Generator,
     return to_device(p, device)
 
 
+def timestep_cond(params: dict, t: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The timestep MLP: (N,) timesteps -> (N, C) conditioning in
+    ``dtype`` (the fp32 MLP masters are cast to it: a bf16 @ fp32 product
+    would promote the conditioning, and then the mid features, to fp32)."""
+    emb = timestep_embedding(t, params["t_w1"].shape[0])
+    return torch.matmul(
+        torch.tanh(torch.matmul(emb.to(dtype), params["t_w1"].to(dtype))),
+        params["t_w2"].to(dtype))
+
+
 def denoise(params: dict, x_t: torch.Tensor, t: torch.Tensor,
             decomposed: bool = True, backend: str = "kernels",
-            compute_dtype=None) -> torch.Tensor:
+            compute_dtype=None, cond: torch.Tensor | None = None
+            ) -> torch.Tensor:
     """Predict the noise in ``x_t`` (N, S, S, C) at timesteps ``t`` (N,).
 
     ``S`` is ``hw * 2**levels`` for the decoder's mid extent ``hw``.
+    ``cond``: :func:`timestep_cond` of ``t`` when the caller computed it.
     Returns (N, S, S, C), in ``compute_dtype`` when it is given.
     """
     levels = sum(1 for k in params if k.startswith("enc"))
@@ -146,13 +159,8 @@ def denoise(params: dict, x_t: torch.Tensor, t: torch.Tensor,
     cd = canon_dtype(compute_dtype)
     if cd is not None:
         x_t = x_t.to(cd)
-    emb = timestep_embedding(t, params["t_w1"].shape[0])
-    # cast the fp32 MLP masters to x_t's dtype: a bf16 @ fp32 product would
-    # promote cond, and then the mid features, to fp32
-    cond = torch.matmul(
-        torch.tanh(torch.matmul(emb.to(x_t.dtype),
-                                params["t_w1"].to(x_t.dtype))),
-        params["t_w2"].to(x_t.dtype))
+    if cond is None:
+        cond = timestep_cond(params, t, x_t.dtype)
     kw = dict(backend=backend, compute_dtype=cd)
     mid = conv2d(_avg_pool(x_t, s // hw), params["stem"], **kw)
     mid = mid + cond[:, None, None, :]
@@ -164,4 +172,5 @@ def denoise(params: dict, x_t: torch.Tensor, t: torch.Tensor,
 
 
 __all__ = ["UNET_UP_KERNELS", "UNET_WIDTHS", "DENOISE_EMB_DIM",
-           "init_params", "forward", "init_denoiser_params", "denoise"]
+           "init_params", "forward", "init_denoiser_params",
+           "timestep_cond", "denoise"]

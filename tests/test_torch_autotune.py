@@ -382,3 +382,26 @@ def test_miss_tunes_only_when_switched_on_and_on_cuda(monkeypatch):
     for _ in range(3):
         assert at.get_plan("dense", x, w, device=cuda) == tuned
     assert calls == [("dense", x, cuda)]
+
+
+def test_a_share_takes_the_whole_batchs_plan(table):
+    """Inside ``whole_batch_plans(share, whole)`` a launch of ``share``
+    rows reads the table's entry of the launch at ``whole`` rows, however
+    the table holds the share's own shape; a launch of another batch, and
+    every launch outside, keeps its own entry."""
+    w = (3, 3, 16, 64)
+    whole, share, other = ((n, 16, 16, 16) for n in (5, 2, 3))
+    for x, tile in ((whole, 2), (share, 0), (other, 1)):
+        at._persist(at.make_key("dense", x, w), kconv.ConvPlan(4, tile, False),
+                    "cpu")
+    at.clear_memory_cache()
+
+    def tile(x):
+        return at.get_plan("dense", x, w, device="cpu").tile
+
+    assert (tile(whole), tile(share), tile(other)) == (2, 0, 1)
+    with at.whole_batch_plans(2, 5):
+        assert (tile(whole), tile(share), tile(other)) == (2, 2, 1)
+        with at.whole_batch_plans(3, 5):
+            assert (tile(share), tile(other)) == (0, 2)
+    assert (tile(whole), tile(share), tile(other)) == (2, 0, 1)

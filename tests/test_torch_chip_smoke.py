@@ -10,6 +10,7 @@ With one tile dropped for the last q tile the error stays under a bar of
 could not see it.
 """
 
+import functools
 import importlib.util
 import inspect
 from pathlib import Path
@@ -186,3 +187,77 @@ def test_phase_32_rehearses_on_the_cpu(monkeypatch):
     assert jm["launches"]["by_part"]["matmul"] == {
         "forward": 2 + 2 * 4, "recompute": 2 * 4, "backward": 2 * 10}
     assert "run_rec_training" in inspect.getsource(chip_smoke.Smoke.run)
+
+
+# ------------------------------------------- phase 33 rehearsed on the CPU
+
+def _counted(plain, wrapper):
+    """A stand-in for a conv launcher: the plain version, counted on its
+    wrapper's counters, taking the launcher's ``plan=``."""
+    def launch(*args, plan=None):
+        wrapper.launches += 1
+        return plain(*args)
+    return launch
+
+
+def test_phase_33_rehearses_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 33's wiring (``Smoke.run_data_axis``: the plan-bits gate, 4
+    gloo ranks on the CPU running 33a's convs, 33b's ENet steps and 33c's
+    drains and restore, 33d's failover pool, the kernels line's entries) at
+    small shapes, the plan table under ``tmp_path``.  In this process
+    counted plain versions stand in for the conv launchers (they take no
+    plan, so no geometry has a plan that moves its bits); the ranks run the wrappers' plain versions, whose
+    launches no counter sees (the counters count CUDA launches), so the
+    phase's launch gates are the only ones that may miss here.  Every
+    other gate holds: bitwise forwards, gradients, steps and drains, the
+    bf16 wire's bars, the failover drain."""
+    from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import transposed_conv as ktr
+    from repro_torch.models import common
+    from repro_torch.models import unet_decoder as ud
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path))
+    monkeypatch.setattr(common, "resolve_device", lambda device=None:
+                        torch.device("cpu" if device is None else device))
+    monkeypatch.setattr(kconv, "conv2d_cuda",
+                        _counted(kconv.conv2d_plain, kconv.conv2d))
+    monkeypatch.setattr(ktr, "tconv_cuda",
+                        _counted(ktr.tconv_plain, ktr.transposed_conv2d))
+    # the wrappers launch through the (patched) launchers on the CPU too
+    monkeypatch.setattr(kconv, "_conv2d_raw",
+                        lambda *a: kconv.conv2d_cuda(*a))
+    monkeypatch.setattr(ktr, "_tconv_raw", lambda *a: ktr.tconv_cuda(*a))
+    monkeypatch.setattr(ud, "init_denoiser_params", functools.partial(
+        ud.init_denoiser_params, widths=(8, 8)))
+    for name, value in (
+            ("HW", 16), ("DA_TRAIN_BATCH", 4), ("DA_SHARDS", 4),
+            ("DCGAN_NZ", 16), ("DCGAN_NGF", 4), ("DA_HB_TIMEOUT", 0.3),
+            ("DA_SERVE_KW", {"batch": 4, "scan_steps": 2,
+                             "unet_widths": (8, 8), "unet_hw": 4,
+                             "dcgan_nz": 16, "dcgan_ngf": 4}),
+            ("DA_CASES", (
+                [("3x3", (5, 12, 12, 4), (3, 3, 4, 4), {})]
+                + [(f"dilated d={d}", (5, 12, 12, 4), (3, 3, 4, 4),
+                    {"dilation": d}) for d in (2, 4)]
+                + [("transposed", (5, 6, 6, 4), (3, 3, 4, 3),
+                    {"transposed": True, "stride": 2,
+                     "output_padding": 1})]))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    smoke = chip_smoke.Smoke(torch)
+    smoke.dev = torch.device("cpu")
+    missed = []
+    monkeypatch.setattr(smoke, "gate33",
+                        lambda ok, what: ok or missed.append(what))
+    monkeypatch.setattr(smoke, "device_ms", lambda fn, reps=10, rounds=3: 1.0)
+    entries = smoke.run_data_axis()
+    assert missed and all("launches" in m for m in missed), missed
+    assert {e["name"] for e in entries} == {
+        "conv2d (phase 33)", "transposed_conv2d (phase 33)"}
+    for e in entries:
+        assert set(e) == _ENTRY_KEYS
+    rep = smoke.report["data_axis"]
+    assert rep["plan_table"]["runs"] > 0 and rep["plan_table"]["entries"]
+    assert rep["train"]["bf16_params_moved"] > 0
+    assert rep["serve"]["images"] == len(chip_smoke.DA_SERVE_STEPS) + \
+        chip_smoke.DA_GAN_REQUESTS
+    assert "run_data_axis" in inspect.getsource(chip_smoke.Smoke.run)

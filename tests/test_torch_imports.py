@@ -26,7 +26,8 @@ from repro_torch.kernels.util import canon_dtype, resolve_device
 from repro_torch.configs import get_reduced
 from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import train as lm_train
-from repro_torch.launch import serve_gen
+from repro_torch.launch import data_axis, serve_gen
+from repro_torch.launch.mesh import launch
 from repro_torch.models import encdec, transformer, unet_decoder, whisper
 from repro_torch.models.dcgan import DCGAN
 from repro_torch.models.enet import ENet
@@ -46,7 +47,11 @@ def test_walk_covers_every_package():
                 "models/attention.py", "models/transformer.py",
                 "models/encdec.py", "models/moe.py",
                 "launch/serve.py", "configs/stablelm_1_6b.py",
-                "launch/train.py", "data/pipeline.py"):
+                "launch/train.py", "data/pipeline.py",
+                "launch/mesh.py", "launch/shapes.py", "launch/failover.py",
+                "launch/data_axis.py", "distributed/sharding.py",
+                "distributed/compression.py",
+                "distributed/collectives.py"):
         assert _PORT / mod in _FILES
 
 
@@ -98,7 +103,12 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.models.moe, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.data.pipeline, "
             "repro_torch.checkpoint.ckpt, "
-            "repro_torch.distributed.fault_tolerance; "
+            "repro_torch.distributed.fault_tolerance, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.distributed.compression, "
+            "repro_torch.distributed.collectives, "
+            "repro_torch.launch.mesh, repro_torch.launch.shapes, "
+            "repro_torch.launch.failover, repro_torch.launch.data_axis; "
             "import repro_torch.configs as c; "
             "[c.get_config(a) for a in c.ARCH_IDS]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -126,6 +136,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for serve in (lambda: serve_gen.GenServer(),
                   lambda: serve_gen.GenServer(device="cuda", batch=1),
                   lambda: serve_gen.main(["--smoke"]),
+                  lambda: serve_gen.main(["--smoke", "--devices", "2"]),
+                  lambda: launch(data_axis.run, 2, args=([],)),
                   lambda: serve_gen.reference_sample({}, steps=1, seed=0,
                                                      image_size=4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
