@@ -599,6 +599,39 @@ and the kernels line's entries ``conv2d (phase 33)`` and
 launches them, timed in this process beside their plain versions, bound
 and library calls.
 
+34. the model axis, in phase 33's one spawn as further worlds (``(1, 4)``
+on the four ranks, then ``(2, 2)``, then ``(1, 2)`` on ranks 2-3; the
+unmeshed and 1-rank references run in this process meanwhile), on phase
+33's plan table (a band's launch must take the whole image's plan, which
+the table gives other bits than a band's default):
+
+a. ``shard_conv2d(spatial=True)`` at 33a's ENet-512 shapes (64x64x32
+   maps: the 3x3 of b2.1, the dilated convs at d = 2, 4, 8, 16, b4.0's
+   upsampler), batch 2, on ``(1, 4)`` and ``(2, 2)``: the rows in bands
+   over ``model`` with exchanged halos, the forward bitwise the unsharded
+   call on every rank, dx and dw within 1e-5 x max(1, max|ref|), kernel 1
+   or 2 launched once on every rank at band shapes; the halo rows and
+   bytes of each case;
+b. ``GenServer(spatial=True)``: the denoiser lane at full widths (256/128/
+   64, 64x64, phase 23's weights), batch 4, on ``(1, 2)``, ``(1, 4)`` and
+   ``(2, 2)``, each drain bitwise the unmeshed drain, a ``(2, 2)``
+   snapshot restored on ``(1, 2)`` bitwise;
+c. the LM ``Server(mesh=)``: StableLM-2-1.6B at full width, bf16, 2 of
+   its 24 layers, kernels 3 and 4 on each rank's heads, FFN and vocab
+   blocks (FSDP over ``data``), on ``(1, 2)``, ``(1, 4)`` and ``(2, 2)``:
+   a 4 x 1024 prefill's last logits and each layer's output, and 16
+   decode steps' logits on the same seeded tokens, within 5% of max|ref|
+   of the 1-rank server on the same weights; the greedy tokens of
+   ``Server.generate`` and the share that agrees; each rank's parameter
+   bytes against the whole;
+
+and the entries ``conv2d (phase 34, every rank's row band)``,
+``transposed_conv2d (phase 34, every rank's row band)`` (34a's band
+launches of one middle band, replayed here against their plain versions
+and timed) and ``matmul (phase 34c, every rank's heads)``,
+``flash_attention (phase 34c, every rank's heads)`` (a ``(1, 4)`` rank's
+prefill and first decode step, replayed on seeded operands).
+
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
 with TF32 off.  The full per-call results go to
@@ -946,6 +979,24 @@ DA_SERVE_STEPS = (4, 2, 3, 5, 1, 6)
 DA_GAN_REQUESTS, DA_SNAP_TICK = 4, 2
 # 33d: the failover pool's hosts, the one killed, the heartbeat staleness
 DA_HOSTS, DA_VICTIM, DA_HB_TIMEOUT = 3, 1, 2.0
+# phase 34, the model axis, in phase 33's spawn: the meshes (data, model)
+# and their global ranks, in order ((2, 2) snapshots before (1, 2)
+# restores); 34a's convs at 33a's shapes but the 256x256 head, batch 2
+MA_MESHES = {(1, 4): (0, 1, 2, 3), (2, 2): (0, 1, 2, 3), (1, 2): (2, 3)}
+MA_CONV_MESHES = ((1, 4), (2, 2))
+MA_CASES = tuple((label, (2, *xs[1:]), ws, dict(kw, spatial=True))
+                 for label, xs, ws, kw in DA_CASES
+                 if label != "transposed fullconv")
+# 34b: the denoiser lane (and one DCGAN-64 request, whose rows stay whole)
+MA_SERVE_KW = {"batch": 4, "scan_steps": 2, "spatial": True}
+MA_SERVE_STEPS = (4, 2, 3, 5)
+MA_SNAP_TICK = 1
+# 34c: StableLM-2-1.6B at 2 of 24 layers (widths kept), bf16, a 4 x 1024
+# prefill and 16 decode steps on seeded tokens, held to the 1-rank server
+# at DESIGN.md §12's bf16 bar; Server.generate's greedy tokens
+MA_LM_ARCH, MA_LM_LAYERS, MA_LM_REDUCED = "stablelm-1.6b", 2, False
+MA_LM_BATCH, MA_LM_PROMPT, MA_LM_DECODE = 4, 1024, 16
+MA_LM_BAR = 5e-2
 # phase 3's edge cases (and phase 14's, in bf16)
 DENSE_EDGES = [  # label, x shape, w shape, stride, pads
     ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
@@ -1027,7 +1078,7 @@ GAN_TICK = {"conv2d": 0, "transposed_conv2d": 4, "matmul": 1}
 # queue up to two batches before every tick, so the lane never waits for
 # work; a backlog drain queues every request before the first tick, so the
 # scheduler works through a long queue.
-TIMED = {"unet_dec": (320, 1), "dcgan64": (8192, 24)}
+TIMED = {"unet_dec": (160, 1), "dcgan64": (4096, 24)}
 ARRIVALS = ("saturated", "paced", "backlog")
 # a learnable PReLU slope's name: ``stem_a``, ``down1.a``, ``dec.l0_a1``,
 # ``dec.l2_aup``
@@ -8751,7 +8802,8 @@ class Smoke:
         and the kernels line's entries, on the plan table of
         :meth:`da_plan_table`."""
         log("phase 33: the data axis on N ranks sharing one card (gloo "
-            "over CUDA tensors; spawned ranks, one thread each)")
+            "over CUDA tensors; spawned ranks, one thread each); phase 34's "
+            "worlds run in the same spawn")
         rep = self.report["data_axis"] = {}
         den, gan = self.serving_params()
         with self.plan_table("phase33"):
@@ -8795,11 +8847,14 @@ class Smoke:
                        ("serve", serve)]
         jobs[2].append(("serve", {"restore": snap}))
         # one spawn of 4 ranks: the 4-rank world, then the 1-rank world
-        # on rank 0 beside the 2-rank world on ranks 2-3
+        # on rank 0 beside the 2-rank world on ranks 2-3; then phase 34's
+        # (data, model) worlds
         worlds = [(DA_RANKS[n], jobs[n]) for n in DA_WORLDS]
+        ma_worlds, ma_setup = self.ma_worlds(den)
         t0 = time.perf_counter()
         spawned = launch(data_axis.run_worlds, 4, device=self.dev,
-                         args=(worlds,), join=False)
+                         args=(worlds + ma_worlds,), join=False)
+        ma_ref = self.ma_references(ma_setup)
         ranks = spawned.result()
         secs = time.perf_counter() - t0
         out = {n: [ranks[r][i] for r in DA_RANKS[n]]
@@ -8818,7 +8873,9 @@ class Smoke:
         self.da_train(out, rep)
         self.da_serve(out, rep)
         self.da_failover(den, gan, rep)
-        return self.da_entries(rep)
+        entries = self.da_entries(rep)
+        return entries + self.run_model_axis(ranks, len(worlds), spawned,
+                                             ma_ref)
 
     def da_plan_table(self, den, gan):
         """Phase 33's plan table, written to the table directory in force,
@@ -9161,6 +9218,407 @@ class Smoke:
                 f"{p['bound_ms']:.3f} ms; plain {p['plain_ms']:.3f} ms; "
                 f"library {p['library_ms']:.3f} ms")
             entries.append(self.kernel_entry(name, full, n, p))
+        return entries
+
+    # ------------------------------------------------ phase 34: model axis
+    def gate34(self, ok, what):
+        """Fail phase 34 at a check that missed."""
+        if not ok:
+            raise RuntimeError(f"phase 34: {what}")
+
+    def ma_worlds(self, den):
+        """Phase 34's worlds for phase 33's spawn: ``[(ranks, jobs, mesh
+        shape)]`` in :data:`MA_MESHES` order."""
+        snap = os.path.join(ROOT, "chiprun_out", "model_axis_snapshot")
+        shutil.rmtree(snap, ignore_errors=True)
+        from repro_torch import configs
+
+        vocab = (configs.get_reduced if MA_LM_REDUCED
+                 else configs.get_config)(MA_LM_ARCH).vocab
+        rng = np.random.default_rng(SEED + 34)
+        prompts = rng.integers(0, vocab, (MA_LM_BATCH, MA_LM_PROMPT),
+                               dtype=np.int32)
+        forced = rng.integers(0, vocab, (MA_LM_DECODE, MA_LM_BATCH, 1),
+                              dtype=np.int32)
+        lm = {"arch": MA_LM_ARCH, "reduced": MA_LM_REDUCED,
+              "dtype": "bfloat16",
+              "layers": MA_LM_LAYERS, "seed": SEED + 34, "prompts": prompts,
+              "decode": MA_LM_DECODE, "gen": MA_LM_DECODE,
+              "full_logits": False, "forced": forced}
+        serve_kw = dict(MA_SERVE_KW, params={"unet_dec": den})
+        requests = ([("unet_dec", s, SEED + 340 + i)
+                     for i, s in enumerate(MA_SERVE_STEPS)]
+                    + [("dcgan64", 1, SEED + 349)])
+        worlds = []
+        for mesh, ranks in MA_MESHES.items():
+            serve = {"server_kw": serve_kw, "requests": requests}
+            jobs = []
+            if mesh in MA_CONV_MESHES:
+                jobs.append(("conv", {"cases": MA_CASES, "seed": SEED,
+                                      "tensors": False}))
+            if mesh == (2, 2):
+                serve["snapshot"] = (MA_SNAP_TICK, snap)
+            jobs.append(("serve", serve))
+            if mesh == (1, 2):
+                jobs.append(("serve", {"restore": snap}))
+            jobs.append(("lm", lm))
+            worlds.append((ranks, jobs, mesh))
+        return worlds, {"lm": lm, "serve_kw": serve_kw,
+                        "requests": requests}
+
+    def ma_references(self, setup):
+        """While the ranks run: the unmeshed drain of 34b and the 1-rank
+        server of 34c (this process, on the same plan table)."""
+        from repro_torch.launch import data_axis
+
+        t0 = time.perf_counter()
+        kw = {k: v for k, v in setup["serve_kw"].items() if k != "spatial"}
+        srv = self.sg.GenServer(device=self.dev, **kw)
+        for wl, steps, seed in setup["requests"]:
+            srv.submit(wl, steps=steps, seed=seed)
+        drain = srv.run()
+        del srv
+        lm = data_axis.lm_job(None, device=self.dev, **setup["lm"])
+        self.torch.cuda.empty_cache()
+        return {"drain": drain, "lm": lm,
+                "seconds": time.perf_counter() - t0}
+
+    def run_model_axis(self, ranks, first, spawned, ref):
+        """Phase 34's gates and the kernels line's entries, from the ranks'
+        results of the worlds from index ``first`` on."""
+        t0 = time.perf_counter()
+        rep = self.report["model_axis"] = {}
+        out = {m: [ranks[r][first + i] for r in MA_MESHES[m]]
+               for i, m in enumerate(MA_MESHES)}
+        jobs = [sum(v for w, res in r.items() if w >= first
+                    for k, v in res["seconds"].items()) for r in ranks]
+        rep["rank_job_seconds"] = jobs
+        log(f"phase 34: the model axis on N ranks sharing one card, in "
+            f"phase 33's spawn: its jobs took {max(jobs):.1f} s on the "
+            f"busiest rank (by rank " + ", ".join(f"{j:.1f}" for j in jobs)
+            + f" s); the unmeshed and 1-rank references "
+            f"{ref['seconds']:.1f} s in this process beside them")
+        for m in MA_MESHES:
+            log(f"  {m} (data, model), {len(MA_MESHES[m])} ranks sharing "
+                f"one card: rank 0's jobs " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in out[m][0]["seconds"].items())
+                + " s")
+        launches = {"conv2d": 0, "transposed_conv2d": 0}
+        self.ma_convs(out, rep, launches)
+        self.ma_serve(out, ref, rep, launches)
+        lm_launches = self.ma_lm(out, ref, rep)
+        entries = self.ma_conv_entries(launches)
+        entries += self.ma_lm_entries(out[(1, 4)][0]["lm"]["calls"],
+                                      lm_launches)
+        secs = max(jobs) + time.perf_counter() - t0
+        self.report["phase_seconds"]["34 (in 33's spawn)"] = secs
+        log(f"phase 34: {secs:.1f} s (its jobs on the busiest rank, then "
+            f"its gates and entries here)")
+        return entries
+
+    def ma_convs(self, out, rep, launches):
+        """34a's gates: bitwise forwards, gradient bars, band launches."""
+        log("phase 34a: shard_conv2d(spatial=True) at ENet-512's layer "
+            "shapes, batch 2: rows in bands over the model axis")
+        rows = {}
+        for label, xs, ws, kw in MA_CASES:
+            kind = ("transposed_conv2d" if kw.get("transposed")
+                    else "conv2d")
+            for mesh in MA_CONV_MESHES:
+                lead = out[mesh][0]["conv"][label]
+                self.gate34(lead["equal"], f"{label} on {mesh}: forward != "
+                            f"the unsharded call")
+                errs = {}
+                for g in ("dx", "dw"):
+                    errs[g] = lead[f"{g}_err"] / max(1.0, lead[f"{g}_scale"])
+                    self.gate34(errs[g] <= DA_GRAD_TOL, f"{label} on {mesh}: "
+                                f"{g} at {errs[g]:.3e} x max(1, max|ref|)")
+                halos = []
+                for r, res in enumerate(out[mesh]):
+                    got = res["conv"][label]
+                    self.gate34(got["digest"] == lead["digest"]
+                                and got["grad_digests"] == lead[
+                                    "grad_digests"],
+                                f"{label} on {mesh}, rank {r}: bits differ "
+                                f"from rank 0's")
+                    want = {"conv2d": 0, "transposed_conv2d": 0, kind: 1}
+                    self.gate34(got["launches"] == want,
+                                f"{label} on {mesh}, rank {r}: launches "
+                                f"{got['launches']} != {want}")
+                    heights = [shp[1] for _, shp in got["launch_rows"]]
+                    whole = xs[1] // kw.get("dilation", 1)
+                    self.gate34(heights and max(heights) < whole,
+                                f"{label} on {mesh}, rank {r}: launch rows "
+                                f"{heights} are not a band of {whole}")
+                    self.gate34(got["halos"]["exchanges"] == 1,
+                                f"{label} on {mesh}, rank {r}: "
+                                f"{got['halos']['exchanges']} exchanges")
+                    launches[kind] += got["launches"][kind]
+                    halos.append(got["halos"])
+                rows[f"{label} {mesh}"] = {"dx": errs["dx"],
+                                           "dw": errs["dw"], "halos": halos}
+                log(f"  {label} on {mesh}: bitwise on every rank; dx "
+                    f"{errs['dx']:.2e}, dw {errs['dw']:.2e} x max(1, "
+                    f"max|ref|); launch rows by rank "
+                    + ", ".join(str(sorted({shp[1] for _, shp in res["conv"][
+                        label]["launch_rows"]})) for res in out[mesh])
+                    + "; halo rows / bytes received by rank "
+                    + ", ".join(f"{h['rows']} / {h['bytes']}" for h in halos))
+        rep["convs"] = rows
+
+    def ma_serve(self, out, ref, rep, launches):
+        """34b's gates: each drain and the restored one bitwise the
+        unmeshed drain."""
+        log("phase 34b: GenServer(spatial=True), the denoiser lane at full "
+            f"widths (64x64), batch {MA_SERVE_KW['batch']}, "
+            f"{MA_SERVE_KW['scan_steps']} DDIM steps a tick")
+        want = ref["drain"]
+        walls = {}
+        for mesh in MA_MESHES:
+            keys = ["serve"] + (["serve#1"] if mesh == (1, 2) else [])
+            for r, res in enumerate(out[mesh]):
+                for key in keys:
+                    got = res[key]
+                    bad = [rid for rid in want if rid not in got["images"]
+                           or not np.array_equal(got["images"][rid],
+                                                 want[rid])]
+                    self.gate34(not bad, f"{mesh}, rank {r}, {key}: images "
+                                f"{bad} differ from the unmeshed drain")
+                    self.gate34(got["halos"]["exchanges"] > 0,
+                                f"{mesh}, rank {r}: no halo exchanged")
+                for k in launches:
+                    launches[k] += res["serve"]["launches"][k]
+                # the denoiser's convs (DCGAN's lane launches kernel 2 only)
+                shapes = [shp for kind, shp in res["serve"]["launch_rows"]
+                          if kind == "conv2d"]
+                size = max(shp[2] for shp in shapes)
+                bands = {shp[1] for shp in shapes if shp[2] == size}
+                self.gate34(bands and max(bands) < size,
+                            f"{mesh}, rank {r}: the {size}-wide convs ran "
+                            f"on rows {sorted(bands)}")
+            walls[str(mesh)] = [res["serve"]["wall_s"] for res in out[mesh]]
+            log(f"  {mesh}, {len(MA_MESHES[mesh])} ranks sharing one card: "
+                f"{len(want)} images bitwise the unmeshed drain on every "
+                f"rank; drain " + ", ".join(f"{w:.2f}"
+                                            for w in walls[str(mesh)])
+                + " s by rank"
+                + (f"; the (2, 2) snapshot of tick {MA_SNAP_TICK} restored "
+                   f"here finishes bitwise" if mesh == (1, 2) else ""))
+        rep["serve"] = {"wall_s": walls, "images": len(want)}
+
+    def ma_lm(self, out, ref, rep):
+        """34c's gates: logits and layers within the bf16 bar of the 1-rank
+        server, greedy tokens, parameter blocks, launches."""
+        torch = self.torch
+        log(f"phase 34c: {MA_LM_ARCH} at full width, bf16, "
+            f"{MA_LM_LAYERS} of 24 layers, tensor parallel over model and "
+            f"FSDP over data: a {MA_LM_BATCH} x {MA_LM_PROMPT} prefill and "
+            f"{MA_LM_DECODE} decode steps")
+        one = ref["lm"]
+        rows = {}
+        launches = {"matmul": 0, "flash_attention": 0}
+
+        def rel(got, want):
+            return ((got.float() - want.float()).abs().max().item()
+                    / max(want.float().abs().max().item(), 1e-30))
+
+        for mesh in MA_MESHES:
+            dp, m = mesh
+            lead = out[mesh][0]["lm"]
+            errs = {"prefill": rel(lead["prefill"], one["prefill"])}
+            for i, (got, want) in enumerate(zip(lead["layers"],
+                                                one["layers"])):
+                errs[f"layer {i}"] = rel(got, want)
+            errs["decode"] = max(rel(g, w) for g, w in zip(lead["decode"],
+                                                           one["decode"]))
+            for what, e in errs.items():
+                self.gate34(e <= MA_LM_BAR, f"{mesh}: {what} at {e:.3e} x "
+                            f"max|ref| of the 1-rank server")
+            agree = float(np.mean(lead["tokens"] == one["tokens"]))
+            for r, res in enumerate(out[mesh]):
+                got = res["lm"]
+                for k in launches:
+                    self.gate34(got["launches"][k] > 0,
+                                f"{mesh}, rank {r}: {k} never launched")
+                    launches[k] += got["launches"][k]
+                self.gate34(np.array_equal(got["tokens"], lead["tokens"]),
+                            f"{mesh}, rank {r}: tokens differ from rank 0's")
+                for name, (held, whole, spec) in got["leaves"].items():
+                    axes = {a for e in spec if e for a in
+                            (e if isinstance(e, tuple) else (e,))}
+                    if {"data", "model"} <= axes and dp > 1:
+                        self.gate34(held * dp * m == whole,
+                                    f"{mesh}, rank {r}: {name} holds "
+                                    f"{held} of {whole}")
+            held, whole = lead["param_bytes"]
+            self.gate34(held < whole, f"{mesh}: rank 0 holds {held} of "
+                        f"{whole} bytes")
+            ms = [res["lm"]["prefill_ms"] for res in out[mesh]]
+            dec = [statistics.median(res["lm"]["decode_ms"])
+                   for res in out[mesh]]
+            rows[str(mesh)] = {**errs, "token_agreement": agree,
+                               "param_bytes": [held, whole],
+                               "prefill_ms": ms, "decode_ms_median": dec}
+            log(f"  {mesh} (data, model), {len(MA_MESHES[mesh])} ranks "
+                f"sharing one card: last logits {errs['prefill']:.2e}, "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()
+                            if k.startswith("layer"))
+                + f", decode logits (worst of {MA_LM_DECODE}) "
+                f"{errs['decode']:.2e} x max|ref| (bar {MA_LM_BAR}); greedy "
+                f"tokens agree with the 1-rank server's at {agree:.3f}; "
+                f"rank 0 holds {held / 2 ** 20:.1f} of {whole / 2 ** 20:.1f}"
+                f" MiB of parameters; prefill " + ", ".join(
+                    f"{t:.1f}" for t in ms) + " ms, decode step (median) "
+                + ", ".join(f"{t:.1f}" for t in dec) + " ms by rank")
+        rep["lm"] = rows
+        rep["lm_1_rank"] = {"prefill_ms": one["prefill_ms"],
+                            "decode_ms_median": statistics.median(
+                                one["decode_ms"])}
+        log(f"  1-rank server (this process): prefill "
+            f"{one['prefill_ms']:.1f} ms, decode step (median) "
+            f"{statistics.median(one['decode_ms']):.1f} ms")
+        del torch
+        return launches
+
+    def ma_conv_entries(self, launches):
+        """The band launches of 34a's cases for the middle band 1 of 4,
+        recorded here (``decompose._band_form`` at that band's rows),
+        against their plain versions and timed beside bound and library
+        call."""
+        torch = self.torch
+        from repro_torch.core import decompose
+
+        calls, pairs = [], []
+        for i, (label, xs, ws, kw) in enumerate(MA_CASES):
+            rng = np.random.default_rng(SEED + i)
+            x, w = (torch.from_numpy(rng.standard_normal(
+                sh, dtype=np.float32)).to(self.dev) for sh in (xs, ws))
+            kw = {k: v for k, v in kw.items() if k != "spatial"}
+            full = {**dict(stride=1, dilation=1, transposed=False,
+                           padding=None, output_padding=0, decomposed=True,
+                           strategy="batched", backend="kernels"), **kw}
+            bands = decompose.band_split(xs, ws, 4, **full)
+            i0, i1 = bands.in_rows[1]
+            ep = dict(epilogue=None, scale=None, shift=None, alpha=None,
+                      residual=None)
+            whole = []
+            with torch.no_grad(), self.recording(whole):
+                decompose.conv2d(x, w, **kw)
+            with torch.no_grad(), self.recording(calls):
+                decompose._band_form(x[:, i0:i1], w, bands, 1, None, full,
+                                     ep)
+            pairs.append((label, whole[0], calls[-1], bands, i0,
+                          kw.get("dilation", 1)))
+        self.ma_band_rows(pairs)
+        entries = []
+        for i, (name, args) in enumerate(calls):
+            kern, plain, _ = self.kernels[name]
+            self.compare(f"phase 34 band call {i}",
+                         f"{name} (phase 34, every rank's row band)",
+                         kern(*args), plain(*args), quiet=True)
+        rows, per = self.time_calls(calls, reps=MODEL_REPS)
+        self.report["model_axis"]["geometries"] = self.geometry_table(
+            rows, "34a's middle bands")
+        for name, p in per.items():
+            full = f"{name} (phase 34, every rank's row band)"
+            n = sum(1 for c in calls if c[0] == name)
+            log(f"  {full}: {p['ms']:.3f} ms over the {n} "
+                f"band launches of one rank; bound {p['bound_ms']:.3f} ms; "
+                f"plain {p['plain_ms']:.3f} ms; library "
+                f"{p['library_ms']:.3f} ms; {launches[name]} launches on "
+                f"the ranks (34a's forwards and 34b's drains)")
+            entries.append(self.kernel_entry(name, full, launches[name], p))
+        return entries
+
+    def ma_band_rows(self, pairs):
+        """Whether kernels 1 and 2 compute an image row the same in a band
+        as in the whole image at one plan: each 34a case's whole launch and
+        its middle band's launch at every plan the kernel builds, the
+        band's output rows bitwise the whole output's."""
+        at = self.at
+        launch = {"conv2d": self.kconv.conv2d_cuda,
+                  "transposed_conv2d": self.ktr.tconv_cuda}
+        runs = 0
+        for label, (name, whole), (_, band), bands, i0, d in pairs:
+            kind = "dense" if name == "conv2d" else "tconv"
+            o0, o1 = bands.out_rows[1]
+            if bands.form == "tconv":
+                s = whole[2]
+                pick = slice(o0 - s * i0, o1 - s * i0)
+            else:
+                pick = slice(None)
+            rows = slice(o0 // d, o1 // d)
+            for plan in at.candidates(kind, tuple(whole[0].shape),
+                                      tuple(whole[1].shape),
+                                      dtype=whole[0].dtype):
+                out = []
+                for args in (whole, band):
+                    vec = self.kconv.copy_vec(args[0].shape[-1],
+                                              args[0].dtype,
+                                              args[0].data_ptr())
+                    out.append(launch[name](*args,
+                                            plan=plan._replace(vec=vec)))
+                runs += 1
+                self.gate34(self.torch.equal(out[1][:, pick],
+                                             out[0][:, rows]),
+                            f"{label}: plan {plan} gives the middle band's "
+                            f"rows other bits than the whole image's")
+        self.report["model_axis"]["band_rows_runs"] = runs
+        log(f"  {len(pairs)} band geometries of 34a (the middle band 1 of "
+            f"4) at every plan their kernel builds: {runs} runs, each "
+            f"band's rows bitwise the whole image's rows at the same plan")
+
+    def ma_lm_entries(self, calls, launches):
+        """A ``(1, 4)`` rank's prefill and first decode step of 34c, each
+        distinct launch replayed here on seeded operands against its plain
+        version and timed; the sums per kernel are its entries."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(SEED + 341)
+        seen = {}
+        for step in calls:
+            for name, shapes, dtype, causal, window in step:
+                key = (name, shapes, dtype, causal, window)
+                seen[key] = seen.get(key, 0) + 1
+        groups = {}
+        for (name, shapes, dtype, causal, window), n in seen.items():
+            dt = getattr(torch, dtype.removeprefix("torch."))
+            ops = [torch.randn(sh, generator=g, device=self.dev).to(dt)
+                   for sh in shapes]
+            if name == "matmul":
+                args = tuple(ops)
+            else:
+                q, k = ops
+                args = (q, k, torch.randn(k.shape, generator=g,
+                                          device=self.dev).to(dt),
+                        causal, window)
+            kern, plain, lib, flops, nbytes, geo, variant = self.lm_call(
+                name, args)
+            label = f"{name} (phase 34c, every rank's heads)"
+            self.compare(f"phase 34c {geo}", label, kern(), plain(),
+                         quiet=True)
+            peak = (PEAK_FP32_FLOPS if dt == torch.float32
+                    else PEAK_BF16_FLOPS)
+            ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES_S
+            row = {"ms": self.device_ms(kern) * n,
+                   "plain_ms": self.device_ms(plain, reps=3) * n,
+                   "library_ms": self.device_ms(lib) * n,
+                   "ops_ms": ops_ms * n, "bytes_ms": bytes_ms * n}
+            row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+            log(f"  {name} [{variant}] x{n} {geo}: {row['ms']:.3f} ms, "
+                f"bound {row['bound_ms']:.3f} ms, plain "
+                f"{row['plain_ms']:.3f} ms, library "
+                f"{row['library_ms']:.3f} ms")
+            sums = groups.setdefault(name, dict.fromkeys(row, 0.0))
+            for k, v in row.items():
+                sums[k] += v
+        entries = []
+        for name, p in groups.items():
+            full = f"{name} (phase 34c, every rank's heads)"
+            log(f"  {full}: {p['ms']:.3f} ms over a (1, 4) rank's prefill "
+                f"and first decode step; bound {p['bound_ms']:.3f} ms; plain "
+                f"{p['plain_ms']:.3f} ms; library {p['library_ms']:.3f} ms; "
+                f"{launches[name]} launches on the ranks")
+            entries.append(self.kernel_entry(name, full, launches[name], p))
         return entries
 
     def geometry(self, name, args):

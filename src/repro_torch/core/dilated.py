@@ -232,7 +232,34 @@ def dilated_conv2d_decomposed(x: torch.Tensor, w: torch.Tensor, dilation: int,
     return _batch_to_phase(yb, d, n, h, w_)
 
 
-__all__ = ["same_pad", "effective_kernel_size", "strided_out_size",
+def band_inputs(r0: int, r1: int, h: int, k: int, d: int
+                ) -> tuple[int, int]:
+    """The image rows ``[i0, i1)`` that output rows ``[r0, r1)`` of a SAME
+    stride-1 dilated conv read: ``d * (k - 1) / 2`` rows on each side,
+    cut to the image's ``h`` rows."""
+    halo = d * same_pad(k)
+    return max(0, r0 - halo), min(h, r1 + halo)
+
+
+def dilated_band(x: torch.Tensor, w: torch.Tensor, d: int, r0: int,
+                 r1: int, i0: int, i1: int, conv_fn) -> torch.Tensor:
+    """Output rows ``[r0, r1)`` of a SAME stride-1 dilated conv from the
+    input rows ``[i0, i1)`` of :func:`band_inputs` (``x``), by the paper's
+    decomposition inside the band: ``r0``, ``i0`` and ``i1 - i0`` are
+    multiples of ``d``, so the band folds into its own ``d*d`` phase
+    blocks (the whole image's phase of every row), and ONE dense conv runs
+    them all (``conv_fn(xb, pads)``, ``pads`` the phase-space pads: the
+    SAME pad only where the band meets the image's edge; rows beyond it
+    are real rows, read from the halo).  Returns (N, r1 - r0, W, Cout)."""
+    p = same_pad(w.shape[0])
+    n, _, w_in, _ = x.shape
+    xb, _, _ = _phase_to_batch(x, d)
+    pads = ((p - (r0 - i0) // d, p - (i1 - r1) // d), (p, p))
+    return _batch_to_phase(conv_fn(xb, pads), d, n, r1 - r0, w_in)
+
+
+__all__ = ["band_inputs", "dilated_band", "same_pad",
+           "effective_kernel_size", "strided_out_size",
            "dilated_conv2d_reference", "zero_insert_weight",
            "dilated_conv2d_naive", "phase_split", "phase_stitch",
            "stride_class_schedule", "dilated_conv2d_decomposed"]

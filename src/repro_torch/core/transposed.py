@@ -120,6 +120,27 @@ def transposed_conv2d_decomposed(x: torch.Tensor, w: torch.Tensor, stride: int,
     return out
 
 
-__all__ = ["out_size", "zero_insert_input", "transposed_conv2d_reference",
+def band_inputs(o0: int, o1: int, h: int, k: int, s: int, p_lo: int,
+                p_hi: int) -> tuple[int, int]:
+    """The input rows ``[i0, i1)`` that output rows ``[o0, o1)`` of a
+    stride-``s`` transposed conv over ``h`` input rows read: output ``y =
+    s*b + r`` reads input ``b + off`` for the offsets ``off = (r + t -
+    p_lo) // s`` of parity ``r``'s live taps, cut to the image.  ``i1``
+    reaches far enough that the same transposed conv (same ``p_lo``,
+    ``p_hi``, so the same parity schedule) over rows ``[i0, i1)`` yields
+    output rows up to ``o1``: its output row ``j`` is row ``j + s*i0`` of
+    the whole image's."""
+    offs = [(r + t - p_lo) // s for r in range(s)
+            for t in parity_taps(k, s, p_lo, r)]
+    i0 = max(0, min(o0 // s + min(offs), o0 // s))
+    i1 = min(h, (o1 - 1) // s + max(offs) + 1)
+    short = o1 - s * i0 - out_size(i1 - i0, s, k, p_lo, p_hi)
+    if short > 0:
+        i1 = min(h, i1 + -(-short // s))
+    return i0, i1
+
+
+__all__ = ["band_inputs", "out_size", "zero_insert_input",
+           "transposed_conv2d_reference",
            "transposed_conv2d_naive", "parity_taps", "decompose_weight",
            "transposed_conv2d_decomposed"]

@@ -1,6 +1,6 @@
-"""The port of ``repro.distributed``: fault tolerance, and the data axis
-across ranks (``collectives``, ``sharding``, ``compression``); the model
-axis and ``hlo_analysis`` are later items of ROADMAP.md."""
+"""The port of ``repro.distributed``: fault tolerance, and the data and
+model axes across ranks (``collectives``, ``sharding``, ``compression``);
+``hlo_analysis`` is a later item of ROADMAP.md."""
 
 from repro_torch.distributed.fault_tolerance import (FailureInjector, Fault,
                                                      Heartbeat,

@@ -17,14 +17,26 @@ axis name, or a tuple of axis names.  A :class:`NamedSharding` pairs one
 with a mesh; over a :class:`~repro_torch.launch.mesh.LiveMesh`,
 :meth:`NamedSharding.shard` takes this rank's block of a tensor.
 
-What runs across ranks is the data axis (DESIGN.md §13): the batch and
-the decomposition's phase fold are plain data parallelism, and the
-forward needs no collective but the gather of the outputs.
+What runs across ranks:
+
+* the data axis (DESIGN.md §13): the batch and the decomposition's phase
+  fold are plain data parallelism, and the forward needs no collective
+  but the gather of the outputs;
+* the model axis of an image (``spatial=``): its rows split in equal
+  bands over ``model`` where :func:`image_sharding`'s guard resolves them,
+  each rank convolving its band and the halo rows it exchanges with its
+  neighbours (:func:`repro_torch.distributed.collectives.exchange_halos`;
+  the reference leaves the halos to GSPMD), the output bands gathered;
+* the model axis of an LM (:class:`ModelParallel`): each rank holds its
+  block of every parameter by :func:`param_pspec` (FSDP over ``data``,
+  heads, FFN and vocab over ``model``), gathers a layer's FSDP blocks
+  before the layer runs, and sums the row-split products' partials over
+  ``model`` in a fixed order.
+
 :func:`shard_conv2d` runs :func:`repro_torch.core.decompose.conv2d` with
-its ``group=`` over the mesh's data axes.  The model axis (``spatial=``,
-whose row halos the reference leaves to GSPMD, and the LM parameters
-placed by :func:`param_pspec`) is a later item of ROADMAP.md: the rules
-resolve for it, nothing executes it, and ``spatial=True`` raises.  The
+its ``group=`` over the mesh's data axes and, with ``spatial=True``, its
+``rows=`` over the model axis.  Experts over the model axis, training
+over it and sequence parallelism wait (:data:`MODEL_AXIS_ITEM`).  The
 port has no ``layers.lc`` constraint hook (its models place nothing), so
 :func:`install` and :func:`use_mesh` only set the mesh that
 :func:`current_mesh` returns.
@@ -32,6 +44,7 @@ port has no ``layers.lc`` constraint hook (its models place nothing), so
 
 from __future__ import annotations
 
+import logging
 import math
 import re
 from contextlib import contextmanager
@@ -40,12 +53,15 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.distributed.collectives import (all_gather_cat,
-                                                 pad_rows, share)
+                                                 gather_bands, pad_rows,
+                                                 share)
 
-#: what the model axis of the mesh waits for
-MODEL_AXIS_ITEM = ("the model axis (spatial= row halos, LM parameters "
-                   "over param_pspec) is a later item of ROADMAP.md "
+#: what the model axis of the mesh still waits for
+MODEL_AXIS_ITEM = ("experts over the model axis, training over it and "
+                   "sequence parallelism are a later item of ROADMAP.md "
                    "queue 1")
+
+_LOG = logging.getLogger(__name__)
 
 # logical activation axis -> ordered mesh-axis candidates (the first that
 # divides the dim and is not already used wins; tuples shard over several
@@ -209,6 +225,26 @@ def data_group(mesh):
     return mesh.group(data_axes(mesh))
 
 
+def model_size(mesh) -> int:
+    return mesh.shape.get("model", 1)
+
+
+def model_group(mesh):
+    """The process group of a live mesh's model axis (``None`` without
+    one)."""
+    return mesh.group(("model",)) if "model" in mesh.shape else None
+
+
+def make_groups(mesh) -> None:
+    """Make every process group the mesh's collectives use (the data
+    axes, the model axis, the whole mesh), in one order: groups are made
+    collectively over the process group, so ranks running several meshes
+    at once make them all first."""
+    data_group(mesh)
+    model_group(mesh)
+    mesh.everyone()
+
+
 def batch_sharding(mesh, ndim: int = 2) -> NamedSharding:
     """Tokens (B, S, ...) shard the batch over (pod, data)."""
     axes = data_axes(mesh)
@@ -246,56 +282,262 @@ def pad_batch(x: torch.Tensor, multiple: int):
 def shard_conv2d(mesh, x: torch.Tensor, w: torch.Tensor, *,
                  spatial: bool = False, with_grads: bool = False,
                  **conv_kwargs):
-    """:func:`repro_torch.core.decompose.conv2d` over the data axes of a
-    live ``mesh``; every rank calls it with the same ``x``.
+    """:func:`repro_torch.core.decompose.conv2d` over a live ``mesh``;
+    every rank calls it with the same ``x``.
 
     The weights are broadcast from rank 0.  Each rank runs the conv on its
-    share (:func:`repro_torch.core.decompose.split_kind`): its rows of the
+    share of the batch over the data axes
+    (:func:`repro_torch.core.decompose.split_kind`): its rows of the
     batch zero-padded to a multiple of the data extent, or for the
     phase-batched dilated engine its rows of the folded ``d*d*N`` phase
     batch, which is folded first and padded after (a batch of 1 at d = 2
-    gives each of 4 ranks one phase block).  The output is gathered in
-    batch order and padded rows are cropped.  A share's kernel launches
+    gives each of 4 ranks one phase block).  A share's kernel launches
     take the plan of the unsharded launch (:func:`repro_torch.distributed.
-    collectives.map_rows`), so the forward is bitwise the unsharded
-    call's: kernels 1 and 2 compute a row the same in any batch at one
-    plan.
+    collectives.map_rows`).
+
+    With ``spatial=True`` the image's rows split in equal bands over the
+    model axis where :func:`repro_torch.core.decompose.band_split` resolves
+    them (the rows divide by the model extent, :func:`image_sharding`'s
+    guard, and the band is a multiple of the stride or the dilation; else
+    they stay whole on every rank, as the reference's spec resolves; that
+    is logged):
+    each rank takes its band of ``x``, exchanges the halo rows its conv
+    reads with the bands beside it, and convolves its rows with the conv's
+    padding only on an image edge (``conv2d(rows=)``); the output bands are
+    gathered in rank order.  A band's launches take the whole image's
+    plans (:func:`repro_torch.kernels.autotune.whole_image_plans`).  So
+    the forward is bitwise the unsharded call's: kernels 1 and 2 compute a
+    row the same in any batch and any band at one plan.
 
     With ``with_grads=True`` returns ``(out, dx, dw)``, the gradients of
-    ``sum(out)``: each rank differentiates its share; ``dx``'s rows are
-    gathered (for the phase fold, whose shares scatter over the rows, the
-    ranks' disjoint parts are summed), and ``dw`` is reduced by the
-    fixed-order sum of :func:`repro_torch.distributed.compression.
-    mesh_allreduce`.  Zero-padded rows add nothing to ``dw``.  The
-    backward's launches take their shares' own plans.
+    ``sum(out)``: each rank differentiates its share (its batch rows or
+    phase blocks, its band; a halo's gradient goes back to the band that
+    owns it); ``dx``'s rows are gathered (the ranks' disjoint parts are
+    summed where the shares scatter over the rows: the phase fold, the
+    bands), and ``dw`` is reduced by the fixed-order sum of
+    :func:`repro_torch.distributed.compression.mesh_allreduce` over every
+    rank that differentiated a share.  Zero-padded rows add nothing to
+    ``dw``.  The backward's launches take their shares' own plans.
     """
-    from repro_torch.core.decompose import conv2d, split_kind
+    from repro_torch.core.decompose import band_split, conv2d, split_kind
     from repro_torch.distributed.compression import mesh_allreduce
 
-    if spatial:
-        raise NotImplementedError(f"shard_conv2d(spatial=True): "
-                                  f"{MODEL_AXIS_ITEM}")
     group = data_group(mesh)
     w = mesh.replicate(w)
+    bands = None
+    if spatial:
+        bands = band_split(tuple(x.shape), tuple(w.shape), model_size(mesh),
+                           **conv_kwargs)
+        if isinstance(bands, str):
+            _LOG.info("shard_conv2d(spatial=True): rows whole: %s", bands)
+            bands = None
+
+    def run(xx, ww):
+        if bands is None:
+            return conv2d(xx, ww, group=group, **conv_kwargs)
+        rows = model_group(mesh)
+        r, hb = mesh.coords["model"], xx.shape[1] // model_size(mesh)
+        kw = dict(conv_kwargs)
+        if kw.get("residual") is not None:
+            kw["residual"] = kw["residual"][:, slice(*bands.out_rows[r])]
+        y = conv2d(xx[:, r * hb:(r + 1) * hb], ww, group=group, rows=rows,
+                   **kw)
+        return gather_bands(y, bands.counts, rows)
+
     if not with_grads:
-        return conv2d(x, w, group=group, **conv_kwargs)
+        return run(x, w)
     x = x.detach().requires_grad_()
     w = w.requires_grad_()
     with torch.enable_grad():
-        y = conv2d(x, w, group=group, **conv_kwargs)
+        y = run(x, w)
         dx, dw = torch.autograd.grad(y, (x, w), torch.ones_like(y))
-    if split_kind(**conv_kwargs) == "phase":
-        dx = mesh_allreduce({"dx": dx[None]}, group)["dx"]
+    everyone = group if bands is None else mesh.everyone()
+    if bands is not None or split_kind(**conv_kwargs) == "phase":
+        dx = mesh_allreduce({"dx": dx[None]}, everyone)["dx"]
     else:
         dx = pad_rows(dx, data_axis_size(mesh))
         dx = all_gather_cat(dx[share(dx.shape[0], group)], group)
-    dw = mesh_allreduce({"dw": dw[None]}, group)["dw"]
+    dw = mesh_allreduce({"dw": dw[None]}, everyone)["dw"]
     return y.detach(), dx[:x.shape[0]], dw
+
+
+# ---------------------------------------------------------------------------
+# The LM's model axis: tensor parallelism and FSDP, served
+# ---------------------------------------------------------------------------
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+class ModelParallel:
+    """How the ranks of a live ``(data, model)`` mesh serve a decoder-only
+    LM (the reference's ``Server`` places every parameter by
+    :func:`make_param_shardings` on its smoke mesh; GSPMD runs the rest).
+
+    Each rank holds its block of every parameter by :func:`param_pspec`
+    (:meth:`place`): the dims whose spec names the data axes are FSDP
+    blocks, gathered over the data group just before their layer runs and
+    dropped after it (:meth:`layer`, :meth:`leaf`); the dims that name
+    ``model`` are Megatron's tensor parallelism, read from the resolved
+    specs:
+
+    * ``wq``/``wk``/``wv`` split by columns: a rank holds its heads (q
+      heads ``[r*H/m, ...)`` with KV heads ``[r*Hkv/m, ...)``, contiguous
+      GQA groups), runs kernel 4 on them and keeps their KV cache; ``wo``
+      split by rows, its partial products summed over ``model`` in a
+      fixed order (:func:`~repro_torch.distributed.collectives.sum_over`);
+    * ``w_gate``/``w_up`` by columns, ``w_down`` by rows, summed the same
+      way;
+    * ``embed`` rows by vocab: a rank looks up the ids in its range (zeros
+      elsewhere) and the rows are summed over ``model`` (one term is
+      nonzero, so the sum is exact); ``lm_head`` (or the tied
+      ``embed.T``) by vocab columns, the logits gathered on V before the
+      greedy argmax, which then breaks ties as on the whole row.
+
+    A spec that does not split (the dim does not divide) keeps that part
+    whole on every rank.  A column split that would cut a head raises
+    ``ValueError``; a MoE, recurrent or encoder-decoder config over a
+    model extent above 1 raises ``NotImplementedError``
+    (:data:`MODEL_AXIS_ITEM`).  The batch splits over the data axes where
+    it divides (:meth:`batch_rows`).  The residual stream between layers
+    is whole on every model rank (no sequence split).
+    """
+
+    def __init__(self, mesh, cfg, shapes: dict):
+        self.mesh, self.cfg = mesh, cfg
+        self.m = model_size(mesh)
+        self.dp = data_axis_size(mesh)
+        self.specs = {k: param_pspec(mesh, k, tuple(v))
+                      for k, v in shapes.items()}
+        data = set(data_axes(mesh))
+        #: per leaf, the dims whose blocks the data group gathers
+        self.fsdp = {k: [d for d, e in enumerate(sp)
+                         if data & set(_names(e))]
+                     for k, sp in self.specs.items()}
+        self._check(shapes)      # on the geometry, before any group
+        self.vocab = self._splits("embed", 0)
+        self.data, self.model = data_group(mesh), model_group(mesh)
+        self.rank = mesh.coords.get("model", 0)
+
+    def _splits(self, name: str, dim: int) -> bool:
+        sp = self.specs[name]
+        return dim < len(sp) and "model" in _names(sp[dim])
+
+    def _check(self, shapes: dict) -> None:
+        cfg, m = self.cfg, self.m
+        if m > 1:
+            bad = [k for k in cfg.block_pattern
+                   if k not in ("attn", "attn_local")]
+            what = ("an encoder-decoder" if cfg.encoder_layers else
+                    "a MoE FFN" if cfg.moe is not None else
+                    f"the {bad[0]} mixer" if bad else None)
+            if what:
+                raise NotImplementedError(
+                    f"{cfg.name}: {what} over a model extent of {m}: "
+                    f"{MODEL_AXIS_ITEM}")
+        heads, ffn = {}, {}
+        for pi in range(len(cfg.block_pattern)):
+            pre = f"blocks.{pi}"
+            split = {k: self._splits(f"{pre}.mixer.{k}", 2)
+                     for k in ("wq", "wk", "wv")}
+            split["wo"] = self._splits(f"{pre}.mixer.wo", 1)
+            if any(split.values()):
+                if (not all(split.values()) or cfg.num_heads % m
+                        or cfg.kv_heads % m):
+                    raise ValueError(
+                        f"{cfg.name}: a column split of q/k/v over a model "
+                        f"extent of {m} would cut a head ({cfg.num_heads} q "
+                        f"heads, {cfg.kv_heads} KV heads)")
+            heads[pi] = split["wq"]
+            name = f"{pre}.ffn.w_gate"
+            ffn[pi] = name in shapes and self._splits(name, 2)
+        self.heads, self.ffn = heads, ffn
+
+    def place(self, params: dict) -> dict:
+        """This rank's block of every leaf of a flat ``{name: tensor}``
+        dict, each a tensor of its own (the whole leaf can be dropped)."""
+        return {k: NamedSharding(self.mesh, self.specs[k]).shard(
+            t).contiguous().clone() for k, t in params.items()}
+
+    def leaf(self, name: str, t: torch.Tensor, lead: int = 0
+             ) -> torch.Tensor:
+        """``t`` (leaf ``name``'s block, less ``lead`` stacked axes) with
+        its FSDP dims gathered over the data group."""
+        from repro_torch.distributed.collectives import gather_dim
+
+        for d in self.fsdp[name]:
+            t = gather_dim(t, d - lead, self.data)
+        return t
+
+    def layer(self, pi: int, p: dict) -> dict:
+        """Layer views ``p`` of pattern position ``pi``'s stacks with their
+        FSDP blocks gathered (the stacks' leading axis is gone)."""
+        def walk(node, prefix):
+            return {k: walk(v, f"{prefix}.{k}") if isinstance(v, dict)
+                    else self.leaf(f"{prefix}.{k}", v, lead=1)
+                    for k, v in node.items()}
+        return walk(p, f"blocks.{pi}")
+
+    def attn_reduce(self, pi: int):
+        """The sum over ``model`` of the attention's output partials at
+        pattern position ``pi`` (``None`` where the heads are whole)."""
+        return self._reduce if self.heads[pi] else None
+
+    def ffn_reduce(self, pi: int):
+        return self._reduce if self.ffn[pi] else None
+
+    def _reduce(self, t: torch.Tensor) -> torch.Tensor:
+        from repro_torch.distributed.collectives import sum_over
+        return sum_over(t, self.model)
+
+    def embed(self, table: torch.Tensor, token: torch.Tensor
+              ) -> torch.Tensor:
+        """The embedding rows of ``token`` from this rank's vocab block of
+        the (FSDP-gathered) ``table``."""
+        if not self.vocab:
+            return table[token]
+        from repro_torch.distributed.collectives import sum_over
+
+        rows = table.shape[0]
+        idx = token.long() - self.rank * rows
+        hit = (idx >= 0) & (idx < rows)
+        got = table[idx.clamp(0, rows - 1)]
+        return sum_over(torch.where(hit[..., None], got,
+                                    torch.zeros_like(got)), self.model)
+
+    def logits(self, local: torch.Tensor) -> torch.Tensor:
+        """This rank's vocab columns of the logits, gathered on V."""
+        if not self.vocab:
+            return local
+        from repro_torch.distributed.collectives import gather_dim
+        return gather_dim(local.contiguous(), local.dim() - 1, self.model)
+
+    def kv_heads(self) -> int:
+        """The KV heads of this rank's caches."""
+        split = any(self.heads.values())
+        return self.cfg.kv_heads // (self.m if split else 1)
+
+    def batch_rows(self, b: int) -> slice:
+        """This rank's rows of a batch of ``b`` (all where the data extent
+        does not divide it)."""
+        if b % self.dp:
+            return slice(0, b)
+        return share(b, self.data)
+
+    def gather_batch(self, t: torch.Tensor, b: int) -> torch.Tensor:
+        """The whole batch of ``b`` rows from each rank's
+        :meth:`batch_rows`."""
+        return t if b % self.dp else all_gather_cat(t.contiguous(),
+                                                    self.data)
 
 
 __all__ = ["PartitionSpec", "P", "NamedSharding", "MODEL_AXIS_ITEM",
            "resolve_spec", "install", "uninstall", "current_mesh",
            "use_mesh", "param_pspec", "make_param_shardings", "data_axes",
-           "data_axis_size", "data_group", "batch_sharding",
+           "data_axis_size", "data_group", "model_size", "model_group",
+           "make_groups", "ModelParallel",
+           "batch_sharding",
            "image_sharding", "replicated", "phase_sharding", "pad_batch",
            "shard_conv2d"]

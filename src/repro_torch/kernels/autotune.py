@@ -50,6 +50,11 @@ batch, which the table may give another plan.  Inside
 the launch of the whole batch, so the share's rows carry the bits the
 whole batch's launch gives them (the data axis runs its shares there).
 
+A row band of an image (the model axis: each rank convolves its rows
+and their halos) is another launch shape too, with other pads.  Inside
+:func:`whole_image_plans` a band's launch looks its plan up as the launch
+over the whole image, so a band's rows carry the whole image's bits.
+
 A launch's lookup is paid in full once per geometry and process: the
 string key is built from the launch's raw arguments the first time, and
 later launches of the same arguments read the plan from a dict keyed by
@@ -96,6 +101,9 @@ _FAST: dict[tuple, kconv.ConvPlan] = {}
 #: (share rows, whole rows) of the enclosing whole_batch_plans, innermost
 #: last
 _WHOLE: list[tuple[int, int]] = []
+#: (kind, band launch's x shape past the batch and padding, the whole
+#: image's) of the :func:`whole_image_plans` in force, innermost last
+_BANDS: list[tuple] = []
 
 
 def autotune_enabled() -> bool:
@@ -355,6 +363,25 @@ def whole_batch_plans(share: int, whole: int):
         _WHOLE.pop()
 
 
+@contextlib.contextmanager
+def whole_image_plans(kind: str, band_shape: tuple, band_padding,
+                      whole_shape: tuple, whole_padding):
+    """Inside, a ``kind`` launch on a row band of an image (x of
+    ``band_shape`` past its batch, at ``band_padding``: the pads of
+    :func:`kernels.conv2d.launch_plan` or the ``p_lo`` of
+    :func:`kernels.transposed_conv.launch_plan`) takes the plan of the
+    same launch over the whole image (``whole_shape``,
+    ``whole_padding``): a rank convolving its band gets the plan, and so
+    the bits, of the unsharded launch.  Nests with
+    :func:`whole_batch_plans` (the batch is mapped first)."""
+    _BANDS.append((kind, tuple(band_shape), _frozen(band_padding),
+                   tuple(whole_shape), _frozen(whole_padding)))
+    try:
+        yield
+    finally:
+        _BANDS.pop()
+
+
 def get_plan(kind: str, x_shape: tuple, w_shape: tuple, *, stride: int = 1,
              dtype=torch.float32, padding=None,
              output_padding: int | None = None, epilogue=None,
@@ -372,6 +399,11 @@ def get_plan(kind: str, x_shape: tuple, w_shape: tuple, *, stride: int = 1,
     """
     if _WHOLE and x_shape[0] == _WHOLE[-1][0]:
         x_shape = (_WHOLE[-1][1], *x_shape[1:])
+    if _BANDS:
+        k, band, pad, whole, whole_pad = _BANDS[-1]
+        if (k == kind and tuple(x_shape[1:]) == band
+                and _frozen(padding) == pad):
+            x_shape, padding = (x_shape[0], *whole), whole_pad
     fast = (kind, x_shape, w_shape, stride, dtype, _frozen(padding),
             output_padding, epilogue, device)
     hit = _FAST.get(fast)
@@ -403,11 +435,12 @@ def get_plan(kind: str, x_shape: tuple, w_shape: tuple, *, stride: int = 1,
 def _frozen(padding):
     """``padding`` as a dict key: explicit pads given as lists become
     tuples."""
-    if isinstance(padding, list):
+    if isinstance(padding, (list, tuple)):
         return tuple(_frozen(p) for p in padding)
     return padding
 
 
 __all__ = ["KINDS", "POLICY_TOP", "DENSE_TILES", "TCONV_TILES", "get_plan",
+           "whole_batch_plans", "whole_image_plans",
            "tune", "make_key", "candidates", "default_plan", "cache_path",
            "clear_memory_cache", "autotune_enabled", "kernel_sources_hash"]

@@ -25,9 +25,22 @@ serve step launches 24 x 7 + 1 matmuls and 24 attentions, prefill or
 decode; a whisper-small encode 12 x 7 and 12, and each of its serve steps
 12 x 11 + 1 and 24 (self and cross attention).  ``backend="torch"`` runs
 ``torch.matmul`` and ``F.scaled_dot_product_attention``, the library
-yardstick.  There is no mesh (ROADMAP.md, multi-device).  Parameters come
-from a seeded ``torch.Generator`` (on the server's device by default,
-seed 0) or from ``params=`` (e.g. the model's ``load_jax_params``).
+yardstick.  Parameters come from a seeded ``torch.Generator`` (on the
+server's device by default, seed 0) or from ``params=`` (e.g. the model's
+``load_jax_params``).
+
+``mesh=`` (a :class:`repro_torch.launch.mesh.LiveMesh` of ``(data,
+model)``, the reference's smoke mesh) serves over ranks, as the
+reference's ``Server`` places its parameters by ``make_param_shardings``:
+each rank keeps only its block of every parameter (FSDP over ``data``,
+heads, FFN and vocab over ``model``:
+:class:`repro_torch.distributed.sharding.ModelParallel`), the batch
+splits over the data axes where it divides, each rank's caches hold its
+rows and its KV heads, and every rank returns the whole batch's tokens.
+Kernels 3 and 4 run on each rank's blocks.  A dense decoder-only config
+(``attn``, ``attn_local`` mixers) takes a model extent above 1; a MoE,
+recurrent or encoder-decoder one raises there.  ``--devices N`` spawns N
+ranks on ``make_smoke_mesh(N)``.
 
 A sliding-window config (Gemma-3-12B) prefills through the token loop, as
 the reference's: its local layers' caches are rings of ``window`` slots
@@ -62,6 +75,13 @@ bf16)::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
       --batch 4 --prompt-len 32 --gen-len 32
 
+Over ranks (gloo; on the CPU, or all sharing one card)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+      --reduced --device cpu --devices 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+      --devices 4 --batch 4 --prompt-len 1024 --gen-len 16
+
 On the CPU (the kernels' plain versions)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
@@ -78,15 +98,17 @@ On the CPU (the kernels' plain versions)::
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.util import resolve_device
 from repro_torch.launch.steps import _model_fns, make_serve_step
-from repro_torch.models import encdec
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import check_backend
 
 
@@ -106,27 +128,47 @@ class Server:
     """Holds params; serves decode batches of the prompts' batch size.
 
     ``device``: ``None`` -> CUDA (raises without a card), ``"cpu"`` on
-    request.  ``generator`` draws the parameters when ``params`` is not
-    given."""
+    request (with a ``mesh``, the mesh's device unless given).
+    ``generator`` draws the parameters when ``params`` is not given.
+    ``mesh``: serve over a live ``(data, model)`` mesh (the module
+    docstring); ``params`` (or the draw) is the whole tree, of which each
+    rank keeps its blocks."""
 
     def __init__(self, cfg, *, max_len: int = 256,
                  slow_prefill: bool = False, device=None,
                  backend: str = "kernels",
                  generator: torch.Generator | None = None,
-                 params: dict | None = None):
+                 params: dict | None = None, mesh=None):
         self.mod = _model_fns(cfg)
         check_backend(backend)
         self.cfg = cfg
         self.backend = backend
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            device if device is not None or mesh is None else mesh.device)
         self.max_len = max_len
         self.slow_prefill = slow_prefill
+        self.tp = None
+        if mesh is not None:
+            if cfg.encoder_layers:
+                raise NotImplementedError(
+                    f"{cfg.name}: an encoder-decoder over a mesh: "
+                    f"{shd.MODEL_AXIS_ITEM}")
+            like = transformer.flatten_params(
+                transformer.init_params(None, cfg, device="meta"))
+            self.tp = shd.ModelParallel(mesh, cfg, {
+                k: tuple(v.shape) for k, v in like.items()})
         if params is None:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
             params = self.mod.init_params(generator, cfg, self.device)
+        if self.tp is not None:
+            flat = self.tp.place(transformer.flatten_params(params))
+            del params
+            params = transformer.unflatten_params(
+                flat, transformer.init_params(None, cfg, device="meta"))
         self.params = params
-        self.serve_step = make_serve_step(cfg, backend)
+        self.serve_step = make_serve_step(cfg, backend, tp=self.tp)
 
     def parallel_prefill_ok(self) -> bool:
         """See the module-level :func:`parallel_prefill_ok`."""
@@ -186,8 +228,15 @@ class Server:
                 f"{self.cfg.name}: parallel prefill unsupported "
                 "(recurrent mixers / sliding window / encoder-decoder); "
                 "use slow=True")
-        caches = self.mod.init_caches(self.cfg, b, self.max_len,
-                                      self.device)
+        if self.tp is not None:
+            rows = self.tp.batch_rows(b)
+            tokens = tokens[rows]
+            caches = transformer.init_caches(
+                self.cfg, tokens.shape[0], self.max_len, self.device,
+                kv_heads=self.tp.kv_heads())
+        else:
+            caches = self.mod.init_caches(self.cfg, b, self.max_len,
+                                          self.device)
         if not slow:
             tok, caches = self.serve_step(
                 self.params, caches,
@@ -203,7 +252,8 @@ class Server:
     @torch.no_grad()
     def generate(self, tokens, gen_len: int, *, frames=None) -> np.ndarray:
         """Prefill, then greedy decode: (B, gen_len) int32 token ids.  An
-        encoder-decoder needs the prompts' ``frames`` (B, T, D)."""
+        encoder-decoder needs the prompts' ``frames`` (B, T, D).  Over a
+        mesh every rank returns the whole batch's tokens."""
         extra = self._extra(frames, None)
         tok, caches, pos = self.prefill(tokens, **extra)
         out = [tok]
@@ -211,10 +261,24 @@ class Server:
             tok, caches = self.serve_step(
                 self.params, caches, {"token": tok, "cache_pos": t, **extra})
             out.append(tok)
-        return torch.cat(out, dim=1).cpu().numpy()
+        out = torch.cat(out, dim=1)
+        if self.tp is not None:
+            out = self.tp.gather_batch(out, np.shape(tokens)[0])
+        return out.cpu().numpy()
+
+    def param_bytes(self) -> tuple[int, int]:
+        """(bytes of the parameters this rank holds, bytes of the whole
+        tree)."""
+        flat = transformer.flatten_params(self.params)
+        held = sum(t.numel() * t.element_size() for t in flat.values())
+        if self.tp is None:
+            return held, held
+        like = transformer.flatten_params(transformer.init_params(
+            None, self.cfg, device="meta"))
+        return held, sum(t.numel() * t.element_size() for t in like.values())
 
 
-def main(argv=None) -> None:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -230,12 +294,40 @@ def main(argv=None) -> None:
                     choices=("kernels", "torch"))
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and the prompts")
-    args = ap.parse_args(argv)
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks to spawn (gloo; all on --device's card or "
+                         "on the CPU): the server spans a (data, model) "
+                         "mesh of them, each rank holding its parameter "
+                         "blocks")
+    return ap
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    if args.devices > 1:
+        from repro_torch.launch.mesh import launch
+        launch(_serve_rank, args.devices, device=args.device, args=(argv,))
+        return
+    _serve(args)
+
+
+def _serve_rank(device, argv) -> None:
+    """One rank of ``--devices N``: the server over a (data, model) mesh of
+    the ranks, reported by rank 0."""
+    from repro_torch.launch.mesh import live_mesh, make_smoke_mesh
+
+    mesh = live_mesh(make_smoke_mesh(), device)
+    shd.make_groups(mesh)
+    _serve(_parser().parse_args(argv), mesh)
+
+
+def _serve(args, mesh=None) -> None:
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if mesh is None else mesh.device)
     server = Server(cfg, max_len=args.prompt_len + args.gen_len + 1,
                     slow_prefill=args.slow_prefill, device=device,
-                    backend=args.backend,
+                    backend=args.backend, mesh=mesh,
                     generator=torch.Generator(device).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
@@ -246,9 +338,15 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     out = server.generate(prompts, args.gen_len, frames=frames)
     dt = time.perf_counter() - t0
-    print(f"[serve] {cfg.name} on {device} ({args.backend}): generated "
-          f"{out.shape} tokens in {dt:.2f}s ({out.size / dt:.1f} tok/s incl. "
-          f"prefill)")
+    if mesh is not None and mesh.rank:
+        return
+    where = "" if mesh is None else (
+        f", mesh {tuple(mesh.shape.values())} (data, model), "
+        f"{server.param_bytes()[0] / 2 ** 20:.1f} of "
+        f"{server.param_bytes()[1] / 2 ** 20:.1f} MiB of parameters a rank")
+    print(f"[serve] {cfg.name} on {device} ({args.backend}{where}): "
+          f"generated {out.shape} tokens in {dt:.2f}s "
+          f"({out.size / dt:.1f} tok/s incl. prefill)")
     print(out[:, :8])
 
 

@@ -69,8 +69,19 @@ Where the port differs from the reference:
   Decisions read off a
   clock (calibrated shedding, the watchdog) are the mesh's rank 0's,
   broadcast, so the ranks never part; rank 0 alone writes a snapshot.
-  ``spatial=True`` (image rows over the model axis, halos exchanged by
-  hand) is a later item of ROADMAP.md and raises.
+* ``spatial=True`` also splits the diffusion lane's image rows over the
+  mesh's model axis (the reference's ``image_sharding(spatial=True)``):
+  each rank's step runs the denoiser on its band of its slots' rows,
+  exchanging the halo rows each conv reads with the bands beside it
+  (``decompose.conv2d(rows=)``), and the bands are gathered, so every rank
+  still holds the whole lane state and a snapshot is the same on any
+  mesh.  The rows split where the image's rows divide by the model extent
+  and a band holds whole rows of the 8x8 mid-block (every pool factor
+  divides it); otherwise they stay whole on every rank, as the
+  reference's divisibility guard resolves.  A band's launches take the
+  whole image's plans (``autotune.whole_image_plans``), so a spatial drain
+  is bitwise the unmeshed one.  As in the reference, the DCGAN lanes take
+  no ``spatial``: their rows stay whole.
 
 CPU-scale usage (the CLI runs on CUDA unless ``--device cpu``):
 
@@ -79,11 +90,14 @@ CPU-scale usage (the CLI runs on CUDA unless ``--device cpu``):
       --steps 8,5,3 --batch 4 --scan-steps 4 --slo realtime
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --smoke \\
       --device cpu --devices 4      # 4 gloo ranks, a (2, 2) mesh
+  PYTHONPATH=src python -m repro_torch.launch.serve_gen --smoke \
+      --device cpu --devices 4 --spatial   # rows over the model axis too
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import math
 import sys
 import time
@@ -100,7 +114,8 @@ from repro_torch.core.cycle_model import np_percentile
 from repro_torch.core.decompose import BACKENDS
 from repro_torch.core.gen_spec import GEN_WORKLOADS, UNET_WIDTHS
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.collectives import all_gather_cat
+from repro_torch.distributed.collectives import (all_gather_cat,
+                                                 gather_bands)
 from repro_torch.distributed.fault_tolerance import (FailureInjector,
                                                      InjectedFault,
                                                      StragglerWatchdog)
@@ -114,6 +129,8 @@ from repro_torch.models.dcgan import DCGAN
 
 #: the rung a failing lane degrades to
 FALLBACK_BACKEND = "torch"
+
+_LOG = logging.getLogger(__name__)
 
 
 def init_noise(seed: int, shape: tuple[int, ...]) -> torch.Tensor:
@@ -243,23 +260,38 @@ class _Lane:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    #: the model-axis group a lane's image rows split over (``None``:
+    #: whole rows)
+    row_group = None
+
     def _spread(self, fn, *rows: torch.Tensor) -> torch.Tensor:
         """``fn(*rows)`` over every slot: on a mesh whose data extent
         divides the batch, each rank runs its share of the slots and the
         shares are gathered in slot order; otherwise ``fn`` runs them all
         (the reference's divisibility guard resolves to replicated).  A
         share's kernel launches take the whole batch's plans
-        (:func:`repro_torch.kernels.autotune.whole_batch_plans`)."""
+        (:func:`repro_torch.kernels.autotune.whole_batch_plans`).  With
+        :attr:`row_group`, ``fn`` takes this rank's band of the first tensor's
+        (the image's) rows and returns its band, and the bands are
+        gathered in rank order."""
         if self.mesh is None:
             return fn(*rows)
         sh = shd.image_sharding(self.mesh, tuple(rows[0].shape))
-        if sh.spec[0] is None:
+        split = sh.spec[0] is not None
+        if not split and self.row_group is None:
             return fn(*rows)
-        shares = [sh.shard(r) for r in rows]
+        shares = [sh.shard(r) for r in rows] if split else list(rows)
+        if self.row_group is not None:
+            shares[0] = shares[0][:, shd.share(shares[0].shape[1],
+                                               self.row_group)]
         with autotune.whole_batch_plans(shares[0].shape[0],
                                         rows[0].shape[0]):
             out = fn(*shares)
-        return all_gather_cat(out, shd.data_group(self.mesh))
+        if self.row_group is not None:
+            out = gather_bands(out, [out.shape[1]] * shd.model_size(
+                self.mesh), self.row_group)
+        return (all_gather_cat(out, shd.data_group(self.mesh)) if split
+                else out)
 
     @property
     def busy(self) -> bool:
@@ -291,10 +323,14 @@ class _DiffusionLane(_Lane):
     def __init__(self, params: dict, *, batch: int, widths: tuple[int, ...],
                  hw: int, out_ch: int, backend: str, decomposed: bool,
                  device: torch.device, scan_steps: int = 1,
-                 compute_dtype: str | None = None, mesh=None):
+                 compute_dtype: str | None = None, mesh=None,
+                 spatial: bool = False):
         self.mesh = mesh
         size = hw * 2 ** len(widths)
         self.image_shape = (size, size, out_ch)
+        if spatial and mesh is not None:
+            self.row_group = spatial_rows(mesh, self.image_shape, hw,
+                                          decomposed)
         self.params = params
         self.scan_steps = scan_steps
         self.backend = backend
@@ -314,7 +350,8 @@ class _DiffusionLane(_Lane):
     def _make_step(self):
         return make_gen_scan_step(self.scan_steps, decomposed=self.decomposed,
                                   backend=self.backend,
-                                  compute_dtype=self.compute_dtype)
+                                  compute_dtype=self.compute_dtype,
+                                  rows=self.row_group)
 
     def set_backend(self, backend: str) -> None:
         """Swap the dispatch backend in place (graceful degradation,
@@ -425,6 +462,23 @@ class _DiffusionLane(_Lane):
                 done.append(req)
                 self.release(i)
         return done
+
+
+def spatial_rows(mesh, image_shape: tuple, hw: int,
+                 decomposed: bool = True):
+    """The model-axis group a diffusion lane's image rows split over:
+    where :func:`~repro_torch.distributed.sharding.image_sharding`'s guard
+    resolves the rows over ``model`` and a band holds whole rows of the
+    ``hw``-row mid-block (the one follows from the other), and the
+    upsamplers are decomposed (the naive zero-laden form runs whole); else
+    ``None`` (whole rows, logged)."""
+    m = shd.model_size(mesh)
+    if m == 1 or hw % m or not decomposed:
+        _LOG.info("GenServer(spatial=True): the %d-row images (mid-block "
+                  "%d) stay whole over a model extent of %d",
+                  image_shape[0], hw, m)
+        return None
+    return shd.model_group(mesh)
 
 
 class _DCGANLane(_Lane):
@@ -548,7 +602,9 @@ class GenServer:
     reference's weights for that seed: the generators differ).  ``mesh``:
     a :class:`~repro_torch.launch.mesh.LiveMesh` the lanes span (the module
     docstring); its device is the server's unless ``device`` is given.
-    ``spatial=True`` raises (the model axis is a later ROADMAP.md item).
+    ``spatial=True`` splits the diffusion lane's image rows over the
+    mesh's model axis too (the DCGAN lanes' rows stay whole, as the
+    reference's); without a mesh it changes nothing.
     The other arguments are the reference's (its class docstring gives
     them); ``interpret`` is not ported.
     """
@@ -579,9 +635,6 @@ class GenServer:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; known: "
                              f"{BACKENDS}")
-        if spatial:
-            raise NotImplementedError(f"GenServer(spatial=True): "
-                                      f"{shd.MODEL_AXIS_ITEM}")
         self.mesh = mesh
         self.spatial = spatial
         self.device = resolve_device(
@@ -693,7 +746,7 @@ class GenServer:
         if workload == "unet_dec":
             lane = _DiffusionLane(
                 p, widths=self.unet_widths, hw=self.unet_hw,
-                out_ch=self.out_ch,
+                out_ch=self.out_ch, spatial=self.spatial,
                 scan_steps=(scan_steps if scan_steps is not None
                             else self._lane_scan_steps(workload)), **kw)
         else:
@@ -966,7 +1019,7 @@ class GenServer:
                      "min_batch", "max_batch", "shrink_patience",
                      "starvation_ticks", "max_retries", "retry_backoff_s",
                      "stuck_shed_after", "max_requeues", "snapshot_every",
-                     "snapshot_keep", "compute_dtype")
+                     "snapshot_keep", "compute_dtype", "spatial")
 
     def _snapshot_config(self) -> dict:
         cfg = {k: getattr(self, k) for k in self._CONFIG_ATTRS}
@@ -1265,6 +1318,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="ranks to spawn (gloo; all on --device's card or "
                          "on the CPU): the lanes span a (data, model) mesh "
                          "of them (DESIGN.md §13)")
+    ap.add_argument("--spatial", action="store_true",
+                    help="with --devices: the diffusion lane's image rows "
+                         "split over the mesh's model axis, halos "
+                         "exchanged")
     return ap
 
 
@@ -1298,7 +1355,7 @@ def _serve(ns, mesh=None) -> None:
                     snapshot_dir=ns.snapshot_dir,
                     snapshot_every=ns.snapshot_every,
                     compute_dtype=None if ns.dtype == "fp32" else ns.dtype,
-                    mesh=mesh)
+                    mesh=mesh, spatial=ns.spatial)
     if ns.smoke:
         kw.update(unet_widths=(8, 8), unet_hw=4, dcgan_nz=16, dcgan_ngf=4)
     cache = cal.default_cache_path()

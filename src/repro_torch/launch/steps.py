@@ -179,17 +179,24 @@ def make_prefill_step(cfg: ModelConfig, backend: str = "kernels"):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, backend: str = "kernels"):
+def make_serve_step(cfg: ModelConfig, backend: str = "kernels", tp=None):
     """One cached step: ``serve_step(params, caches, batch) -> (next_token
     (B, 1) int32, caches)`` for ``batch = {"token": (B, S), "cache_pos":
     host int}``, and for an encoder-decoder ``"enc_out"`` (B, T, D), the
     encoder output its cross attention reads.  The next token is the
     greedy ``argmax`` of the last position's logits, the first index on
-    ties as JAX's ``argmax``."""
+    ties as JAX's ``argmax``.  ``tp``: the step of one rank of a
+    :class:`~repro_torch.distributed.sharding.ModelParallel` layout, on
+    its parameter blocks and caches; the head runs on the last position
+    only and its vocab blocks are gathered before the argmax."""
     _model_fns(cfg)
 
     def serve_step(params, caches, batch):
-        if cfg.encoder_layers:
+        if tp is not None:
+            logits, caches = transformer.decode_step(
+                params, batch["token"], caches, batch["cache_pos"], cfg,
+                backend=backend, tp=tp, last=True)
+        elif cfg.encoder_layers:
             logits, caches = encdec.decode_step(
                 params, batch["token"], batch["enc_out"], caches,
                 batch["cache_pos"], cfg, backend=backend)
@@ -223,7 +230,7 @@ def ddim_timesteps(steps: int, t_max: int = DDIM_T_MAX) -> np.ndarray:
 
 
 def make_gen_step(*, t_max: int = DDIM_T_MAX, decomposed: bool = True,
-                  backend: str = "kernels", compute_dtype=None):
+                  backend: str = "kernels", compute_dtype=None, rows=None):
     """One deterministic (eta=0) DDIM step over the U-Net denoiser.
 
     Returns ``gen_step(params, x, batch) -> x'``: ``x`` is the noisy image
@@ -242,7 +249,11 @@ def make_gen_step(*, t_max: int = DDIM_T_MAX, decomposed: bool = True,
     update ``x' = sqrt(ab') * x0_pred + sqrt(1 - ab') * eps``.
     ``compute_dtype`` (e.g. ``"bf16"``) runs the denoiser in that dtype; the
     update is evaluated in fp32 (the schedule spans ~1e-4 .. 1) and cast
-    back to ``x.dtype``, so a bf16 lane stays bf16.  Must run under
+    back to ``x.dtype``, so a bf16 lane stays bf16.  ``rows`` (the model
+    axis of the image, a ``torch.distributed`` group): ``x`` is this
+    rank's band of the rows (B, S / ranks, S, C), the denoiser runs on it
+    (:func:`repro_torch.models.unet_decoder.denoise`) and the update is
+    per element, so the step returns this rank's band.  Must run under
     ``torch.no_grad()`` on CUDA tensors (the kernels are forward only
     there).
     """
@@ -260,7 +271,7 @@ def make_gen_step(*, t_max: int = DDIM_T_MAX, decomposed: bool = True,
         eps = unet_decoder.denoise(params, x, t, decomposed=decomposed,
                                    backend=backend,
                                    compute_dtype=compute_dtype,
-                                   cond=batch.get("cond"))
+                                   cond=batch.get("cond"), rows=rows)
         ab_t = ab[t][:, None, None, None]
         ab_n = torch.where(t_next >= 0, ab[t_next.clamp(min=0)],
                            1.0)[:, None, None, None]
@@ -275,7 +286,7 @@ def make_gen_step(*, t_max: int = DDIM_T_MAX, decomposed: bool = True,
 
 def make_gen_scan_step(scan_steps: int, *, t_max: int = DDIM_T_MAX,
                        decomposed: bool = True, backend: str = "kernels",
-                       compute_dtype=None):
+                       compute_dtype=None, rows=None):
     """``scan_steps`` DDIM steps per dispatch.
 
     Returns ``gen_scan_step(params, x, batch) -> x'`` where ``batch`` holds
@@ -293,7 +304,7 @@ def make_gen_scan_step(scan_steps: int, *, t_max: int = DDIM_T_MAX,
     if scan_steps < 1:
         raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
     step = make_gen_step(t_max=t_max, decomposed=decomposed, backend=backend,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, rows=rows)
 
     def gen_scan_step(params, x, batch):
         for j in range(scan_steps):

@@ -98,13 +98,16 @@ def attn_init(generator, cfg: ModelConfig, dtype=torch.bfloat16,
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
-                  dtype=torch.bfloat16, device=None) -> dict:
+                  dtype=torch.bfloat16, device=None,
+                  kv_heads: int | None = None) -> dict:
     """Zero k and v of (batch, slots, kv_heads, head_dim): ``max_len``
-    slots, or a sliding-window layer's ring of ``min(max_len, window)``."""
+    slots, or a sliding-window layer's ring of ``min(max_len, window)``.
+    ``kv_heads``: a tensor-parallel rank's own heads (default all)."""
     _check_kind(kind)
     window = _window(cfg, kind)
     size = min(max_len, window) if window else max_len
-    shape = (batch, size, cfg.kv_heads, cfg.head_dim)
+    kvh = cfg.kv_heads if kv_heads is None else kv_heads
+    shape = (batch, size, kvh, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -181,7 +184,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
               kind: str = "attn", positions: torch.Tensor | None = None,
               kv_cache: dict | None = None, cache_pos: int | None = None,
               causal: bool = True, backend: str = "kernels",
-              xa: torch.Tensor | None = None
+              xa: torch.Tensor | None = None, reduce=None
               ) -> tuple[torch.Tensor, dict | None]:
     """Returns (output, kv_cache written in place or None).  x: (B, S, D).
 
@@ -190,10 +193,17 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     the chunk's own positions (increasing, as the reference's forward
     passes them), which is the kernel's top-left mask.  With ``xa`` (B,
     Sk, D), cross attention: k and v from ``xa``, no RoPE, no cache, no
-    mask."""
+    mask.
+
+    The head counts are read off the projections (``wq``'s and ``wk``'s
+    columns over ``head_dim``): a tensor-parallel rank holds the column
+    blocks of its q heads and of their KV heads (contiguous GQA groups),
+    so the KV repeat acts on its local heads, and ``reduce`` sums ``wo``'s
+    partial products (its row block) over the ranks."""
     _check_kind(kind)
     b, s, _ = x.shape
-    nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    nh, kvh = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     groups = nh // kvh
     window = _window(cfg, kind)
     start = 0 if cache_pos is None else int(cache_pos)
@@ -242,4 +252,5 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     out = _attend(qf, kf, vf, causal=causal, offset=offset, backend=backend,
                   window=window if causal else 0)
     out = out.transpose(1, 2).reshape(b, s, nh * hd)
-    return linear(out, p["wo"], backend), new_cache
+    out = linear(out, p["wo"], backend)
+    return (out if reduce is None else reduce(out)), new_cache

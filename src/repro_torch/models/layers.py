@@ -20,8 +20,11 @@ to kernel 3's batched form (``kernels.matmul.matmul_batched``, one launch
 for all experts; ``torch.bmm`` under ``"torch"``) in
 :mod:`repro_torch.models.moe`, under autograd through
 ``kernels.matmul.BatchedMatmulFn``.  The
-reference's sharding hook ``lc`` has no counterpart: the port has no mesh
-(ROADMAP.md, multi-device).
+reference's sharding hook ``lc`` has no counterpart: the port places
+nothing by constraint.  Over the model axis (tensor parallelism,
+:class:`repro_torch.distributed.sharding.ModelParallel`) a row-split
+product's partial sums are reduced by the caller's ``reduce`` (:func:`mlp`
+takes one).
 
 The two cross-entropy functions of training close the module:
 :func:`softmax_cross_entropy` on full logits and :func:`chunked_softmax_ce`,
@@ -144,11 +147,16 @@ def mlp_init(generator, d: int, d_ff: int, dtype=torch.bfloat16,
     }
 
 
-def mlp(p: dict, x: torch.Tensor, backend: str = "kernels") -> torch.Tensor:
-    """SwiGLU feed-forward: ``silu(x @ w_gate) * (x @ w_up) @ w_down``."""
+def mlp(p: dict, x: torch.Tensor, backend: str = "kernels",
+        reduce=None) -> torch.Tensor:
+    """SwiGLU feed-forward: ``silu(x @ w_gate) * (x @ w_up) @ w_down``.
+    ``reduce`` sums ``w_down``'s partial products where this rank holds a
+    column block of ``w_gate``/``w_up`` and the row block of ``w_down``
+    (tensor parallelism)."""
     h = F.silu(linear(x, p["w_gate"], backend)) * linear(x, p["w_up"],
                                                          backend)
-    return linear(h, p["w_down"], backend)
+    out = linear(h, p["w_down"], backend)
+    return out if reduce is None else reduce(out)
 
 
 # -------------------------------------------------------- cross entropy ---

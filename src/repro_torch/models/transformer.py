@@ -47,6 +47,14 @@ state takes one token a step.  Encoder-decoder configs are
 :func:`init_params` allocates each stack once and draws the layers into
 its slices in turn (:func:`init_stacked`): a 30.5 B-parameter MoE model
 never holds a second copy of its blocks while it stacks them.
+
+:func:`decode_step` takes ``tp=``, a
+:class:`repro_torch.distributed.sharding.ModelParallel`: the parameters
+are then this rank's blocks, each layer's FSDP blocks are gathered before
+it runs, attention runs on this rank's heads (its cache holds their KV
+heads, :func:`init_caches`'s ``kv_heads``), the row-split products'
+partials are summed over the model axis, and the vocab-split embedding
+and head are reduced and gathered (the layout's docstring).
 """
 
 from __future__ import annotations
@@ -317,13 +325,16 @@ def unflatten_params(flat: dict, like, prefix: str = ""):
 
 def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 ffn_kind: str, positions, cache=None, cache_pos=None,
-                backend: str = "kernels"):
-    """One (mixer + FFN) layer.  Returns (y, cache written in place)."""
+                backend: str = "kernels", reduce=(None, None)):
+    """One (mixer + FFN) layer.  Returns (y, cache written in place).
+    ``reduce``: the attention's and the dense FFN's sums of partial
+    products over the model axis (tensor parallelism), or ``None``."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind in ("attn", "attn_local"):
         mixed, new_cache = attn_mod.attention(
             p["mixer"], h, cfg, kind=kind, positions=positions,
-            kv_cache=cache, cache_pos=cache_pos, backend=backend)
+            kv_cache=cache, cache_pos=cache_pos, backend=backend,
+            reduce=reduce[0])
     else:
         block = {"mamba": mamba_mod.mamba_block,
                  "mlstm": xlstm_mod.mlstm_block,
@@ -335,15 +346,21 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         x = x + moe_mod.moe_ffn(p["ffn"], rmsnorm(p["norm2"], x,
                                                   cfg.norm_eps), cfg, backend)
     elif ffn_kind == "dense":
-        x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps), backend)
+        x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps), backend,
+                    reduce=reduce[1])
     return x, new_cache
 
 
-def lm_head(params: dict, cfg: ModelConfig) -> torch.Tensor:
+def lm_head(params: dict, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """The head (D, V): ``lm_head``, or the tied ``embed.T``; with ``tp``,
+    this rank's vocab columns with their FSDP blocks gathered."""
     head = params.get("lm_head")
     if head is None:
-        head = params["embed"].T.to(canon_dtype(cfg.dtype))
-    return head
+        embed = params["embed"]
+        if tp is not None:
+            embed = tp.leaf("embed", embed)
+        return embed.T.to(canon_dtype(cfg.dtype))
+    return head if tp is None else tp.leaf("lm_head", head)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -394,38 +411,61 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device=None) -> list:
+                device=None, kv_heads: int | None = None) -> list:
     """Per-pattern-position stacked caches with a leading (repeat,) axis on
     ``device`` (``None`` -> CUDA), each position's sized by its kind: a
     global layer's KV cache of ``max_len`` slots, a sliding-window layer's
     ring of ``min(max_len, cfg.window)``, both zeros in ``cfg.dtype``; a
     recurrent mixer's state in the dtypes the reference gives it (Mamba's
     conv window in ``cfg.dtype``, the rest fp32; the running maxima
-    ``m`` at -1e30 where the reference starts them)."""
+    ``m`` at -1e30 where the reference starts them).  ``kv_heads``: an
+    attention cache's heads on a tensor-parallel rank (default all)."""
     check_supported(cfg)
     dtype, dev = canon_dtype(cfg.dtype), resolve_device(device)
     caches = []
     for kind in cfg.block_pattern:
-        one = _layer_cache(cfg, kind, batch, max_len, dtype, dev)
+        if kv_heads is not None and kind in ("attn", "attn_local"):
+            one = attn_mod.init_kv_cache(cfg, batch, max_len, kind, dtype,
+                                         dev, kv_heads=kv_heads)
+        else:
+            one = _layer_cache(cfg, kind, batch, max_len, dtype, dev)
         caches.append({k: a[None].repeat((cfg.repeat,) + (1,) * a.dim())
                        for k, a in one.items()})
     return caches
 
 
 def decode_step(params: dict, token: torch.Tensor, caches: list,
-                cache_pos: int, cfg: ModelConfig, backend: str = "kernels"
+                cache_pos: int, cfg: ModelConfig, backend: str = "kernels",
+                tp=None, last: bool = False, record: list | None = None
                 ) -> tuple[torch.Tensor, list]:
     """One cached step.  token (B, S) at positions ``cache_pos ..
     cache_pos + S - 1`` -> (logits (B, S, V), caches).  S = 1 decodes;
     S > 1 at ``cache_pos = 0`` is the parallel prefill of a config whose
     mixers are all global attention (a recurrent mixer takes one token a
     step, as ``launch.serve.parallel_prefill_ok`` says).  The caches are
-    written in place and returned."""
+    written in place and returned.  ``tp``: this rank's blocks over a
+    :class:`~repro_torch.distributed.sharding.ModelParallel` layout (the
+    module docstring).  ``last``: the logits of the last position only
+    (B, 1, V).  ``record`` receives each layer's output."""
     check_supported(cfg)
-    x = params["embed"][token].to(canon_dtype(cfg.dtype))
+    embed = params["embed"]
+    if tp is None:
+        x = embed[token]
+    else:
+        x = tp.embed(tp.leaf("embed", embed), token)
+    x = x.to(canon_dtype(cfg.dtype))
     for pi, r, kind, fk, p in layer_params(params, cfg):
         cache = {k: c[r] for k, c in caches[pi].items()}
+        kw = {}
+        if tp is not None:
+            p = tp.layer(pi, p)
+            kw["reduce"] = (tp.attn_reduce(pi), tp.ffn_reduce(pi))
         x, _ = apply_layer(p, x, cfg, kind, fk, None, cache=cache,
-                           cache_pos=cache_pos, backend=backend)
+                           cache_pos=cache_pos, backend=backend, **kw)
+        if record is not None:
+            record.append(x)
+    if last:
+        x = x[:, -1:]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return linear(x, lm_head(params, cfg), backend), caches
+    logits = linear(x, lm_head(params, cfg, tp), backend)
+    return (logits if tp is None else tp.logits(logits)), caches

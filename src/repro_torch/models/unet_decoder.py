@@ -15,6 +15,15 @@ with the reference's keys (``l0_conv1``, ``l0_gn1.g``, ``dec.head``, ...).
 from an explicit ``torch.Generator`` and move them to ``device`` (``None``
 -> CUDA).  ``compute_dtype="bf16"`` runs activations in bf16 off fp32
 masters (DESIGN.md §12).
+
+``rows=`` (a ``torch.distributed`` group, the model axis of the image:
+``GenServer(spatial=True)``) runs :func:`forward` and :func:`denoise` on
+this rank's band of rows: every conv through
+``decompose.conv2d(rows=)``, which exchanges the halo rows its band reads
+(the 3x3 convs 1 row a side, the 1x1 stem and encoders none, the k = 4
+upsamplers 1); the average pools, the skip concatenations, the folded-GN
+epilogues and the conditioning add are per row or band-local (a band is
+a multiple of every pool factor).
 """
 
 from __future__ import annotations
@@ -69,8 +78,9 @@ def init_params(generator: torch.Generator,
 
 def forward(params: dict, x: torch.Tensor, skips: tuple[torch.Tensor, ...],
             decomposed: bool = True, backend: str = "kernels",
-            compute_dtype=None) -> torch.Tensor:
-    """x: (N, H, W, widths[0]) mid features; skips[i] at level i's extent.
+            compute_dtype=None, rows=None) -> torch.Tensor:
+    """x: (N, H, W, widths[0]) mid features; skips[i] at level i's extent
+    (with ``rows``, this rank's bands of them).
 
     Per level: skip-concat -> 3x3 conv (folded GN + PReLU) -> 3x3 conv
     (same) -> even-k stride-2 transposed upsample (PReLU); then the 3x3
@@ -92,12 +102,14 @@ def forward(params: dict, x: torch.Tensor, skips: tuple[torch.Tensor, ...],
             sc, sh = fold_gn(params[f"l{i}_gn{j}"])
             h = conv2d(h, params[f"l{i}_conv{j}"], backend=backend,
                        epilogue=_EP_GN_ACT, scale=sc, shift=sh,
-                       alpha=params[f"l{i}_a{j}"], compute_dtype=cd)
+                       alpha=params[f"l{i}_a{j}"], compute_dtype=cd,
+                       rows=rows)
         h = conv2d(h, params[f"l{i}_up"], stride=2, transposed=True,
                    padding=k // 2, output_padding=0, decomposed=decomposed,
                    backend=backend, epilogue=_EP_ACT,
-                   alpha=params[f"l{i}_aup"], compute_dtype=cd)
-    return conv2d(h, params["head"], backend=backend, compute_dtype=cd)
+                   alpha=params[f"l{i}_aup"], compute_dtype=cd, rows=rows)
+    return conv2d(h, params["head"], backend=backend, compute_dtype=cd,
+                  rows=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -105,12 +117,22 @@ def forward(params: dict, x: torch.Tensor, skips: tuple[torch.Tensor, ...],
 # ---------------------------------------------------------------------------
 
 def _avg_pool(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Exact average pooling by an integer factor (NHWC)."""
+    """Exact average pooling by an integer factor (NHWC), in fp32 and
+    returned in ``x``'s dtype.  A window is summed by elementwise adds in
+    one fixed order (its columns, then its rows), so an output's bits do
+    not depend on how many outputs there are: a reduction kernel may split
+    its sums by the output count, and a band of rows is fewer outputs."""
     if factor == 1:
         return x
     n, h, w, c = x.shape
-    return x.reshape(n, h // factor, factor, w // factor, factor,
-                     c).mean(dim=(2, 4))
+    y = x.float().reshape(n, h // factor, factor, w // factor, factor, c)
+    cols = y[..., 0, :]
+    for j in range(1, factor):
+        cols = cols + y[..., j, :]
+    out = cols[:, :, 0]
+    for i in range(1, factor):
+        out = out + cols[:, :, i]
+    return (out / (factor * factor)).to(x.dtype)
 
 
 def init_denoiser_params(generator: torch.Generator,
@@ -145,30 +167,32 @@ def timestep_cond(params: dict, t: torch.Tensor,
 
 def denoise(params: dict, x_t: torch.Tensor, t: torch.Tensor,
             decomposed: bool = True, backend: str = "kernels",
-            compute_dtype=None, cond: torch.Tensor | None = None
-            ) -> torch.Tensor:
+            compute_dtype=None, cond: torch.Tensor | None = None,
+            rows=None) -> torch.Tensor:
     """Predict the noise in ``x_t`` (N, S, S, C) at timesteps ``t`` (N,).
 
     ``S`` is ``hw * 2**levels`` for the decoder's mid extent ``hw``.
     ``cond``: :func:`timestep_cond` of ``t`` when the caller computed it.
+    ``rows``: ``x_t`` is this rank's band of the image's rows, and so is
+    the result (the module docstring).
     Returns (N, S, S, C), in ``compute_dtype`` when it is given.
     """
     levels = sum(1 for k in params if k.startswith("enc"))
-    s = x_t.shape[1]
+    s = x_t.shape[2]
     hw = s >> levels
     cd = canon_dtype(compute_dtype)
     if cd is not None:
         x_t = x_t.to(cd)
     if cond is None:
         cond = timestep_cond(params, t, x_t.dtype)
-    kw = dict(backend=backend, compute_dtype=cd)
+    kw = dict(backend=backend, compute_dtype=cd, rows=rows)
     mid = conv2d(_avg_pool(x_t, s // hw), params["stem"], **kw)
     mid = mid + cond[:, None, None, :]
     skips = tuple(
         conv2d(_avg_pool(x_t, s // (hw * 2 ** i)), params[f"enc{i}"], **kw)
         for i in range(levels))
     return forward(params["dec"], mid, skips, decomposed=decomposed,
-                   backend=backend, compute_dtype=cd)
+                   backend=backend, compute_dtype=cd, rows=rows)
 
 
 __all__ = ["UNET_UP_KERNELS", "UNET_WIDTHS", "DENOISE_EMB_DIM",

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import matmul as kmm
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -229,6 +230,12 @@ def test_phase_33_rehearses_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(ktr, "_tconv_raw", lambda *a: ktr.tconv_cuda(*a))
     monkeypatch.setattr(ud, "init_denoiser_params", functools.partial(
         ud.init_denoiser_params, widths=(8, 8)))
+    # phase 34's replays of kernels 3 and 4 run their plain versions too
+    monkeypatch.setattr(kmm, "matmul_cuda",
+                        _counted(kmm.matmul_plain, kmm.matmul))
+    monkeypatch.setattr(kfa, "flash_attention_cuda", _counted(
+        lambda q, k, v, causal, window=0: kfa.attention_plain(
+            q, k, v, causal=causal, window=window), kfa.flash_attention))
     for name, value in (
             ("HW", 16), ("DA_TRAIN_BATCH", 4), ("DA_SHARDS", 4),
             ("DCGAN_NZ", 16), ("DCGAN_NGF", 4), ("DA_HB_TIMEOUT", 0.3),
@@ -241,18 +248,39 @@ def test_phase_33_rehearses_on_the_cpu(monkeypatch, tmp_path):
                     {"dilation": d}) for d in (2, 4)]
                 + [("transposed", (5, 6, 6, 4), (3, 3, 4, 3),
                     {"transposed": True, "stride": 2,
-                     "output_padding": 1})]))):
+                     "output_padding": 1})])),
+            # phase 34, in the same spawn, at small shapes
+            ("MA_CASES", (
+                [("3x3", (2, 16, 12, 4), (3, 3, 4, 4), {"spatial": True})]
+                + [(f"dilated d={d}", (2, 16, 12, 4), (3, 3, 4, 4),
+                    {"dilation": d, "spatial": True}) for d in (2, 4)]
+                + [("transposed", (2, 8, 6, 4), (3, 3, 4, 3),
+                    {"transposed": True, "stride": 2, "output_padding": 1,
+                     "spatial": True})])),
+            ("MA_SERVE_KW", {"batch": 4, "scan_steps": 2, "spatial": True,
+                             "unet_widths": (8, 8), "unet_hw": 4,
+                             "dcgan_nz": 16, "dcgan_ngf": 4}),
+            ("MA_LM_REDUCED", True), ("MA_LM_PROMPT", 8),
+            ("MA_LM_DECODE", 2)):
         monkeypatch.setattr(chip_smoke, name, value)
     smoke = chip_smoke.Smoke(torch)
     smoke.dev = torch.device("cpu")
     missed = []
     monkeypatch.setattr(smoke, "gate33",
                         lambda ok, what: ok or missed.append(what))
+    monkeypatch.setattr(smoke, "gate34",
+                        lambda ok, what: ok or missed.append(what))
     monkeypatch.setattr(smoke, "device_ms", lambda fn, reps=10, rounds=3: 1.0)
+    smoke.report["phase_seconds"] = {}
     entries = smoke.run_data_axis()
-    assert missed and all("launches" in m for m in missed), missed
+    assert missed and all("launches" in m or "never launched" in m
+                          for m in missed), missed
     assert {e["name"] for e in entries} == {
-        "conv2d (phase 33)", "transposed_conv2d (phase 33)"}
+        "conv2d (phase 33)", "transposed_conv2d (phase 33)",
+        "conv2d (phase 34, every rank's row band)",
+        "transposed_conv2d (phase 34, every rank's row band)",
+        "matmul (phase 34c, every rank's heads)",
+        "flash_attention (phase 34c, every rank's heads)"}
     for e in entries:
         assert set(e) == _ENTRY_KEYS
     rep = smoke.report["data_axis"]
@@ -261,3 +289,6 @@ def test_phase_33_rehearses_on_the_cpu(monkeypatch, tmp_path):
     assert rep["serve"]["images"] == len(chip_smoke.DA_SERVE_STEPS) + \
         chip_smoke.DA_GAN_REQUESTS
     assert "run_data_axis" in inspect.getsource(chip_smoke.Smoke.run)
+    ma = smoke.report["model_axis"]
+    assert set(ma["lm"]) == {str(m) for m in chip_smoke.MA_MESHES}
+    assert ma["serve"]["images"] == len(chip_smoke.MA_SERVE_STEPS) + 1

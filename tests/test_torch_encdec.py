@@ -181,6 +181,26 @@ def test_cross_attention_init_has_no_qk_norm():
 
 # ---------------------------------------------------------------- model ---
 
+_REF: dict = {}
+
+
+def _reference_run(dtype, fr, toks):
+    """The reference's encoder output, teacher-forced logits and five
+    decode steps (logits and caches), run once per dtype: both backends'
+    cases hold the port to the same run."""
+    if dtype not in _REF:
+        _, jcfg, jp, _ = _both_params(dtype)
+        jenc = jed.encode(jp, jnp.asarray(fr), jcfg)
+        fwd = jed.forward(jp, jnp.asarray(toks), jnp.asarray(fr), jcfg)
+        jc, steps_ = jed.init_caches(jcfg, 2, 12), []
+        for i in range(5):
+            want, jc = jed.decode_step(jp, jnp.asarray(toks[:, i:i + 1]),
+                                       jenc, jc, jnp.int32(i), jcfg)
+            steps_.append((_np(want), {k: _np(jc[k]) for k in ("k", "v")}))
+        _REF[dtype] = (_np(jenc), _np(fwd), steps_)
+    return _REF[dtype]
+
+
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("backend", ["kernels", "torch"])
 def test_encode_forward_and_decode_match_reference(backend, dtype):
@@ -189,22 +209,18 @@ def test_encode_forward_and_decode_match_reference(backend, dtype):
     tcfg, jcfg, jp, tp = _both_params(dtype)
     fr, toks = _frames(tcfg, 2), _tokens(tcfg, 2, 8)
     bar = _VALUE_BAR[dtype]
-    jenc = jed.encode(jp, jnp.asarray(fr), jcfg)
+    jenc, jfwd, jsteps_ = _reference_run(dtype, fr, toks)
     with torch.no_grad():
         tenc = encdec.encode(tp, torch.from_numpy(fr), tcfg, backend)
         assert tenc.dtype == _TDT[dtype]
         _close(tenc, jenc, bar)
         _close(encdec.forward(tp, torch.from_numpy(toks),
                               torch.from_numpy(fr), tcfg, backend),
-               jed.forward(jp, jnp.asarray(toks), jnp.asarray(fr), jcfg),
-               bar, floor=0.0)
-        jc = jed.init_caches(jcfg, 2, 12)
+               jfwd, bar, floor=0.0)
         tc = encdec.init_caches(tcfg, 2, 12, device="cpu")
         assert set(tc) == {"k", "v"} and tc["k"].shape == (
             tcfg.num_layers, 2, 12, tcfg.kv_heads, tcfg.head_dim)
-        for i in range(5):
-            want, jc = jed.decode_step(jp, jnp.asarray(toks[:, i:i + 1]),
-                                       jenc, jc, jnp.int32(i), jcfg)
+        for i, (want, jc) in enumerate(jsteps_):
             got, tc = encdec.decode_step(tp, torch.from_numpy(
                 toks[:, i:i + 1]), tenc, tc, i, tcfg, backend)
             _close(got, want, bar, floor=0.0)

@@ -18,6 +18,7 @@ on values (attention outputs, logits, caches) and 1e-4 on gradients; bf16
 bars.
 """
 
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -83,13 +84,28 @@ def _rel_l2(got, want):
                  / max(np.linalg.norm(want), 1e-30))
 
 
-def _both_params(dtype, seed=0, **kw):
-    tcfg = configs.get_reduced(_ARCH).replace(dtype=_CFG_DTYPE[dtype], **kw)
-    jcfg = jconfigs.get_reduced(_ARCH).replace(dtype=_CFG_DTYPE[dtype], **kw)
+@functools.lru_cache(maxsize=None)
+def _both_params(dtype, seed=0):
+    """The configs and the reference's parameters in both packages, made
+    once per (dtype, seed): no test changes them (the port's steps return
+    new parameters), so each backend's case reads the same ones."""
+    tcfg = configs.get_reduced(_ARCH).replace(dtype=_CFG_DTYPE[dtype])
+    jcfg = jconfigs.get_reduced(_ARCH).replace(dtype=_CFG_DTYPE[dtype])
     jp = jtr.init_params(jax.random.PRNGKey(seed), jcfg)
     tp = transformer.load_jax_params(jax.tree.map(np.asarray, jp), tcfg,
                                      device="cpu")
     return tcfg, jcfg, jp, tp
+
+
+_REF: dict = {}
+
+
+def _reference(key, fn):
+    """The reference's ``fn()``, run once per ``key``: the backends' cases
+    of one test hold the port to the same reference run."""
+    if key not in _REF:
+        _REF[key] = fn()
+    return _REF[key]
 
 
 def _tokens(vocab, shape, seed):
@@ -222,7 +238,8 @@ def test_forward_past_the_window_matches_reference(seq, dtype, backend):
     ``forward``; at S = 1024 the reference takes query chunks of 512."""
     tcfg, jcfg, jp, tp = _both_params(dtype, seed=1)
     toks = _tokens(tcfg.vocab, (2, seq), 5)
-    want = jtr.forward(jp, jnp.asarray(toks), jcfg)
+    want = _reference(("forward", seq, dtype),
+                      lambda: jtr.forward(jp, jnp.asarray(toks), jcfg))
     with torch.no_grad():
         got = transformer.forward(tp, torch.from_numpy(toks), tcfg,
                                   backend=backend)
@@ -240,22 +257,31 @@ def test_token_loop_past_the_wrap_matches_reference(dtype, backend):
     tcfg, jcfg, jp, tp = _both_params(dtype, seed=3)
     n = 48
     toks = _tokens(tcfg.vocab, (2, n), 6)
-    jc = jtr.init_caches(jcfg, 2, n)
     tc = transformer.init_caches(tcfg, 2, n, device="cpu")
     assert tc[0]["k"].shape[2] == tcfg.window
-    jstep = jax.jit(lambda p, t, c, pos: jtr.decode_step(p, t, c, pos, jcfg))
-    logits = []
-    with torch.no_grad():
+
+    def loop():
+        jc = jtr.init_caches(jcfg, 2, n)
+        jstep = jax.jit(lambda p, t, c, pos: jtr.decode_step(p, t, c, pos,
+                                                             jcfg))
+        out = []
         for t in range(n):
             want, jc = jstep(jp, jnp.asarray(toks[:, t:t + 1]), jc,
                              jnp.int32(t))
+            out.append((_np(want), [_np(j) for j in jax.tree.leaves(jc)]))
+        return out
+
+    logits = []
+    with torch.no_grad():
+        for t, (want, jleaves) in enumerate(_reference(("loop", dtype),
+                                                       loop)):
             got, tc = transformer.decode_step(
                 tp, torch.from_numpy(toks[:, t:t + 1]), tc, t, tcfg,
                 backend=backend)
             _close(got, want, _VALUE_BAR[dtype])
             logits.append(got)
             for c, j in zip([c[k] for c in tc for k in ("k", "v")],
-                            jax.tree.leaves(jc)):
+                            jleaves):
                 _close(c, j, _VALUE_BAR[dtype])
         full = transformer.forward(tp, torch.from_numpy(toks), tcfg,
                                    backend=backend)
@@ -404,29 +430,34 @@ def test_train_step_matches_reference(dtype, seq, backend):
     b = _batch(tcfg.vocab, 2, seq, seed=8)
     jb = jax.tree.map(jnp.asarray, b)
     tb = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in b.items()}
-    jloss, jgrads = jax.value_and_grad(_reference_loss(jcfg))(jp, jb)
+
+    def reference():
+        jloss, jgrads = jax.value_and_grad(_reference_loss(jcfg))(jp, jb)
+        jstep = jax.jit(jsteps.make_train_step(
+            jcfg, warmup=2, total_steps=10, microbatches=2))
+        jp1, _, jm = jstep(jp, jadamw_init(jp), jb)
+        return (float(jloss),
+                transformer.flatten_params(jax.tree.map(np.asarray, jgrads)),
+                {k: float(v) for k, v in jm.items()},
+                transformer.flatten_params(jax.tree.map(np.asarray, jp1)))
+
+    jloss, jflat, jm, jflat1 = _reference(("train", dtype, seq), reference)
     loss, grads = steps.make_value_and_grad(tcfg, backend=backend)(tp, tb)
     vbar, gbar = _VALUE_BAR[dtype], _GRAD_BAR[dtype]
-    assert abs(float(loss) - float(jloss)) <= vbar * abs(float(jloss))
-    jflat = transformer.flatten_params(jax.tree.map(np.asarray, jgrads))
+    assert abs(float(loss) - jloss) <= vbar * abs(jloss)
     assert grads.keys() == jflat.keys()
     for k, g in grads.items():
         if dtype == "fp32":
             _close(g, jflat[k], gbar)
         else:
             assert _rel_l2(g, jflat[k]) <= gbar, k
-    jstep = jax.jit(jsteps.make_train_step(jcfg, warmup=2, total_steps=10,
-                                           microbatches=2))
-    jp1, _, jm = jstep(jp, jadamw_init(jp), jb)
     step = steps.make_train_step(tcfg, warmup=2, total_steps=10,
                                  microbatches=2, backend=backend)
     tp1, to1, m = step(tp, adamw_init(transformer.flatten_params(tp)), tb)
     assert int(to1.step) == 1
     for key in ("loss", "grad_norm"):
         bar = vbar if key == "loss" else gbar
-        assert abs(float(m[key]) - float(jm[key])) <= bar * abs(
-            float(jm[key])), key
-    jflat1 = transformer.flatten_params(jax.tree.map(np.asarray, jp1))
+        assert abs(float(m[key]) - jm[key]) <= bar * abs(jm[key]), key
     for k, t in transformer.flatten_params(tp1).items():
         if dtype == "fp32":
             _close(t, jflat1[k], gbar)

@@ -87,9 +87,15 @@ def test_meshed_snapshot_restores_unmeshed(drains):
     _assert_bitwise(srv.run(), drains["plain"])
 
 
-def test_spatial_raises():
-    with pytest.raises(NotImplementedError, match="model axis"):
-        GenServer(device="cpu", spatial=True, **_KW)
+def test_spatial_raises(drains):
+    """``spatial=True`` no longer raises: without a mesh it changes
+    nothing (the drain is bitwise the plain one), and a snapshot keeps the
+    flag, so a restore onto a mesh splits the rows again."""
+    srv = GenServer(device="cpu", spatial=True, **_KW)
+    assert srv.spatial and srv._snapshot_config()["spatial"]
+    for wl, steps, seed in _REQUESTS:
+        srv.submit(wl, steps=steps, seed=seed)
+    _assert_bitwise(srv.run(), drains["plain"])
 
 
 _POOL_KW = dict(_KW, batch=3, device="cpu")

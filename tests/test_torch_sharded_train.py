@@ -26,7 +26,8 @@ from repro.core.decompose import conv2d as jconv2d
 from repro.launch import train_recipes as jtr
 from repro.launch.mesh import make_train_mesh as jmake_train_mesh
 from repro.models import enet as jenet
-from repro_torch.distributed.sharding import shard_conv2d
+from repro_torch.core.decompose import band_split
+from repro_torch.distributed.sharding import MODEL_AXIS_ITEM, model_size
 from repro_torch.launch import data_axis
 from repro_torch.launch import train_recipes as ttr
 from repro_torch.launch.mesh import launch, make_train_mesh
@@ -208,6 +209,13 @@ def test_shard_batch_errors():
 
 
 def test_spatial_names_the_model_axis_item():
+    """``spatial=True`` runs now (``tests/test_torch_spatial.py``); on a
+    mesh with no model axis its rows resolve whole, with the reason, and
+    what the model axis still waits for is named."""
     x, w = torch.zeros(1, 4, 4, 3), torch.zeros(3, 3, 3, 4)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        shard_conv2d(make_train_mesh(1), x, w, spatial=True)
+    m = model_size(make_train_mesh(1))
+    assert m == 1
+    assert band_split(tuple(x.shape), tuple(w.shape), m) == "one band"
+    assert band_split(tuple(x.shape), tuple(w.shape), 2).counts == [2, 2]
+    for item in ("experts", "training", "sequence parallelism"):
+        assert item in MODEL_AXIS_ITEM
