@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase35    # phase 35 alone
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, then:
@@ -632,6 +633,36 @@ and timed) and ``matmul (phase 34c, every rank's heads)``,
 ``flash_attention (phase 34c, every rank's heads)`` (a ``(1, 4)`` rank's
 prefill and first decode step, replayed on seeded operands).
 
+35. the LM trained over the mesh, in phase 33's one spawn as further
+worlds: first the 1-rank reference (the one-device step,
+``steps.make_train_step`` without a mesh: its 3 steps on rank 0, its
+first loss and gradients on ranks 1-3 at the same time; each rank keeps
+the gradients to hold its own blocks to), then
+``make_train_step(mesh=)``
+on ``(2, 2)``, ``(1, 4)`` and ``(1, 2)`` (ranks 0-1), each rank holding
+its blocks of the parameters and the AdamW state (FSDP over ``data``,
+heads, FFN and vocab over ``model``; every product on kernel 3 and every
+attention on kernel 4, on the rank's blocks and heads):
+StableLM-2-1.6B at full width, 2 of its 24 layers, bf16 with fp32 AdamW,
+3 steps of a 4 x 4096 batch in 2 microbatches whose masks differ, from
+one seeded draw.  Each mesh's losses of all 3 steps within 5% of the
+1-rank run's, its step-0 grad norm within 10% and every gradient of
+step 0 within 10% relative L2 (phase 26's bars; each rank's blocks
+against its own reference, the sums added over the ranks); the
+metrics the same on every rank; per rank the launches of kernels 3 and 4
+by part (forward, recompute, backward) one device's step launches, and
+``1 / (data x model)`` of every leaf whose spec names both axes; the
+``(2, 2)`` state checkpointed (gathered whole onto rank 0, which writes
+it) and restored into ``(1, 4)``'s blocks, each rank's blocks bitwise
+(by sha256) the writer's cut of the state; an fp32 witness at 1
+layer and 4 x 256 on ``(2, 2)``: loss within 1e-5 relative, every
+gradient within 1e-4 x max(1, max|ref|); per mesh the step ms and the
+seconds the gloo gathers took.  The entries ``matmul (phase 35, every
+rank's blocks)`` and ``flash_attention (phase 35, every rank's heads)``:
+every launch shape of rank 0's first step on each mesh (kernel 3's
+forward, dA and dB, kernel 4's forward and recompute), replayed on seeded
+operands against its plain version at the bf16 bar and timed.
+
 It exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository, or if any phase fails.  Phases 1-9 are fp32
 with TF32 off.  The full per-call results go to
@@ -640,6 +671,7 @@ with TF32 off.  The full per-call results go to
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import json
@@ -997,6 +1029,21 @@ MA_SNAP_TICK = 1
 MA_LM_ARCH, MA_LM_LAYERS, MA_LM_REDUCED = "stablelm-1.6b", 2, False
 MA_LM_BATCH, MA_LM_PROMPT, MA_LM_DECODE = 4, 1024, 16
 MA_LM_BAR = 5e-2
+# phase 35, the LM trained over (data, model) meshes, in phase 33's spawn:
+# StableLM-2-1.6B at 2 of 24 layers (widths kept), bf16 with fp32 AdamW, a
+# global batch of 4 in 2 microbatches of 4096 tokens, 3 steps a mesh from
+# one seeded draw, held to the same steps on one rank (each rank runs it
+# first, unmeshed) at phase 26's bars; the (2, 2) state checkpointed and
+# restored on (1, 4), bitwise; an fp32 witness at 1 layer and 256 tokens
+# on (2, 2), held at the fp32 bars.  The meshes and their global ranks, in
+# order.
+TA_ARCH, TA_LAYERS, TA_REDUCED = "stablelm-1.6b", 2, False
+TA_BATCH, TA_MICRO, TA_SEQ, TA_STEPS = 4, 2, 4096, 3
+TA_MESHES = {(2, 2): (0, 1, 2, 3), (1, 4): (0, 1, 2, 3), (1, 2): (0, 1)}
+TA_CKPT = ((2, 2), (1, 4))
+TA_WITNESS_LAYERS, TA_WITNESS_SEQ, TA_WITNESS_MESH = 1, 256, (2, 2)
+TA_LOSS_RTOL, TA_GNORM_RTOL, TA_GRAD_RL2 = 0.05, 0.10, 0.10
+TA_FP32_LOSS, TA_FP32_GRAD = 1e-5, 1e-4
 # phase 3's edge cases (and phase 14's, in bf16)
 DENSE_EDGES = [  # label, x shape, w shape, stride, pads
     ("stem Cin3 Cout13 s2", (2, 37, 41, 3), (3, 3, 3, 13), 2,
@@ -1407,7 +1454,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="The port's smoke run on one "
+                                 "CUDA card (the module docstring).")
+    ap.add_argument("--phase35", action="store_true",
+                    help="phase 35 alone: its worlds in one spawn of 4 "
+                         "ranks, its gates and kernels-line entries")
+    args = ap.parse_args(argv)
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1422,6 +1475,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, src)
     fresh_tables()
+    if args.phase35:
+        return Smoke(torch).train_axis_alone()
     return Smoke(torch).run()
 
 
@@ -5386,72 +5441,14 @@ class Smoke:
             for (mod, attr), fn in zip(targets, orig):
                 setattr(mod, attr, fn)
 
-    @contextlib.contextmanager
     def counting_parts(self, parts, read):
-        """Split the launches made inside the block by part, from the
-        counts ``read()`` gives (``{"matmul": n, "flash_attention": n}``)
-        on entry to and exit from the backward pass (the outermost
-        ``torch.autograd.grad``) and each forward and backward body of
-        ``MatmulFn``, ``BatchedMatmulFn`` and ``FlashAttentionFn``.  A launch is the innermost
-        body's: ``backward`` in a Function's backward body; ``recompute`` in
-        a forward body inside the backward pass (a checkpointed forward run
-        again, which a backward body's read of its saved tensors starts);
-        ``forward`` outside the backward pass.  Fills ``parts[name][part]``
-        when the block ends."""
-        torch = self.torch
-        kmm, kfa = self.kmm, self.kfa
-        start = read()
-        own = {p: dict.fromkeys(start, 0)
-               for p in ("forward", "recompute", "backward")}
-        # open bodies: [part, counts on entry, launches of nested bodies]
-        stack = []
-        orig = (torch.autograd.grad, kmm.MatmulFn.forward,
-                kmm.MatmulFn.backward, kfa.FlashAttentionFn.forward,
-                kfa.FlashAttentionFn.backward, kmm.BatchedMatmulFn.forward,
-                kmm.BatchedMatmulFn.backward)
+        """Split the launches made inside the block by part
+        (``repro_torch.launch.data_axis.count_parts``, which the ranks of
+        phase 35 use too): ``forward``, ``recompute`` (a checkpointed
+        forward run again in the backward pass) or ``backward``."""
+        from repro_torch.launch.data_axis import count_parts
 
-        def body(kind, fn):
-            def wrapper(*args, **kw):
-                in_grad = any(f[0] != "forward" for f in stack)
-                part = ("backward" if kind == "backward" else "recompute"
-                        if kind == "grad" or in_grad else "forward")
-                stack.append([part, read(), dict.fromkeys(start, 0)])
-                try:
-                    return fn(*args, **kw)
-                finally:
-                    part, entry, nested = stack.pop()
-                    for n, c in read().items():
-                        total = c - entry[n]
-                        own[part][n] += total - nested[n]
-                        if stack:
-                            stack[-1][2][n] += total
-            return wrapper
-
-        torch.autograd.grad = body("grad", orig[0])
-        kmm.MatmulFn.forward = staticmethod(body("forward", orig[1]))
-        kmm.MatmulFn.backward = staticmethod(body("backward", orig[2]))
-        kfa.FlashAttentionFn.forward = staticmethod(body("forward", orig[3]))
-        kfa.FlashAttentionFn.backward = staticmethod(
-            body("backward", orig[4]))
-        kmm.BatchedMatmulFn.forward = staticmethod(body("forward", orig[5]))
-        kmm.BatchedMatmulFn.backward = staticmethod(
-            body("backward", orig[6]))
-        try:
-            yield
-        finally:
-            torch.autograd.grad = orig[0]
-            kmm.MatmulFn.forward = staticmethod(orig[1])
-            kmm.MatmulFn.backward = staticmethod(orig[2])
-            kfa.FlashAttentionFn.forward = staticmethod(orig[3])
-            kfa.FlashAttentionFn.backward = staticmethod(orig[4])
-            kmm.BatchedMatmulFn.forward = staticmethod(orig[5])
-            kmm.BatchedMatmulFn.backward = staticmethod(orig[6])
-        outside = {n: c - start[n] - sum(o[n] for o in own.values())
-                   for n, c in read().items()}
-        for n in start:
-            parts[n] = {"forward": own["forward"][n] + outside[n],
-                        "recompute": own["recompute"][n],
-                        "backward": own["backward"][n]}
+        return count_parts(parts, read)
 
     def lm_train_main(self, cfg, params, batch, launches, label, rep, *,
                       phase="26a", micro=TRAIN_LM_MICRO, chunks=None,
@@ -8331,25 +8328,14 @@ class Smoke:
         groups = self.rec_train_groups(per_launch, label)
         return self.xl_train_times(cfg, params, groups, parts, label, rep)
 
-    @contextlib.contextmanager
     def first_grads(self, store):
         """Keep in ``store`` the gradients that the first ``make_train_step``
-        call made inside the block hands AdamW (``steps.adamw_update``'s
-        first argument)."""
-        from repro_torch.launch import steps
+        call made inside the block hands AdamW
+        (``repro_torch.launch.data_axis.first_grads``, which phase 35's
+        ranks use too)."""
+        from repro_torch.launch.data_axis import first_grads
 
-        orig = steps.adamw_update
-
-        def update(grads, *args, **kw):
-            if not store:
-                store.update(grads)
-            return orig(grads, *args, **kw)
-
-        steps.adamw_update = update
-        try:
-            yield
-        finally:
-            steps.adamw_update = orig
+        return first_grads(store)
 
     @contextlib.contextmanager
     def layer_cotangents(self, rec):
@@ -8851,11 +8837,15 @@ class Smoke:
         # (data, model) worlds
         worlds = [(DA_RANKS[n], jobs[n]) for n in DA_WORLDS]
         ma_worlds, ma_setup = self.ma_worlds(den)
+        ta_worlds, ta_dir = self.ta_worlds()
         t0 = time.perf_counter()
         spawned = launch(data_axis.run_worlds, 4, device=self.dev,
-                         args=(worlds + ma_worlds,), join=False)
+                         args=(worlds + ma_worlds + ta_worlds,), join=False)
         ma_ref = self.ma_references(ma_setup)
-        ranks = spawned.result()
+        try:
+            ranks = spawned.result()
+        finally:
+            shutil.rmtree(ta_dir, ignore_errors=True)
         secs = time.perf_counter() - t0
         out = {n: [ranks[r][i] for r in DA_RANKS[n]]
                for i, n in enumerate(DA_WORLDS)}
@@ -8874,8 +8864,9 @@ class Smoke:
         self.da_serve(out, rep)
         self.da_failover(den, gan, rep)
         entries = self.da_entries(rep)
-        return entries + self.run_model_axis(ranks, len(worlds), spawned,
-                                             ma_ref)
+        entries += self.run_model_axis(ranks, len(worlds), spawned, ma_ref)
+        return entries + self.run_train_axis(
+            ranks, len(worlds) + len(ma_worlds))
 
     def da_plan_table(self, den, gan):
         """Phase 33's plan table, written to the table directory in force,
@@ -9290,7 +9281,8 @@ class Smoke:
         rep = self.report["model_axis"] = {}
         out = {m: [ranks[r][first + i] for r in MA_MESHES[m]]
                for i, m in enumerate(MA_MESHES)}
-        jobs = [sum(v for w, res in r.items() if w >= first
+        jobs = [sum(v for w, res in r.items()
+                    if first <= w < first + len(MA_MESHES)
                     for k, v in res["seconds"].items()) for r in ranks]
         rep["rank_job_seconds"] = jobs
         log(f"phase 34: the model axis on N ranks sharing one card, in "
@@ -9480,6 +9472,258 @@ class Smoke:
         del torch
         return launches
 
+    # ------------------------------------------------------------- phase 35
+    def gate35(self, ok, what):
+        """Fail phase 35 at a check that missed."""
+        if not ok:
+            raise RuntimeError(f"phase 35: {what}")
+
+    def ta_config(self, **kw):
+        from repro_torch import configs
+
+        return (configs.get_reduced if TA_REDUCED else configs.get_config)(
+            TA_ARCH).replace(**kw)
+
+    def ta_worlds(self):
+        """Phase 35's worlds for phase 33's spawn: the 1-rank reference,
+        unmeshed, on each of the 4 ranks (each keeps its first step's
+        gradients, so a mesh's rank holds its own blocks to them with no
+        gather; rank 0 runs every step), then each of :data:`TA_MESHES`;
+        returns ``(worlds, checkpoint dir)``."""
+        import tempfile
+
+        ckpt = tempfile.mkdtemp(prefix="phase35_ckpt_")
+        vocab = self.ta_config().vocab
+
+        def batches(seq, n, seed):
+            rng = np.random.default_rng(seed)
+            out = []
+            for _ in range(n):
+                toks = rng.integers(0, vocab, (TA_BATCH, seq + 1),
+                                    dtype=np.int32)
+                mask = np.ones((TA_BATCH, seq), np.float32)
+                # the microbatches' normalisers differ
+                mask[0, :seq // 8] = 0.0
+                mask[TA_BATCH - 1, seq // 2:] = 0.0
+                out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                            "mask": mask})
+            return out
+
+        run = {"arch": TA_ARCH, "reduced": TA_REDUCED, "seed": SEED + 35,
+               "microbatches": TA_MICRO, "warmup": 2, "total_steps": 100,
+               "overrides": {"num_layers": TA_LAYERS},
+               "batches": batches(TA_SEQ, TA_STEPS, SEED + 351)}
+        witness = dict(run, overrides={"num_layers": TA_WITNESS_LAYERS,
+                                       "dtype": "float32"},
+                       batches=batches(TA_WITNESS_SEQ, 1, SEED + 352))
+        # rank 0 runs the whole reference (its metrics of every step);
+        # ranks 1-3 at the same time its first loss and gradients alone
+        # (no AdamW state: four whole states would not fit the card)
+        refs = [("train_lm", dict(run, unmeshed=True, keep="ta_ref")),
+                ("train_lm", dict(witness, unmeshed=True,
+                                  keep="ta_witness"))]
+        worlds = [((0,), refs, (1, 1)),
+                  ((1, 2, 3), [(n, dict(kw, grads_only=True))
+                               for n, kw in refs], (1, 3))]
+        for mesh, ranks in TA_MESHES.items():
+            jobs = [("train_lm", dict(
+                run, hold="ta_ref",
+                **({"save": ckpt, "expect": [TA_CKPT[1]]}
+                   if mesh == TA_CKPT[0] else {})))]
+            if mesh == TA_WITNESS_MESH:
+                jobs.append(("train_lm", dict(witness, hold="ta_witness")))
+            if mesh == TA_CKPT[1]:
+                jobs.append(("train_lm", dict(run, batches=(),
+                                              restore=ckpt)))
+            worlds.append((ranks, jobs, mesh))
+        return worlds, ckpt
+
+    def train_axis_alone(self) -> int:
+        """Phase 35 alone (``--phase35``): its worlds in one spawn of 4
+        ranks sharing the card, then its gates and kernels-line entries,
+        printed as one JSON line; phases 1-34 do not run."""
+        from repro_torch.launch import data_axis
+        from repro_torch.launch.mesh import launch
+
+        log(card_line())
+        self.report["phase_seconds"] = {}
+        worlds, ckpt = self.ta_worlds()
+        t0 = time.perf_counter()
+        try:
+            ranks = launch(data_axis.run_worlds, 4, device=self.dev,
+                           args=(worlds,))
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        log(f"phase 35 alone: the spawn and its worlds "
+            f"{time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"kernels": self.run_train_axis(ranks, 0)}))
+        return 0
+
+    def run_train_axis(self, ranks, first):
+        """Phase 35's gates and the kernels line's entries, from the ranks'
+        results of the worlds from index ``first`` on."""
+        t0 = time.perf_counter()
+        rep = self.report["train_axis"] = {}
+        ref = [ranks[0][first]] + [r[first + 1] for r in ranks[1:]]
+        for r in ref[1:]:
+            self.gate35(r["train_lm"]["metrics"][0]["loss"] == ref[0][
+                "train_lm"]["metrics"][0]["loss"],
+                "the 1-rank runs of the ranks differ")
+        out = {m: [ranks[r][first + 2 + i] for r in TA_MESHES[m]]
+               for i, m in enumerate(TA_MESHES)}
+        jobs = [sum(v for w, res in r.items() if w >= first
+                    for v in res["seconds"].values()) for r in ranks]
+        rep["rank_job_seconds"] = jobs
+        cfg = self.ta_config(num_layers=TA_LAYERS)
+        log(f"phase 35: {TA_ARCH} at full width, bf16 with fp32 AdamW, "
+            f"{TA_LAYERS} of 24 layers, trained over (data, model) meshes "
+            f"of ranks sharing one card (FSDP over data, heads, FFN and "
+            f"vocab over model), in phase 33's spawn: {TA_STEPS} steps of a "
+            f"{TA_BATCH} x {TA_SEQ} batch in {TA_MICRO} microbatches a "
+            f"mesh; its jobs took {max(jobs):.1f} s on the busiest rank "
+            f"(by rank " + ", ".join(f"{j:.1f}" for j in jobs) + " s)")
+        one = ref[0]["train_lm"]
+        log(f"  1 rank (rank 0, unmeshed): losses " + ", ".join(
+            f"{m['loss']:.4f}" for m in one["metrics"]) + ", step ms "
+            + ", ".join(f"{t:.0f}" for t in one["ms"]))
+        rep["1_rank"] = {"metrics": one["metrics"], "ms": one["ms"]}
+        want = lm_train_launches(cfg, TA_SEQ, TA_MICRO)
+        launches = {"matmul": 0, "flash_attention": 0}
+        calls = []
+        for mesh, res in out.items():
+            launches, calls = self.ta_mesh(mesh, res, one, want, launches,
+                                           calls, rep)
+        self.ta_witness([r["train_lm#1"] for r in out[TA_WITNESS_MESH]],
+                        ref, rep)
+        key = "train_lm#1" if TA_CKPT[1] != TA_WITNESS_MESH else "train_lm#2"
+        restored = [r[key] for r in out[TA_CKPT[1]]]
+        expected = restored[0].get("expected") or []
+        self.gate35(len(expected) == len(restored),
+                    f"no digests of {TA_CKPT[1]}'s blocks from the writer")
+        for r, (got, want) in enumerate(zip(restored, expected)):
+            self.gate35(got["restored_step"] == TA_STEPS,
+                        f"restored step {got['restored_step']}")
+            self.gate35(got["digests"] == want, f"{TA_CKPT[1]}, rank {r}: "
+                        f"restored blocks not the saved state's, bit for "
+                        f"bit")
+        rep["checkpoint"] = {"from": str(TA_CKPT[0]), "to": str(TA_CKPT[1]),
+                             "leaves": len(expected[0]), "bitwise": True}
+        log(f"  the {TA_CKPT[0]} state after {TA_STEPS} steps, gathered "
+            f"whole onto rank 0 and written; restored into {TA_CKPT[1]}'s "
+            f"blocks: every rank's {len(expected[0])} leaves bitwise the "
+            f"writer's cut of them (sha256)")
+        entries = self.rank_lm_entries(
+            calls, launches,
+            {"matmul": "matmul (phase 35, every rank's blocks)",
+             "flash_attention": "flash_attention (phase 35, every rank's "
+                                "heads)"},
+            "the first step of rank 0 of each mesh", SEED + 353)
+        secs = max(jobs) + time.perf_counter() - t0
+        self.report["phase_seconds"]["35 (in 33's spawn)"] = secs
+        log(f"phase 35: {secs:.1f} s (its jobs on the busiest rank, then "
+            f"its gates and entries here)")
+        return entries
+
+    def ta_mesh(self, mesh, res, one, want, launches, calls, rep):
+        """One mesh's gates: the metrics of every step against the 1-rank
+        run's, the gathered first-step gradients, the launches by part on
+        every rank, the blocks each rank holds."""
+        dp, m = mesh
+        lead = res[0]["train_lm"]
+        for i, (got, ref) in enumerate(zip(lead["metrics"], one["metrics"])):
+            rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+            self.gate35(rel <= TA_LOSS_RTOL, f"{mesh}: step {i} loss "
+                        f"{got['loss']} vs {ref['loss']} on one rank")
+        gn = (abs(lead["metrics"][0]["grad_norm"]
+                  - one["metrics"][0]["grad_norm"])
+              / one["metrics"][0]["grad_norm"])
+        self.gate35(gn <= TA_GNORM_RTOL, f"{mesh}: step-0 grad norm {gn:.3e}"
+                    f" off the 1-rank run's")
+        from repro_torch.launch.data_axis import held
+
+        worst = max(held([r["train_lm"]["held"] for r in res]).items(),
+                    key=lambda kv: kv[1][0])
+        self.gate35(worst[1][0] <= TA_GRAD_RL2, f"{mesh}: gradient of "
+                    f"{worst[0]} at relative L2 {worst[1][0]:.3e}")
+        for r, rank in enumerate(res):
+            got = rank["train_lm"]
+            self.gate35(got["metrics"] == lead["metrics"],
+                        f"{mesh}, rank {r}: metrics differ from rank 0's")
+            self.gate35(got["parts"] == want, f"{mesh}, rank {r}: launches "
+                        f"by part {got['parts']} != {want}")
+            for k in launches:
+                n = sum(want[k].values())
+                self.gate35(got["launches"][k] == n, f"{mesh}, rank {r}: "
+                            f"{got['launches'][k]} {k} launches, not {n}")
+                launches[k] += got["launches"][k]
+            for name, (held, whole, spec) in got["leaves"].items():
+                axes = {a for e in spec if e for a in
+                        (e if isinstance(e, tuple) else (e,))}
+                if {"data", "model"} <= axes:
+                    self.gate35(held * dp * m == whole, f"{mesh}, rank "
+                                f"{r}: {name} holds {held} of {whole}")
+            held, whole = got["state_bytes"]
+            self.gate35(held * dp * m <= 1.01 * whole, f"{mesh}, rank {r}: "
+                        f"{held} of {whole} bytes of parameters and AdamW "
+                        f"state")
+        calls = calls + lead["calls"]
+        ms = [statistics.median(rank["train_lm"]["ms"][1:] or
+                                rank["train_lm"]["ms"]) for rank in res]
+        coll = [sum(c["seconds"] for c in rank["train_lm"]["collectives"][1:])
+                for rank in res]
+        wait = [sum(c["wait_seconds"]
+                    for c in rank["train_lm"]["collectives"][1:])
+                for rank in res]
+        wall = [sum(rank["train_lm"]["ms"][1:]) / 1e3 for rank in res]
+        moved = lead["collectives"][-1]
+        share = [c / w if w else 0.0 for c, w in zip(coll, wall)]
+        held, whole = lead["state_bytes"]
+        rep[str(mesh)] = {
+            "metrics": lead["metrics"], "step_ms": [r["train_lm"]["ms"]
+                                                    for r in res],
+            "grad_rel_l2_worst": worst, "grad_norm_rel": gn,
+            "state_bytes": [held, whole], "collective_seconds": coll,
+            "collective_wait_seconds": wait, "collective_share": share,
+            "collective_calls": moved["calls"],
+            "collective_bytes": moved["bytes"], "parts": want}
+        log(f"  {mesh} (data, model), {len(res)} ranks sharing one card: "
+            f"losses " + ", ".join(f"{x['loss']:.4f}" for x in
+                                   lead["metrics"])
+            + f" (bar {TA_LOSS_RTOL:.0%} of one rank's); step-0 grad norm "
+            f"{gn:.2e} off; worst gradient {worst[0]} at relative L2 "
+            f"{worst[1][0]:.2e} (bar {TA_GRAD_RL2}); rank 0 holds "
+            f"{held / 2 ** 30:.2f} of {whole / 2 ** 30:.2f} GiB of parameters"
+            f" and AdamW state; step (median of the warm steps) " + ", ".join(
+                f"{t:.0f}" for t in ms) + " ms by rank; all_gather calls "
+            + ", ".join(f"{c:.2f}" for c in coll) + " s of the warm steps' "
+            + ", ".join(f"{w:.2f}" for w in wall) + " s by rank (share "
+            + ", ".join(f"{x:.2f}" for x in share) + "; device waits "
+            "before them " + ", ".join(f"{x:.2f}" for x in wait) + " s); "
+            f"a step's {moved['calls']} gathers brought rank 0 "
+            f"{moved['bytes'] / 2 ** 20:.0f} MiB")
+        return launches, calls
+
+    def ta_witness(self, res, ref, rep):
+        """The fp32 witness on :data:`TA_WITNESS_MESH` against the 1-rank
+        run: loss at 1e-5 relative, every gradient at 1e-4 x max(1,
+        max|ref|)."""
+        want = ref[0]["train_lm#1"]["metrics"][0]
+        loss = res[0]["metrics"][0]["loss"]
+        rel = abs(loss - want["loss"]) / abs(want["loss"])
+        self.gate35(rel <= TA_FP32_LOSS, f"fp32 witness loss {loss} vs "
+                    f"{want['loss']} ({rel:.2e})")
+        from repro_torch.launch.data_axis import held
+
+        worst = max(held([r["held"] for r in res]).items(),
+                    key=lambda kv: kv[1][1])
+        self.gate35(worst[1][1] <= TA_FP32_GRAD, f"fp32 witness: gradient "
+                    f"of {worst[0]} at {worst[1][1]:.2e} x max(1, max|ref|)")
+        rep["fp32_witness"] = {"loss_rel": rel, "worst_grad": worst}
+        log(f"  fp32 witness on {TA_WITNESS_MESH}, {TA_WITNESS_LAYERS} layer"
+            f" at {TA_BATCH} x {TA_WITNESS_SEQ}: loss {rel:.2e} relative "
+            f"(bar {TA_FP32_LOSS}); worst gradient {worst[0]} at "
+            f"{worst[1][1]:.2e} x max(1, max|ref|) (bar {TA_FP32_GRAD})")
+
     def ma_conv_entries(self, launches):
         """The band launches of 34a's cases for the middle band 1 of 4,
         recorded here (``decompose._band_form`` at that band's rows),
@@ -9572,15 +9816,28 @@ class Smoke:
         """A ``(1, 4)`` rank's prefill and first decode step of 34c, each
         distinct launch replayed here on seeded operands against its plain
         version and timed; the sums per kernel are its entries."""
+        return self.rank_lm_entries(
+            [c for step in calls for c in step], launches,
+            {"matmul": "matmul (phase 34c, every rank's heads)",
+             "flash_attention": "flash_attention (phase 34c, every rank's "
+                                "heads)"},
+            "a (1, 4) rank's prefill and first decode step", SEED + 341)
+
+    def rank_lm_entries(self, calls, launches, labels, what, seed):
+        """Kernels 3 and 4's launches ``calls`` (``(name, shapes, dtype,
+        causal, window)``, repeated as launched) replayed here once per
+        distinct launch on seeded operands, each held against its plain
+        version and timed (x its count); the sums per kernel are its
+        entries, named by ``labels``."""
         torch = self.torch
-        g = torch.Generator(device=self.dev).manual_seed(SEED + 341)
+        g = torch.Generator(device=self.dev).manual_seed(seed)
         seen = {}
-        for step in calls:
-            for name, shapes, dtype, causal, window in step:
-                key = (name, shapes, dtype, causal, window)
-                seen[key] = seen.get(key, 0) + 1
-        groups = {}
-        for (name, shapes, dtype, causal, window), n in seen.items():
+        for name, shapes, dtype, causal, window, *part in calls:
+            key = (name, tuple(map(tuple, shapes)), dtype, causal, window,
+                   part[0] if part else "forward")
+            seen[key] = seen.get(key, 0) + 1
+        groups, by_part = {}, {}
+        for (name, shapes, dtype, causal, window, part), n in seen.items():
             dt = getattr(torch, dtype.removeprefix("torch."))
             ops = [torch.randn(sh, generator=g, device=self.dev).to(dt)
                    for sh in shapes]
@@ -9593,8 +9850,8 @@ class Smoke:
                         causal, window)
             kern, plain, lib, flops, nbytes, geo, variant = self.lm_call(
                 name, args)
-            label = f"{name} (phase 34c, every rank's heads)"
-            self.compare(f"phase 34c {geo}", label, kern(), plain(),
+            label = labels[name]
+            self.compare(f"{label}: {geo}", label, kern(), plain(),
                          quiet=True)
             peak = (PEAK_FP32_FLOPS if dt == torch.float32
                     else PEAK_BF16_FLOPS)
@@ -9604,20 +9861,30 @@ class Smoke:
                    "library_ms": self.device_ms(lib) * n,
                    "ops_ms": ops_ms * n, "bytes_ms": bytes_ms * n}
             row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
-            log(f"  {name} [{variant}] x{n} {geo}: {row['ms']:.3f} ms, "
-                f"bound {row['bound_ms']:.3f} ms, plain "
+            log(f"  {name} [{variant}] x{n} {geo}, {part}: "
+                f"{row['ms']:.3f} ms, bound {row['bound_ms']:.3f} ms, plain "
                 f"{row['plain_ms']:.3f} ms, library "
                 f"{row['library_ms']:.3f} ms")
-            sums = groups.setdefault(name, dict.fromkeys(row, 0.0))
-            for k, v in row.items():
-                sums[k] += v
+            for sums in (groups.setdefault(name, dict.fromkeys(row, 0.0)),
+                         by_part.setdefault(f"{name} {part}", dict.fromkeys(
+                             list(row) + ["launches", "flops"], 0.0))):
+                for k, v in row.items():
+                    sums[k] += v
+            by_part[f"{name} {part}"]["launches"] += n
+            by_part[f"{name} {part}"]["flops"] += flops * n
+        for key, p in by_part.items():
+            log(f"  {key}: {p['launches']:.0f} launches, {p['ms']:.3f} ms "
+                f"({p['flops'] / max(p['ms'], 1e-9) / 1e9:.1f} TFLOP/s), "
+                f"bound {p['bound_ms']:.3f} ms, plain {p['plain_ms']:.3f} "
+                f"ms, library {p['library_ms']:.3f} ms")
+        self.report.setdefault("rank_parts", {})[what] = by_part
         entries = []
         for name, p in groups.items():
-            full = f"{name} (phase 34c, every rank's heads)"
-            log(f"  {full}: {p['ms']:.3f} ms over a (1, 4) rank's prefill "
-                f"and first decode step; bound {p['bound_ms']:.3f} ms; plain "
-                f"{p['plain_ms']:.3f} ms; library {p['library_ms']:.3f} ms; "
-                f"{launches[name]} launches on the ranks")
+            full = labels[name]
+            log(f"  {full}: {p['ms']:.3f} ms over {what}; bound "
+                f"{p['bound_ms']:.3f} ms; plain {p['plain_ms']:.3f} ms; "
+                f"library {p['library_ms']:.3f} ms; {launches[name]} "
+                f"launches on the ranks")
             entries.append(self.kernel_entry(name, full, launches[name], p))
         return entries
 

@@ -20,7 +20,11 @@ as a CPU ``torch.bfloat16`` tensor (numpy has no bf16).
 Tensors are copied to the host before the call returns; only file IO is
 deferred.  ``extra=`` attaches a JSON payload (the serving layer's
 scheduler metadata, DESIGN.md §11).  One process writes ``host_000``; the
-reference's multi-host shards are not ported (ROADMAP.md, multi-device).
+reference's multi-host shards are not ported (ROADMAP.md, multi-device):
+on a mesh the train loop gathers every leaf whole onto rank 0, which
+writes it (``ModelParallel.unshard``), and each rank restores its blocks
+(``restore_checkpoint(..., shardings=)``), so a checkpoint moves between
+meshes and one device.
 
 A tree is nested dicts, lists, tuples and NamedTuples (an ``AdamWState``)
 of tensors or arrays; its leaves are written in JAX's flattening order
@@ -152,6 +156,12 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
+def unflatten_tree(like, leaves: list):
+    """The structure of ``like`` with the leaves of a list in
+    :func:`flatten_tree`'s order."""
+    return _unflatten(like, iter(leaves))
+
+
 def _is_flat(tree) -> bool:
     return isinstance(tree, dict) and all(
         not isinstance(v, (dict, list, tuple)) and v is not None
@@ -264,17 +274,25 @@ def load_flat(directory: str, step: int) -> tuple[dict, dict | None]:
 
 
 def restore_checkpoint(directory: str, step: int, abstract_tree,
-                       device=None):
+                       device=None, shardings=None):
     """Restore step ``step`` into the structure of ``abstract_tree``.
 
     Each leaf of ``abstract_tree`` (a tensor, possibly on the meta device)
     gives the shape the stored leaf must have and the dtype it is cast to;
     the restored leaves are tensors on ``device`` (default the CPU).  A
     leaf count or a shape that differs from the manifest's raises
-    ``ValueError``.
+    ``ValueError``.  ``shardings`` (a tree of the same structure whose
+    leaves have a ``shard(tensor)`` method, e.g.
+    :class:`repro_torch.distributed.sharding.NamedSharding`) restores each
+    leaf as this rank's block of it, read one leaf at a time: the
+    reference's ``restore_checkpoint(..., shardings)``.
     """
     manifest = _read_manifest(directory, step)
     refs, _ = flatten_tree(abstract_tree)
+    shards = (flatten_tree(shardings)[0] if shardings is not None
+              else [None] * len(refs))
+    if len(shards) != len(refs):
+        raise ValueError(f"{len(shards)} shardings for {len(refs)} leaves")
     if len(refs) != len(manifest["shapes"]):
         raise ValueError(f"tree structure changed: the checkpoint at step "
                          f"{step} holds {len(manifest['shapes'])} leaves, "
@@ -291,10 +309,16 @@ def restore_checkpoint(directory: str, step: int, abstract_tree,
                 raise ValueError(f"leaf {i}: checkpoint shape "
                                  f"{tuple(arr.shape)} != model "
                                  f"{tuple(ref.shape)}")
-            restored.append(arr.to(device=dev, dtype=ref.dtype))
+            if shards[i] is not None:
+                arr = shards[i].shard(arr)
+                restored.append(torch.empty(
+                    tuple(arr.shape), dtype=ref.dtype,
+                    device=dev).copy_(arr))
+            else:
+                restored.append(arr.to(device=dev, dtype=ref.dtype))
     return _unflatten(abstract_tree, iter(restored))
 
 
-__all__ = ["as_tensor", "flatten_tree", "save_checkpoint",
+__all__ = ["as_tensor", "flatten_tree", "unflatten_tree", "save_checkpoint",
            "restore_checkpoint", "all_steps", "latest_step", "load_flat",
            "load_extra", "CheckpointFuture"]

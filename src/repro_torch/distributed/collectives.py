@@ -2,7 +2,10 @@
 group: an equal contiguous share of a leading axis, the all-gather of the
 shares in rank order (with the backward that takes this rank's share of
 the cotangent), a broadcast from rank 0, the fixed-order sum of every
-rank's partial tensor (tensor parallelism's reductions), and the row
+rank's partial tensor (tensor parallelism's reductions), training's
+adjoints of FSDP and tensor parallelism (:func:`fsdp_gather`, whose
+backward is a fixed-order reduce-scatter; :func:`sum_partials` and
+:func:`copy_in`, Megatron's pair), and the row
 halos of an image split into bands over the model axis
 (:func:`exchange_halos`, with its adjoint, and :func:`gather_bands`).
 
@@ -105,7 +108,7 @@ def map_rows(fn, *tensors, group):
 
 def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Every rank's ``t`` (all of one shape), concatenated on ``dim`` in
-    rank order (not differentiable: FSDP's gather of a parameter block)."""
+    rank order (not differentiable: :func:`fsdp_gather` is)."""
     if group_size(group) == 1:
         return t
     return all_gather_cat(t.movedim(dim, 0), group).movedim(0, dim)
@@ -119,6 +122,84 @@ def sum_over(t: torch.Tensor, group) -> torch.Tensor:
     if group_size(group) == 1:
         return t
     return torch.sum(all_gather_cat(t[None], group), dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Training's adjoints: FSDP over the data axis, Megatron over the model axis
+# ---------------------------------------------------------------------------
+
+def _wants_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.conf = (dim, group, t.shape[dim])
+        return gather_dim(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n = ctx.conf
+        r = group_rank(group)
+        return sum_over(g, group).narrow(dim, r * n, n), None, None
+
+
+def fsdp_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """FSDP's gather of a parameter block: :func:`gather_dim`, whose
+    backward is the reduce-scatter over ``group``: every rank's cotangent
+    of the whole (each from its own rows of the batch) all-gathered in
+    rank order, summed by one ``torch.sum(dim=0)`` (:func:`sum_over`) and
+    this rank's block sliced out, so its bits do not depend on timing."""
+    if group_size(group) == 1:
+        return t
+    if _wants_grad(t):
+        return _FsdpGather.apply(t, dim, group)
+    return gather_dim(t, dim, group)
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return sum_over(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_partials(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the model axis of every rank's partial ``t`` (a
+    row-split product's, the vocab-split embedding's): :func:`sum_over`
+    forward; backward the identity, since what follows the sum runs the
+    same on every rank, so each rank's cotangent of the sum is already
+    the whole one."""
+    if group_size(group) == 1:
+        return t
+    if _wants_grad(t):
+        return _SumPartials.apply(t, group)
+    return sum_over(t, group)
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_over(g, ctx.group), None
+
+
+def copy_in(t: torch.Tensor, group) -> torch.Tensor:
+    """The entry of a replicated tensor into a model-split region (the
+    input of the column-split products, a replicated parameter used on
+    this rank's heads): the identity forward; backward :func:`sum_over`,
+    so the tensor's gradient is the sum of every rank's partial."""
+    if group_size(group) == 1 or not _wants_grad(t):
+        return t
+    return _CopyIn.apply(t, group)
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +385,7 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
 
 __all__ = ["group_size", "group_rank", "share", "all_gather_cat",
            "gather_rows", "split_rows", "pad_rows", "map_rows",
-           "gather_dim", "sum_over", "HALO_STATS", "reset_halo_stats",
+           "gather_dim", "sum_over", "fsdp_gather", "sum_partials",
+           "copy_in", "HALO_STATS", "reset_halo_stats",
            "halo_extent", "exchange_halos", "gather_bands",
            "broadcast"]

@@ -27,16 +27,18 @@ What runs across ranks:
   each rank convolving its band and the halo rows it exchanges with its
   neighbours (:func:`repro_torch.distributed.collectives.exchange_halos`;
   the reference leaves the halos to GSPMD), the output bands gathered;
-* the model axis of an LM (:class:`ModelParallel`): each rank holds its
-  block of every parameter by :func:`param_pspec` (FSDP over ``data``,
-  heads, FFN and vocab over ``model``), gathers a layer's FSDP blocks
-  before the layer runs, and sums the row-split products' partials over
-  ``model`` in a fixed order.
+* the model axis of an LM (:class:`ModelParallel`), served and trained:
+  each rank holds its block of every parameter (and, trained, of the
+  AdamW state) by :func:`param_pspec` (FSDP over ``data``, heads, FFN and
+  vocab over ``model``), gathers a layer's FSDP blocks before the layer
+  runs (their gradients come back by a fixed-order reduce-scatter), and
+  sums the row-split products' partials over ``model`` in a fixed order.
 
 :func:`shard_conv2d` runs :func:`repro_torch.core.decompose.conv2d` with
 its ``group=`` over the mesh's data axes and, with ``spatial=True``, its
-``rows=`` over the model axis.  Experts over the model axis, training
-over it and sequence parallelism wait (:data:`MODEL_AXIS_ITEM`).  The
+``rows=`` over the model axis.  Experts over the model axis, sequence
+parallelism and the recurrent and encoder-decoder mixers over it wait
+(:data:`MODEL_AXIS_ITEM`).  The
 port has no ``layers.lc`` constraint hook (its models place nothing), so
 :func:`install` and :func:`use_mesh` only set the mesh that
 :func:`current_mesh` returns.
@@ -52,14 +54,16 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.distributed.collectives import (all_gather_cat,
-                                                 gather_bands, pad_rows,
-                                                 share)
+from repro_torch.distributed.collectives import (all_gather_cat, copy_in,
+                                                 fsdp_gather, gather_bands,
+                                                 gather_dim, pad_rows, share,
+                                                 sum_over, sum_partials)
 
 #: what the model axis of the mesh still waits for
-MODEL_AXIS_ITEM = ("experts over the model axis, training over it and "
-                   "sequence parallelism are a later item of ROADMAP.md "
-                   "queue 1")
+MODEL_AXIS_ITEM = ("experts over the model axis (served, then trained), "
+                   "sequence parallelism, and recurrent or "
+                   "encoder-decoder mixers over it are a later item of "
+                   "ROADMAP.md queue 1")
 
 _LOG = logging.getLogger(__name__)
 
@@ -128,18 +132,52 @@ class NamedSharding:
     mesh: object
     spec: PartitionSpec
 
-    def shard(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's block of ``t`` (the mesh must be live): each dim
-        whose entry names axes is cut into their extent, contiguously, at
-        this rank's row-major index along them."""
+    def shard(self, t: torch.Tensor, rank: int | None = None
+              ) -> torch.Tensor:
+        """This rank's block of ``t`` (the mesh must be live), or mesh rank
+        ``rank``'s (any geometry): each dim whose entry names axes is cut
+        into their extent, contiguously, at the rank's row-major index
+        along them."""
         for dim, entry in enumerate(self.spec):
             if entry is None:
                 continue
             axes = entry if isinstance(entry, tuple) else (entry,)
-            n, i = self.mesh.axes_size(axes), self.mesh.index(axes)
+            n, i = self.mesh.axes_size(axes), self.mesh.index(axes, rank)
             per = t.shape[dim] // n
             t = t.narrow(dim, i * per, per)
         return t
+
+    def unshard(self, block: torch.Tensor) -> torch.Tensor | None:
+        """The whole tensor from every rank's :meth:`shard` block, on the
+        host of mesh rank 0 (``None`` on the others).  Every rank of the
+        mesh calls it: the blocks are copied to the host and gathered to
+        rank 0 over the mesh's group (gloo takes host tensors in its
+        ``gather``), which puts each at its rank's offsets."""
+        import torch.distributed as dist
+
+        mesh = self.mesh
+        b = block.detach().cpu().contiguous()
+        if mesh.size == 1:
+            return b.clone()
+        lead = mesh.rank == 0
+        parts = [torch.empty_like(b) for _ in range(mesh.size)] if lead \
+            else None
+        dist.gather(b, parts, dst=mesh.ranks[0], group=mesh.everyone())
+        if not lead:
+            return None
+        axes = [() if e is None else e if isinstance(e, tuple) else (e,)
+                for e in self.spec]
+        axes += [()] * (b.dim() - len(axes))
+        whole = b.new_empty(tuple(n * mesh.axes_size(a)
+                                  for n, a in zip(b.shape, axes)))
+        for r, part in enumerate(parts):
+            view = whole
+            for dim, a in enumerate(axes):
+                if a:
+                    n = b.shape[dim]
+                    view = view.narrow(dim, mesh.index(a, r) * n, n)
+            view.copy_(part)
+        return whole
 
 
 def _axes_size(mesh, axes: tuple[str, ...]) -> int:
@@ -202,6 +240,39 @@ def param_pspec(mesh, path: str, shape: tuple[int, ...]) -> PartitionSpec:
             full = (None,) * (len(shape) - len(logical)) + tuple(logical)
             return resolve_spec(mesh, full, shape)
     return PartitionSpec()
+
+
+def tree_shardings(mesh, tree, specs: dict | None = None):
+    """A tree of :class:`NamedSharding` of the structure of ``tree``: the
+    parameter tree (by :func:`~repro_torch.models.transformer.
+    flatten_params`' names), a flat ``{name: leaf}`` dict, an
+    ``AdamWState`` (``step`` replicated, the master and the moments placed
+    like the parameters, the reference's ``_opt_shardings``) or a tuple of
+    those.  ``specs``: ``{name: PartitionSpec}``; by default each leaf's
+    :func:`param_pspec` of its shape (the whole's)."""
+    from repro_torch.optim.adamw import AdamWState
+
+    if isinstance(tree, AdamWState):
+        return AdamWState(NamedSharding(mesh, PartitionSpec()),
+                          *(None if t is None
+                            else tree_shardings(mesh, t, specs)
+                            for t in tree[1:]))
+    if isinstance(tree, tuple):
+        return tuple(tree_shardings(mesh, t, specs) for t in tree)
+
+    def walk(node, prefix):
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        out = {}
+        for k, v in items:
+            name = f"{prefix}.{k}" if prefix else str(k)
+            if isinstance(v, (dict, list)):
+                out[k] = walk(v, name)
+            else:
+                out[k] = NamedSharding(mesh, specs[name] if specs is not None
+                                       else param_pspec(mesh, name,
+                                                        tuple(v.shape)))
+        return out if isinstance(node, dict) else list(out.values())
+    return walk(tree, "")
 
 
 def make_param_shardings(mesh, params: dict) -> dict:
@@ -372,40 +443,64 @@ def _names(entry) -> tuple:
 
 
 class ModelParallel:
-    """How the ranks of a live ``(data, model)`` mesh serve a decoder-only
-    LM (the reference's ``Server`` places every parameter by
-    :func:`make_param_shardings` on its smoke mesh; GSPMD runs the rest).
+    """How the ranks of a live ``(data, model)`` mesh serve and train a
+    decoder-only LM (the reference places every parameter by
+    :func:`make_param_shardings` on its smoke mesh, and its ``train``
+    shards the AdamW state like the parameters; GSPMD runs the rest).
 
     Each rank holds its block of every parameter by :func:`param_pspec`
     (:meth:`place`): the dims whose spec names the data axes are FSDP
     blocks, gathered over the data group just before their layer runs and
-    dropped after it (:meth:`layer`, :meth:`leaf`); the dims that name
-    ``model`` are Megatron's tensor parallelism, read from the resolved
-    specs:
+    dropped after it (:meth:`layer`, :meth:`leaf`); under autograd the
+    gather's backward is the fixed-order reduce-scatter of the blocks'
+    gradients over ``data`` (:func:`~repro_torch.distributed.collectives.
+    fsdp_gather`), and the training path gathers a layer inside its
+    checkpointed function, so the recompute gathers again.  The dims that
+    name ``model`` are Megatron's tensor parallelism, read from the
+    resolved specs:
 
     * ``wq``/``wk``/``wv`` split by columns: a rank holds its heads (q
       heads ``[r*H/m, ...)`` with KV heads ``[r*Hkv/m, ...)``, contiguous
       GQA groups), runs kernel 4 on them and keeps their KV cache; ``wo``
       split by rows, its partial products summed over ``model`` in a
-      fixed order (:func:`~repro_torch.distributed.collectives.sum_over`);
+      fixed order (:func:`~repro_torch.distributed.collectives.
+      sum_partials`, whose backward is the identity);
     * ``w_gate``/``w_up`` by columns, ``w_down`` by rows, summed the same
       way;
+    * the input of a column-split block enters through
+      :func:`~repro_torch.distributed.collectives.copy_in` (:meth:`hooks`),
+      whose backward sums every rank's partial input gradient; so does a
+      replicated leaf used on this rank's heads (qk-norm's gains);
     * ``embed`` rows by vocab: a rank looks up the ids in its range (zeros
       elsewhere) and the rows are summed over ``model`` (one term is
-      nonzero, so the sum is exact); ``lm_head`` (or the tied
-      ``embed.T``) by vocab columns, the logits gathered on V before the
-      greedy argmax, which then breaks ties as on the whole row.
+      nonzero, so the sum is exact; backward, each rank scatters the rows'
+      gradients into its own vocab block); ``lm_head`` (or the tied
+      ``embed.T``) by vocab columns: served, the logits gathered on V
+      before the greedy argmax, which then breaks ties as on the whole
+      row; trained, the cross entropy runs on this rank's columns
+      (:func:`repro_torch.models.layers.chunked_softmax_ce`'s ``tp``).
 
     A spec that does not split (the dim does not divide) keeps that part
     whole on every rank.  A column split that would cut a head raises
     ``ValueError``; a MoE, recurrent or encoder-decoder config over a
-    model extent above 1 raises ``NotImplementedError``
-    (:data:`MODEL_AXIS_ITEM`).  The batch splits over the data axes where
-    it divides (:meth:`batch_rows`).  The residual stream between layers
-    is whole on every model rank (no sequence split).
+    model extent above 1, or trained (``train=True``) over more than one
+    rank, raises ``NotImplementedError`` (:data:`MODEL_AXIS_ITEM`).
+    Served, the batch splits over the data axes where it divides
+    (:meth:`batch_rows`); trained, each microbatch of the global batch
+    must split (:meth:`microbatch_rows`).  The residual stream between
+    layers is whole on every model rank, in serving and in training (no
+    sequence split: sequence parallelism, the ``seq`` rule, is queued).
+
+    Training's reductions are fixed-order sums: the gradients of leaves
+    whose spec names no data axis over ``data`` (:meth:`reduce_grads`),
+    the gradient norm's per-leaf sums over the ranks that split each leaf
+    (:meth:`global_norm`), the loss and its normalisers over ``data``
+    (:meth:`data_sum`).  The AdamW state is placed like the parameters
+    (:meth:`shardings`, the reference's ``_opt_shardings``), and
+    :meth:`unshard` gathers a tree whole on rank 0 for a checkpoint.
     """
 
-    def __init__(self, mesh, cfg, shapes: dict):
+    def __init__(self, mesh, cfg, shapes: dict, train: bool = False):
         self.mesh, self.cfg = mesh, cfg
         self.m = model_size(mesh)
         self.dp = data_axis_size(mesh)
@@ -416,27 +511,29 @@ class ModelParallel:
         self.fsdp = {k: [d for d, e in enumerate(sp)
                          if data & set(_names(e))]
                      for k, sp in self.specs.items()}
-        self._check(shapes)      # on the geometry, before any group
+        self._check(shapes, train)   # on the geometry, before any group
         self.vocab = self._splits("embed", 0)
         self.data, self.model = data_group(mesh), model_group(mesh)
         self.rank = mesh.coords.get("model", 0)
 
     def _splits(self, name: str, dim: int) -> bool:
-        sp = self.specs[name]
+        sp = self.specs.get(name, ())
         return dim < len(sp) and "model" in _names(sp[dim])
 
-    def _check(self, shapes: dict) -> None:
+    def _check(self, shapes: dict, train: bool) -> None:
         cfg, m = self.cfg, self.m
-        if m > 1:
+        ranks = self.mesh.size if train else m
+        if ranks > 1:
             bad = [k for k in cfg.block_pattern
                    if k not in ("attn", "attn_local")]
             what = ("an encoder-decoder" if cfg.encoder_layers else
                     "a MoE FFN" if cfg.moe is not None else
                     f"the {bad[0]} mixer" if bad else None)
             if what:
+                where = (f"trained over a mesh of {ranks} ranks" if train
+                         else f"over a model extent of {m}")
                 raise NotImplementedError(
-                    f"{cfg.name}: {what} over a model extent of {m}: "
-                    f"{MODEL_AXIS_ITEM}")
+                    f"{cfg.name}: {what} {where}: {MODEL_AXIS_ITEM}")
         heads, ffn = {}, {}
         for pi in range(len(cfg.block_pattern)):
             pre = f"blocks.{pi}"
@@ -458,27 +555,52 @@ class ModelParallel:
     def place(self, params: dict) -> dict:
         """This rank's block of every leaf of a flat ``{name: tensor}``
         dict, each a tensor of its own (the whole leaf can be dropped)."""
-        return {k: NamedSharding(self.mesh, self.specs[k]).shard(
-            t).contiguous().clone() for k, t in params.items()}
+        return {k: self.block(k, t) for k, t in params.items()}
+
+    def block(self, name: str, t: torch.Tensor, lead: int = 0
+              ) -> torch.Tensor:
+        """This rank's block of leaf ``name``, or of one layer of its stack
+        (``t`` less the ``lead`` stacked axes, which no rule splits), as a
+        tensor of its own: the ``keep`` of a sharded ``init_params``."""
+        spec = PartitionSpec(*self.specs[name][lead:])
+        return NamedSharding(self.mesh, spec).shard(t).contiguous().clone()
 
     def leaf(self, name: str, t: torch.Tensor, lead: int = 0
              ) -> torch.Tensor:
         """``t`` (leaf ``name``'s block, less ``lead`` stacked axes) with
-        its FSDP dims gathered over the data group."""
-        from repro_torch.distributed.collectives import gather_dim
-
+        its FSDP dims gathered over the data group (differentiable)."""
         for d in self.fsdp[name]:
-            t = gather_dim(t, d - lead, self.data)
+            t = fsdp_gather(t, d - lead, self.data)
         return t
 
     def layer(self, pi: int, p: dict) -> dict:
         """Layer views ``p`` of pattern position ``pi``'s stacks with their
-        FSDP blocks gathered (the stacks' leading axis is gone)."""
+        FSDP blocks gathered (the stacks' leading axis is gone); where the
+        heads are split, a replicated mixer leaf (qk-norm's gains) enters
+        through :func:`~repro_torch.distributed.collectives.copy_in`."""
         def walk(node, prefix):
-            return {k: walk(v, f"{prefix}.{k}") if isinstance(v, dict)
-                    else self.leaf(f"{prefix}.{k}", v, lead=1)
-                    for k, v in node.items()}
+            out = {}
+            for k, v in node.items():
+                name = f"{prefix}.{k}"
+                if isinstance(v, dict):
+                    out[k] = walk(v, name)
+                    continue
+                v = self.leaf(name, v, lead=1)
+                if (self.heads[pi] and ".mixer." in name
+                        and not any("model" in _names(e)
+                                    for e in self.specs[name])):
+                    v = copy_in(v, self.model)
+                out[k] = v
+            return out
         return walk(p, f"blocks.{pi}")
+
+    def hooks(self, pi: int) -> dict:
+        """``apply_layer``'s keywords at pattern position ``pi``: the copy
+        into, and the sum out of, the attention's and the FFN's split
+        blocks (``None`` where a block is whole)."""
+        return {"copy": (self._copy if self.heads[pi] else None,
+                         self._copy if self.ffn[pi] else None),
+                "reduce": (self.attn_reduce(pi), self.ffn_reduce(pi))}
 
     def attn_reduce(self, pi: int):
         """The sum over ``model`` of the attention's output partials at
@@ -489,8 +611,10 @@ class ModelParallel:
         return self._reduce if self.ffn[pi] else None
 
     def _reduce(self, t: torch.Tensor) -> torch.Tensor:
-        from repro_torch.distributed.collectives import sum_over
-        return sum_over(t, self.model)
+        return sum_partials(t, self.model)
+
+    def _copy(self, t: torch.Tensor) -> torch.Tensor:
+        return copy_in(t, self.model)
 
     def embed(self, table: torch.Tensor, token: torch.Tensor
               ) -> torch.Tensor:
@@ -498,20 +622,34 @@ class ModelParallel:
         the (FSDP-gathered) ``table``."""
         if not self.vocab:
             return table[token]
-        from repro_torch.distributed.collectives import sum_over
-
         rows = table.shape[0]
         idx = token.long() - self.rank * rows
         hit = (idx >= 0) & (idx < rows)
         got = table[idx.clamp(0, rows - 1)]
-        return sum_over(torch.where(hit[..., None], got,
-                                    torch.zeros_like(got)), self.model)
+        return sum_partials(torch.where(hit[..., None], got,
+                                        torch.zeros_like(got)), self.model)
+
+    def head_input(self, h: torch.Tensor) -> torch.Tensor:
+        """The final hidden states entering the vocab-split head."""
+        return self._copy(h) if self.vocab else h
+
+    def vocab_columns(self, n: int) -> int | None:
+        """The first vocab id of this rank's ``n`` head columns (``None``
+        where the head is whole)."""
+        return self.rank * n if self.vocab else None
+
+    def model_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of every model rank's ``t`` (exact in any
+        order; not differentiable)."""
+        if not self.vocab:
+            return t
+        return torch.amax(all_gather_cat(t.detach()[None], self.model),
+                          dim=0)
 
     def logits(self, local: torch.Tensor) -> torch.Tensor:
         """This rank's vocab columns of the logits, gathered on V."""
         if not self.vocab:
             return local
-        from repro_torch.distributed.collectives import gather_dim
         return gather_dim(local.contiguous(), local.dim() - 1, self.model)
 
     def kv_heads(self) -> int:
@@ -532,10 +670,91 @@ class ModelParallel:
         return t if b % self.dp else all_gather_cat(t.contiguous(),
                                                     self.data)
 
+    # ------------------------------------------------------------ training
+    def microbatch_rows(self, size: int) -> slice:
+        """This data rank's rows of a microbatch of ``size`` rows: an equal
+        contiguous share (the reference's batch sharding of each
+        microbatch slice); a microbatch that does not split raises, since
+        a row held twice would count twice in the gradients."""
+        if size % self.dp:
+            raise ValueError(f"a microbatch of {size} rows does not split "
+                             f"over a data extent of {self.dp}")
+        return share(size, self.data)
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The fixed-order sum of every data rank's ``t`` (the loss, the
+        CE normalisers; not differentiable)."""
+        return sum_over(t.detach(), self.data)
+
+    def reduce_grads(self, grads: dict) -> dict:
+        """``grads`` (flat, this rank's blocks) with each leaf whose spec
+        names no data axis (its gradient so far from this rank's rows
+        only: norms, and a dim FSDP could not split) summed over ``data``
+        in :func:`repro_torch.distributed.compression.mesh_allreduce`'s
+        fixed order; the FSDP leaves' reduce-scatter ran in the
+        backward."""
+        from repro_torch.distributed.compression import mesh_allreduce
+
+        names = [k for k in sorted(grads) if not self.fsdp[k]]
+        if self.dp == 1 or not names:
+            return grads
+        flat = torch.cat([grads[k].reshape(-1) for k in names])
+        total = mesh_allreduce({"g": flat[None]}, self.data)["g"]
+        out, at = dict(grads), 0
+        for k in names:
+            n = grads[k].numel()
+            out[k] = total[at:at + n].view(grads[k].shape)
+            at += n
+        return out
+
+    def split_axes(self, name: str) -> tuple:
+        """The mesh axes leaf ``name``'s spec splits it over, in the
+        mesh's order."""
+        named = {a for e in self.specs[name] for a in _names(e)}
+        return tuple(a for a in self.mesh.axis_names if a in named)
+
+    def global_norm(self, grads: dict) -> torch.Tensor:
+        """sqrt of the sum of squares of every leaf of the whole gradient,
+        in fp32, from this rank's blocks: each leaf's sum of squares is
+        summed over the ranks that split it (one fixed-order sum per set
+        of axes, over every such leaf at once), a replicated leaf counts
+        once, and the leaves are added in sorted name order as
+        :func:`repro_torch.optim.adamw.global_norm` adds them."""
+        sq = {k: torch.sum(torch.square(grads[k].float()))
+              for k in sorted(grads)}
+        by_axes: dict = {}
+        for k in sq:
+            by_axes.setdefault(self.split_axes(k), []).append(k)
+        total = {}
+        for axes, names in by_axes.items():
+            v = torch.stack([sq[k] for k in names])
+            if axes:
+                v = sum_over(v, self.mesh.group(axes))
+            total.update(zip(names, v))
+        return torch.sqrt(sum(total[k] for k in sorted(total)))
+
+    def shardings(self, tree):
+        """:func:`tree_shardings` of ``tree`` (this layout's specs, so the
+        leaves may be blocks or whole)."""
+        return tree_shardings(self.mesh, tree, self.specs)
+
+    def unshard(self, tree):
+        """Every leaf of ``tree`` (this rank's blocks: parameters, AdamW
+        state) gathered whole onto rank 0's host, leaf by leaf in JAX's
+        flattening order (:meth:`NamedSharding.unshard`); ``None`` on the
+        other ranks.  Every rank calls it."""
+        from repro_torch.checkpoint.ckpt import flatten_tree, unflatten_tree
+
+        leaves, _ = flatten_tree(tree)
+        specs, _ = flatten_tree(self.shardings(tree))
+        whole = [sh.unshard(t) for t, sh in zip(leaves, specs)]
+        return unflatten_tree(tree, whole) if self.mesh.rank == 0 else None
+
 
 __all__ = ["PartitionSpec", "P", "NamedSharding", "MODEL_AXIS_ITEM",
            "resolve_spec", "install", "uninstall", "current_mesh",
-           "use_mesh", "param_pspec", "make_param_shardings", "data_axes",
+           "use_mesh", "param_pspec", "make_param_shardings",
+           "tree_shardings", "data_axes",
            "data_axis_size", "data_group", "model_size", "model_group",
            "make_groups", "ModelParallel",
            "batch_sharding",

@@ -68,6 +68,20 @@ class Mesh:
         return {"shape": [int(self.shape[a]) for a in self.axis_names],
                 "axes": list(self.axis_names)}
 
+    def axes_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def index(self, axes, rank: int) -> int:
+        """Mesh rank ``rank``'s row-major index along ``axes`` (0 for no
+        axes); ranks lie row-major over the axes."""
+        coords, r = {}, rank
+        for a in reversed(self.axis_names):
+            r, coords[a] = divmod(r, self.shape[a])
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + coords[a]
+        return i
+
 
 def mesh_of(shape, axes) -> Mesh:
     return Mesh(dict(zip(axes, (int(s) for s in shape))), tuple(axes))
@@ -147,15 +161,10 @@ class LiveMesh(Mesh):
     def __eq__(self, other):
         return self is other
 
-    def axes_size(self, axes) -> int:
-        return math.prod(self.shape[a] for a in axes)
-
-    def index(self, axes) -> int:
-        """This rank's row-major index along ``axes`` (0 for no axes)."""
-        i = 0
-        for a in axes:
-            i = i * self.shape[a] + self.coords[a]
-        return i
+    def index(self, axes, rank: int | None = None) -> int:
+        """This rank's (or mesh rank ``rank``'s) row-major index along
+        ``axes`` (0 for no axes)."""
+        return super().index(axes, self.rank if rank is None else rank)
 
     def everyone(self):
         """The process group of every rank of the mesh."""

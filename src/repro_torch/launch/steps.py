@@ -3,8 +3,10 @@
 The port of ``repro.launch.steps``:
 
 * :func:`make_train_step` — the microbatched (gradient-accumulation) LM
-  train step (its loss and gradients: :func:`make_value_and_grad`);
-  driven by :mod:`repro_torch.launch.train`.
+  train step (its loss and gradients: :func:`make_value_and_grad`), on
+  one device or, with ``mesh=``, on one rank of a ``(data, model)`` mesh
+  (FSDP and tensor parallelism, :func:`model_parallel`); driven by
+  :mod:`repro_torch.launch.train`.
 * :func:`make_prefill_step` / :func:`make_serve_step` — LM prefill and
   KV-cached greedy decode; driven by :mod:`repro_torch.launch.serve`.  The
   reference's jitted serve step donates its caches; here the step writes
@@ -51,8 +53,29 @@ def _model_fns(cfg: ModelConfig):
     return transformer
 
 
+def shard_params(tp, params: dict) -> dict:
+    """This rank's blocks of a whole parameter tree over a
+    :class:`~repro_torch.distributed.sharding.ModelParallel` layout, in the
+    tree's structure (each block a tensor of its own)."""
+    flat = tp.place(transformer.flatten_params(params))
+    return transformer.unflatten_params(flat, params)
+
+
+def model_parallel(cfg: ModelConfig, mesh):
+    """The training layout of ``cfg`` over the live ``mesh``: a
+    :class:`~repro_torch.distributed.sharding.ModelParallel` on the
+    model's parameter shapes, which refuses what the mesh cannot train
+    yet."""
+    from repro_torch.distributed.sharding import ModelParallel
+
+    like = transformer.flatten_params(
+        _model_fns(cfg).init_params(None, cfg, device="meta"))
+    return ModelParallel(mesh, cfg, {k: tuple(v.shape)
+                                     for k, v in like.items()}, train=True)
+
+
 def make_value_and_grad(cfg: ModelConfig, *, microbatches: int = 1,
-                        backend: str = "kernels"):
+                        backend: str = "kernels", tp=None):
     """``value_and_grad(params, batch) -> (loss, grads)`` of the train
     step: the mean CE loss (a 0-d fp32 tensor) and the flat gradients by
     ``flatten_params(params)``'s names, in the stacked layout.  A MoE
@@ -72,6 +95,19 @@ def make_value_and_grad(cfg: ModelConfig, *, microbatches: int = 1,
     reference's accumulator, each slice's per-layer gradients added into
     their stack's slot, then divided by the count.  With one microbatch
     the gradients keep the parameters' dtype.
+
+    ``tp`` (:func:`model_parallel`): one rank of a ``(data, model)`` mesh.
+    ``params`` are then this rank's blocks and ``batch`` the GLOBAL batch,
+    the same on every rank.  It is cut into the microbatches as above,
+    and this data rank takes its share of the rows WITHIN each
+    microbatch (:meth:`~repro_torch.distributed.sharding.ModelParallel.
+    microbatch_rows`): each microbatch's CE is normalised by that
+    microbatch's mask sum over every data rank, as in the reference,
+    whose grouping a contiguous block of the batch cut locally would
+    change.  The gradients are this rank's blocks of the whole one: the
+    FSDP blocks' reduce-scatter runs in the backward, and the leaves no
+    data axis splits are summed over ``data`` at the end (``reduce_grads``);
+    the loss is summed over ``data``.  The same on every rank.
     """
     mod = _model_fns(cfg)
     check_backend(backend)
@@ -86,9 +122,11 @@ def make_value_and_grad(cfg: ModelConfig, *, microbatches: int = 1,
                                     backend=backend)
             return softmax_cross_entropy(logits, mb["labels"], mb["mask"])
         hidden = transformer.forward(leaves, mb["tokens"], cfg,
-                                     backend=backend, return_hidden=True)
-        return chunked_softmax_ce(hidden, transformer.lm_head(leaves, cfg),
-                                  mb["labels"], mb["mask"], backend=backend)
+                                     backend=backend, return_hidden=True,
+                                     tp=tp)
+        return chunked_softmax_ce(hidden, transformer.lm_head(leaves, cfg, tp),
+                                  mb["labels"], mb["mask"], backend=backend,
+                                  tp=tp)
 
     def loss_and_grads(leaves, flat, mb):
         loss = loss_fn(leaves, mb)
@@ -101,37 +139,46 @@ def make_value_and_grad(cfg: ModelConfig, *, microbatches: int = 1,
     def value_and_grad(params, batch):
         leaves = mod.unstack_blocks(params, cfg)
         flat = transformer.flatten_params(leaves)
-        if microbatches == 1:
-            loss, g = loss_and_grads(leaves, flat, batch)
-            return loss, mod.stack_grads(g)
         rows = batch["tokens"].shape[0]
         if rows % microbatches:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{microbatches} microbatches")
         size = rows // microbatches
-        grads = {k: torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
-                 for k, p in transformer.flatten_params(params).items()}
-        loss = torch.zeros((), dtype=torch.float32,
-                           device=batch["mask"].device)
-        for i in range(microbatches):
-            mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            lmb, g = loss_and_grads(leaves, flat, mb)
-            for name, gi in g.items():
-                key, r = mod.stacked_name(name)
-                slot = grads[key] if r is None else grads[key][r]
-                slot += gi.to(acc_dtype)
-            loss = loss + lmb
-            del g
-        for a in grads.values():
-            a.div_(microbatches)
-        return loss / microbatches, grads
+        mine = slice(0, size) if tp is None else tp.microbatch_rows(size)
+        if microbatches == 1:
+            loss, g = loss_and_grads(leaves, flat,
+                                     {k: v[mine] for k, v in batch.items()})
+            grads = mod.stack_grads(g)
+        else:
+            grads = {k: torch.zeros(p.shape, dtype=acc_dtype,
+                                    device=p.device)
+                     for k, p in transformer.flatten_params(params).items()}
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["mask"].device)
+            for i in range(microbatches):
+                mb = {k: v[i * size:(i + 1) * size][mine]
+                      for k, v in batch.items()}
+                lmb, g = loss_and_grads(leaves, flat, mb)
+                for name, gi in g.items():
+                    key, r = mod.stacked_name(name)
+                    slot = grads[key] if r is None else grads[key][r]
+                    slot += gi.to(acc_dtype)
+                loss = loss + lmb
+                del g
+            for a in grads.values():
+                a.div_(microbatches)
+            loss = loss / microbatches
+        if tp is not None:
+            grads, loss = tp.reduce_grads(grads), tp.data_sum(loss)
+        return loss, grads
 
     return value_and_grad
 
 
 def make_train_step(cfg: ModelConfig, *, lr_peak: float = 3e-4,
                     warmup: int = 2000, total_steps: int = 100_000,
-                    microbatches: int = 1, backend: str = "kernels"):
+                    microbatches: int = 1, backend: str = "kernels",
+                    mesh=None):
     """Microbatched (gradient-accumulation) LM train step.
 
     Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -147,19 +194,35 @@ def make_train_step(cfg: ModelConfig, *, lr_peak: float = 3e-4,
     ``cosine_schedule(opt_state.step, ...)``, and AdamW updates the flat
     parameters (the returned tree holds new tensors; the arguments are
     left as they were).
+
+    ``mesh`` (a live ``(data, model)`` mesh, :mod:`repro_torch.launch.
+    mesh`): the step of this rank, the reference's ``train(cfg, mesh=)``
+    step.  ``params`` and ``opt_state`` are this rank's blocks
+    (``launch.train.init_state(tp=)``, or :func:`shard_params` of a whole
+    tree, then ``adamw_init`` of the blocks: the AdamW state lies like the
+    parameters), ``batch`` the global batch
+    (:func:`make_value_and_grad`'s ``tp``); ``grad_norm`` is the whole
+    gradient's (``ModelParallel.global_norm``) and AdamW updates each
+    block elementwise, so the metrics are the same on every rank.  The
+    step's layout is ``train_step.tp``.  A MoE, recurrent or
+    encoder-decoder config over more than one rank raises
+    ``NotImplementedError``.
     """
+    tp = None if mesh is None else model_parallel(cfg, mesh)
     value_and_grad = make_value_and_grad(cfg, microbatches=microbatches,
-                                         backend=backend)
+                                         backend=backend, tp=tp)
 
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(params, batch)
         lr = cosine_schedule(opt_state.step, warmup, total_steps, lr_peak)
         new_flat, new_opt, gnorm = adamw_update(
-            grads, opt_state, transformer.flatten_params(params), lr=lr)
+            grads, opt_state, transformer.flatten_params(params), lr=lr,
+            gnorm=None if tp is None else tp.global_norm(grads))
         new_params = transformer.unflatten_params(new_flat, params)
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm,
                                      "lr": lr}
 
+    train_step.tp = tp
     return train_step
 
 
@@ -314,7 +377,8 @@ def make_gen_scan_step(scan_steps: int, *, t_max: int = DDIM_T_MAX,
     return gen_scan_step
 
 
-__all__ = ["make_value_and_grad", "make_train_step",
+__all__ = ["shard_params", "model_parallel", "make_value_and_grad",
+           "make_train_step",
            "make_prefill_step",
            "make_serve_step", "DDIM_T_MAX",
            "ddim_alpha_bar", "ddim_timesteps", "make_gen_step",

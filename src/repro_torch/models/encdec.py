@@ -67,29 +67,33 @@ def _dec_layer_init(generator, cfg: ModelConfig, dtype, device) -> dict:
 
 
 def init_params(generator: torch.Generator | None, cfg: ModelConfig,
-                device=None) -> dict:
+                device=None, keep=None) -> dict:
     """The reference's tree in ``cfg.dtype``, drawn from ``generator`` on
     its device and put on ``device`` (``None`` -> CUDA, raising without a
-    card; ``"meta"`` for shapes only)."""
+    card; ``"meta"`` for shapes only); ``keep`` as in
+    :func:`repro_torch.models.transformer.init_params`."""
     if not cfg.encoder_layers:
         raise ValueError(f"{cfg.name} has no encoder; use "
                          f"repro_torch.models.transformer")
     dtype = canon_dtype(cfg.dtype)
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
-    g = generator
+    g, k = generator, keep or transformer.whole
     return {
-        "embed": normal_init(g, (cfg.vocab, cfg.d_model),
-                             cfg.d_model ** -0.5, dtype, dev),
-        "enc_pos": normal_init(g, (cfg.encoder_ctx, cfg.d_model), 0.02,
-                               dtype, dev),
+        "embed": k("embed", normal_init(g, (cfg.vocab, cfg.d_model),
+                                        cfg.d_model ** -0.5, dtype, dev)),
+        "enc_pos": k("enc_pos", normal_init(
+            g, (cfg.encoder_ctx, cfg.d_model), 0.02, dtype, dev)),
         "enc_blocks": transformer.init_stacked(
-            lambda: _enc_layer_init(g, cfg, dtype, dev), cfg.encoder_layers),
+            lambda: _enc_layer_init(g, cfg, dtype, dev), cfg.encoder_layers,
+            keep, "enc_blocks"),
         "dec_blocks": transformer.init_stacked(
-            lambda: _dec_layer_init(g, cfg, dtype, dev), cfg.num_layers),
-        "enc_norm": rmsnorm_init(cfg.d_model, dtype, dev),
-        "dec_norm": rmsnorm_init(cfg.d_model, dtype, dev),
-        "lm_head": dense_init(g, cfg.d_model, cfg.vocab, dtype, device=dev),
+            lambda: _dec_layer_init(g, cfg, dtype, dev), cfg.num_layers,
+            keep, "dec_blocks"),
+        "enc_norm": k("enc_norm", rmsnorm_init(cfg.d_model, dtype, dev)),
+        "dec_norm": k("dec_norm", rmsnorm_init(cfg.d_model, dtype, dev)),
+        "lm_head": k("lm_head", dense_init(g, cfg.d_model, cfg.vocab, dtype,
+                                           device=dev)),
     }
 
 

@@ -184,7 +184,7 @@ def ce_chunks(s: int, chunk: int = 512) -> int:
 
 def chunked_softmax_ce(hidden: torch.Tensor, head: torch.Tensor,
                        labels: torch.Tensor, mask: torch.Tensor,
-                       chunk: int = 512, backend: str = "kernels"
+                       chunk: int = 512, backend: str = "kernels", tp=None
                        ) -> torch.Tensor:
     """Cross entropy without ever materialising the full (B, S, V) logits.
 
@@ -194,7 +194,14 @@ def chunked_softmax_ce(hidden: torch.Tensor, head: torch.Tensor,
     non-reentrant, in place of the reference's ``jax.checkpoint``), so one
     chunk's logits are live at a time.  As in the reference, a sequence of
     at most ``chunk`` tokens, or not a multiple of it, takes the full
-    logits."""
+    logits.
+
+    ``tp`` (a :class:`repro_torch.distributed.sharding.ModelParallel`):
+    this rank's rows of the batch and, where the vocab is split, ``head``
+    is this rank's vocab columns; see :func:`_vocab_parallel_ce`."""
+    if tp is not None:
+        return _vocab_parallel_ce(hidden, head, labels, mask, chunk, backend,
+                                  tp)
     s = hidden.shape[1]
     if ce_chunks(s, chunk) == 1:
         return softmax_cross_entropy(linear(hidden, head, backend), labels,
@@ -213,4 +220,55 @@ def chunked_softmax_ce(hidden: torch.Tensor, head: torch.Tensor,
                                labels[:, c0:c0 + chunk], m,
                                use_reentrant=False, preserve_rng_state=False)
         msum = msum + torch.sum(m)
+    return nll / torch.clamp(msum, min=1.0)
+
+
+def _vocab_parallel_ce(hidden, head, labels, mask, chunk, backend, tp):
+    """:func:`chunked_softmax_ce` on one rank of a ``(data, model)`` mesh.
+
+    ``hidden`` (this data rank's rows, whole on every model rank) enters
+    the head through ``tp.head_input`` (backward: the sum of every model
+    rank's partial gradient).  Each chunk's fp32 logits are this rank's
+    vocab columns only; the softmax's three reductions run over ``model``
+    on per-row vectors, never on the logits: the row max (exact in any
+    order), the sum of exponentials and the gold logit, taken from the
+    rank that owns the label (zeros elsewhere), both by the fixed-order
+    ``sum_partials``.  The chunk rule (:func:`ce_chunks`) and the
+    per-chunk checkpoint are the unsharded function's.  The normaliser is
+    the microbatch's mask sum over every data rank (``tp.data_sum``), so
+    each data rank returns its rows' share of the microbatch's loss: the
+    shares add up, over ``data``, to the unsharded loss."""
+    from repro_torch.distributed.collectives import sum_partials
+
+    hidden = tp.head_input(hidden)
+    first = tp.vocab_columns(head.shape[-1])
+
+    def body(h, lab, m):
+        logits = linear(h, head, backend).float()
+        if first is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+            return torch.sum((logz - gold) * m)
+        n = logits.shape[-1]
+        top = tp.model_max(torch.amax(logits.detach(), dim=-1))
+        total = sum_partials(torch.sum(torch.exp(logits - top[..., None]),
+                                       dim=-1), tp.model)
+        logz = torch.log(total) + top
+        idx = lab.long() - first
+        hit = (idx >= 0) & (idx < n)
+        got = torch.gather(logits, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        gold = sum_partials(torch.where(hit, got, torch.zeros_like(got)),
+                            tp.model)
+        return torch.sum((logz - gold) * m)
+
+    s = hidden.shape[1]
+    msum = tp.data_sum(torch.sum(mask.float()))
+    if ce_chunks(s, chunk) == 1:
+        return body(hidden, labels, mask) / torch.clamp(msum, min=1.0)
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        nll = nll + checkpoint(body, hidden[:, c0:c0 + chunk],
+                               labels[:, c0:c0 + chunk],
+                               mask[:, c0:c0 + chunk],
+                               use_reentrant=False, preserve_rng_state=False)
     return nll / torch.clamp(msum, min=1.0)

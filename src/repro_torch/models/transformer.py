@@ -48,13 +48,16 @@ state takes one token a step.  Encoder-decoder configs are
 its slices in turn (:func:`init_stacked`): a 30.5 B-parameter MoE model
 never holds a second copy of its blocks while it stacks them.
 
-:func:`decode_step` takes ``tp=``, a
+:func:`decode_step` and :func:`forward` take ``tp=``, a
 :class:`repro_torch.distributed.sharding.ModelParallel`: the parameters
 are then this rank's blocks, each layer's FSDP blocks are gathered before
-it runs, attention runs on this rank's heads (its cache holds their KV
-heads, :func:`init_caches`'s ``kv_heads``), the row-split products'
-partials are summed over the model axis, and the vocab-split embedding
-and head are reduced and gathered (the layout's docstring).
+it runs, attention runs on this rank's heads (a cache holds their KV
+heads, :func:`init_caches`'s ``kv_heads``), the column-split blocks'
+inputs enter through the layout's copy and the row-split products'
+partials are summed over the model axis, and the vocab-split embedding is
+reduced and the head's logits are this rank's columns (gathered on V by
+:func:`decode_step`; the training CE reads them where they lie).  Under
+autograd each of those has its adjoint (the layout's docstring).
 """
 
 from __future__ import annotations
@@ -135,11 +138,17 @@ def layer_init(generator, cfg: ModelConfig, pattern_idx: int, dtype,
     return p
 
 
-def init_stacked(draw, repeat: int) -> dict:
+def init_stacked(draw, repeat: int, keep=None, prefix: str = "") -> dict:
     """``repeat`` trees of ``draw()``, stacked leaf by leaf on a new leading
     axis: each stack is allocated once and each layer is drawn, in turn,
     into its slice, so at most one layer's tree lives beside the stacks.
-    Bitwise the ``torch.stack`` of ``repeat`` draws in the same order."""
+    Bitwise the ``torch.stack`` of ``repeat`` draws in the same order.
+    ``keep(name, t, 1)``: what to keep of each layer's leaf as it is drawn
+    (its stack is then the kept pieces'), named ``prefix.path``."""
+    def cut(one, at):
+        return {k: cut(v, f"{at}.{k}") if isinstance(v, dict)
+                else keep(f"{at}.{k}", v, 1) for k, v in one.items()}
+
     def alloc(t):
         if isinstance(t, dict):
             return {k: alloc(v) for k, v in t.items()}
@@ -152,36 +161,53 @@ def init_stacked(draw, repeat: int) -> dict:
             else:
                 stack[k][r].copy_(v)
 
-    one = draw()
+    def drawn():
+        return draw() if keep is None else cut(draw(), prefix)
+
+    one = drawn()
     stack = alloc(one)
     for r in range(repeat):
         if r:
-            one = draw()
+            one = drawn()
         put(stack, one, r)
         del one
     return stack
 
 
+def whole(name, t, lead=0):
+    """The ``keep`` that keeps every leaf whole."""
+    return t
+
+
 def init_params(generator: torch.Generator | None, cfg: ModelConfig,
-                device=None) -> dict:
+                device=None, keep=None) -> dict:
     """Parameters with per-pattern-position stacks of shape (repeat, ...),
     in ``cfg.dtype``, drawn from ``generator`` on its device (see
     :mod:`repro_torch.models.layers`) and put on ``device`` (``None`` ->
-    CUDA, raising without a card; ``"meta"`` for shapes only)."""
+    CUDA, raising without a card; ``"meta"`` for shapes only).
+
+    ``keep(name, t, lead)`` (e.g. ``ModelParallel.block``): what to keep
+    of each leaf, by its :func:`flatten_params` name, as it is drawn (a
+    stack's layer by layer, ``lead`` 1): every leaf is drawn whole, so the
+    bits are the whole tree's, and at most one whole layer lives beside
+    the kept pieces."""
     check_supported(cfg)
     dtype = canon_dtype(cfg.dtype)
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
-    params = {"embed": normal_init(generator, (cfg.vocab, cfg.d_model),
-                                   cfg.d_model ** -0.5, dtype, dev)}
+    k = keep or whole
+    params = {"embed": k("embed", normal_init(
+        generator, (cfg.vocab, cfg.d_model), cfg.d_model ** -0.5, dtype,
+        dev))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab,
-                                       dtype, device=dev)
+        params["lm_head"] = k("lm_head", dense_init(
+            generator, cfg.d_model, cfg.vocab, dtype, device=dev))
     params["blocks"] = [
         init_stacked(lambda pi=pi: layer_init(generator, cfg, pi, dtype, dev),
-                     cfg.repeat)
+                     cfg.repeat, keep, f"blocks.{pi}")
         for pi in range(len(cfg.block_pattern))]
-    params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, dev)
+    params["final_norm"] = k("final_norm",
+                             rmsnorm_init(cfg.d_model, dtype, dev))
     return params
 
 
@@ -325,11 +351,17 @@ def unflatten_params(flat: dict, like, prefix: str = ""):
 
 def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 ffn_kind: str, positions, cache=None, cache_pos=None,
-                backend: str = "kernels", reduce=(None, None)):
+                backend: str = "kernels", reduce=(None, None),
+                copy=(None, None)):
     """One (mixer + FFN) layer.  Returns (y, cache written in place).
     ``reduce``: the attention's and the dense FFN's sums of partial
-    products over the model axis (tensor parallelism), or ``None``."""
+    products over the model axis (tensor parallelism), or ``None``;
+    ``copy``: the entries of their normed inputs into the split blocks
+    (backward, the sum of every rank's partial input gradient), or
+    ``None``."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if copy[0] is not None:
+        h = copy[0](h)
     if kind in ("attn", "attn_local"):
         mixed, new_cache = attn_mod.attention(
             p["mixer"], h, cfg, kind=kind, positions=positions,
@@ -346,8 +378,10 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         x = x + moe_mod.moe_ffn(p["ffn"], rmsnorm(p["norm2"], x,
                                                   cfg.norm_eps), cfg, backend)
     elif ffn_kind == "dense":
-        x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps), backend,
-                    reduce=reduce[1])
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        if copy[1] is not None:
+            h = copy[1](h)
+        x = x + mlp(p["ffn"], h, backend, reduce=reduce[1])
     return x, new_cache
 
 
@@ -364,36 +398,49 @@ def lm_head(params: dict, cfg: ModelConfig, tp=None) -> torch.Tensor:
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            backend: str = "kernels", return_hidden: bool = False
+            backend: str = "kernels", return_hidden: bool = False, tp=None
             ) -> torch.Tensor:
     """Training/prefill forward without a cache.  tokens (B, S) -> logits
     (B, S, V), or the final-normed hidden states (B, S, D) with
     ``return_hidden`` (training's chunked CE applies the head).
 
     With ``cfg.remat`` and grad mode on, each layer runs under a
-    non-reentrant ``torch.utils.checkpoint``.  The reference's
-    ``embeddings=`` (stub modality frontends) comes with its caller
-    (ROADMAP.md, queue 1)."""
+    non-reentrant ``torch.utils.checkpoint``.  ``tp``: this rank's blocks
+    over a :class:`~repro_torch.distributed.sharding.ModelParallel`
+    layout (the module docstring), ``tokens`` this data rank's rows; each
+    layer's FSDP blocks are gathered inside its (checkpointed) function,
+    so the recompute gathers them again and no gathered layer outlives
+    its use, and the logits are this rank's vocab columns.  The
+    reference's ``embeddings=`` (stub modality frontends) comes with its
+    caller (ROADMAP.md, queue 1)."""
     check_supported(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     if remat and cfg.remat_policy != "nothing":
         raise NotImplementedError(
             f"{cfg.name}: remat_policy {cfg.remat_policy!r} is not ported "
             f"(only 'nothing': each layer recomputed whole)")
-    x = params["embed"][tokens].to(canon_dtype(cfg.dtype))
+    embed = params["embed"]
+    x = (embed[tokens] if tp is None
+         else tp.embed(tp.leaf("embed", embed), tokens))
+    x = x.to(canon_dtype(cfg.dtype))
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    for _, _, kind, fk, p in layer_params(params, cfg):
-        def layer(x, p=p, kind=kind, fk=fk):
+    for pi, _, kind, fk, p in layer_params(params, cfg):
+        def layer(x, p=p, pi=pi, kind=kind, fk=fk):
+            kw = {}
+            if tp is not None:
+                p, kw = tp.layer(pi, p), tp.hooks(pi)
             return apply_layer(p, x, cfg, kind, fk, positions,
-                               backend=backend)[0]
+                               backend=backend, **kw)[0]
 
         x = (checkpoint(layer, x, use_reentrant=False,
                         preserve_rng_state=False) if remat else layer(x))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
         return x
-    return linear(x, lm_head(params, cfg), backend)
+    if tp is not None:
+        x = tp.head_input(x)
+    return linear(x, lm_head(params, cfg, tp), backend)
 
 
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -458,8 +505,7 @@ def decode_step(params: dict, token: torch.Tensor, caches: list,
         cache = {k: c[r] for k, c in caches[pi].items()}
         kw = {}
         if tp is not None:
-            p = tp.layer(pi, p)
-            kw["reduce"] = (tp.attn_reduce(pi), tp.ffn_reduce(pi))
+            p, kw = tp.layer(pi, p), tp.hooks(pi)
         x, _ = apply_layer(p, x, cfg, kind, fk, None, cache=cache,
                            cache_pos=cache_pos, backend=backend, **kw)
         if record is not None:

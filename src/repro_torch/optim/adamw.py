@@ -58,13 +58,18 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 def adamw_update(grads: dict, state: AdamWState, params: dict, *, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, clip_norm: float = 1.0):
+                 weight_decay: float = 0.1, clip_norm: float = 1.0,
+                 gnorm: torch.Tensor | None = None):
     """Returns ``(new_params, new_state, grad_norm)``.  ``lr`` may be a
     Python float or a 0-d tensor.  The update is fp32 whatever the state's
     dtypes; the moments and the master (the parameters when there is no
-    master) are stored back in their own dtypes."""
+    master) are stored back in their own dtypes.  ``gnorm``: the gradient
+    norm where ``grads`` are a rank's blocks of a sharded gradient
+    (``ModelParallel.global_norm``); the update is elementwise, so it runs
+    on each block as on the whole."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     stepf = step.to(torch.float32)
     c1 = 1.0 - torch.pow(b1, stepf)

@@ -204,8 +204,9 @@ def _counted(plain, wrapper):
 def test_phase_33_rehearses_on_the_cpu(monkeypatch, tmp_path):
     """Phase 33's wiring (``Smoke.run_data_axis``: the plan-bits gate, 4
     gloo ranks on the CPU running 33a's convs, 33b's ENet steps and 33c's
-    drains and restore, 33d's failover pool, the kernels line's entries) at
-    small shapes, the plan table under ``tmp_path``.  In this process
+    drains and restore, 33d's failover pool, the kernels line's entries),
+    and phases 34 and 35 in the same spawn, at small shapes (phase 35 at
+    the reduced StableLM), the plan table under ``tmp_path``.  In this process
     counted plain versions stand in for the conv launchers (they take no
     plan, so no geometry has a plan that moves its bits); the ranks run the wrappers' plain versions, whose
     launches no counter sees (the counters count CUDA launches), so the
@@ -261,7 +262,9 @@ def test_phase_33_rehearses_on_the_cpu(monkeypatch, tmp_path):
                              "unet_widths": (8, 8), "unet_hw": 4,
                              "dcgan_nz": 16, "dcgan_ngf": 4}),
             ("MA_LM_REDUCED", True), ("MA_LM_PROMPT", 8),
-            ("MA_LM_DECODE", 2)):
+            ("MA_LM_DECODE", 2),
+            # phase 35, in the same spawn, at the reduced config
+            ("TA_REDUCED", True), ("TA_SEQ", 32), ("TA_WITNESS_SEQ", 16)):
         monkeypatch.setattr(chip_smoke, name, value)
     smoke = chip_smoke.Smoke(torch)
     smoke.dev = torch.device("cpu")
@@ -269,6 +272,8 @@ def test_phase_33_rehearses_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(smoke, "gate33",
                         lambda ok, what: ok or missed.append(what))
     monkeypatch.setattr(smoke, "gate34",
+                        lambda ok, what: ok or missed.append(what))
+    monkeypatch.setattr(smoke, "gate35",
                         lambda ok, what: ok or missed.append(what))
     monkeypatch.setattr(smoke, "device_ms", lambda fn, reps=10, rounds=3: 1.0)
     smoke.report["phase_seconds"] = {}
@@ -280,7 +285,9 @@ def test_phase_33_rehearses_on_the_cpu(monkeypatch, tmp_path):
         "conv2d (phase 34, every rank's row band)",
         "transposed_conv2d (phase 34, every rank's row band)",
         "matmul (phase 34c, every rank's heads)",
-        "flash_attention (phase 34c, every rank's heads)"}
+        "flash_attention (phase 34c, every rank's heads)",
+        "matmul (phase 35, every rank's blocks)",
+        "flash_attention (phase 35, every rank's heads)"}
     for e in entries:
         assert set(e) == _ENTRY_KEYS
     rep = smoke.report["data_axis"]
@@ -292,3 +299,11 @@ def test_phase_33_rehearses_on_the_cpu(monkeypatch, tmp_path):
     ma = smoke.report["model_axis"]
     assert set(ma["lm"]) == {str(m) for m in chip_smoke.MA_MESHES}
     assert ma["serve"]["images"] == len(chip_smoke.MA_SERVE_STEPS) + 1
+    ta = smoke.report["train_axis"]
+    assert {str(m) for m in chip_smoke.TA_MESHES} <= set(ta)
+    for m in chip_smoke.TA_MESHES:
+        assert len(ta[str(m)]["metrics"]) == chip_smoke.TA_STEPS
+        assert ta[str(m)]["collective_calls"] > 0
+    assert ta["checkpoint"]["bitwise"]
+    assert ta["fp32_witness"]["worst_grad"][1][1] <= chip_smoke.TA_FP32_GRAD
+    assert "35 (in 33's spawn)" in smoke.report["phase_seconds"]

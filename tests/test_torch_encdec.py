@@ -581,6 +581,7 @@ def test_train_loop_feeds_zero_frames(monkeypatch):
         def run(params, opt, batch):
             seen.append(batch["frames"])
             return step(params, opt, batch)
+        run.tp = step.tp
         return run
 
     monkeypatch.setattr(train, "make_train_step", recording)

@@ -727,6 +727,7 @@ def test_train_lets_a_real_error_propagate(tmp_path, monkeypatch):
     def broken(*a, **k):
         def step(*a, **k):
             raise RuntimeError("matmul (wgmma): launch failed")
+        step.tp = None   # the step's layout: one device
         return step
 
     monkeypatch.setattr(train, "make_train_step", broken)

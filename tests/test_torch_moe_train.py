@@ -275,6 +275,36 @@ def _ffn_value_and_grad(p, x, cot, cfg, backend, force=None, routes=None):
     return out, dict(zip(["x", *leaves], grads)), seen
 
 
+#: the reference's runs, each made once for both port backends
+_REF: dict = {}
+
+
+def _ffn_reference(arch, case, dtype, jax_routes):
+    """The reference ``moe_ffn``'s parameters, inputs, value, gradients and
+    routes for ``(arch, case, dtype)``: jitted and run once, kept for the
+    other backend's test."""
+    key = ("ffn", arch, case, dtype)
+    if key not in _REF:
+        b, s, cf = _CASES[case]
+        _, jcfg = _cfgs(arch, dtype, cf)
+        jp = jmoe.moe_init(jax.random.PRNGKey(3), jcfg, _JDT[dtype])
+        rng = np.random.default_rng(4)
+        x = rng.standard_normal((b, s, jcfg.d_model)).astype(np.float32)
+        cot = rng.standard_normal((b, s, jcfg.d_model)).astype(np.float32)
+
+        def jloss(p, xx):
+            out = jmoe.moe_ffn(p, xx, jcfg)
+            return jnp.sum(out.astype(jnp.float32) * cot), out
+
+        (_, want), (jgp, jgx) = jax.jit(jax.value_and_grad(
+            jloss, argnums=(0, 1), has_aux=True))(
+                jp, jnp.asarray(x, _JDT[dtype]))
+        jax.effects_barrier()
+        assert len(jax_routes) == 1
+        _REF[key] = (jp, x, cot, want, jgp, jgx, list(jax_routes))
+    return _REF[key]
+
+
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("backend", ["kernels", "torch"])
 @pytest.mark.parametrize("case", list(_CASES))
@@ -285,27 +315,14 @@ def test_moe_ffn_gradients_match_reference(arch, case, backend, dtype,
     stacks and the shared expert against ``jax.value_and_grad`` of the
     reference's ``moe_ffn``.  fp32: the port's own routes, asserted equal
     to the reference's; bf16: the port forced onto the reference's."""
-    b, s, cf = _CASES[case]
-    tcfg, jcfg = _cfgs(arch, dtype, cf)
-    jp = jmoe.moe_init(jax.random.PRNGKey(3), jcfg, _JDT[dtype])
-    rng = np.random.default_rng(4)
-    x = rng.standard_normal((b, s, tcfg.d_model)).astype(np.float32)
-    cot = rng.standard_normal((b, s, tcfg.d_model)).astype(np.float32)
-    jx = jnp.asarray(x, _JDT[dtype])
-
-    def jloss(p, xx):
-        out = jmoe.moe_ffn(p, xx, jcfg)
-        return jnp.sum(out.astype(jnp.float32) * cot), out
-
-    (_, want), (jgp, jgx) = jax.jit(jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True))(jp, jx)
-    jax.effects_barrier()
-    assert len(jax_routes) == 1
-    force = None if dtype == "fp32" else jax_routes
+    tcfg, jcfg = _cfgs(arch, dtype, _CASES[case][2])
+    jp, x, cot, want, jgp, jgx, j_routes = _ffn_reference(arch, case, dtype,
+                                                          jax_routes)
+    force = None if dtype == "fp32" else j_routes
     got, grads, seen = _ffn_value_and_grad(
         _tensors(jp, _TDT[dtype]), torch.from_numpy(x).to(_TDT[dtype]),
         torch.from_numpy(cot).to(_TDT[dtype]), tcfg, backend, force, routes)
-    _same_routes(seen, jax_routes)
+    _same_routes(seen, j_routes)
     assert got.dtype == _TDT[dtype]
     _close(got, want, _VALUE_BAR[dtype])
     jflat = {"x": jgx, **_flat(jax.tree.map(np.asarray, jgp))}
@@ -391,7 +408,9 @@ def test_top1_router_gradient_is_exactly_zero(backend):
     tp = transformer.load_jax_params(jax.tree.map(np.asarray, jp), tcfg,
                                      device="cpu")
     b = _batch(tcfg.vocab, 2, 64, seed=8)
-    _, jg = _reference_value_and_grad(jp, jcfg, b, 1)
+    if "top1" not in _REF:
+        _REF["top1"] = _reference_value_and_grad(jp, jcfg, b, 1)[1]
+    jg = _REF["top1"]
     _, g = steps.make_value_and_grad(tcfg, backend=backend)(
         tp, _torch_batch(b))
     routers = [k for k in g if k.endswith("ffn.router")]

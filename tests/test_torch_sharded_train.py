@@ -217,5 +217,6 @@ def test_spatial_names_the_model_axis_item():
     assert m == 1
     assert band_split(tuple(x.shape), tuple(w.shape), m) == "one band"
     assert band_split(tuple(x.shape), tuple(w.shape), 2).counts == [2, 2]
-    for item in ("experts", "training", "sequence parallelism"):
+    for item in ("experts", "sequence parallelism", "recurrent",
+                 "encoder-decoder"):
         assert item in MODEL_AXIS_ITEM
